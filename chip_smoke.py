@@ -7,7 +7,9 @@ The first line is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 them; then each phase prints JSON lines:
 
-1. build: the window kernel built from qrack_tpu_torch/csrc with nvcc;
+1. build: both kernel libraries from qrack_tpu_torch/csrc, one nvcc per
+   source started together (ops/cuda_build.py), with ptxas's registers
+   and spills;
 2. kernel against plain: random fused windows at n = 24 over the whole
    vocabulary (cross-tile inv/gen, high and low controls) and one whole
    qft_qcircuit(30) window, the CUDA kernel against its plain PyTorch
@@ -28,12 +30,51 @@ them; then each phase prints JSON lines:
    its plain version timed and compared on the same input, beside the
    bound.
 
+Then the TurboQuant path (the compressed engine, kernels K3-K5 of
+csrc/turboquant_kernel.cu):
+
+5. kernel against plain: tq_gate_low, tq_diag and tq_window at n = 24
+   on random codes from quantize_blocks, int8 and int16: targets below
+   the tile, diagonals above it, low and high controls with mixed
+   values, a unit diagonal above the tile.  Bars, here and on every
+   launch of the main path in phase 7: codes differ by at most 1, on at
+   most 1e-3 of the entries at int8 and 1e-2 at int16 (the kernel's
+   products sum in another order than cuBLAS, and the gate's
+   multiply-adds contract into FMAs, which moves a code only where its
+   exact value sits at a rounding boundary; an int16 code unit is 32767
+   times finer than the row scale); scales within 1e-5 of the largest
+   scale of their tile, in or out (a row whose amplitudes cancel, as
+   most of them do when the IQFT brings the ket back to one basis
+   state, keeps a scale that is the residue of the cancellation: its
+   rounding error is relative to what cancelled, not to what is left);
+   rows of tiles no op acts on identical to the input, bit for bit;
+6. the main path at w32, int8: create_quantum_interface("turboquant",
+   32), SetPermutation, QFT (the chunk masses sum to 1 within 1e-2),
+   IQFT, NormalizeState (each requantization moves the norm a little;
+   the engine rescales it from the chunk masses), ProbAll back at the
+   start >= 0.98 (printed before the NormalizeState too), then H(0) and
+   Prob(0) (0.5 within 2e-2), a one-gate window that takes the low 2x2
+   entry.
+   The three launch counts are set to 0 just before and read just
+   after: each must have launched.  Then a w30 QFT on the turboquant
+   engine against the dense "cuda" engine: fidelity >= 0.99;
+7. times: the w32 QFT and IQFT end to end by CUDA events, the two
+   float32 products of one sweep through torch.matmul (context only),
+   and every launch of the main path again with the kernel and its
+   plain version timed and compared on the same input, beside the bound
+   (bytes of the tiles it requantizes, or 16 * D flops per amplitude of
+   those tiles for the two products plus the gates' flops, whichever
+   takes longer).
+
+``--tq-only`` runs the build and phases 5-7 alone.
+
 The line before the last is the "kernels" summary, the last line
 {"ok": true, "device": {...}}.  Any failed check raises, so the script
 exits non-zero and prints no result.  Without a CUDA device it exits
 non-zero at once.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -64,9 +105,26 @@ FLOPS_PER_AMP = {0: 6, 1: 6, 2: 6, 3: 14}
 ABS_BAR = 1e-6
 REL_BAR = 1e-4
 
+TQ_WIDTH = 32         # the widest int8 ket the compressed engine allows
+TQ_PERM = 0xA5C3F1E7  # basis state of the w32 QFT (top bit set)
+TQ_SOURCE = "qrack_tpu_torch/csrc/turboquant_kernel.cu"
+TQ_REPLACES = {"gate_low": "qrack_tpu/ops/pallas_turboquant.py:95",
+               "diag": "qrack_tpu/ops/pallas_turboquant.py:139",
+               "window": "qrack_tpu/ops/pallas_turboquant.py:186"}
+# kernel against plain on quantized outputs (see the docstring)
+TQ_CODE_FRAC = {8: 1e-3, 16: 1e-2}
+TQ_SCALE_REL = 1e-5
+# flops per amplitude an op acts on (complex product, or a 2x2 row)
+TQ_OP_FLOPS = {0: 6, 1: 6, 3: 14}
+
+
+T_START = time.time()
+
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({**obj, "t_s": round(time.time() - T_START, 1)}),
+          flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -83,6 +141,14 @@ def card_line() -> str:
 
 def sync() -> None:
     torch.cuda.synchronize()
+
+
+def release() -> None:
+    """Free the card's memory of the engines a phase dropped: an engine
+    and its gate fuser refer to each other, so only the collector frees
+    them."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def held_to_plain(got, want, what: str) -> tuple:
@@ -229,32 +295,412 @@ def timed(fn) -> float:
     return e0.elapsed_time(e1)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs only on the GPU",
-              file=sys.stderr)
-        return 2
+# ---------------------------------------------------------------------------
+# the TurboQuant kernels
+# ---------------------------------------------------------------------------
 
+def tq_compare(kc, ks, pc, ps, inp_c, inp_s, dirty, TB: int, bits: int,
+               what: str) -> dict:
+    """Kernel output (kc, ks) against the plain version's (pc, ps) on the
+    same input (inp_c, inp_s), row block by row block; raises on a bar.
+    A scale's error is taken relative to the largest scale of its tile,
+    in or out (the module docstring says why).  max_abs_err is the
+    largest difference of the dequantized values (code * scale / qmax,
+    in the rotated frame)."""
+    qmax = float((1 << (bits - 1)) - 1)
+    clean = (~dirty).repeat_interleave(TB)
+    rows = kc.shape[0]
+    step = max(TB, 1 << 20)
+    maxd = ndiff = 0
+    amp_err = srel = 0.0
+    for r0 in range(0, rows, step):
+        r1 = min(rows, r0 + step)
+        a, b = kc[r0:r1].to(torch.int32), pc[r0:r1].to(torch.int32)
+        d = (a - b).abs()
+        maxd = max(maxd, int(d.max()))
+        ndiff += int((d > 0).sum())
+        sa, sb = ks[r0:r1], ps[r0:r1]
+        tile_max = torch.maximum(inp_s[r0:r1].abs(), sb.abs()).view(
+            -1, TB).amax(1).repeat_interleave(TB)
+        srel = max(srel, float(((sa - sb).abs()
+                                / tile_max.clamp_min(1e-30)).max()))
+        amp_err = max(amp_err, float(
+            (a.float() * (sa / qmax)[:, None]
+             - b.float() * (sb / qmax)[:, None]).abs().max()))
+        cl = clean[r0:r1]
+        if bool(cl.any()):
+            for got_c, got_s in ((kc, ks), (pc, ps)):
+                check(torch.equal(got_c[r0:r1][cl], inp_c[r0:r1][cl])
+                      and torch.equal(got_s[r0:r1][cl], inp_s[r0:r1][cl]),
+                      f"{what}: a tile no op acts on changed")
+    frac = ndiff / kc.numel()
+    check(maxd <= 1, f"{what}: codes differ by {maxd}")
+    check(frac <= TQ_CODE_FRAC[bits],
+          f"{what}: {frac} of the codes differ (bar {TQ_CODE_FRAC[bits]})")
+    check(srel <= TQ_SCALE_REL, f"{what}: scales differ by {srel} relative")
+    return {"code_max_diff": maxd, "code_diff_frac": frac,
+            "scale_max_rel_err": srel, "max_abs_err": amp_err}
+
+
+def tq_bound(bits: int, D: int, T: int, n_dirty: int,
+             gate_flops: int) -> tuple:
+    """(bytes time, operations time) in ms of one sweep: the codes and
+    scales of the tiles it requantizes read and written once, and 16 * D
+    flops per amplitude of those tiles for the two float32 products
+    (2 * 2 * (2D)^2 per row of D) plus the gates' flops."""
+    row_bytes = 2 * D * (1 if bits <= 8 else 2) + 4
+    bytes_ms = n_dirty * (T // D) * row_bytes * 2 / PEAK_BYTES_S * 1e3
+    flops = n_dirty * T * 16 * D + gate_flops
+    return bytes_ms, flops / PEAK_F32_S * 1e3
+
+
+class TQProbe:
+    """Wraps the three entry points of ops/turboquant_kernel.py.  Every
+    launch made through them runs as the kernel and as its plain version
+    on clones of the same input, each between CUDA events; the two are
+    compared (tq_compare) and the kernel's result goes on."""
+
+    ENTRIES = ("gate_low", "diag", "window")
+
+    def __init__(self, tqk):
+        self.tqk = tqk
+        self.real = {e: getattr(tqk, f"tq_{e}") for e in self.ENTRIES}
+        self.plain = {e: getattr(tqk, f"tq_{e}_plain") for e in self.ENTRIES}
+        self.stats = {}
+        self.label = None
+
+    def _dirty_flops(self, name, codes, tp, args):
+        tqk = self.tqk
+        bp, T, _TB, nblk = tqk.layout(codes, tp)
+        n = (codes.shape[0] << bp).bit_length() - 1
+        blk = torch.arange(nblk, dtype=torch.int32, device=codes.device)
+        if name == "gate_low":
+            _mp, _t, hm, hv, lm, _lv = args
+            dirty = tqk.gate_low_dirty(blk, hm, hv)
+            return dirty, int(dirty.sum()) * (T >> bin(lm).count("1")) * 14
+        if name == "diag":
+            dp, tm_lo, tb_hi, lm, _lv, hm, hv = args
+            dirty = tqk.diag_dirty(blk, dp, tm_lo, tb_hi, lm, hm, hv)
+            return dirty, int(dirty.sum()) * (T >> bin(lm).count("1")) * 6
+        structure, operands = args
+        table, fv, iv = tqk.pack_window(structure, operands, codes.device)
+        rows, ivh = table.tolist(), iv.tolist()
+        dirty = tqk.window_dirty(blk, tp, rows, fv, iv)
+        flops = 0
+        for kind, t, has_ctrl, _foff, ioff in rows:
+            if kind == 0:
+                mask = (ivh[ioff] | (ivh[ioff + 1] << tp)) if has_ctrl \
+                    else 1 << t
+            else:
+                mask = (ivh[ioff] | (ivh[ioff + 2] << tp)) if has_ctrl else 0
+            flops += TQ_OP_FLOPS[kind] * ((1 << n) >> bin(mask).count("1"))
+        return dirty, flops
+
+    def _entry(self, name):
+        def run(codes, scales, rot, rot_t, bits, tp, *args):
+            inp_c, inp_s = codes.clone(), scales.clone()
+            pc, ps = codes.clone(), scales.clone()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            sync()
+            ev[0].record()
+            self.real[name](codes, scales, rot, rot_t, bits, tp, *args)
+            ev[1].record()
+            ev[2].record()
+            self.plain[name](pc, ps, rot, rot_t, bits, tp, *args)
+            ev[3].record()
+            sync()
+            dirty, gflops = self._dirty_flops(name, codes, tp, args)
+            bp, T, TB, _nblk = self.tqk.layout(codes, tp)
+            res = tq_compare(codes, scales, pc, ps, inp_c, inp_s, dirty, TB,
+                             bits, f"{self.label} {name}")
+            del inp_c, inp_s, pc, ps
+            n_dirty = int(dirty.sum())
+            b_ms, o_ms = tq_bound(bits, 1 << bp, T, n_dirty, gflops)
+            for key in (name, (self.label, name)):
+                s = self.stats.setdefault(key, {
+                    "launches": 0, "ms": 0.0, "plain_ms": 0.0,
+                    "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0,
+                    "dirty_tiles": 0, "tiles": 0, "max_abs_err": 0.0,
+                    "code_max_diff": 0, "code_diff_frac": 0.0,
+                    "scale_max_rel_err": 0.0})
+                s["launches"] += 1
+                s["ms"] += ev[0].elapsed_time(ev[1])
+                s["plain_ms"] += ev[2].elapsed_time(ev[3])
+                s["bytes_ms"] += b_ms
+                s["ops_ms"] += o_ms
+                s["bound_ms"] += max(b_ms, o_ms)
+                s["dirty_tiles"] += n_dirty
+                s["tiles"] += int(dirty.numel())
+                for k in ("max_abs_err", "code_max_diff", "code_diff_frac",
+                          "scale_max_rel_err"):
+                    s[k] = max(s[k], res[k])
+            return codes, scales
+        return run
+
+    def __enter__(self):
+        for e in self.ENTRIES:
+            setattr(self.tqk, f"tq_{e}", self._entry(e))
+        return self
+
+    def __exit__(self, *exc):
+        for e in self.ENTRIES:
+            setattr(self.tqk, f"tq_{e}", self.real[e])
+
+
+def tq_random_window(rng, n: int, tp: int, k: int, fu) -> list:
+    """k FusedOps: controlled phases, diagonals and in-tile 2x2s, with
+    targets and controls anywhere (gen targets below the tile) and mixed
+    control values."""
+    ops = []
+    for _ in range(k):
+        kind = int(rng.integers(3))
+        t = int(rng.integers(tp if kind == 2 else n))
+        others = [q for q in range(n) if q != t]
+        cmask = 0
+        for c in rng.choice(others, int(rng.integers(0, 3)), replace=False):
+            cmask |= 1 << int(c)
+        a, b = np.exp(1j * rng.uniform(0.0, 2 * np.pi, 2))
+        if kind == 0:
+            m, cval = np.diag([1.0 + 0j, b]), cmask
+        elif kind == 1:
+            m, cval = np.diag([a, b]), cmask & int(rng.integers(1 << n))
+        else:
+            z = rng.normal(size=(2, 2)) + 1j * rng.normal(size=(2, 2))
+            m, cval = np.linalg.qr(z)[0], cmask & int(rng.integers(1 << n))
+        m = np.asarray(m, dtype=np.complex128)
+        ops.append(fu.FusedOp(fu.classify(m, cmask, cval), t, cmask, cval, m))
+    return ops
+
+
+def tq_check_cases(rng, n: int, tp: int, dev, fu) -> list:
+    """(label, entry, args) of the n = 24 kernel-against-plain cases."""
+    T = 1 << tp
+    z = rng.normal(size=(2, 2)) + 1j * rng.normal(size=(2, 2))
+    m = np.linalg.qr(z)[0]
+    mp = np.stack([m.real, m.imag]).astype(np.float32)
+
+    def split(cmask, cval):
+        return cmask >> tp, cval >> tp, cmask & (T - 1), cval & (T - 1)
+
+    def dp_of(d0, d1):
+        dp = np.zeros((2, 2, 2), np.float32)
+        dp[0, 0, 0], dp[0, 0, 1] = np.real(d0), np.real(d1)
+        dp[1, 0, 0], dp[1, 0, 1] = np.imag(d0), np.imag(d1)
+        return dp
+
+    d0, d1 = np.exp(1j * rng.uniform(0.0, 2 * np.pi, 2))
+    # low control on bit 2 (value 0), high on n-11 (1) and n-1 (0)
+    hm, hv, lm, lv = split((1 << 2) | (1 << (n - 11)) | (1 << (n - 1)),
+                           1 << (n - 11))
+    ops = tq_random_window(rng, n, tp, 24, fu)
+    return [
+        ("low_target", "gate_low", (mp, 3, 0, 0, 0, 0)),
+        ("low_target_mixed_ctrl", "gate_low", (mp, tp - 1, hm, hv, lm, lv)),
+        ("diag_low", "diag", (dp_of(d0, d1), 1 << 5, 0, 0, 0, 0, 0)),
+        ("diag_high_mixed_ctrl", "diag",
+         (dp_of(d0, d1), 0, 1 << (n - 4 - tp), lm, lv, hm, hv)),
+        ("unit_diag_high", "diag", (dp_of(1.0, d1), 0, 1 << (n - 2 - tp),
+                                    0, 0, 0, 0)),
+        ("window", "window", (fu.sharded_structure_of(ops),
+                              fu.sharded_operands(ops, tp, torch.float32,
+                                                  dev))),
+    ]
+
+
+def tq_kernel_checks(card: str, dev) -> None:
+    """Phase 5 (module docstring)."""
+    from qrack_tpu_torch.ops import fusion as fu
+    from qrack_tpu_torch.ops import turboquant_kernel as tqk
+    from qrack_tpu_torch.storage import turboquant as tq
+
+    tp = tqk.DEFAULT_TILE_POW
+    bp = tq.DEFAULT_BLOCK_POW
+    n = CHECK_WIDTH
+    rng = np.random.default_rng(2025)
+    rot = torch.from_numpy(tq.rotation_matrix(2 << bp)).to(dev)
+    rot_t = rot.T.contiguous()
+    check_probe = TQProbe(tqk)
+    psi = rng.normal(size=1 << n) + 1j * rng.normal(size=1 << n)
+    psi /= np.linalg.norm(psi)
+    cases = tq_check_cases(rng, n, tp, dev, fu)
+    for bits in (8, 16):
+        scales, codes, _ = tq.quantize_blocks(psi, bits=bits, block_pow=bp)
+        c0 = torch.from_numpy(codes).to(dev)
+        s0 = torch.from_numpy(scales).to(dev)
+        with check_probe:
+            for label, entry, args in cases:
+                check_probe.label = f"n{n}_int{bits}_{label}"
+                c, s = c0.clone(), s0.clone()
+                getattr(tqk, f"tq_{entry}")(c, s, rot, rot_t, bits, tp, *args)
+        del c0, s0, c, s
+    for key, s in check_probe.stats.items():
+        if isinstance(key, tuple):
+            emit({"phase": "tq_kernel_vs_plain", "card": card, "case": key[0],
+                  "entry": key[1], "code_frac_bar": TQ_CODE_FRAC,
+                  "scale_rel_bar": TQ_SCALE_REL, **s})
+    unit = check_probe.stats[(f"n{n}_int8_unit_diag_high", "diag")]
+    check(unit["dirty_tiles"] * 2 == unit["tiles"],
+          f"unit diagonal above the tile requantized {unit['dirty_tiles']} "
+          f"of {unit['tiles']} tiles")
+    release()
+
+
+def tq_phases(card: str, dev) -> list:
+    """Phases 5-7 (module docstring); returns the kernels-line entries
+    of K3-K5."""
     import qrack_tpu_torch as qt
-    from qrack_tpu_torch.layers.qcircuit import QCircuit  # noqa: F401
+    from qrack_tpu_torch.ops import turboquant_kernel as tqk
+
+    tq_kernel_checks(card, dev)
+
+    # ---- 6. the main path at w32 ---------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    tqk.reset_launches()
+    q = qt.create_quantum_interface("turboquant", TQ_WIDTH)
+    check(q.device == dev and q._codes.is_cuda,
+          "the compressed ket did not land on the card")
+    q.SetPermutation(TQ_PERM)
+    q.QFT(0, TQ_WIDTH)
+    mass = float(q._chunk_masses().sum())
+    check(abs(mass - 1.0) <= 1e-2, f"w{TQ_WIDTH} QFT: chunk masses sum to "
+                                   f"{mass}")
+    page = q.GetAmplitudePage(TQ_PERM & ~0xFFF, 4096)
+    page_mean = float(np.mean(np.abs(page) ** 2) * 2.0 ** TQ_WIDTH)
+    qft_launches = dict(tqk.LAUNCHES)
+    q.IQFT(0, TQ_WIDTH)
+    raw_back = q.ProbAll(TQ_PERM)
+    # each requantization moves the norm a little; NormalizeState
+    # rescales it from the chunk masses, without a decode
+    q.NormalizeState()
+    back = q.ProbAll(TQ_PERM)
+    check(back >= 0.98, f"w{TQ_WIDTH} IQFT round trip: ProbAll {back} "
+                        f"after NormalizeState ({raw_back} before)")
+    iqft_launches = {k: v - qft_launches[k] for k, v in tqk.LAUNCHES.items()}
+    q.H(0)
+    p0 = q.Prob(0)
+    check(abs(p0 - 0.5) <= 2e-2, f"H(0) then Prob(0) = {p0}")
+    launches = dict(tqk.LAUNCHES)
+    check(all(v > 0 for v in launches.values()),
+          f"the w{TQ_WIDTH} path skipped a kernel entry point: {launches}")
+    chunk_pair = 2 * q._chunk_amps
+    check(q.peak_transient_amps <= chunk_pair,
+          f"peak float32 transient {q.peak_transient_amps} amplitudes "
+          f"exceeds a chunk pair ({chunk_pair})")
+    emit({"phase": "tq_main_path", "card": card, "width": TQ_WIDTH,
+          "bits": q._tq_bits, "block_pow": q._tq_block_pow,
+          "tile_pow": q._pallas_tile_pow(), "chunk_qb": q._tq_chunk_pow,
+          "resident_bytes": q.resident_bytes(),
+          "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "peak_transient_amps": q.peak_transient_amps,
+          "qft_chunk_mass": mass, "qft_page_mean_amp2_x_2^n": page_mean,
+          "iqft_prob_back_raw": raw_back, "iqft_prob_back": back,
+          "h0_prob0": p0,
+          "launches_qft": qft_launches, "launches_iqft": iqft_launches,
+          "launches_h0_read": {k: launches[k] - qft_launches[k]
+                               - iqft_launches[k] for k in launches},
+          "launches_total": launches})
+    del q
+    release()
+
+    w = WIDTH
+    d = qt.create_quantum_interface("cuda", w)
+    d.SetPermutation(PERM)
+    d.QFT(0, w)
+    dense = d.device_planes
+    del d
+    t = qt.create_quantum_interface("turboquant", w)
+    t.SetPermutation(PERM)
+    t.QFT(0, w)
+    f30 = fidelity(t.device_planes, dense)
+    check(f30 >= 0.99, f"w{w} turboquant QFT against dense: fidelity {f30}")
+    emit({"phase": "tq_vs_dense", "card": card, "width": w,
+          "fidelity": f30})
+    del t, dense
+    release()
+
+    # ---- 7. times ------------------------------------------------------
+    q = qt.create_quantum_interface("turboquant", TQ_WIDTH)
+    q.SetPermutation(TQ_PERM)
+    qft_ms = timed(lambda: (q.QFT(0, TQ_WIDTH), q._codes))
+    iqft_ms = timed(lambda: (q.IQFT(0, TQ_WIDTH), q._codes))
+    # context only: the two float32 products of one w32 sweep through
+    # torch.matmul (cuBLAS), never called on the path
+    D = q._block
+    rows = torch.randn((1 << 20, 2 * D), device=dev)
+    out = torch.empty_like(rows)
+    n_groups = q._codes.shape[0] >> 20
+
+    def products():
+        for _ in range(n_groups):
+            torch.matmul(rows, q._rot_t, out=out)
+            torch.matmul(out, q._rot, out=rows)
+
+    products()
+    matmul_ms = timed(products)
+    del rows, out
+    probe = TQProbe(tqk)
+    with probe:
+        probe.label = "tq_qft"
+        q.SetPermutation(TQ_PERM)
+        q.QFT(0, TQ_WIDTH)
+        q.Finish()
+        probe.label = "tq_iqft"
+        q.IQFT(0, TQ_WIDTH)
+        q.Finish()
+        probe.label = "tq_h0_read"
+        q.ProbAll(TQ_PERM)
+        q.NormalizeState()
+        q.H(0)
+        q.Prob(0)
+    del q
+    release()
+    for key, s in probe.stats.items():
+        if isinstance(key, tuple):
+            emit({"phase": "tq_sweeps", "card": card, "path": key[0],
+                  "entry": key[1], **s})
+    for name in TQProbe.ENTRIES:
+        got_n = probe.stats.get(name, {"launches": 0})["launches"]
+        check(got_n == launches[name],
+              f"probe saw {got_n} {name} launches, main path "
+              f"{launches[name]}")
+
+    def kernel_ms(label):
+        return sum(s["ms"] for k, s in probe.stats.items()
+                   if isinstance(k, tuple) and k[0] == label)
+
+    emit({"phase": "tq_e2e", "card": card, "width": TQ_WIDTH,
+          "qft_ms": qft_ms, "iqft_ms": iqft_ms,
+          "qft_kernel_ms": kernel_ms("tq_qft"),
+          "iqft_kernel_ms": kernel_ms("tq_iqft"),
+          "qft_outside_kernels_ms": qft_ms - kernel_ms("tq_qft"),
+          "iqft_outside_kernels_ms": iqft_ms - kernel_ms("tq_iqft"),
+          "torch_matmul_pair_sweep_ms": matmul_ms})
+
+    kernels = []
+    for name, k in zip(TQProbe.ENTRIES, ("K3", "K4", "K5")):
+        s = probe.stats[name]
+        kernels.append({
+            "name": f"tq_{name}", "id": k, "route": "cuda",
+            "source": TQ_SOURCE, "replaces": TQ_REPLACES[name],
+            "launches": launches[name], "max_abs_err": s["max_abs_err"],
+            "code_max_diff": s["code_max_diff"],
+            "code_diff_frac": s["code_diff_frac"],
+            "scale_max_rel_err": s["scale_max_rel_err"],
+            "ms": s["ms"], "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"],
+            "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"]
+            else "operations",
+            "library_ms": None})
+    return kernels
+
+
+def dense_phases(card: str, dev) -> list:
+    """Phases 2-4 (module docstring); returns the kernels-line entries of
+    K1 and K2."""
+    import qrack_tpu_torch as qt
     from qrack_tpu_torch.models.qft import basis_planes, qft_qcircuit
     from qrack_tpu_torch.ops import fusion as fu
     from qrack_tpu_torch.ops import window_kernel as wk
-
-    t_start = time.time()
-    card = card_line()
-    print(card, flush=True)
-    kind = torch.cuda.get_device_name(0)
-    dev = torch.device(DEVICE)
-
-    # ---- 1. device and build ------------------------------------------
-    t0 = time.time()
-    wk.load_library()
-    ptxas = [ln.strip() for ln in wk.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "card": card, "seconds": time.time() - t0,
-          "torch": torch.__version__, "cuda": torch.version.cuda,
-          "ptxas": ptxas})
 
     # ---- 2. the kernel against its plain version -----------------------
     rng = np.random.default_rng(2024)
@@ -293,7 +739,7 @@ def main() -> int:
           f"w{WIDTH}_fidelity": f30, f"w{WIDTH}_max_abs_err": err30,
           f"w{WIDTH}_max_rel_err": rel30})
     del x, got, want
-    torch.cuda.empty_cache()
+    release()
 
     # ---- 3. the main path at w30 ---------------------------------------
     wk.reset_launches()
@@ -315,7 +761,7 @@ def main() -> int:
     check(engine_launches["in_tile"] > 0 and engine_launches["pair"] > 0,
           f"engine path skipped a kernel entry point: {engine_launches}")
     del q
-    torch.cuda.empty_cache()
+    release()
 
     r = qt.create_quantum_interface("cuda", WIDTH)
     r.SetPermutation(PERM)
@@ -334,7 +780,7 @@ def main() -> int:
           "launches_engine_qft_iqft": engine_launches,
           "launches_total": launches})
     del r, qft_state
-    torch.cuda.empty_cache()
+    release()
 
     # ---- 4. times ------------------------------------------------------
     q = qt.create_quantum_interface("cuda", WIDTH)
@@ -394,10 +840,46 @@ def main() -> int:
             "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"]
             else "operations",
             "library_ms": None})
-    emit({"phase": "done", "card": card, "seconds": time.time() - t_start})
-    emit({"kernels": kernels})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                 "count": torch.cuda.device_count()}})
+    del probe
+    release()
+    return kernels
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the GPU",
+              file=sys.stderr)
+        return 2
+
+    from qrack_tpu_torch.ops import cuda_build
+    from qrack_tpu_torch.ops import turboquant_kernel as tqk
+    from qrack_tpu_torch.ops import window_kernel as wk
+
+    tq_only = "--tq-only" in sys.argv[1:]
+    card = card_line()
+    print(card, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    dev = torch.device(DEVICE)
+
+    # ---- 1. device and build: one nvcc per source, all at once ----------
+    t0 = time.time()
+    cuda_build.build([wk.SOURCE, tqk.SOURCE])
+    wk.load_library()
+    tqk.load_library()
+    ptxas = {src: [ln.strip() for ln in log.splitlines()
+                   if "registers" in ln or "spill" in ln]
+             for src, log in cuda_build.BUILD_LOGS.items()}
+    emit({"phase": "build", "card": card, "seconds": time.time() - t0,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "ptxas": ptxas})
+
+    kernels = [] if tq_only else dense_phases(card, dev)
+    kernels += tq_phases(card, dev)
+    emit({"phase": "done", "card": card, "seconds": time.time() - T_START})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

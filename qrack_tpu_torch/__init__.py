@@ -16,7 +16,8 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 from .interface import QInterface  # noqa: E402,F401
-from .engines import QEngine, QEngineCUDA  # noqa: E402,F401
+from .engines import (QEngine, QEngineCUDA,  # noqa: E402,F401
+                      QEngineCUDATurboQuant)
 from .pauli import Pauli  # noqa: E402,F401
 from .config import get_config, set_config  # noqa: E402,F401
 from .factory import create_quantum_interface  # noqa: E402,F401

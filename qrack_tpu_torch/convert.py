@@ -37,6 +37,20 @@ def planes_to_numpy(planes) -> np.ndarray:
     return planes.detach().to("cpu").numpy().copy()
 
 
+def turboquant_from_numpy(codes, scales, n: int, bits: int, block_pow: int,
+                          seed: int, device=None, **kwargs):
+    """A TurboQuant engine holding a JAX engine's compressed ket: its
+    (codes, scales) numpy arrays and its width, bits, block pow and
+    rotation seed, on `device`, ``cuda`` by default (a copy)."""
+    from .engines.turboquant import QEngineCUDATurboQuant
+
+    eng = QEngineCUDATurboQuant(int(n), bits=int(bits),
+                                block_pow=int(block_pow), seed_rot=int(seed),
+                                device=device, **kwargs)
+    eng.place_codes(codes, scales)
+    return eng
+
+
 def circuit_from_gates(gates: Iterable[Tuple[int, Sequence[int],
                                              Mapping[int, np.ndarray]]],
                        qubit_count: int = 0) -> QCircuit:

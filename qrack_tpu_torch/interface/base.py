@@ -593,10 +593,14 @@ class QInterfaceBase:
     # ------------------------------------------------------------------
 
     def LossySaveStateVector(self, path: str, bits: int = 8, block_pow: int = 12) -> None:
-        raise NotImplementedError("TurboQuant storage is not ported yet")
+        from ..storage.turboquant import lossy_save
+
+        lossy_save(self.GetQuantumState(), path, bits=bits, block_pow=block_pow)
 
     def LossyLoadStateVector(self, path: str) -> None:
-        raise NotImplementedError("TurboQuant storage is not ported yet")
+        from ..storage.turboquant import lossy_load
+
+        self.SetQuantumState(lossy_load(path))
 
     # ------------------------------------------------------------------
     # misc helpers shared by mixins

@@ -183,6 +183,79 @@ def dense_operands(ops: Sequence[FusedOp], dtype=torch.float32) -> List:
 
 
 # ---------------------------------------------------------------------------
+# split-mask ("sharded") operand layout: masks arrive split at a tile,
+# chunk or page boundary into int32 halves, so a mask bit above 31 never
+# travels as one int32.  The TurboQuant window kernel takes this layout
+# (ops/turboquant_kernel.py); the pager's window bodies wait for the
+# pager slice.
+#
+#   kind      payload operand                      extra (iff controlled)
+#   cphase    (2,)  [d1.re, d1.im]                 comb & (2^L-1), comb >> L
+#   diag      (2,2) [[d0.re,d0.im],[d1.re,d1.im]]  lm, lv, hm, hv
+#   gen       (2,2,2) mtrx_planes                  lm, lv, hm, hv
+#
+# with comb = (1 << target) | cmask and (lm, lv, hm, hv) =
+# sharded.split_masks(cmask, cval, L).  "inv" folds into "gen".
+# ---------------------------------------------------------------------------
+
+def sharded_structure_of(ops: Sequence[FusedOp]) -> Tuple:
+    """Per-op (kind, target, controlled?) with 'inv' folded into 'gen':
+    the split-mask consumers have no invert specialization."""
+    return tuple((("gen" if op.kind == "inv" else op.kind),
+                  op.target, op.cmask != 0) for op in ops)
+
+
+def sharded_operands(ops: Sequence[FusedOp], L: int, dtype=torch.float32,
+                     device=None) -> List:
+    """The window's operands in the split-mask layout above, on `device`
+    (``cuda`` by default): float payload tensors in `dtype` and 0-d int32
+    mask tensors, all views of two buffers copied to the device once."""
+    from ..utils.device import resolve_device
+    from .sharded import split_masks
+
+    dt = _np_dtype(dtype)
+    floats: List[np.ndarray] = []
+    ints: List[int] = []
+    slots: List[Tuple] = []   # ("f", index, shape) or ("i", index)
+    for op in ops:
+        m = np.asarray(op.m)
+        kind = "gen" if op.kind == "inv" else op.kind
+        if kind == "cphase":
+            p = np.asarray([m[1, 1].real, m[1, 1].imag], dtype=dt)
+            masks = []
+            if op.cmask:
+                comb = (1 << op.target) | op.cmask
+                masks = [comb & ((1 << L) - 1), comb >> L]
+        else:
+            if kind == "diag":
+                p = np.asarray([[m[0, 0].real, m[0, 0].imag],
+                                [m[1, 1].real, m[1, 1].imag]], dtype=dt)
+            else:
+                p = np.stack([m.real, m.imag]).astype(dt)
+            masks = list(split_masks(op.cmask, op.cval, L)) if op.cmask else []
+        slots.append(("f", len(floats), p.shape))
+        floats.append(p)
+        for v in masks:
+            slots.append(("i", len(ints)))
+            ints.append(int(v))
+    dev = resolve_device(device)
+    fbuf = torch.from_numpy(np.concatenate(
+        [p.reshape(-1) for p in floats] or [np.zeros(0, dt)])).to(dev)
+    ibuf = torch.tensor(ints, dtype=torch.int32).to(dev)
+    offs = [0]
+    for p in floats:
+        offs.append(offs[-1] + p.size)
+    out: List = []
+    for slot in slots:
+        if slot[0] == "f":
+            k = slot[1]
+            out.append(fbuf[offs[k]:offs[k + 1]].view(slot[2]))
+        else:
+            out.append(ibuf[slot[1]])
+    return out
+
+
+# ---------------------------------------------------------------------------
 # single-sweep window kernel lowering (ops/window_kernel.py), chosen by
 # a cost model against the window chain above
 # ---------------------------------------------------------------------------

@@ -34,17 +34,12 @@ mapping.  Both update the planes in place.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from . import cuda_build
 from . import gatekernels as gk
 from ..utils.device import resolve_device
 
@@ -184,6 +179,62 @@ def _cmul_where(sel, fre, fim, v):
     return torch.stack([v[0] * fr - v[1] * fi, v[0] * fi + v[1] * fr])
 
 
+# ---------------------------------------------------------------------------
+# shared tile primitives (pallas_kernels.py:149-204): one implementation
+# of the cphase / diag / in-tile 2x2 tile math for the TurboQuant
+# kernels' plain versions (ops/turboquant_kernel.py) and the compressed
+# engine's chunk bodies (engines/turboquant.py).  Planes are batched:
+# v is (2, ..., T) over tiles of T amplitudes, lidx the (T,) in-tile
+# index and hi_id the tile ids, shaped (..., 1).  Masks and payloads are
+# Python numbers or 0-d tensors.  Each returns (planes, hi_ok), hi_ok the
+# per-tile result of the high part of the control test.
+# ---------------------------------------------------------------------------
+
+def tile_cphase(v, lidx, hi_id, clo, chi, fre, fim):
+    """Combined-mask phase: the factor applies where (index & comb) ==
+    comb, with comb split at the tile into (clo, chi)."""
+    hi_ok = (hi_id & chi) == chi
+    hit = ((lidx & clo) == clo) & hi_ok
+    return _cmul_where(hit, fre, fim, v), hi_ok
+
+
+def tile_diag(v, lidx, hi_id, target, L, d0re, d0im, d1re, d1im,
+              lm, lv, gm, gv):
+    """Diagonal at any target: an in-tile target selects its factor per
+    element, a higher one per tile through hi_id's bit."""
+    tmask_lo = (1 << target) if target < L else 0
+    tb_hi = 0 if target < L else (1 << (target - L))
+    hi_bit = (hi_id & tb_hi) != 0
+    bit = ((lidx & tmask_lo) != 0) | hi_bit
+    fre = torch.where(bit, d1re, d0re)
+    fim = torch.where(bit, d1im, d0im)
+    hi_ok = (hi_id & gm) == gv
+    active = ((lidx & lm) == lv) & hi_ok
+    return _cmul_where(active, fre, fim, v), hi_ok
+
+
+def tile_local_2x2(v, lidx, hi_id, target, mp, lm, lv, gm, gv):
+    """Generic 2x2 with the pair inside the tile (target < tile pow); mp
+    indexes like mtrx_planes (2, 2, 2) [plane, row, col]."""
+    T = v.shape[-1]
+    vv = v.reshape(v.shape[:-1] + (T >> (target + 1), 2, 1 << target))
+    a0r, a1r = vv[0, ..., 0, :], vv[0, ..., 1, :]
+    a0i, a1i = vv[1, ..., 0, :], vv[1, ..., 1, :]
+    n0r = (mp[0][0][0] * a0r - mp[1][0][0] * a0i
+           + mp[0][0][1] * a1r - mp[1][0][1] * a1i)
+    n0i = (mp[0][0][0] * a0i + mp[1][0][0] * a0r
+           + mp[0][0][1] * a1i + mp[1][0][1] * a1r)
+    n1r = (mp[0][1][0] * a0r - mp[1][1][0] * a0i
+           + mp[0][1][1] * a1r - mp[1][1][1] * a1i)
+    n1i = (mp[0][1][0] * a0i + mp[1][1][0] * a0r
+           + mp[0][1][1] * a1i + mp[1][1][1] * a1r)
+    nv = torch.stack([torch.stack([n0r, n1r], dim=-2),
+                      torch.stack([n0i, n1i], dim=-2)]).reshape(v.shape)
+    hi_ok = (hi_id & gm) == gv
+    sel = ((lidx & lm) == lv) & hi_ok
+    return torch.where(sel, nv, v), hi_ok
+
+
 def _tile_op_plain(v, lidx, blk, bp, row, fv, iv):
     """One in-tile op on tiles v (2, T, 2^bp) with tile ids blk (T, 1);
     writes v in place."""
@@ -286,66 +337,21 @@ def pair_sweep_plain(planes, n: int, bp: int, table, fv, iv, xop: int,
 # the CUDA kernel: build, load, launch
 # ---------------------------------------------------------------------------
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "window_kernel.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_lib = None
-_lib_lock = threading.Lock()
-#: compiler output of the last build in this process (register and
-#: shared-memory use from ``-Xptxas -v``); empty when the library was
-#: already built
-build_log = ""
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the window kernel builds only "
-                       "where the CUDA toolkit is installed")
-
-
-def build_library() -> Path:
-    """Compile csrc/window_kernel.cu into a shared library under _build/,
-    keyed on the source hash (a rebuild only when the source changes)."""
-    global build_log
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"window_kernel_{key}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    os.replace(tmp, out)
-    build_log = r.stderr
-    return out
+SOURCE = cuda_build.CSRC / "window_kernel.cu"
 
 
 def load_library():
-    """The built kernel library, loaded once per process."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.qtt_window_in_tile.argtypes = [ptr, i32, i32, ptr, i32, i32,
-                                               ptr, ptr, ptr]
-            lib.qtt_window_in_tile.restype = i32
-            lib.qtt_window_pair.argtypes = [ptr, i32, i32, ptr, i32, i32, i32,
-                                            ptr, ptr, ptr]
-            lib.qtt_window_pair.restype = i32
-            _lib = lib
-    return _lib
+    """The built kernel library (ops/cuda_build.py), loaded once per
+    process."""
+    lib = cuda_build.load(SOURCE)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.qtt_window_in_tile.argtypes = [ptr, i32, i32, ptr, i32, i32,
+                                       ptr, ptr, ptr]
+    lib.qtt_window_in_tile.restype = i32
+    lib.qtt_window_pair.argtypes = [ptr, i32, i32, ptr, i32, i32, i32,
+                                    ptr, ptr, ptr]
+    lib.qtt_window_pair.restype = i32
+    return lib
 
 
 def _check_launch(planes, n: int, bp: int, table, fv, iv, rows: Sequence[int]):

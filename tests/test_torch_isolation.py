@@ -36,15 +36,22 @@ q.CNOT(0, 1)
 q.QFT(0, 6)
 qft_qcircuit(6).RunFused(q)
 assert 0.0 <= q.Prob(1) <= 1.0
+t = qt.create_quantum_interface("turboquant", 8, device="cpu")
+t.H(0)
+t.QFT(0, 8)
+t.H(7)
+assert 0.0 <= t.Prob(7) <= 1.0
+t.LossySaveStateVector(sys.argv[1])
 print(sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "qrack_tpu")
              or m.startswith(("jax.", "jaxlib.", "qrack_tpu."))))
 """
 
 
-def test_running_the_port_loads_no_jax_module():
+def test_running_the_port_loads_no_jax_module(tmp_path):
     env = dict(os.environ, QRACK_TPU_FUSE_KERNEL="on")
-    r = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+    r = subprocess.run([sys.executable, "-c", _PROBE,
+                        str(tmp_path / "ket.npz")], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().splitlines()[-1] == "[]"
@@ -75,15 +82,30 @@ def test_default_device_needs_a_gpu(monkeypatch):
     assert q.device.type == "cpu"
 
 
+def test_turboquant_default_device_needs_a_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        qt.create_quantum_interface("turboquant", 3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        qt.QEngineCUDATurboQuant(3)
+    q = qt.create_quantum_interface("turboquant", 3, device="cpu")
+    assert q.device.type == "cpu" and q._codes.device.type == "cpu"
+
+
 def _tensor_builders():
     """The public functions that build a ket or a kernel operand, each
     taking an optional ``device=``."""
     from qrack_tpu_torch.convert import planes_from_numpy
     from qrack_tpu_torch.models.qft import basis_planes
     from qrack_tpu_torch.ops import gatekernels as gk
+    from qrack_tpu_torch.convert import turboquant_from_numpy
+    from qrack_tpu_torch.ops import fusion as fu
+    from qrack_tpu_torch.ops import turboquant_kernel as tqk
     from qrack_tpu_torch.ops import window_kernel as wk
 
     structure = (("gen", 1, False),)
+    op = fu.FusedOp("gen", 1, 0b100, 0b100, np.eye(2, dtype=complex))
+    codes = np.zeros((4, 4), np.int8)
     return {
         "basis_planes": lambda **kw: basis_planes(3, 5, **kw),
         "planes_from_numpy":
@@ -93,6 +115,13 @@ def _tensor_builders():
         "pack_operands": lambda **kw: wk.pack_operands(
             structure, [np.zeros((2, 2, 2), np.float32)], **kw)[0],
         "op_table": lambda **kw: wk.op_table(structure, **kw),
+        "sharded_operands":
+            lambda **kw: fu.sharded_operands([op], 2, **kw)[0],
+        "pack_window": lambda **kw: tqk.pack_window(
+            (("gen", 1, True),), fu.sharded_operands([op], 2, **kw),
+            **kw)[1],
+        "turboquant_from_numpy": lambda **kw: turboquant_from_numpy(
+            codes, np.zeros(4, np.float32), 3, 8, 1, 5, **kw)._codes,
     }
 
 
