@@ -39,10 +39,11 @@ csrc/turboquant_kernel.cu):
    values, a unit diagonal above the tile.  Bars, here and on every
    launch of the main path in phase 7: codes differ by at most 1, on at
    most 1e-3 of the entries at int8 and 1e-2 at int16 (the kernel's
-   products sum in another order than cuBLAS, and the gate's
-   multiply-adds contract into FMAs, which moves a code only where its
-   exact value sits at a rounding boundary; an int16 code unit is 32767
-   times finer than the row scale); scales within 1e-5 of the largest
+   products split each operand into two TF32 parts and sum in another
+   order than cuBLAS, and the gate's multiply-adds contract into FMAs,
+   which moves a code only where its exact value sits at a rounding
+   boundary; an int16 code unit is 32767 times finer than the row
+   scale); scales within 1e-5 of the largest
    scale of their tile, in or out (a row whose amplitudes cancel, as
    most of them do when the IQFT brings the ket back to one basis
    state, keeps a scale that is the residue of the cancellation: its
@@ -59,12 +60,16 @@ csrc/turboquant_kernel.cu):
    after: each must have launched.  Then a w30 QFT on the turboquant
    engine against the dense "cuda" engine: fidelity >= 0.99;
 7. times: the w32 QFT and IQFT end to end by CUDA events, the two
-   float32 products of one sweep through torch.matmul (context only),
-   and every launch of the main path again with the kernel and its
-   plain version timed and compared on the same input, beside the bound
-   (bytes of the tiles it requantizes, or 16 * D flops per amplitude of
-   those tiles for the two products plus the gates' flops, whichever
-   takes longer).
+   float32 products of one sweep through torch.matmul (context only,
+   beside the mean time of K3's fully dirty sweep), and every launch of
+   the main path again with the kernel and its plain version timed and
+   compared on the same input, beside the bound: the bytes of the tiles
+   it requantizes, or their products as the TF32 tensor-core passes the
+   kernel runs (2 + 3 at int8, 40 * D flops per amplitude; 3 + 3 at
+   int16, 48 * D) plus the gates' flops on the CUDA cores, whichever
+   takes longer.  f32_core_bound_ms is the bound with
+   the products on the CUDA cores (16 * D flops per amplitude), as
+   earlier runs stated it.
 
 ``--tq-only`` runs the build and phases 5-7 alone.
 
@@ -90,10 +95,11 @@ import torch  # noqa: E402
 WIDTH = 30            # MAX_DENSE_QB: the widest single dense shard
 CHECK_WIDTH = 24      # random-window kernel checks
 PERM = 0x2A5C3F1      # basis state the QFTs start from
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and float32
-# outside the tensor cores
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
+# outside the tensor cores, and dense TF32 on the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_TF32_S = 495e12
 DEVICE = "cuda"
 KERNEL_SOURCE = "qrack_tpu_torch/csrc/window_kernel.cu"
 REPLACES = {"in_tile": "qrack_tpu/ops/pallas_kernels.py:294",
@@ -344,14 +350,22 @@ def tq_compare(kc, ks, pc, ps, inp_c, inp_s, dirty, TB: int, bits: int,
 
 def tq_bound(bits: int, D: int, T: int, n_dirty: int,
              gate_flops: int) -> tuple:
-    """(bytes time, operations time) in ms of one sweep: the codes and
-    scales of the tiles it requantizes read and written once, and 16 * D
-    flops per amplitude of those tiles for the two float32 products
-    (2 * 2 * (2D)^2 per row of D) plus the gates' flops."""
+    """(bytes time, operations time, operations time on the CUDA cores)
+    in ms of one sweep: the codes and scales of the tiles it requantizes
+    read and written once; the two products of those tiles (2 * (2D)^2
+    flops per row of D each, 8 * D per amplitude) as the TF32
+    tensor-core passes the kernel runs to keep float32 accuracy (three
+    for each, two for the decode of int8 codes, which TF32 holds
+    exactly), plus the gates' flops on the CUDA cores; and the same with
+    the products once each on the CUDA cores."""
     row_bytes = 2 * D * (1 if bits <= 8 else 2) + 4
     bytes_ms = n_dirty * (T // D) * row_bytes * 2 / PEAK_BYTES_S * 1e3
-    flops = n_dirty * T * 16 * D + gate_flops
-    return bytes_ms, flops / PEAK_F32_S * 1e3
+    products = n_dirty * T * 16 * D
+    passes = (2 if bits <= 8 else 3) + 3
+    ops_ms = (passes * products / 2 / PEAK_TF32_S
+              + gate_flops / PEAK_F32_S) * 1e3
+    core_ms = (products + gate_flops) / PEAK_F32_S * 1e3
+    return bytes_ms, ops_ms, core_ms
 
 
 class TQProbe:
@@ -415,11 +429,12 @@ class TQProbe:
                              bits, f"{self.label} {name}")
             del inp_c, inp_s, pc, ps
             n_dirty = int(dirty.sum())
-            b_ms, o_ms = tq_bound(bits, 1 << bp, T, n_dirty, gflops)
+            b_ms, o_ms, core_ms = tq_bound(bits, 1 << bp, T, n_dirty, gflops)
             for key in (name, (self.label, name)):
                 s = self.stats.setdefault(key, {
                     "launches": 0, "ms": 0.0, "plain_ms": 0.0,
                     "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0,
+                    "f32_core_bound_ms": 0.0,
                     "dirty_tiles": 0, "tiles": 0, "max_abs_err": 0.0,
                     "code_max_diff": 0, "code_diff_frac": 0.0,
                     "scale_max_rel_err": 0.0})
@@ -429,6 +444,7 @@ class TQProbe:
                 s["bytes_ms"] += b_ms
                 s["ops_ms"] += o_ms
                 s["bound_ms"] += max(b_ms, o_ms)
+                s["f32_core_bound_ms"] += max(b_ms, core_ms)
                 s["dirty_tiles"] += n_dirty
                 s["tiles"] += int(dirty.numel())
                 for k in ("max_abs_err", "code_max_diff", "code_diff_frac",
@@ -668,13 +684,16 @@ def tq_phases(card: str, dev) -> list:
         return sum(s["ms"] for k, s in probe.stats.items()
                    if isinstance(k, tuple) and k[0] == label)
 
+    k3 = probe.stats["gate_low"]
     emit({"phase": "tq_e2e", "card": card, "width": TQ_WIDTH,
           "qft_ms": qft_ms, "iqft_ms": iqft_ms,
           "qft_kernel_ms": kernel_ms("tq_qft"),
           "iqft_kernel_ms": kernel_ms("tq_iqft"),
           "qft_outside_kernels_ms": qft_ms - kernel_ms("tq_qft"),
           "iqft_outside_kernels_ms": iqft_ms - kernel_ms("tq_iqft"),
-          "torch_matmul_pair_sweep_ms": matmul_ms})
+          "torch_matmul_pair_sweep_ms": matmul_ms,
+          "k3_sweep_ms": k3["ms"] / k3["launches"],
+          "k3_dirty_tiles_frac": k3["dirty_tiles"] / k3["tiles"]})
 
     kernels = []
     for name, k in zip(TQProbe.ENTRIES, ("K3", "K4", "K5")):
@@ -690,6 +709,7 @@ def tq_phases(card: str, dev) -> list:
             "bound_ms": s["bound_ms"],
             "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"]
             else "operations",
+            "f32_core_bound_ms": s["f32_core_bound_ms"],
             "library_ms": None})
     return kernels
 

@@ -25,10 +25,17 @@ viewed as (tiles, TB, 2D), the same lo/hi mask split and the same dirty
 rule, over groups of tiles so that a wide ket never decodes at once.
 Both update codes and scales in place and return them.
 
+The kernel takes both products on the tensor cores with a split-TF32
+operand (csrc/turboquant_kernel.cu); :func:`split_tf32_matmul` emulates
+that arithmetic on the CPU, and the plain versions take it with
+``split_tf32=True`` (the CPU tests hold it against the JAX kernels).  The
+main path never does.
+
 The port's default tile is 2^12 amplitudes, not the Pallas kernels'
-2^18 (a TPU VMEM size): a CUDA block holds the tile twice plus both
-rotations in at most 227 KB of shared memory.  The tile decides which
-tiles count as dirty, so parity tests pin the same tile on both sides.
+2^18 (a TPU VMEM size): a CUDA block holds the rotation, the tile in
+float32 and two tiles of codes in at most 227 KB of shared memory.  The
+tile decides which tiles count as dirty, so parity tests pin the same
+tile on both sides.
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ from ..storage import turboquant as tq
 from ..utils.device import resolve_device
 
 DEFAULT_TILE_POW = 12
-MAX_BLOCK_POW = 6                 # 2D = 128: both rotations fit in 128 KiB
+MAX_BLOCK_POW = 6                 # 2D = 128, the kernel's product width
 SMEM_LIMIT = 232_448              # bytes of shared memory a block may use
 #: f32 amplitudes a plain-version step decodes at once (512 MiB of planes)
 PLAIN_GROUP_AMPS = 1 << 26
@@ -63,12 +70,14 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def smem_bytes(block_pow: int, tile_pow: int) -> int:
-    """Shared memory of one block: both rotations, two tile buffers and
-    the tile's row factors (csrc/turboquant_kernel.cu smem_bytes)."""
-    n = 2 << block_pow
-    return 4 * (2 * n * n + 4 * (1 << tile_pow)
-                + (1 << (tile_pow - block_pow)))
+def smem_bytes(block_pow: int, tile_pow: int, code_bytes: int = 2) -> int:
+    """Shared memory of one block (csrc/turboquant_kernel.cu smem_bytes):
+    the 128 x 128 rotation, the tile as float32 rows 128 wide (at least
+    64 of them), two code buffers of that shape and two scale buffers.
+    code_bytes 2 (int16) is the larger."""
+    rows = max(64, -(-(2 << tile_pow) // 128))
+    tb = 1 << (tile_pow - block_pow)
+    return 4 * (128 * 128 + rows * 128 + 2 * tb) + 2 * rows * 128 * code_bytes
 
 
 def layout(codes, tile_pow: int) -> Tuple[int, int, int, int]:
@@ -179,11 +188,35 @@ def window_dirty(blk, tile_pow: int, rows, fv, iv):
     return dirty
 
 
+def tf32_rna(x):
+    """float32 `x` rounded to TF32 (10 stored mantissa bits), to nearest
+    with ties away from zero, as ``cvt.rna.tf32.f32``: add half of the
+    13 dropped bits to the bit pattern, then clear them (the same for
+    both signs, since the sign sits apart from the magnitude)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32_matmul(a, b):
+    """a @ b as the kernel's tensor cores take it ("3xTF32"): each
+    operand split as x = hi + lo with hi = tf32(x), lo = tf32(x - hi),
+    and hi·hi + hi·lo + lo·hi summed in float32 (lo·lo dropped).  Every
+    product of two TF32 values is exact in float32.  For codes that are
+    exact in TF32 (int8) lo is 0, so only the rotation is split."""
+    a_hi, b_hi = tf32_rna(a), tf32_rna(b)
+    a_lo, b_lo = tf32_rna(a - a_hi), tf32_rna(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
 def _sweep_plain(codes, scales, rot, rot_t, bits: int, tile_pow: int,
-                 dirty_fn, apply_fn):
+                 dirty_fn, apply_fn, split_tf32: bool = False):
     """The kernel's decomposition with torch ops, over groups of tiles:
     dequantize, apply_fn(planes (2, g, T), lidx, blk), requantize, keep
-    the tiles dirty_fn(blk) leaves clean bit for bit."""
+    the tiles dirty_fn(blk) leaves clean bit for bit.  With split_tf32
+    the two products follow the kernel's tensor-core arithmetic
+    (:func:`split_tf32_matmul`, the codes times the rotation with the
+    row factor scale / qmax after); without, both are float32 matmuls
+    on the dequantized rows, in the JAX kernels' order."""
     bp, T, TB, nblk = layout(codes, tile_pow)
     D = 1 << bp
     qmax = float(tq.qmax(bits))
@@ -200,12 +233,15 @@ def _sweep_plain(codes, scales, rot, rot_t, bits: int, tile_pow: int,
         if not bool(dirty.any()):
             continue
         cc, ss = c3[b0:b1], s2[b0:b1]
-        y = cc.to(torch.float32) * (ss / qmax).unsqueeze(-1)
-        rows = y @ rot_t
+        fq = (ss / qmax).unsqueeze(-1)
+        if split_tf32:
+            rows = split_tf32_matmul(cc.to(torch.float32), rot_t) * fq
+        else:
+            rows = (cc.to(torch.float32) * fq) @ rot_t
         v = rows.view(g, TB, 2, D).permute(2, 0, 1, 3).reshape(2, g, T)
         v = apply_fn(v, lidx, blk)
         back = v.reshape(2, g, TB, D).permute(1, 2, 0, 3).reshape(g, TB, 2 * D)
-        y2 = back @ rot
+        y2 = split_tf32_matmul(back, rot) if split_tf32 else back @ rot
         sc = y2.abs().amax(-1)
         safe = torch.where(sc > 0, sc, 1.0)
         nc = torch.round(y2 / safe.unsqueeze(-1) * qmax).to(codes.dtype)
@@ -215,19 +251,23 @@ def _sweep_plain(codes, scales, rot, rot_t, bits: int, tile_pow: int,
 
 
 def tq_gate_low_plain(codes, scales, rot, rot_t, bits: int, tile_pow: int,
-                      mp, target: int, hm: int, hv: int, lm: int, lv: int):
-    """Plain version of :func:`tq_gate_low` (in place)."""
+                      mp, target: int, hm: int, hv: int, lm: int, lv: int,
+                      split_tf32: bool = False):
+    """Plain version of :func:`tq_gate_low` (in place); split_tf32 as in
+    :func:`_sweep_plain`."""
     m = np.asarray(mp, dtype=np.float32).tolist()
     return _sweep_plain(
         codes, scales, rot, rot_t, bits, tile_pow,
         lambda blk: gate_low_dirty(blk, hm, hv),
         lambda v, lidx, blk: wk.tile_local_2x2(v, lidx, blk, target, m,
-                                               lm, lv, 0, 0)[0])
+                                               lm, lv, 0, 0)[0], split_tf32)
 
 
 def tq_diag_plain(codes, scales, rot, rot_t, bits: int, tile_pow: int, dp,
-                  tm_lo: int, tb_hi: int, lm: int, lv: int, hm: int, hv: int):
-    """Plain version of :func:`tq_diag` (in place)."""
+                  tm_lo: int, tb_hi: int, lm: int, lv: int, hm: int, hv: int,
+                  split_tf32: bool = False):
+    """Plain version of :func:`tq_diag` (in place); split_tf32 as in
+    :func:`_sweep_plain`."""
     d = np.asarray(dp, dtype=np.float32)
     d0re, d1re, d0im, d1im = (float(d[0, 0, 0]), float(d[0, 0, 1]),
                               float(d[1, 0, 0]), float(d[1, 0, 1]))
@@ -241,13 +281,16 @@ def tq_diag_plain(codes, scales, rot, rot_t, bits: int, tile_pow: int, dp,
 
     return _sweep_plain(
         codes, scales, rot, rot_t, bits, tile_pow,
-        lambda blk: diag_dirty(blk, dp, tm_lo, tb_hi, lm, hm, hv), apply)
+        lambda blk: diag_dirty(blk, dp, tm_lo, tb_hi, lm, hm, hv), apply,
+        split_tf32)
 
 
 def tq_window_plain(codes, scales, rot, rot_t, bits: int, tile_pow: int,
-                    structure: Tuple, operands: Sequence):
+                    structure: Tuple, operands: Sequence,
+                    split_tf32: bool = False):
     """Plain version of :func:`tq_window` (in place): the same op table,
-    every op through the shared tile primitives (window_kernel.tile_*)."""
+    every op through the shared tile primitives (window_kernel.tile_*);
+    split_tf32 as in :func:`_sweep_plain`."""
     _check_structure(structure, tile_pow)
     table, fv, iv = pack_window(structure, operands, codes.device)
     rows = table.cpu().tolist()
@@ -276,7 +319,8 @@ def tq_window_plain(codes, scales, rot, rot_t, bits: int, tile_pow: int,
 
     return _sweep_plain(
         codes, scales, rot, rot_t, bits, tile_pow,
-        lambda blk: window_dirty(blk, tile_pow, rows, fv, iv), apply)
+        lambda blk: window_dirty(blk, tile_pow, rows, fv, iv), apply,
+        split_tf32)
 
 
 # ---------------------------------------------------------------------------
@@ -300,8 +344,11 @@ def load_library():
     return lib
 
 
-def _check(codes, scales, rot, rot_t, bits: int, tile_pow: int):
-    """Shapes, dtypes and fit of a launch; returns (bp, n_tiles)."""
+def _check(codes, scales, rot, bits: int, tile_pow: int):
+    """Shapes, dtypes and fit of a launch; returns (bp, n_tiles).  The
+    kernel reads the rotation alone in both orders, so rot_t is not
+    checked: the entry points still take it, and a later change of their
+    C signatures can drop it."""
     want = torch.int8 if bits <= 8 else torch.int16
     if codes.dtype != want:
         raise ValueError(f"{bits}-bit codes are {want}, not {codes.dtype}")
@@ -311,14 +358,14 @@ def _check(codes, scales, rot, rot_t, bits: int, tile_pow: int):
     if bp > MAX_BLOCK_POW:
         raise ValueError(f"the kernel takes block_pow <= {MAX_BLOCK_POW}, "
                          f"not {bp}")
-    if smem_bytes(bp, tile_pow) > SMEM_LIMIT:
+    need = smem_bytes(bp, tile_pow, codes.element_size())
+    if need > SMEM_LIMIT:
         raise ValueError(
-            f"a 2^{tile_pow}-amplitude tile and two {2 << bp}-wide rotations "
-            f"need {smem_bytes(bp, tile_pow)} bytes of shared memory, more "
-            f"than a block's {SMEM_LIMIT}")
+            f"a 2^{tile_pow}-amplitude tile of {bits}-bit codes needs {need} "
+            f"bytes of shared memory, more than a block's {SMEM_LIMIT}")
     n = 2 << bp
     for name, t, shape in (("scales", scales, (codes.shape[0],)),
-                           ("rot", rot, (n, n)), ("rot_t", rot_t, (n, n))):
+                           ("rot", rot, (n, n))):
         if (t.device != codes.device or t.dtype != torch.float32
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous float32 {shape} "
@@ -330,7 +377,7 @@ def _launch(entry: str, codes, scales, rot, rot_t, bits, tile_pow, *args):
     if codes.device.type != "cuda":
         raise ValueError(f"TurboQuant kernel: unsupported device "
                          f"{codes.device}")
-    bp, nblk = _check(codes, scales, rot, rot_t, bits, tile_pow)
+    bp, nblk = _check(codes, scales, rot, bits, tile_pow)
     lib = load_library()
     fn = getattr(lib, f"qtt_tq_{entry}")
     with torch.cuda.device(codes.device):

@@ -263,7 +263,7 @@ def test_kernel_refuses_what_it_does_not_take():
     codes = torch.zeros((64, 8), dtype=torch.int8)
     with pytest.raises(ValueError, match="whole blocks"):
         tqk.layout(codes, 1)
-    assert tqk.smem_bytes(6, 12) <= tqk.SMEM_LIMIT < tqk.smem_bytes(6, 13)
+    assert tqk.smem_bytes(6, 13) <= tqk.SMEM_LIMIT < tqk.smem_bytes(6, 14)
     with pytest.raises(ValueError, match="inside"):
         tqk.tq_window_plain(codes, torch.zeros(64), torch.eye(8),
                             torch.eye(8), 8, 4, (("gen", 4, False),),
