@@ -11,13 +11,17 @@ them; then each phase prints JSON lines:
    source started together (ops/cuda_build.py), with ptxas's registers
    and spills;
 2. kernel against plain: random fused windows at n = 24 over the whole
-   vocabulary (cross-tile inv/gen, high and low controls) and one whole
-   qft_qcircuit(30) window, the CUDA kernel against its plain PyTorch
-   version on the same inputs.  Bar, here and on every launch of the
-   main path in phase 4: max abs diff <= min(1e-6, 1e-4 * the largest
-   |amp| of the plain result), so it scales with the amplitudes (about
-   3e-5 at the end of a w30 QFT); plus fidelity >= 1 - 1e-5 on the w30
-   window;
+   vocabulary (cross-tile inv/gen, high and low controls); pair-led
+   segments at n = 24 that reach every route of the pair kernel
+   (window_kernel.pair_route: in-tile inv/gen on register, lane and warp
+   bits, a 256-op diagonal run after a cross-tile H, the trailing segment
+   of qft_qcircuit(24), controls below and above the tile with mixed
+   values); and one whole qft_qcircuit(30) window; the CUDA kernel
+   against its plain PyTorch version on the same inputs.  Bar, here and
+   on every launch of the main path in phase 4: max abs diff <=
+   min(1e-6, 1e-4 * the largest |amp| of the plain result), so it scales
+   with the amplitudes (about 3e-5 at the end of a w30 QFT); plus
+   fidelity >= 1 - 1e-5 on the w30 window;
 3. the main path at w30: create_quantum_interface("cuda", 30),
    SetPermutation, QFT (every |amp|^2 must be 2^-30 to 1e-3 relative),
    IQFT (ProbAll back at the start >= 1 - 1e-3), then QCircuit.RunFused
@@ -28,7 +32,7 @@ them; then each phase prints JSON lines:
    through RunFused (and through the plain gate-function chain, kernel
    off), then every launch of the main path again with the kernel and
    its plain version timed and compared on the same input, beside the
-   bound.
+   bound; each path's largest launch (most ops) with its time and bound.
 
 Then the TurboQuant path (the compressed engine, kernels K3-K5 of
 csrc/turboquant_kernel.cu):
@@ -184,34 +188,64 @@ def fidelity(a, b) -> float:
     return (re * re + im * im) / (na * nb)
 
 
+def random_op(rng, n: int, kind: int, t: int, fu):
+    """One fused op of kind 0-3 (cphase, diag, inv, gen) on target t: 0-2
+    controls anywhere else, mixed control values but for a cphase."""
+    others = [q for q in range(n) if q != t]
+    nc = int(rng.integers(0, 3))
+    cmask = 0
+    for c in (rng.choice(others, nc, replace=False) if nc else ()):
+        cmask |= 1 << int(c)
+    cval = cmask
+    if kind and cmask and rng.integers(2):
+        cval = cmask & int(rng.integers(1 << n))
+    a, b = np.exp(1j * rng.uniform(0.0, 2 * np.pi, 2))
+    if kind == 0:
+        m = np.diag([1.0 + 0j, b])
+    elif kind == 1:
+        m = np.diag([a, b])
+    elif kind == 2:
+        m = np.array([[0, a], [b, 0]])
+    else:
+        z = rng.normal(size=(2, 2)) + 1j * rng.normal(size=(2, 2))
+        m, _ = np.linalg.qr(z)
+    m = np.asarray(m, dtype=np.complex128)
+    return fu.FusedOp(fu.classify(m, cmask, cval), t, cmask, cval, m)
+
+
 def random_window(rng, n: int, k: int, fu):
     """k fused ops over the whole vocabulary: targets anywhere (so below
-    and above the tile width), 0-2 controls, mixed control values."""
-    ops = []
-    for _ in range(k):
-        kind = int(rng.integers(4))
-        t = int(rng.integers(n))
-        others = [q for q in range(n) if q != t]
-        nc = int(rng.integers(0, 3))
-        cmask = 0
-        for c in (rng.choice(others, nc, replace=False) if nc else ()):
-            cmask |= 1 << int(c)
-        cval = cmask
-        if kind and cmask and rng.integers(2):
-            cval = cmask & int(rng.integers(1 << n))
-        a, b = np.exp(1j * rng.uniform(0.0, 2 * np.pi, 2))
-        if kind == 0:
-            m = np.diag([1.0 + 0j, b])
-        elif kind == 1:
-            m = np.diag([a, b])
-        elif kind == 2:
-            m = np.array([[0, a], [b, 0]])
-        else:
-            z = rng.normal(size=(2, 2)) + 1j * rng.normal(size=(2, 2))
-            m, _ = np.linalg.qr(z)
-        m = np.asarray(m, dtype=np.complex128)
-        ops.append(fu.FusedOp(fu.classify(m, cmask, cval), t, cmask, cval, m))
-    return ops
+    and above the tile width)."""
+    return [random_op(rng, n, int(rng.integers(4)), int(rng.integers(n)), fu)
+            for _ in range(k)]
+
+
+def pair_cases(rng, n: int, bp: int, fu, wk) -> list:
+    """(label, ops) of pair-led segments at width n, each one window
+    that plans as a single pair sweep: in-tile inv/gen whose targets
+    cycle through the register, lane and warp bits of the pair layout,
+    with diagonal ops between; a 256-op diagonal run after a cross-tile
+    H; the trailing segment of qft_qcircuit(n)."""
+    from qrack_tpu_torch.models.qft import qft_qcircuit
+
+    lay = wk.pair_layout(bp)
+    classes = [lay["register"], lay["lane"], lay["warp"]]
+    routes = [random_op(rng, n, 3, bp + 4, fu)]
+    for i in range(72):
+        bits = classes[(i // 2) % 3]
+        routes.append(
+            random_op(rng, n, 2 + int(rng.integers(2)),
+                      int(bits[int(rng.integers(len(bits)))]), fu)
+            if i % 2 == 0 else
+            random_op(rng, n, int(rng.integers(2)), int(rng.integers(n)), fu))
+    h = np.array([[1, 1], [1, -1]], dtype=np.complex128) / np.sqrt(2.0)
+    diagonal = [fu.FusedOp(fu.classify(h, 0, 0), bp, 0, 0, h)] + [
+        random_op(rng, n, int(rng.integers(2)), int(rng.integers(n)), fu)
+        for _ in range(256)]
+    qft = fu.lower_gates(qft_qcircuit(n).gates)
+    xop = wk.segment_launches(fu.structure_of(qft), bp)[-1][0]
+    return [("routes", routes), ("diagonal_run", diagonal),
+            ("qft_tail", qft[xop:])]
 
 
 def launch_bound(n: int, rows, iv) -> tuple:
@@ -262,19 +296,26 @@ class SweepProbe:
             host_table = table.cpu().tolist()
             host_iv = iv.cpu().tolist()
             b_ms, o_ms = launch_bound(n, [host_table[i] for i in idx], host_iv)
+            ms = ev[0].elapsed_time(ev[1])
             for key in (name, (self.label, name)):
                 s = self.stats.setdefault(key, {
                     "launches": 0, "ms": 0.0, "plain_ms": 0.0,
                     "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0,
-                    "max_abs_err": 0.0, "max_rel_err": 0.0})
+                    "max_abs_err": 0.0, "max_rel_err": 0.0,
+                    "largest_ops": 0, "largest_ms": 0.0,
+                    "largest_bound_ms": 0.0})
                 s["launches"] += 1
-                s["ms"] += ev[0].elapsed_time(ev[1])
+                s["ms"] += ms
                 s["plain_ms"] += ev[2].elapsed_time(ev[3])
                 s["bytes_ms"] += b_ms
                 s["ops_ms"] += o_ms
                 s["bound_ms"] += max(b_ms, o_ms)
                 s["max_abs_err"] = max(s["max_abs_err"], err)
                 s["max_rel_err"] = max(s["max_rel_err"], rel)
+                if len(idx) > s["largest_ops"]:
+                    s["largest_ops"] = len(idx)
+                    s["largest_ms"] = ms
+                    s["largest_bound_ms"] = max(b_ms, o_ms)
             return planes
         return run
 
@@ -714,15 +755,18 @@ def tq_phases(card: str, dev) -> list:
     return kernels
 
 
-def dense_phases(card: str, dev) -> list:
-    """Phases 2-4 (module docstring); returns the kernels-line entries of
-    K1 and K2."""
-    import qrack_tpu_torch as qt
+def unit_planes(rng, n: int, dev):
+    psi = rng.normal(size=(2, 1 << n)).astype(np.float32)
+    psi /= np.float32(np.sqrt((psi.astype(np.float64) ** 2).sum()))
+    return torch.from_numpy(psi).to(dev)
+
+
+def dense_kernel_checks(card: str, dev) -> None:
+    """Phase 2 (module docstring)."""
     from qrack_tpu_torch.models.qft import basis_planes, qft_qcircuit
     from qrack_tpu_torch.ops import fusion as fu
     from qrack_tpu_torch.ops import window_kernel as wk
 
-    # ---- 2. the kernel against its plain version -----------------------
     rng = np.random.default_rng(2024)
     n = CHECK_WIDTH
     worst = worst_rel = 0.0
@@ -730,14 +774,47 @@ def dense_phases(card: str, dev) -> list:
         ops = random_window(rng, n, 40, fu)
         structure = fu.structure_of(ops)
         operands = fu.dense_operands(ops)
-        psi = rng.normal(size=(2, 1 << n)).astype(np.float32)
-        psi /= np.float32(np.sqrt((psi.astype(np.float64) ** 2).sum()))
-        x = torch.from_numpy(psi).to(dev)
+        x = unit_planes(rng, n, dev)
         got = wk.make_window_fn(n, structure)(x.clone(), *operands)
         want = wk.make_window_fn(n, structure, plain=True)(x.clone(), *operands)
         sync()
         err, rel = held_to_plain(got, want, f"n={n} window {w}")
         worst, worst_rel = max(worst, err), max(worst_rel, rel)
+    del x, got, want
+
+    # pair-led segments through every route of the pair kernel
+    bp = wk.DEFAULT_BLOCK_POW
+    reached = set()
+    low = high = mixed = 0
+    for label, ops in pair_cases(rng, n, bp, fu, wk):
+        structure = fu.structure_of(ops)
+        check(wk.segment_launches(structure, bp) == [(0, 1, len(ops) - 1)],
+              f"{label}: not one pair-led segment")
+        routes = {}
+        for op in ops:
+            r = wk.pair_route(op.kind, op.target, bp)
+            routes[r] = routes.get(r, 0) + 1
+            low += (op.cmask & ((1 << bp) - 1)) != 0
+            high += (op.cmask >> bp) != 0
+            mixed += op.cval != op.cmask
+        reached |= set(routes)
+        operands = fu.dense_operands(ops)
+        x = unit_planes(rng, n, dev)
+        wk.reset_launches()
+        got = wk.make_window_fn(n, structure)(x.clone(), *operands)
+        sync()
+        check(wk.LAUNCHES == {"in_tile": 0, "pair": 1},
+              f"{label}: launches {wk.LAUNCHES}")
+        want = wk.make_window_fn(n, structure, plain=True)(x.clone(), *operands)
+        sync()
+        err, rel = held_to_plain(got, want, f"n={n} pair case {label}")
+        emit({"phase": "pair_kernel_vs_plain", "card": card, "case": label,
+              "width": n, "block_pow": bp, "ops": len(ops), "routes": routes,
+              "max_abs_err": err, "max_rel_err": rel})
+    check(reached == set(wk.PAIR_ROUTES),
+          f"pair cases reached the routes {sorted(reached)} only")
+    check(low and high and mixed, "pair cases miss low, high or mixed "
+                                  "controls")
     del x, got, want
     ops = fu.lower_gates(qft_qcircuit(WIDTH).gates)
     structure = fu.structure_of(ops)
@@ -760,6 +837,16 @@ def dense_phases(card: str, dev) -> list:
           f"w{WIDTH}_max_rel_err": rel30})
     del x, got, want
     release()
+
+
+def dense_phases(card: str, dev) -> list:
+    """Phases 2-4 (module docstring); returns the kernels-line entries of
+    K1 and K2."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.models.qft import qft_qcircuit
+    from qrack_tpu_torch.ops import window_kernel as wk
+
+    dense_kernel_checks(card, dev)
 
     # ---- 3. the main path at w30 ---------------------------------------
     wk.reset_launches()

@@ -16,24 +16,51 @@
 // Ket layout: planes[0 .. 2^n) = Re, planes[2^n .. 2^(n+1)) = Im, float32.
 // A tile is 2^bp consecutive amplitudes of both planes.
 //
-// Design:
-//  * One block per tile (in-tile sweep) or per tile PAIR (cross-tile
-//    sweep).  The block loads its tile(s) into shared memory once,
-//    applies the segment's ops in order with a barrier between ops (a
-//    pair op exchanges amplitudes at distance 2^t inside the tile), and
-//    writes the tile(s) back once.
-//  * The pair sweep writes in place, so tile i may not read its partner
-//    i ^ (1 << h) after the partner's block stored it: one block owns
-//    both tiles, computes both rows of the 2x2 and writes both.  This
-//    also reads every tile once.
-//  * Masks and tile ids are int32, as in the JAX kernel (n <= 30); global
-//    offsets are 64-bit (2^31 floats at n = 30).
+// Both sweeps write in place and read and write every amplitude once:
+// 2 * 2 * 2^n * 4 bytes = 17.2 GB at n = 30, about 5.1 ms at the H100
+// SXM's 3.35 TB/s.  Masks and tile ids are int32, as in the JAX kernel
+// (n <= 30); global offsets are 64-bit (2^31 floats at n = 30).
 //
-// Bound: each sweep reads and writes both planes once, 2 * 2 * 2^n * 4
-// bytes = 17.2 GB at n = 30, about 5.1 ms at the H100 SXM's 3.35 TB/s.
-// A segment with many ops (a whole-circuit window) can instead be bound
-// by its float32 operations.  This first version makes no attempt at
-// TMA, cp.async, vector loads or wider tiles; that is later work.
+// K1, window_in_tile (pallas_kernels.py:294): one block per tile.  The
+// block loads its tile into shared memory, applies the segment's ops in
+// order with a barrier after each (tile_op passes over the whole tile),
+// and writes the tile back.
+//
+// K2, window_pair (pallas_kernels.py:315): one block per tile PAIR i,
+// j = i | (1 << h), h = target - bp of the segment's leading inv/gen.  One
+// block owns both tiles, since the sweep writes in place.  What bounds
+// it: the bytes above for short segments; for long ones (RunFused of a
+// QFT puts about 294 ops in its last segment) the instructions the CUDA
+// cores issue per op.  A design that passes over a tile in shared memory
+// once per op, as K1 does, is bound instead by shared-memory bandwidth
+// (2^13 amplitudes * 16 B per pair and op), far above both.  So the pair
+// lives in registers:
+//  * Layout (pair_layout in ops/window_kernel.py mirrors it).  A thread
+//    holds NR = 2^(RIN + 1) amplitudes, RIN = min(4, bp): both tiles of
+//    the pair (register bit RIN) times RIN in-tile "register bits", the
+//    two lowest in-tile bits and the RIN - 2 highest.  The other in-tile
+//    bits index the thread: its low five are the lane, the rest the
+//    warp.  Neighbouring threads hold neighbouring float4s, so every
+//    load and store is 16 B a thread and 512 B a warp, coalesced.  At bp
+//    = 12 a block is 256 threads of 32 amplitudes (64 data registers).
+//  * Decode.  Each op's masks are split once per block into a tile part
+//    (tested against tile i; a failing op is skipped by the whole
+//    block), a thread part and a register part, and written with its
+//    route and payload to a descriptor in shared memory, CHUNK ops at a
+//    time.  So an op costs each thread a few shared-memory broadcasts
+//    and a test, not a test per element.
+//  * Diagonal ops (cphase, diag; any target, any controls) run in
+//    registers with no barrier: the register part picks the registers a
+//    cphase touches through a switch over compile-time subsets, so a
+//    cphase costs about its touched amplitudes.
+//  * inv/gen.  The leading cross-tile op and in-tile targets on a
+//    register bit mix registers; a lane-bit target exchanges with
+//    __shfl_xor_sync; a warp-bit target takes one round through shared
+//    memory (store, barrier, load the partner thread's values, barrier).
+//    Only that route pays barriers.
+//  * Occupancy: at most 128 registers a thread (launch bounds 512) and
+//    about 68 KB of shared memory at bp = 12, so two blocks share an SM
+//    and one block's loads overlap the other's ops.
 
 #include <cuda_runtime.h>
 
@@ -148,78 +175,442 @@ window_in_tile(float* __restrict__ planes, int n, int bp,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// ---------------------------------------------------------------------------
+// K2: the pair sweep in registers
+// ---------------------------------------------------------------------------
+
+constexpr int LANE_BITS = 5;
+constexpr int PAIR_REG_BITS = 4;  // in-tile register bits at bp >= 4
+constexpr int PAIR_THREADS = 512; // the most a pair block has (bp = 13)
+constexpr int CHUNK = 64;         // op descriptors decoded per round
+
+// descriptor routes
+enum { D_SKIP = 0, D_CPHASE = 1, D_DIAG = 2, D_REG = 3, D_LANE = 4,
+       D_SMEM = 5 };
+
+// One decoded op.  An op's index test (idx & cm) == cv splits into three
+// parts that together are the whole test: tile (decided at decode),
+// thread ((tid & tm) == tv) and register ((k & rm) == rv).  A cphase
+// keeps its combined mask in rm/tm with rv = rm, tv = tm.
+struct __align__(16) Desc {
+  int type;  // D_*
+  int idx;   // register bit (diag, D_REG) or thread bit (D_LANE, D_SMEM)
+  int rm, rv, tm, tv;
+  int tt;    // diag: one-hot thread bit of the target, else 0
+  int ub;    // diag: the target's bit when it is a tile bit, else 0
+  float f[8];  // cphase [re, im]; diag [d0, d1]; 2x2 [re00 re01 re10 re11 im..]
+};
+
+template <int RIN>
+struct PairLayout {
+  static constexpr int LO = RIN < 2 ? RIN : 2;  // low in-tile register bits
+  static constexpr int HI = RIN - LO;           // high in-tile register bits
+  int bp, h, hs, tbits, tile;  // hs = bp - HI; tile i (bit h clear)
+
+  // register part: bits 0..LO-1, then bits hs..bp-1, then the pair bit
+  __device__ __forceinline__ int rpart(int m) const {
+    return (m & ((1 << LO) - 1)) | (((m >> hs) & ((1 << HI) - 1)) << LO) |
+           (((m >> (bp + h)) & 1) << RIN);
+  }
+  __device__ __forceinline__ int tpart(int m) const {
+    return (m >> LO) & tbits;
+  }
+  __device__ __forceinline__ int gpart(int m) const {
+    return (m >> bp) & ~(1 << h);
+  }
+  // register bit of an in-tile bit, or -1 for a thread bit
+  __device__ __forceinline__ int regbit(int t) const {
+    return t < LO ? t : (t >= hs ? LO + t - hs : -1);
+  }
+};
+
+template <int RIN>
+__device__ Desc decode(const int* __restrict__ row,
+                       const float* __restrict__ fv,
+                       const int* __restrict__ iv, const PairLayout<RIN>& L) {
+  Desc d;
+  const int kind = row[0], t = row[1], has_ctrl = row[2];
+  const float* f = fv + row[3];
+  const int cm = has_ctrl ? iv[row[4]] : 0;
+  const int cv = has_ctrl ? iv[row[4] + 1] : 0;
+  d.idx = 0;
+  d.tt = 0;
+  d.ub = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) d.f[k] = 0.f;
+  if (kind == K_CPHASE) {
+    const int comb = cm | (1 << t);
+    const int g = L.gpart(comb);
+    d.type = (L.tile & g) == g ? D_CPHASE : D_SKIP;
+    d.rm = d.rv = L.rpart(comb);
+    d.tm = d.tv = L.tpart(comb);
+    d.f[0] = f[0];
+    d.f[1] = f[1];
+    return d;
+  }
+  d.rm = L.rpart(cm);
+  d.rv = L.rpart(cv);
+  d.tm = L.tpart(cm);
+  d.tv = L.tpart(cv);
+  const bool on = (L.tile & L.gpart(cm)) == L.gpart(cv);
+  if (kind == K_DIAG) {
+    d.type = on ? D_DIAG : D_SKIP;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) d.f[k] = f[k];
+    d.idx = RIN + 1;  // not a register bit
+    if (t < L.bp) {
+      const int r = L.regbit(t);
+      if (r >= 0) d.idx = r;
+      else d.tt = 1 << (t - L.LO);
+    } else if (t == L.bp + L.h) {
+      d.idx = RIN;
+    } else {
+      d.ub = (L.tile >> (t - L.bp)) & 1;
+    }
+    return d;
+  }
+  if (kind == K_GEN) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) d.f[k] = f[k];
+  } else {  // inv [tr.re, tr.im, bl.re, bl.im] as a 2x2
+    d.f[1] = f[0];
+    d.f[5] = f[1];
+    d.f[2] = f[2];
+    d.f[6] = f[3];
+  }
+  if (t >= L.bp) {  // the leading cross-tile op: the pair bit
+    d.type = D_REG;
+    d.idx = RIN;
+  } else if (L.regbit(t) >= 0) {
+    d.type = D_REG;
+    d.idx = L.regbit(t);
+  } else {
+    d.idx = t - L.LO;
+    d.type = d.idx < LANE_BITS ? D_LANE : D_SMEM;
+  }
+  if (!on) d.type = D_SKIP;
+  return d;
+}
+
+// (a, b) *= (fr, fi).  Both products of b are taken first, so each result
+// can go straight to its own register: no temporary and no move.
+__device__ __forceinline__ void cmul(float& a, float& b, float fr, float fi) {
+  const float yi = b * fi, yr = b * fr;
+  b = a * fi + yr;
+  a = a * fr - yi;
+}
+
+// cphase: multiply the registers whose index holds every bit of RM
+template <int NR, int RM>
+__device__ __forceinline__ void cmul_subset(float (&re)[NR], float (&im)[NR],
+                                            float fr, float fi) {
+#pragma unroll
+  for (int k = 0; k < NR; ++k)
+    if ((k & RM) == RM) cmul(re[k], im[k], fr, fi);
+}
+
+#define QTT_CPHASE_CASE(R) \
+  case R:                  \
+    if constexpr (R < NR) cmul_subset<NR, R>(re, im, fr, fi); \
+    break;
+
+template <int NR>
+__device__ __forceinline__ void cphase_regs(int rm, float (&re)[NR],
+                                            float (&im)[NR], float fr,
+                                            float fi) {
+  switch (rm) {
+    QTT_CPHASE_CASE(0) QTT_CPHASE_CASE(1) QTT_CPHASE_CASE(2)
+    QTT_CPHASE_CASE(3) QTT_CPHASE_CASE(4) QTT_CPHASE_CASE(5)
+    QTT_CPHASE_CASE(6) QTT_CPHASE_CASE(7) QTT_CPHASE_CASE(8)
+    QTT_CPHASE_CASE(9) QTT_CPHASE_CASE(10) QTT_CPHASE_CASE(11)
+    QTT_CPHASE_CASE(12) QTT_CPHASE_CASE(13) QTT_CPHASE_CASE(14)
+    QTT_CPHASE_CASE(15) QTT_CPHASE_CASE(16) QTT_CPHASE_CASE(17)
+    QTT_CPHASE_CASE(18) QTT_CPHASE_CASE(19) QTT_CPHASE_CASE(20)
+    QTT_CPHASE_CASE(21) QTT_CPHASE_CASE(22) QTT_CPHASE_CASE(23)
+    QTT_CPHASE_CASE(24) QTT_CPHASE_CASE(25) QTT_CPHASE_CASE(26)
+    QTT_CPHASE_CASE(27) QTT_CPHASE_CASE(28) QTT_CPHASE_CASE(29)
+    QTT_CPHASE_CASE(30) QTT_CPHASE_CASE(31)
+    default: break;
+  }
+}
+
+// diag: d0 where the target bit is 0, d1 where it is 1, on the
+// registers that pass the control test.  IDX is the target's register
+// bit, or -1 when the target bit is the same for all of a thread's
+// registers (tbit).
+template <int NR, int IDX>
+__device__ __forceinline__ void diag_regs(int rm, int rv, float (&re)[NR],
+                                          float (&im)[NR], const float* d,
+                                          bool tbit) {
+  const float ur = tbit ? d[2] : d[0], ui = tbit ? d[3] : d[1];
+#pragma unroll
+  for (int k = 0; k < NR; ++k) {
+    if ((k & rm) != rv) continue;
+    if constexpr (IDX < 0) {
+      cmul(re[k], im[k], ur, ui);
+    } else if ((k >> IDX) & 1) {
+      cmul(re[k], im[k], d[2], d[3]);
+    } else {
+      cmul(re[k], im[k], d[0], d[1]);
+    }
+  }
+}
+
+// 2x2 on register pairs (k, k | 1 << IDX) that pass the control test
+template <int NR, int IDX>
+__device__ __forceinline__ void mix_regs(int rm, int rv, float (&re)[NR],
+                                         float (&im)[NR], const float* m) {
+#pragma unroll
+  for (int k0 = 0; k0 < NR; ++k0) {
+    if (k0 & (1 << IDX)) continue;
+    if ((k0 & rm) != rv) continue;
+    const int k1 = k0 | (1 << IDX);
+    const float a0r = re[k0], a0i = im[k0], a1r = re[k1], a1i = im[k1];
+    re[k0] = m[0] * a0r - m[4] * a0i + m[1] * a1r - m[5] * a1i;
+    im[k0] = m[0] * a0i + m[4] * a0r + m[1] * a1i + m[5] * a1r;
+    re[k1] = m[2] * a0r - m[6] * a0i + m[3] * a1r - m[7] * a1i;
+    im[k1] = m[2] * a0i + m[6] * a0r + m[3] * a1i + m[7] * a1r;
+  }
+}
+
+#define QTT_BIT_CASE(I, CALL) \
+  case I:                     \
+    if constexpr (I <= RIN) CALL; \
+    break;
+
+template <int RIN>
+__device__ __forceinline__ void diag_op(const Desc& d, bool tbit,
+                                        float (&re)[2 << RIN],
+                                        float (&im)[2 << RIN]) {
+  constexpr int NR = 2 << RIN;
+  switch (d.idx) {
+    QTT_BIT_CASE(0, (diag_regs<NR, 0>(d.rm, d.rv, re, im, d.f, tbit)))
+    QTT_BIT_CASE(1, (diag_regs<NR, 1>(d.rm, d.rv, re, im, d.f, tbit)))
+    QTT_BIT_CASE(2, (diag_regs<NR, 2>(d.rm, d.rv, re, im, d.f, tbit)))
+    QTT_BIT_CASE(3, (diag_regs<NR, 3>(d.rm, d.rv, re, im, d.f, tbit)))
+    QTT_BIT_CASE(4, (diag_regs<NR, 4>(d.rm, d.rv, re, im, d.f, tbit)))
+    default:
+      diag_regs<NR, -1>(d.rm, d.rv, re, im, d.f, tbit);
+  }
+}
+
+template <int RIN>
+__device__ __forceinline__ void reg_op(const Desc& d, float (&re)[2 << RIN],
+                                       float (&im)[2 << RIN]) {
+  constexpr int NR = 2 << RIN;
+  switch (d.idx) {
+    QTT_BIT_CASE(0, (mix_regs<NR, 0>(d.rm, d.rv, re, im, d.f)))
+    QTT_BIT_CASE(1, (mix_regs<NR, 1>(d.rm, d.rv, re, im, d.f)))
+    QTT_BIT_CASE(2, (mix_regs<NR, 2>(d.rm, d.rv, re, im, d.f)))
+    QTT_BIT_CASE(3, (mix_regs<NR, 3>(d.rm, d.rv, re, im, d.f)))
+    QTT_BIT_CASE(4, (mix_regs<NR, 4>(d.rm, d.rv, re, im, d.f)))
+    default: break;
+  }
+}
+
+// A thread whose bit d.idx is s holds row s of the pair: its own
+// amplitude weighs m[s][s], the partner thread's m[s][1 - s].
+__device__ __forceinline__ void own_row(const Desc& d, int tid, float& cor,
+                                        float& coi, float& cpr, float& cpi) {
+  const bool s = (tid >> d.idx) & 1;
+  cor = s ? d.f[3] : d.f[0];
+  coi = s ? d.f[7] : d.f[4];
+  cpr = s ? d.f[2] : d.f[1];
+  cpi = s ? d.f[6] : d.f[5];
+}
+
+__device__ __forceinline__ void mix_own(float& ar, float& ai, float pr,
+                                        float pi, float cor, float coi,
+                                        float cpr, float cpi) {
+  const float xr = ar, xi = ai;
+  ar = cor * xr - coi * xi + cpr * pr - cpi * pi;
+  ai = cor * xi + coi * xr + cpr * pi + cpi * pr;
+}
+
+// 2x2 on a lane bit: the partner is lane ^ (1 << idx) of the same warp
+template <int NR>
+__device__ __forceinline__ void lane_op(const Desc& d, bool ok, int tid,
+                                        unsigned warp_mask, float (&re)[NR],
+                                        float (&im)[NR]) {
+  float cor, coi, cpr, cpi;
+  own_row(d, tid, cor, coi, cpr, cpi);
+  const int lane_bit = 1 << d.idx;
+#pragma unroll
+  for (int k = 0; k < NR; ++k) {
+    if ((k & d.rm) != d.rv) continue;  // the same for every thread
+    const float pr = __shfl_xor_sync(warp_mask, re[k], lane_bit);
+    const float pi = __shfl_xor_sync(warp_mask, im[k], lane_bit);
+    if (ok) mix_own(re[k], im[k], pr, pi, cor, coi, cpr, cpi);
+  }
+}
+
+// Global or shared offset of a thread's register group g (four
+// consecutive registers when LO = 2) within one tile plane.
+template <int RIN>
+__device__ __forceinline__ int group_offset(const PairLayout<RIN>& L, int tid,
+                                            int khi) {
+  return (khi << L.hs) | (tid << L.LO);
+}
+
+// A thread's registers <-> a pair laid out as [tile][plane][2^bp], in
+// groups of 2^LO consecutive floats (16 B when LO = 2).
+template <int RIN, bool LOAD, typename P>
+__device__ __forceinline__ void move_pair(const PairLayout<RIN>& L, int tid,
+                                          P* t0, P* t1, long long plane,
+                                          float (&re)[2 << RIN],
+                                          float (&im)[2 << RIN]) {
+  constexpr int LO = PairLayout<RIN>::LO, HI = PairLayout<RIN>::HI;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+#pragma unroll
+    for (int khi = 0; khi < (1 << HI); ++khi) {
+      P* r = (p ? t1 : t0) + group_offset(L, tid, khi);
+      P* i = r + plane;
+      const int k = (p << RIN) | (khi << LO);
+      if constexpr (LO == 2) {
+        if constexpr (LOAD) {
+          const float4 a = *reinterpret_cast<const float4*>(r);
+          const float4 b = *reinterpret_cast<const float4*>(i);
+          re[k] = a.x; re[k + 1] = a.y; re[k + 2] = a.z; re[k + 3] = a.w;
+          im[k] = b.x; im[k + 1] = b.y; im[k + 2] = b.z; im[k + 3] = b.w;
+        } else {
+          *reinterpret_cast<float4*>(r) =
+              make_float4(re[k], re[k + 1], re[k + 2], re[k + 3]);
+          *reinterpret_cast<float4*>(i) =
+              make_float4(im[k], im[k + 1], im[k + 2], im[k + 3]);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < (1 << LO); ++e) {
+          if constexpr (LOAD) {
+            re[k + e] = r[e];
+            im[k + e] = i[e];
+          } else {
+            r[e] = re[k + e];
+            i[e] = im[k + e];
+          }
+        }
+      }
+    }
+  }
+}
+
+// 2x2 on a warp bit: one round through shared memory (the pair at its
+// in-tile positions, [tile][plane][2^bp]), two barriers.  The partner's
+// values are read group by group, so they need few registers.
+template <int RIN>
+__device__ __forceinline__ void smem_op(const Desc& d, bool ok, int tid,
+                                        const PairLayout<RIN>& L, float* xbuf,
+                                        float (&re)[2 << RIN],
+                                        float (&im)[2 << RIN]) {
+  constexpr int LO = PairLayout<RIN>::LO, HI = PairLayout<RIN>::HI;
+  const int block = 1 << L.bp;
+  float* x0 = xbuf;              // tile i: re, then im
+  float* x1 = xbuf + 2 * block;  // tile j
+  move_pair<RIN, false>(L, tid, x0, x1, block, re, im);
+  __syncthreads();
+  float cor, coi, cpr, cpi;
+  own_row(d, tid, cor, coi, cpr, cpi);
+  const int partner = tid ^ (1 << d.idx);
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+#pragma unroll
+    for (int khi = 0; khi < (1 << HI); ++khi) {
+      const float* r = (p ? x1 : x0) + group_offset(L, partner, khi);
+      const int k = (p << RIN) | (khi << LO);
+#pragma unroll
+      for (int e = 0; e < (1 << LO); ++e)
+        if (ok && ((k + e) & d.rm) == d.rv)
+          mix_own(re[k + e], im[k + e], r[e], r[e + block], cor, coi, cpr,
+                  cpi);
+    }
+  }
+  __syncthreads();
+}
+
+template <int RIN>
+__global__ void __launch_bounds__(PAIR_THREADS)
 window_pair(float* __restrict__ planes, int n, int bp,
             const int* __restrict__ table, int xop, int first, int count,
             const float* __restrict__ fv, const int* __restrict__ iv) {
-  extern __shared__ float smem[];
-  const int block = 1 << bp;
-  float* re0 = smem;
-  float* im0 = smem + block;
-  float* re1 = smem + 2 * block;
-  float* im1 = smem + 3 * block;
+  constexpr int NR = 2 << RIN;
+  extern __shared__ float4 smem4[];
+  Desc* descs = reinterpret_cast<Desc*>(smem4);
+  float* xbuf = reinterpret_cast<float*>(descs + CHUNK);
 
-  const int* xr = table + xop * ROW;
-  const int kind = xr[0], t = xr[1], has_ctrl = xr[2];
-  const float* f = fv + xr[3];
-  const int cm = has_ctrl ? iv[xr[4]] : 0;
-  const int cv = has_ctrl ? iv[xr[4] + 1] : 0;
-  const int lbits = block - 1;
-  const int lm = cm & lbits, lv = cv & lbits, gm = cm >> bp, gv = cv >> bp;
-
-  // tile i has the target's tile bit h clear, its partner j has it set
-  const int h = t - bp;
+  PairLayout<RIN> L;
+  L.bp = bp;
+  L.h = table[xop * ROW + 1] - bp;
+  L.hs = bp - PairLayout<RIN>::HI;
+  L.tbits = (1 << (bp - RIN)) - 1;
   const int q = blockIdx.x;
-  const int i = ((q >> h) << (h + 1)) | (q & ((1 << h) - 1));
-  const int j = i | (1 << h);
-  const bool on_i = (i & gm) == gv;
-  const bool on_j = (j & gm) == gv;
+  L.tile = ((q >> L.h) << (L.h + 1)) | (q & ((1 << L.h) - 1));
+  const int tid = threadIdx.x;
+  const unsigned warp_mask =
+      blockDim.x >= 32 ? 0xffffffffu : (1u << blockDim.x) - 1u;
 
-  // an inv op has 4 floats in fv, a gen op 8: read no further
-  const int nf = kind == K_GEN ? 8 : 4;
-  float m[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) m[k] = k < nf ? f[k] : 0.f;
-
+  float re[NR], im[NR];
   const long long amps = 1LL << n;
-  float* gre0 = planes + ((long long)i << bp);
-  float* gim0 = gre0 + amps;
-  float* gre1 = planes + ((long long)j << bp);
-  float* gim1 = gre1 + amps;
-  for (int e = threadIdx.x; e < block; e += blockDim.x) {
-    const float lr = gre0[e], li = gim0[e], hr = gre1[e], hi = gim1[e];
-    float alr, ali, ahr, ahi;
-    if (kind == K_GEN) {  // [re00, re01, re10, re11, im00, im01, im10, im11]
-      alr = m[0] * lr - m[4] * li + m[1] * hr - m[5] * hi;
-      ali = m[0] * li + m[4] * lr + m[1] * hi + m[5] * hr;
-      ahr = m[2] * lr - m[6] * li + m[3] * hr - m[7] * hi;
-      ahi = m[2] * li + m[6] * lr + m[3] * hi + m[7] * hr;
-    } else {  // inv: [tr.re, tr.im, bl.re, bl.im]
-      alr = m[0] * hr - m[1] * hi;
-      ali = m[0] * hi + m[1] * hr;
-      ahr = m[2] * lr - m[3] * li;
-      ahi = m[2] * li + m[3] * lr;
-    }
-    const bool sel = (e & lm) == lv;
-    const bool si = sel && on_i, sj = sel && on_j;
-    re0[e] = si ? alr : lr;
-    im0[e] = si ? ali : li;
-    re1[e] = sj ? ahr : hr;
-    im1[e] = sj ? ahi : hi;
+  float* t0 = planes + ((long long)L.tile << bp);
+  float* t1 = planes + ((long long)(L.tile | (1 << L.h)) << bp);
+  move_pair<RIN, true>(L, tid, t0, t1, amps, re, im);
+
+  // the leading cross-tile op: every thread holds both rows
+  {
+    const Desc x = decode<RIN>(table + xop * ROW, fv, iv, L);
+    if (x.type != D_SKIP && (tid & x.tm) == x.tv)
+      mix_regs<NR, RIN>(x.rm, x.rv, re, im, x.f);
   }
-  __syncthreads();
-  for (int k = 0; k < count; ++k) {
-    const int* row = table + (first + k) * ROW;
-    tile_op(re0, im0, bp, i, row, fv, iv);
-    tile_op(re1, im1, bp, j, row, fv, iv);
+
+  for (int c0 = 0; c0 < count; c0 += CHUNK) {
+    const int cn = min(CHUNK, count - c0);
+    if (c0) __syncthreads();  // every thread is done with the last chunk
+    for (int o = tid; o < cn; o += blockDim.x)
+      descs[o] = decode<RIN>(table + (first + c0 + o) * ROW, fv, iv, L);
     __syncthreads();
+    for (int o = 0; o < cn; ++o) {
+      const Desc d = descs[o];
+      const bool ok = (tid & d.tm) == d.tv;
+      switch (d.type) {
+        case D_CPHASE:
+          if (ok) cphase_regs<NR>(d.rm, re, im, d.f[0], d.f[1]);
+          break;
+        case D_DIAG:
+          if (ok) diag_op<RIN>(d, ((tid & d.tt) != 0) || d.ub, re, im);
+          break;
+        case D_REG:
+          if (ok) reg_op<RIN>(d, re, im);
+          break;
+        case D_LANE:
+          lane_op<NR>(d, ok, tid, warp_mask, re, im);
+          break;
+        case D_SMEM:
+          smem_op<RIN>(d, ok, tid, L, xbuf, re, im);
+          break;
+        default:
+          break;
+      }
+    }
   }
-  for (int e = threadIdx.x; e < block; e += blockDim.x) {
-    gre0[e] = re0[e];
-    gim0[e] = im0[e];
-    gre1[e] = re1[e];
-    gim1[e] = im1[e];
-  }
+
+  move_pair<RIN, false>(L, tid, t0, t1, amps, re, im);
+}
+
+template <int RIN>
+int launch_pair(float* planes, int n, int bp, const int* table, int xop,
+                int first, int count, const float* fv, const int* iv,
+                cudaStream_t stream) {
+  // CHUNK descriptors, then the pair (2 tiles x 2 planes x 2^bp floats)
+  const size_t smem = CHUNK * sizeof(Desc) + (sizeof(float) << (bp + 2));
+  cudaError_t err = cudaFuncSetAttribute(
+      window_pair<RIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = 1u << (n - bp - 1);
+  const unsigned threads = 1u << (bp - RIN);
+  window_pair<RIN><<<grid, threads, smem, stream>>>(planes, n, bp, table, xop,
+                                                    first, count, fv, iv);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -246,14 +637,21 @@ int qtt_window_in_tile(float* planes, int n, int bp, const int* table,
 int qtt_window_pair(float* planes, int n, int bp, const int* table, int xop,
                     int first, int count, const float* fv, const int* iv,
                     void* stream) {
-  const size_t smem = 4 * sizeof(float) * (size_t(1) << bp);
-  cudaError_t err = cudaFuncSetAttribute(
-      window_pair, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = 1u << (n - bp - 1);
-  window_pair<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      planes, n, bp, table, xop, first, count, fv, iv);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (bp < PAIR_REG_BITS ? bp : PAIR_REG_BITS) {
+    case 1:
+      return launch_pair<1>(planes, n, bp, table, xop, first, count, fv, iv,
+                            st);
+    case 2:
+      return launch_pair<2>(planes, n, bp, table, xop, first, count, fv, iv,
+                            st);
+    case 3:
+      return launch_pair<3>(planes, n, bp, table, xop, first, count, fv, iv,
+                            st);
+    default:
+      return launch_pair<4>(planes, n, bp, table, xop, first, count, fv, iv,
+                            st);
+  }
 }
 
 }  // extern "C"

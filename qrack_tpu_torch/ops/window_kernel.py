@@ -29,6 +29,11 @@ the plain version (:func:`in_tile_sweep_plain`, :func:`pair_sweep_plain`),
 which follows the kernel's decomposition: planes viewed as
 ``(2, n_tiles, 2^bp)``, the same lo/hi mask split and the same pair
 mapping.  Both update the planes in place.
+
+The pair kernel keeps a tile pair in registers (:func:`pair_layout`) and
+sends each op down one route (:func:`pair_route`); it decodes both from
+the op table on the device.  :func:`pair_sweep_emulated` computes a pair
+sweep in that layout and route by route, for the tests only.
 """
 
 from __future__ import annotations
@@ -44,8 +49,9 @@ from . import gatekernels as gk
 from ..utils.device import resolve_device
 
 # A tile is 2^bp amplitudes of both planes in one block's shared memory:
-# 32 KiB at bp = 12, 64 KiB for a cross-tile pair.  (The Pallas kernel's
-# 2^16 tile is a TPU VMEM size; a block has at most 227 KB.)
+# 32 KiB at bp = 12.  The pair kernel keeps a pair in registers, and an
+# exchange buffer of the pair's size (64 KiB) in shared memory.  (The
+# Pallas kernel's 2^16 tile is a TPU VMEM size; a block has at most 227 KB.)
 DEFAULT_BLOCK_POW = 12
 MAX_BLOCK_POW = 13          # a tile pair must fit a block's shared memory
 MAX_QB = 30                 # int32 masks and tile ids, as in the JAX kernel
@@ -334,6 +340,134 @@ def pair_sweep_plain(planes, n: int, bp: int, table, fv, iv, xop: int,
 
 
 # ---------------------------------------------------------------------------
+# the pair kernel's register layout and routes (csrc/window_kernel.cu, K2)
+# ---------------------------------------------------------------------------
+
+PAIR_REG_BITS = 4   # in-tile register bits of a pair-sweep thread at bp >= 4
+LANE_BITS = 5       # a warp's 32 lanes
+PAIR_ROUTES = ("pair", "diagonal", "register", "lane", "warp")
+
+
+def pair_layout(bp: int) -> dict:
+    """Where the pair kernel keeps each in-tile bit of a tile pair.
+
+    A thread holds the amplitudes of its ``register`` bits (the two
+    lowest in-tile bits and the highest ``min(4, bp) - 2``) in both tiles
+    of the pair: 2^(len(register) + 1) of them.  The other in-tile bits
+    index the thread, low to high: ``lane`` bits first (up to five), then
+    ``warp`` bits.  Neighbouring threads hold neighbouring float4s."""
+    rin = min(PAIR_REG_BITS, bp)
+    lo = min(2, rin)
+    hs = bp - (rin - lo)
+    thread = list(range(lo, hs))
+    return {"register": list(range(lo)) + list(range(hs, bp)),
+            "lane": thread[:LANE_BITS], "warp": thread[LANE_BITS:],
+            "threads": 1 << len(thread)}
+
+
+def pair_route(kind: str, target: int, bp: int) -> str:
+    """The pair kernel's route for one op of a pair-led segment: the
+    leading cross-tile inv/gen (``pair``) and in-tile inv/gen on a
+    ``register`` bit mix registers, a ``lane`` bit exchanges by warp
+    shuffle, a ``warp`` bit through shared memory; cphase and diag run in
+    registers whatever their target (``diagonal``)."""
+    if kind in ("cphase", "diag"):
+        return "diagonal"
+    if target >= bp:
+        return "pair"
+    lay = pair_layout(bp)
+    return next(r for r in ("register", "lane", "warp") if target in lay[r])
+
+
+def pair_sweep_emulated(planes, n: int, bp: int, table, fv, iv, xop: int,
+                        first: int, count: int):
+    """The pair kernel's computation in torch, for the tests (never on the
+    main path): each tile pair gathered into the kernel's layout
+    ``(2, pairs, threads, registers)``, every op decoded as the kernel
+    decodes it (its masks split into tile, thread and register parts) and
+    applied by its route, in order; then scattered back.  In place,
+    returns planes."""
+    names = {v: k for k, v in KIND_CODE.items()}
+    rows = table.cpu().tolist()
+    ivh = iv.cpu().tolist()
+    h = rows[xop][1] - bp
+    lay = pair_layout(bp)
+    regbits = lay["register"] + [bp + h]      # register index bit -> index bit
+    thrbits = lay["lane"] + lay["warp"]       # thread index bit -> index bit
+    nr, nt = 1 << len(regbits), lay["threads"]
+    dev = planes.device
+    q = gk._iota(1 << (n - bp - 1), dev)
+    tile = ((q >> h) << (h + 1)) | (q & ((1 << h) - 1))
+    tid = gk._iota(nt, dev)
+    k = gk._iota(nr, dev)
+
+    def spread(ids, bits):
+        out = torch.zeros_like(ids)
+        for b, gb in enumerate(bits):
+            out |= ((ids >> b) & 1) << gb
+        return out
+
+    def part(m, bits):
+        return sum(((m >> gb) & 1) << b for b, gb in enumerate(bits))
+
+    index = ((tile << bp).view(-1, 1, 1) + spread(tid, thrbits).view(1, -1, 1)
+             + spread(k, regbits).view(1, 1, -1)).reshape(-1)
+    v = planes[:, index].view(2, -1, nt, nr)
+    zero = torch.zeros((), dtype=planes.dtype, device=dev)
+
+    def mix(v, own, partner, sel):
+        """v -> own * v + partner-coefficient * partner values, where sel."""
+        (cor, coi, cpr, cpi), (pr, pi) = own, partner
+        nr_ = cor * v[0] - coi * v[1] + cpr * pr - cpi * pi
+        ni_ = cor * v[1] + coi * v[0] + cpr * pi + cpi * pr
+        return torch.where(sel, torch.stack([nr_, ni_]), v)
+
+    def row_of(s, m):
+        """(own, partner) coefficients of row s of the 2x2 m."""
+        return (torch.where(s, m[3], m[0]), torch.where(s, m[7], m[4]),
+                torch.where(s, m[2], m[1]), torch.where(s, m[6], m[5]))
+
+    for r in [xop] + list(range(first, first + count)):
+        kind, t, has_ctrl, foff, ioff = rows[r]
+        kind = names[kind]
+        cm, cv = (ivh[ioff], ivh[ioff + 1]) if has_ctrl else (0, 0)
+        if kind == "cphase":
+            cm = cv = cm | (1 << t)
+        gm = (cm >> bp) & ~(1 << h)
+        gv = (cv >> bp) & ~(1 << h)
+        sel = (((tile & gm) == gv).view(-1, 1, 1)
+               & ((tid & part(cm, thrbits)) == part(cv, thrbits)).view(1, -1, 1)
+               & ((k & part(cm, regbits)) == part(cv, regbits)).view(1, 1, -1))
+        f = fv[foff:foff + _NFLOATS[kind]]
+        if kind == "cphase":
+            v = _cmul_where(sel, f[0], f[1], v)
+            continue
+        if kind == "diag":
+            if t in regbits:
+                bit = ((k >> regbits.index(t)) & 1).bool().view(1, 1, -1)
+            elif t in thrbits:
+                bit = ((tid >> thrbits.index(t)) & 1).bool().view(1, -1, 1)
+            else:
+                bit = ((tile >> (t - bp)) & 1).bool().view(-1, 1, 1)
+            v = _cmul_where(sel, torch.where(bit, f[2], f[0]),
+                            torch.where(bit, f[3], f[1]), v)
+            continue
+        m = (list(f) if kind == "gen"
+             else [zero, f[0], f[2], zero, zero, f[1], f[3], zero])
+        if t in regbits:       # pair / register: the partner is a register
+            b = regbits.index(t)
+            s = ((k >> b) & 1).bool().view(1, 1, -1)
+            p = v[:, :, :, k ^ (1 << b)]
+        else:                  # lane / warp: the partner is a thread
+            b = thrbits.index(t)
+            s = ((tid >> b) & 1).bool().view(1, -1, 1)
+            p = v[:, :, tid ^ (1 << b), :]
+        v = mix(v, row_of(s, m), (p[0], p[1]), sel)
+    planes[:, index] = v.reshape(2, -1)
+    return planes
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernel: build, load, launch
 # ---------------------------------------------------------------------------
 
@@ -361,6 +495,9 @@ def _check_launch(planes, n: int, bp: int, table, fv, iv, rows: Sequence[int]):
     if tuple(planes.shape) != (2, 1 << n) or not planes.is_contiguous():
         raise ValueError(f"planes must be contiguous (2, 2^{n}), got "
                          f"{tuple(planes.shape)}")
+    if planes.data_ptr() % 16:
+        raise ValueError("planes must start on a 16-byte boundary (the pair "
+                         "kernel moves float4s)")
     if not (1 <= bp <= min(n, MAX_BLOCK_POW)) or n > MAX_QB:
         raise ValueError(f"window kernel needs 1 <= bp <= min(n, "
                          f"{MAX_BLOCK_POW}) and n <= {MAX_QB} (n={n}, bp={bp})")
