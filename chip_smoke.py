@@ -75,7 +75,52 @@ csrc/turboquant_kernel.cu):
    the products on the CUDA cores (16 * D flops per amplitude), as
    earlier runs stated it.
 
-``--tq-only`` runs the build and phases 5-7 alone.
+Then the slice of the ALU, the host oracle, QHybrid and the algorithm
+programs, which run K1 and K2 on new paths (the ALU's gathers and
+scatters, the RCS ISwap layer and the Grover passes are plain torch):
+
+8. alu_vs_oracle, n = 22: create_quantum_interface("cuda", 22) against
+   ("cpu", 22), the complex128 oracle, from one seeded start (H on every
+   qubit, seeded T and CNOT), through one seeded sequence of every ALU
+   op of the slice, each after a seeded H and CNOT and followed by
+   NormalizeState (MUL and the *ModNOut ops drop the amplitudes outside
+   their zeroed registers).  Bar: fidelity >= 1 - 1e-5 after every op;
+9. alu_w30: on create_quantum_interface("cuda", 30), a seeded
+   superposition with the MUL carry register at |0>, exact round trips
+   (INC and INC(-a), ROL and ROR, MUL and DIV, CMUL and CDIV, Hash and
+   its inverse table, IndexedLDA twice): the planes must come back
+   bit for bit (torch.equal).  Each op's time by CUDA events beside the
+   plane byte bound (2·2·2^30·4 B at 3.35 TB/s, 5.13 ms) and the peak
+   memory;
+10. shor, w30: N = 32639 = 127·257, base 21591 (order 256), width 15:
+    SetPermutation(0), H on 0-14, POWModNOut into the 15-bit out
+    register, IQFT(0, 15).  The in-register marginal, summed on the card
+    over the out register, must match algorithms.order_finding_marginal
+    (256 host IQFTs on the port's QEngineCPU) within 1e-6 and sum to 1
+    within 1e-4; ProbReg(15, 15, 1) within 1e-6 of 1/256.  Then one
+    seeded shor_order_find round (its factor is printed, not barred),
+    and every K1/K2 launch of the IQFT again with its plain version
+    (SweepProbe, the bar of phase 2).  K1 and K2 must have launched;
+11. hybrid_rcs: create_quantum_interface("hybrid", 10) (QEngineCPU),
+    GHZ, Compose a 14-qubit hybrid (the engine becomes a QEngineCUDA on
+    the card at 24 qubits), Compose a 6-qubit "cuda" register (w30).
+    Bars: ProbReg(0, 10, 0) and ProbReg(0, 10, 1023) within 1e-5 of
+    0.5; random_circuit_sampling(12 layers, QrackRandom(7)) through the
+    hybrid against rcs.make_rcs_fn(30, 12, 7) on a copy of the planes,
+    fidelity >= 1 - 1e-5;
+12. grover, w24: grover.make_grover_fn gives a success_probability >=
+    0.99; on create_quantum_interface("cuda", 24) the body of
+    grover_search (grover_amplify: 3216 iterations) reaches the same
+    ProbAll within 1e-4 after NormalizeState (each H's float32 1/sqrt(2)
+    shrinks the norm by 3.4e-8, 0.5% over the run), and the search's
+    MAll then returns the seeded target.
+
+The kernels line counts K1/K2 launches over every dense path (phases 3,
+8-12); their times and errors are those of the launches held to plain
+(phase 4 and the Shor IQFT of phase 10).
+
+``--tq-only`` runs the build and phases 5-7 alone; ``--algo-only`` the
+build and phases 8-12.
 
 The line before the last is the "kernels" summary, the last line
 {"ok": true, "device": {...}}.  Any failed check raises, so the script
@@ -126,6 +171,18 @@ TQ_CODE_FRAC = {8: 1e-3, 16: 1e-2}
 TQ_SCALE_REL = 1e-5
 # flops per amplitude an op acts on (complex product, or a 2x2 row)
 TQ_OP_FLOPS = {0: 6, 1: 6, 3: 14}
+
+ALU_WIDTH = 22        # the CUDA engine against the complex128 oracle
+PLANE_BOUND_MS = 2 * 2 * (1 << WIDTH) * 4 / PEAK_BYTES_S * 1e3
+SHOR_MOD = 32639      # 127 * 257
+SHOR_BASE = 21591     # 3 mod 257 (a primitive root), 1 mod 127: order 256
+SHOR_ORDER = 256
+SHOR_WIDTH = 15       # 2 * 15 = WIDTH qubits; the out register is 15 bits
+HYBRID_START = 10     # below the hybrid threshold (13): QEngineCPU
+HYBRID_GROW = 14      # composed on: 24 qubits, QEngineCUDA
+RCS_DEPTH = 12
+RCS_SEED = 7
+GROVER_WIDTH = 24     # 3216 iterations
 
 
 T_START = time.time()
@@ -839,9 +896,9 @@ def dense_kernel_checks(card: str, dev) -> None:
     release()
 
 
-def dense_phases(card: str, dev) -> list:
-    """Phases 2-4 (module docstring); returns the kernels-line entries of
-    K1 and K2."""
+def dense_phases(card: str, dev, probe) -> dict:
+    """Phases 2-4 (module docstring), timing phase 4's launches through
+    `probe`; returns the main path's launch counts."""
     import qrack_tpu_torch as qt
     from qrack_tpu_torch.models.qft import qft_qcircuit
     from qrack_tpu_torch.ops import window_kernel as wk
@@ -911,7 +968,6 @@ def dense_phases(card: str, dev) -> list:
     emit({"phase": "e2e", "card": card, "width": WIDTH, **e2e,
           "engine_qft_chain_ms": chain_ms})
 
-    probe = SweepProbe(wk)
     with probe:
         probe.label = "engine_qft"
         q.SetPermutation(PERM)
@@ -933,23 +989,362 @@ def dense_phases(card: str, dev) -> list:
         got_n = probe.stats[name]["launches"]
         check(got_n == launches[name],
               f"probe saw {got_n} {name} launches, main path {launches[name]}")
+    release()
+    return launches
 
+
+def window_entries(probe, launches: dict) -> list:
+    """The kernels-line entries of K1 and K2: launches over every dense
+    path, times and errors over the launches `probe` held to plain."""
     kernels = []
-    for name in ("in_tile", "pair"):
+    for name, k in (("in_tile", "K1"), ("pair", "K2")):
         s = probe.stats[name]
         kernels.append({
-            "name": f"window_{name}", "route": "cuda",
+            "name": f"window_{name}", "id": k, "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES[name],
-            "launches": launches[name], "max_abs_err": s["max_abs_err"],
+            "launches": launches[name], "probed_launches": s["launches"],
+            "max_abs_err": s["max_abs_err"],
             "max_rel_err": s["max_rel_err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"],
             "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"]
             else "operations",
             "library_ms": None})
-    del probe
-    release()
     return kernels
+
+
+# ---------------------------------------------------------------------------
+# the ALU, the host oracle, QHybrid and the algorithm programs
+# ---------------------------------------------------------------------------
+
+def alu_sequence(table, perm) -> list:
+    """(method, args) of every ALU op of the slice on a 22-qubit ket;
+    `table` is 64 values below 2^8, `perm` a permutation of 2^10."""
+    return [
+        ("INC", (1234, 0, 12)),
+        ("CINC", (77, 4, 9, (20, 21))),
+        ("INCDECC", (300, 2, 9, 15)),
+        ("INCS", (45, 3, 8, 19)),
+        ("INCDECSC", (100, 5, 8, 18, 17)),
+        ("INCBCD", (4721, 6, 16)),
+        ("INCDECBCDC", (58, 0, 8, 21)),
+        ("ROL", (5, 1, 14)),
+        ("ROR", (2, 7, 11)),
+        ("MUL", (5, 0, 8, 8)),
+        ("DIV", (5, 0, 8, 8)),
+        ("CMUL", (3, 2, 9, 7, (20,))),
+        ("CDIV", (3, 2, 9, 7, (20,))),
+        ("MULModNOut", (7, 221, 0, 10, 9)),
+        ("IMULModNOut", (7, 221, 0, 10, 9)),
+        ("CMULModNOut", (5, 29, 1, 12, 6, (21,))),
+        ("CIMULModNOut", (5, 29, 1, 12, 6, (21,))),
+        ("POWModNOut", (3, 1009, 0, 11, 11)),
+        ("CPOWModNOut", (5, 61, 0, 8, 7, (21,))),
+        ("IndexedLDA", (0, 6, 8, 8, table, False)),
+        ("IndexedADC", (0, 6, 8, 8, 16, table)),
+        ("IndexedSBC", (0, 6, 8, 8, 16, table)),
+        ("Hash", (4, 10, perm)),
+        ("PhaseFlipIfLess", (12345, 3, 16)),
+        ("CPhaseFlipIfLess", (300, 2, 10, 19)),
+    ]
+
+
+def host_planes(state, dev):
+    """A host complex vector as float64 planes on the card."""
+    return torch.from_numpy(np.stack([state.real, state.imag])).to(dev)
+
+
+def alu_vs_oracle(card: str, dev) -> dict:
+    """Phase 8 (module docstring); returns the window kernel's launches."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    n = ALU_WIDTH
+    rng = np.random.default_rng(2026)
+    wk.reset_launches()
+    q = qt.create_quantum_interface("cuda", n, rng=QrackRandom(5),
+                                    rand_global_phase=False)
+    o = qt.create_quantum_interface("cpu", n, rng=QrackRandom(5),
+                                    rand_global_phase=False)
+    check(q.device == dev, "the engine did not land on the card")
+
+    def both(name, *args):
+        return [getattr(e, name)(*args) for e in (q, o)]
+
+    def pair():
+        return (int(x) for x in rng.choice(n, 2, replace=False))
+
+    for b in range(n):
+        both("H", b)
+    for _ in range(16):
+        a, b = pair()
+        both("T", a)
+        both("CNOT", a, b)
+    table = [int(v) for v in rng.integers(0, 256, 64)]
+    perm = [int(v) for v in rng.permutation(1024)]
+    fids, returns = {}, {}
+    t0 = time.time()
+    for name, args in alu_sequence(table, perm):
+        a, b = pair()
+        both("H", a)
+        both("CNOT", a, b)
+        out = both(name, *args)
+        if out[0] is not None:
+            returns[name] = out
+        both("NormalizeState")
+        f = fidelity(q.device_planes, host_planes(o.GetQuantumState(), dev))
+        check(f >= 1 - 1e-5, f"n={n} {name}: fidelity {f} against the oracle")
+        fids[name] = f
+    launches = dict(wk.LAUNCHES)
+    emit({"phase": "alu_vs_oracle", "card": card, "width": n,
+          "ops": len(fids), "min_fidelity": min(fids.values()),
+          "fidelity": fids, "indexed_returns_cuda_cpu": returns,
+          "seconds": time.time() - t0, "launches": launches})
+    del q, o
+    release()
+    return launches
+
+
+def alu_round_trips(card: str, dev) -> dict:
+    """Phase 9 (module docstring); returns the window kernel's launches."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    n = WIDTH
+    rng = np.random.default_rng(2030)
+    wk.reset_launches()
+    q = qt.create_quantum_interface("cuda", n, rng=QrackRandom(6),
+                                    rand_global_phase=False)
+    free = [b for b in range(n) if not 8 <= b < 16]  # MUL carry [8, 16)
+    for b in free:
+        q.H(b)
+    for _ in range(24):
+        a, b = (int(x) for x in rng.choice(free, 2, replace=False))
+        q.T(a)
+        q.CNOT(a, b)
+    hash_t = rng.permutation(1 << 12)
+    hash_inv = np.argsort(hash_t)
+    lda_t = [int(v) for v in rng.integers(0, 1 << 10, 256)]
+    add = 123457 % (1 << (n - 10))
+    trips = [
+        ("INC", ("INC", (add, 0, n - 10)), ("INC", (-add, 0, n - 10))),
+        ("ROL_ROR", ("ROL", (7, 2, n - 4)), ("ROR", (7, 2, n - 4))),
+        ("MUL_DIV", ("MUL", (13, 0, 8, 8)), ("DIV", (13, 0, 8, 8))),
+        ("CMUL_CDIV", ("CMUL", (11, 0, 8, 8, (n - 1,))),
+         ("CDIV", (11, 0, 8, 8, (n - 1,)))),
+        ("Hash", ("Hash", (n - 14, 12, [int(v) for v in hash_t])),
+         ("Hash", (n - 14, 12, [int(v) for v in hash_inv]))),
+        ("IndexedLDA", ("IndexedLDA", (0, 8, n - 10, 10, lda_t, False)),
+         ("IndexedLDA", (0, 8, n - 10, 10, lda_t, False))),
+    ]
+    before = q.device_planes.clone()
+    for label, first, second in trips:
+        ops = []
+        for m, args in (first, second):
+            torch.cuda.reset_peak_memory_stats()
+            ms = timed(lambda: (getattr(q, m)(*args), q.device_planes))
+            ops.append({"op": m, "ms": ms,
+                        "peak_allocated_bytes":
+                            torch.cuda.max_memory_allocated()})
+            if len(ops) == 1:
+                check(not torch.equal(q.device_planes, before),
+                      f"w{n} {label}: {m} left the planes as they were")
+        check(torch.equal(q.device_planes, before),
+              f"w{n} {label}: the round trip changed the planes")
+        emit({"phase": "alu_w30", "card": card, "width": n, "pair": label,
+              "bit_equal": True, "plane_bound_ms": PLANE_BOUND_MS,
+              "ops": ops})
+    launches = dict(wk.LAUNCHES)
+    emit({"phase": "alu_w30_launches", "card": card, "launches": launches})
+    del q, before
+    release()
+    return launches
+
+
+def shor_phase(card: str, dev, probe) -> dict:
+    """Phase 10 (module docstring); returns the window kernel's launches."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.models import algorithms as al
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    w, mod_n, base = SHOR_WIDTH, SHOR_MOD, SHOR_BASE
+    check(2 * w == WIDTH and pow(base, SHOR_ORDER, mod_n) == 1
+          and pow(base, SHOR_ORDER // 2, mod_n) != 1,
+          f"{base} does not have order {SHOR_ORDER} mod {mod_n}")
+    t0 = time.time()
+    host = al.order_finding_marginal(
+        lambda m: qt.create_quantum_interface("cpu", m,
+                                              rand_global_phase=False),
+        base, mod_n, w)
+    host_s = time.time() - t0
+
+    def prepare(q):
+        q.SetPermutation(0)
+        for i in range(w):
+            q.H(i)
+
+    wk.reset_launches()
+    q = qt.create_quantum_interface("cuda", WIDTH, rng=QrackRandom(12),
+                                    rand_global_phase=False)
+    prepare(q)
+    pow_ms = timed(lambda: (q.POWModNOut(base, mod_n, 0, w, w),
+                            q.device_planes))
+    before_iqft = dict(wk.LAUNCHES)
+    iqft_ms = timed(lambda: (q.IQFT(0, w), q.device_planes))
+    iqft_launches = {k: v - before_iqft[k] for k, v in wk.LAUNCHES.items()}
+    check(iqft_launches["in_tile"] > 0 and iqft_launches["pair"] > 0,
+          f"the IQFT skipped a kernel entry point: {iqft_launches}")
+    planes = q.device_planes
+    p = planes[0] ** 2 + planes[1] ** 2
+    marg = torch.sum(p.view(1 << w, 1 << w), dim=0,
+                     dtype=torch.float64).cpu().numpy()
+    del p, planes
+    err = float(np.abs(marg - host).max())
+    total = float(marg.sum())
+    check(err <= 1e-6, f"w{WIDTH} Shor marginal off the host's by {err}")
+    check(abs(total - 1.0) <= 1e-4, f"w{WIDTH} Shor marginal sums to {total}")
+    p_one = q.ProbReg(w, w, 1)
+    check(abs(p_one - 1.0 / SHOR_ORDER) <= 1e-6,
+          f"ProbReg(out = 1) = {p_one}, not 1/{SHOR_ORDER}")
+    sync()
+    t0 = time.time()
+    factor = al.shor_order_find(q, base, mod_n, w)
+    round_s = time.time() - t0
+    launches = dict(wk.LAUNCHES)
+
+    # every launch of the IQFT again, each beside its plain version
+    prepare(q)
+    q.POWModNOut(base, mod_n, 0, w, w)
+    q.Finish()
+    with probe:
+        probe.label = "shor_iqft"
+        q.IQFT(0, w)
+        q.Finish()
+    probed = {k: probe.stats.get(("shor_iqft", k), {"launches": 0})
+              ["launches"] for k in iqft_launches}
+    check(probed == iqft_launches,
+          f"probe saw {probed} IQFT launches, main path {iqft_launches}")
+    emit({"phase": "shor", "card": card, "width": WIDTH, "mod": mod_n,
+          "base": base, "order": SHOR_ORDER, "register": w,
+          "marginal_max_abs_err": err, "marginal_sum": total,
+          "marginal_head": [float(v) for v in marg[:4]],
+          "prob_out_1": p_one, "host_marginal_s": host_s,
+          "powmodnout_ms": pow_ms, "iqft_ms": iqft_ms,
+          "order_find_round_s": round_s, "order_find_factor": factor,
+          "launches_iqft": iqft_launches, "launches": launches,
+          "iqft_sweeps": {k: probe.stats[("shor_iqft", k)] for k in
+                          iqft_launches if iqft_launches[k]}})
+    del q
+    release()
+    return launches
+
+
+def hybrid_rcs(card: str, dev) -> dict:
+    """Phase 11 (module docstring); returns the window kernel's launches."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.engines.cpu import QEngineCPU
+    from qrack_tpu_torch.engines.cuda import QEngineCUDA
+    from qrack_tpu_torch.models import algorithms as al
+    from qrack_tpu_torch.models import rcs
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    a, b = HYBRID_START, HYBRID_START + HYBRID_GROW
+    wk.reset_launches()
+    h = qt.create_quantum_interface("hybrid", a, rng=QrackRandom(3),
+                                    rand_global_phase=False)
+    check(isinstance(h._engine, QEngineCPU), f"hybrid({a}) is not on the host")
+    al.ghz(h)
+    t0 = time.time()
+    h.Compose(qt.create_quantum_interface("hybrid", HYBRID_GROW,
+                                          rand_global_phase=False))
+    sync()
+    cross_s = time.time() - t0
+    eng = h._engine
+    check(isinstance(eng, QEngineCUDA) and eng.device == dev
+          and h.qubit_count == b,
+          f"hybrid at {b} qubits is a {type(eng).__name__}")
+    h.Compose(qt.create_quantum_interface("cuda", WIDTH - b,
+                                          rand_global_phase=False))
+    check(h.qubit_count == WIDTH and h._engine is eng,
+          f"Compose to w{WIDTH} left the CUDA engine")
+    p0, p1 = h.ProbReg(0, a, 0), h.ProbReg(0, a, (1 << a) - 1)
+    check(abs(p0 - 0.5) <= 1e-5 and abs(p1 - 0.5) <= 1e-5,
+          f"GHZ marginals after the crossing: {p0}, {p1}")
+    start = h.device_planes.clone()
+    rcs_ms = timed(lambda: (al.random_circuit_sampling(
+        h, RCS_DEPTH, QrackRandom(RCS_SEED)), h.device_planes))
+    launches = dict(wk.LAUNCHES)
+    check(launches["in_tile"] > 0 and launches["pair"] > 0,
+          f"the hybrid RCS skipped a kernel entry point: {launches}")
+    fn = rcs.make_rcs_fn(WIDTH, RCS_DEPTH, RCS_SEED)
+    out = []
+    fused_ms = timed(lambda: out.append(fn(start)))
+    f = fidelity(h.device_planes, out[0])
+    check(f >= 1 - 1e-5, f"w{WIDTH} hybrid RCS against make_rcs_fn: {f}")
+    emit({"phase": "hybrid_rcs", "card": card, "width": WIDTH,
+          "depth": RCS_DEPTH, "crossing_s": cross_s, "ghz_p0": p0,
+          "ghz_p_all_ones": p1, "engine_rcs_ms": rcs_ms,
+          "make_rcs_fn_ms": fused_ms, "fidelity": f, "launches": launches})
+    del h, eng, start, out
+    release()
+    return launches
+
+
+def grover_phase(card: str, dev) -> dict:
+    """Phase 12 (module docstring); returns the window kernel's launches."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.models import algorithms as al
+    from qrack_tpu_torch.models import grover
+    from qrack_tpu_torch.models.qft import basis_planes
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    n = GROVER_WIDTH
+    target = int(np.random.default_rng(n).integers(1, 1 << n))
+    fn, iters = grover.make_grover_fn(n, target)
+    out = []
+    fused_ms = timed(lambda: out.append(fn(basis_planes(n, 0, device=dev))))
+    p_fused = grover.success_probability(out[0], target)
+    check(p_fused >= 0.99, f"w{n} make_grover_fn success {p_fused}")
+    del out
+
+    # grover_search is grover_amplify, then MAll: one engine run reads
+    # the amplified ket between the two, then measures
+    wk.reset_launches()
+    q = qt.create_quantum_interface("cuda", n, rng=QrackRandom(8),
+                                    rand_global_phase=False)
+    t0 = time.time()
+    al.grover_amplify(q, target)
+    p_raw = q.ProbAll(target)
+    amplify_s = time.time() - t0
+    # every H's float32 1/sqrt(2) shrinks the norm by 3.4e-8: the ket's
+    # direction is compared, so renormalize first
+    q.UpdateRunningNorm()
+    norm = q.GetRunningNorm()
+    q.NormalizeState()
+    p_engine = q.ProbAll(target)
+    check(abs(p_engine - p_fused) <= 1e-4,
+          f"w{n} engine ProbAll {p_engine} against make_grover_fn {p_fused}")
+    got = q.MAll()
+    check(got == target, f"w{n} Grover search found {got}, not {target}")
+    launches = dict(wk.LAUNCHES)
+    check(launches["in_tile"] > 0 and launches["pair"] > 0,
+          f"the Grover path skipped a kernel entry point: {launches}")
+    h = np.float32(1.0 / np.sqrt(2.0))
+    n_h = n * (2 * iters + 1)
+    emit({"phase": "grover", "card": card, "width": n, "target": target,
+          "iterations": iters, "found": got, "grover_amplify_s": amplify_s,
+          "make_grover_fn_ms": fused_ms, "success_fused": p_fused,
+          "prob_target_raw": p_raw, "norm": norm,
+          "norm_float32_h_prediction": float(2.0 * float(h) ** 2) ** n_h,
+          "success_engine": p_engine, "launches": launches})
+    del q
+    release()
+    return launches
 
 
 def main() -> int:
@@ -963,6 +1358,7 @@ def main() -> int:
     from qrack_tpu_torch.ops import window_kernel as wk
 
     tq_only = "--tq-only" in sys.argv[1:]
+    algo_only = "--algo-only" in sys.argv[1:]
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -980,8 +1376,25 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "ptxas": ptxas})
 
-    kernels = [] if tq_only else dense_phases(card, dev)
-    kernels += tq_phases(card, dev)
+    probe = SweepProbe(wk)
+    paths = {}
+    if not (tq_only or algo_only):
+        paths["qft"] = dense_phases(card, dev, probe)
+    tq_kernels = [] if algo_only else tq_phases(card, dev)
+    if not tq_only:
+        paths["alu_vs_oracle"] = alu_vs_oracle(card, dev)
+        paths["alu_w30"] = alu_round_trips(card, dev)
+        paths["shor"] = shor_phase(card, dev, probe)
+        paths["hybrid_rcs"] = hybrid_rcs(card, dev)
+        paths["grover"] = grover_phase(card, dev)
+    kernels = []
+    if paths:
+        launches = {k: sum(p[k] for p in paths.values())
+                    for k in ("in_tile", "pair")}
+        emit({"phase": "dense_launches", "card": card, "paths": paths,
+              "total": launches})
+        kernels = window_entries(probe, launches)
+    kernels += tq_kernels
     emit({"phase": "done", "card": card, "seconds": time.time() - T_START})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

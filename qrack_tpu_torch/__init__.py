@@ -2,7 +2,9 @@
 
 The same universal gate-level QInterface API over a dense split-plane
 state vector that lives on an NVIDIA GPU (Hopper, sm_90a), with the
-fused gate window as a hand-written CUDA kernel (csrc/).  The JAX
+fused gate window as a hand-written CUDA kernel (csrc/); the numpy
+complex128 oracle (QEngineCPU) and QHybrid's width switch between the
+two; and the algorithm programs (models/).  The JAX
 package beside it is the reference the port is tested against; this
 package imports neither it nor JAX.
 """
@@ -16,10 +18,12 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 from .interface import QInterface  # noqa: E402,F401
-from .engines import (QEngine, QEngineCUDA,  # noqa: E402,F401
-                      QEngineCUDATurboQuant)
+from .engines import (QEngine, QEngineCPU, QEngineCUDA,  # noqa: E402,F401
+                      QEngineCUDATurboQuant, QHybrid)
 from .pauli import Pauli  # noqa: E402,F401
 from .config import get_config, set_config  # noqa: E402,F401
+from .hamiltonian import HamiltonianOp, uniform_hamiltonian_op  # noqa: E402,F401
 from .factory import create_quantum_interface  # noqa: E402,F401
+from .qneuron import QNeuron, ActivationFn  # noqa: E402,F401
 
 __version__ = "0.1.0"

@@ -181,6 +181,17 @@ class QEngineCUDA(QEngine):
         st = self._state
         self._state = gk.gather(st, src_fn(gk.iota_for(st)))
 
+    def _k_out_of_place(self, src_idx, dst_idx, passthrough_cmask) -> None:
+        # the index pairs come from the host: int32 on the planes' device
+        st = self._state
+        src = torch.as_tensor(src_idx).to(gk.IDX_DTYPE).to(st.device)
+        dst = torch.as_tensor(dst_idx).to(gk.IDX_DTYPE).to(st.device)
+        self._state = gk.out_of_place(st, src, dst, passthrough_cmask)
+
+    def _index_table(self, values):
+        return torch.as_tensor(np.asarray(values, dtype=np.int32)).to(
+            self._device)
+
     def _k_phase_fn(self, fn) -> None:
         st = self._state
         fre, fim = fn(torch, gk.iota_for(st))

@@ -4,19 +4,19 @@ Re-design of the reference's QEngine contract (reference:
 include/qengine.hpp:31-299 — Apply2x2/ApplyM/ProbReg/ProbMask/
 GetAmplitudePage/SetAmplitudePage/ShuffleBuffers/CloneEmpty/queued-norm;
 common measurement logic src/qengine/qengine.cpp). A concrete engine
-(engines/cuda.py) implements the `_k_*` kernel contract below;
-everything else — the whole QInterface surface, parity, sampling — is
-provided here once, shared by all dense backends.  The ALU runs through
-the gate-level syntheses of interface/alu.py until its index kernels
-are ported (MUL/DIV/*ModNOut/Indexed*/Hash raise NotImplementedError
-there).
+(engines/cpu.py, engines/cuda.py) implements the `_k_*` kernel
+contract below; everything else — the whole QInterface surface, the
+ALU, parity, sampling — is provided here once, shared by all dense
+backends.  The ALU overrides run each op as one index gather, one
+out-of-place scatter or one phase pass (ops/alu_kernels.py).
 
 Kernel contract (the analogue of the reference's OCLAPI enum,
 include/common/oclapi.hpp:19-99):
 
   _k_apply_2x2(m2, target, controls, perm)     generic 2x2 (apply2x2*)
   _k_apply_diag(d0, d1, target, controls, perm) phase fast path (phase/z)
-  _k_gather(src_fn)                             basis permutation (xmask)
+  _k_gather(src_fn)                             basis permutation (ALU, xmask, rol)
+  _k_out_of_place(src, dst, passthrough)        mul/div/*modnout scatter
   _k_phase_fn(fn)                               diagonal complex factor:
                                                 fn(xp, idx) -> (re, im)
   _k_probs()                                    |amp|^2 vector (host numpy)
@@ -40,8 +40,9 @@ import numpy as np
 
 from ..config import FP_NORM_EPSILON
 from ..interface import QInterface
+from ..ops import alu_kernels as alu
 from .. import matrices as mat
-from ..utils.bits import bit_reg_mask, log2
+from ..utils.bits import bit_reg_mask, is_pow2, log2
 
 
 class QEngine(QInterface):
@@ -216,6 +217,244 @@ class QEngine(QInterface):
     def GetProbs(self) -> np.ndarray:
         return self._k_probs()
 
+    # ------------------------------------------------------------------
+    # ALU overrides: vectorized index-map kernels
+    # (reference: qheader_alu.cl via src/qengine/arithmetic.cpp)
+    # ------------------------------------------------------------------
+
+    def INC(self, to_add: int, start: int, length: int) -> None:
+        if not length:
+            return
+        self._check_range(start, length)
+        to_add &= (1 << length) - 1
+        if not to_add:
+            return
+        self._k_gather(
+            lambda idx: alu.inc_src(self._xp, idx, to_add, start, length))
+
+    def CINC(self, to_add: int, start: int, length: int, controls) -> None:
+        controls = tuple(controls)
+        if not controls:
+            return self.INC(to_add, start, length)
+        if not length:
+            return
+        to_add &= (1 << length) - 1
+        if not to_add:
+            return
+        perm = (1 << len(controls)) - 1
+        self._k_gather(
+            lambda idx: alu.inc_src(self._xp, idx, to_add, start, length,
+                                    controls, perm))
+
+    def INCDECC(self, to_add: int, start: int, length: int, carry_index: int) -> None:
+        if not length:
+            return
+        to_add &= (1 << (length + 1)) - 1
+        if not to_add:
+            return
+        self._k_gather(
+            lambda idx: alu.incdecc_src(self._xp, idx, to_add, start, length,
+                                        carry_index))
+
+    def INCBCD(self, to_add: int, start: int, length: int) -> None:
+        """Packed-BCD add of decimal `to_add` (reference kernel incbcd,
+        src/common/qheader_bcd.cl:1-67; QEngineCPU::INCBCD,
+        src/qengine/arithmetic.cpp:777). Register length must be a
+        multiple of 4; non-BCD basis states pass through."""
+        if not length:
+            return
+        if length % 4:
+            raise ValueError("BCD register length must be a multiple of 4")
+        self._check_range(start, length)
+        to_add %= 10 ** (length // 4)
+        if not to_add:
+            return
+        self._k_gather(
+            lambda idx: alu.incbcd_src(self._xp, idx, to_add, start, length))
+
+    def INCDECBCDC(self, to_add: int, start: int, length: int, carry_index: int) -> None:
+        """Packed-BCD add with carry-out XOR (reference kernel
+        incdecbcdc, src/common/qheader_bcd.cl:67-143)."""
+        if not length:
+            return
+        if length % 4:
+            raise ValueError("BCD register length must be a multiple of 4")
+        self._check_range(start, length)
+        to_add %= 10 ** (length // 4)
+        self._k_gather(
+            lambda idx: alu.incdecbcdc_src(self._xp, idx, to_add, start,
+                                           length, carry_index))
+
+    def INCS(self, to_add: int, start: int, length: int, overflow_index: int) -> None:
+        if not length:
+            return
+        self._k_gather(
+            lambda idx: alu.incs_src(self._xp, idx, to_add, start, length,
+                                     overflow_index))
+
+    def INCDECSC(self, to_add: int, start: int, length: int, *flags) -> None:
+        if not length:
+            return
+        if len(flags) == 2:
+            overflow_index, carry_index = flags
+        else:
+            overflow_index, carry_index = None, flags[0]
+        self._k_gather(
+            lambda idx: alu.incdecsc_src(self._xp, idx, to_add, start, length,
+                                         carry_index, overflow_index))
+
+    def ROL(self, shift: int, start: int, length: int) -> None:
+        if length < 2 or not (shift % length):
+            return
+        sh = shift % length
+        self._k_gather(lambda idx: alu.rol_src(self._xp, idx, sh, start, length))
+
+    def ROR(self, shift: int, start: int, length: int) -> None:
+        self.ROL(length - (shift % length) if length else 0, start, length)
+
+    def MUL(self, to_mul: int, in_out_start: int, carry_start: int, length: int) -> None:
+        if to_mul == 1 or not length:
+            return
+        src, dst = alu.mul_pair(self._xp, self.qubit_count, to_mul, in_out_start, carry_start, length)
+        self._k_out_of_place(src, dst, None)
+
+    def DIV(self, to_div: int, in_out_start: int, carry_start: int, length: int) -> None:
+        if to_div == 1 or not length:
+            return
+        src, dst = alu.mul_pair(self._xp, self.qubit_count, to_div, in_out_start, carry_start, length)
+        self._k_out_of_place(dst, src, None)
+
+    def CMUL(self, to_mul, in_out_start, carry_start, length, controls) -> None:
+        controls = tuple(controls)
+        if not controls:
+            return self.MUL(to_mul, in_out_start, carry_start, length)
+        if to_mul == 1 or not length:
+            return
+        src, dst = alu.mul_pair(self._xp, self.qubit_count, to_mul, in_out_start, carry_start, length)
+        self._ctrl_out_of_place(src, dst, controls)
+
+    def CDIV(self, to_div, in_out_start, carry_start, length, controls) -> None:
+        controls = tuple(controls)
+        if not controls:
+            return self.DIV(to_div, in_out_start, carry_start, length)
+        if to_div == 1 or not length:
+            return
+        src, dst = alu.mul_pair(self._xp, self.qubit_count, to_div, in_out_start, carry_start, length)
+        self._ctrl_out_of_place(dst, src, controls)
+
+    def _ctrl_out_of_place(self, src, dst, controls) -> None:
+        """Restrict an out-of-place map to the control-matching subspace;
+        everything else passes through (reference kernels cmul/cdiv)."""
+        cmask = 0
+        for c in controls:
+            cmask |= 1 << c
+        sel = (src & cmask) == cmask
+        self._k_out_of_place(src[sel], dst[sel] | cmask, cmask)
+
+    def _mod_out_len(self, mod_n: int) -> int:
+        return log2(mod_n) if is_pow2(mod_n) else (log2(mod_n) + 1)
+
+    def MULModNOut(self, to_mul, mod_n, in_start, out_start, length) -> None:
+        ol = self._mod_out_len(mod_n)
+        src, dst = alu.mulmodnout_pair(
+            self._xp, self.qubit_count, to_mul, mod_n, in_start, out_start, length, ol
+        )
+        self._k_out_of_place(src, dst, None)
+
+    def IMULModNOut(self, to_mul, mod_n, in_start, out_start, length) -> None:
+        ol = self._mod_out_len(mod_n)
+        src, dst = alu.mulmodnout_pair(
+            self._xp, self.qubit_count, to_mul, mod_n, in_start, out_start, length, ol
+        )
+        self._k_out_of_place(dst, src, None)
+
+    def CMULModNOut(self, to_mul, mod_n, in_start, out_start, length, controls) -> None:
+        controls = tuple(controls)
+        if not controls:
+            return self.MULModNOut(to_mul, mod_n, in_start, out_start, length)
+        ol = self._mod_out_len(mod_n)
+        src, dst = alu.mulmodnout_pair(
+            self._xp, self.qubit_count, to_mul, mod_n, in_start, out_start, length, ol
+        )
+        self._ctrl_out_of_place(src, dst, controls)
+
+    def CIMULModNOut(self, to_mul, mod_n, in_start, out_start, length, controls) -> None:
+        controls = tuple(controls)
+        if not controls:
+            return self.IMULModNOut(to_mul, mod_n, in_start, out_start, length)
+        ol = self._mod_out_len(mod_n)
+        src, dst = alu.mulmodnout_pair(
+            self._xp, self.qubit_count, to_mul, mod_n, in_start, out_start, length, ol
+        )
+        self._ctrl_out_of_place(dst, src, controls)
+
+    def POWModNOut(self, base: int, mod_n: int, in_start, out_start, length) -> None:
+        ol = self._mod_out_len(mod_n)
+        src, dst = alu.powmodnout_pair(
+            self._xp, self.qubit_count, base, mod_n, in_start, out_start, length, ol
+        )
+        self._k_out_of_place(src, dst, None)
+
+    def CPOWModNOut(self, base, mod_n, in_start, out_start, length, controls) -> None:
+        controls = tuple(controls)
+        if not controls:
+            return self.POWModNOut(base, mod_n, in_start, out_start, length)
+        ol = self._mod_out_len(mod_n)
+        src, dst = alu.powmodnout_pair(
+            self._xp, self.qubit_count, base, mod_n, in_start, out_start, length, ol
+        )
+        self._ctrl_out_of_place(src, dst, controls)
+
+    def IndexedLDA(self, index_start, index_length, value_start, value_length, values,
+                   reset_value: bool = True) -> int:
+        if reset_value:
+            # reference zeroes the value register before loading
+            # (src/qengine/arithmetic.cpp IndexedLDA: SetReg(..., 0))
+            self.SetReg(value_start, value_length, 0)
+        tbl = self._index_table(values)
+        self._k_gather(
+            lambda idx: alu.indexed_lda_src(
+                self._xp, idx, index_start, index_length, value_start,
+                value_length, tbl))
+        return int(round(self.ExpectationBitsAll(
+            list(range(value_start, value_start + value_length)))))
+
+    def IndexedADC(self, index_start, index_length, value_start, value_length, carry_index, values) -> int:
+        tbl = self._index_table(values)
+        self._k_gather(
+            lambda idx: alu.indexed_adc_src(
+                self._xp, idx, index_start, index_length, value_start,
+                value_length, carry_index, tbl, sign=1))
+        return int(round(self.ExpectationBitsAll(
+            list(range(value_start, value_start + value_length)))))
+
+    def IndexedSBC(self, index_start, index_length, value_start, value_length, carry_index, values) -> int:
+        tbl = self._index_table(values)
+        self._k_gather(
+            lambda idx: alu.indexed_adc_src(
+                self._xp, idx, index_start, index_length, value_start,
+                value_length, carry_index, tbl, sign=-1))
+        return int(round(self.ExpectationBitsAll(
+            list(range(value_start, value_start + value_length)))))
+
+    def Hash(self, start: int, length: int, values) -> None:
+        tbl = np.asarray(values, dtype=np.int64)
+        inv = np.empty_like(tbl)
+        inv[tbl] = np.arange(tbl.shape[0], dtype=np.int64)
+        inv_dev = self._index_table(inv)
+        self._k_gather(
+            lambda idx: alu.hash_src(self._xp, idx, start, length, inv_dev))
+
+    def PhaseFlipIfLess(self, greater_perm: int, start: int, length: int) -> None:
+        self._k_phase_fn(
+            lambda xp, idx: (alu.phase_flip_less_factor(
+                xp, idx, greater_perm, start, length), 0.0))
+
+    def CPhaseFlipIfLess(self, greater_perm: int, start: int, length: int, flag_index: int) -> None:
+        self._k_phase_fn(
+            lambda xp, idx: (alu.phase_flip_less_factor(
+                xp, idx, greater_perm, start, length, flag_index), 0.0))
+
     def PhaseFlip(self) -> None:
         self._k_phase_fn(lambda xp, idx: (-1.0, 0.0))
 
@@ -315,6 +554,16 @@ class QEngine(QInterface):
 
     def _k_gather(self, src_fn) -> None:
         raise NotImplementedError
+
+    def _k_out_of_place(self, src_idx, dst_idx, passthrough_cmask) -> None:
+        """new[dst] = old[src] over zeros; with a control mask, indices
+        outside the control subspace keep their amplitudes."""
+        raise NotImplementedError
+
+    def _index_table(self, values):
+        """An ALU lookup table as an index array of `_xp` beside the
+        engine's index vector."""
+        return np.asarray(values, dtype=np.int64)
 
     def _k_phase_fn(self, fn) -> None:
         """Apply a per-index complex factor: fn(xp, idx) -> (re, im)."""

@@ -3,19 +3,24 @@ CreateQuantumInterface).  The ported terminals:
 
   "cuda"        QEngineCUDA single-device dense engine (the JAX package's
                 "tpu" terminal)
+  "cpu"         QEngineCPU host oracle (numpy, complex128 by default;
+                takes no device)
+  "hybrid"      QHybrid: QEngineCPU below hybrid_tpu_threshold_qubits
+                (QRACK_TPU_THRESHOLD_QB, 13), QEngineCUDA from there to
+                max_page_qubits; ``device``/``dtype`` reach the CUDA half
   "turboquant"  QEngineCUDATurboQuant block-compressed resident ket
                 (options bits, block_pow, chunk_qb, seed_rot; env
                 QRACK_TURBO_BITS, QRACK_TURBO_BLOCK_POW,
                 QRACK_TURBOQUANT_CHUNK_QB, QRACK_PALLAS_TQ_TILE_QB)
 
-Both run on ``cuda`` unless ``device="cpu"``.  The other layers of the
-JAX package's factory are not ported yet (ROADMAP.md)."""
+The CUDA engines run on ``cuda`` unless ``device="cpu"``.  The other
+layers of the JAX package's factory are not ported yet (ROADMAP.md)."""
 
 from __future__ import annotations
 
 from typing import Callable, Sequence, Union
 
-_TERMINAL = {"cuda", "turboquant"}
+_TERMINAL = {"cuda", "cpu", "hybrid", "turboquant"}
 
 
 def _terminal_factory(name: str, **opts) -> Callable:
@@ -23,6 +28,14 @@ def _terminal_factory(name: str, **opts) -> Callable:
         from .engines.cuda import QEngineCUDA
 
         return lambda n, **kw: QEngineCUDA(n, **{**opts, **kw})
+    if name == "cpu":
+        from .engines.cpu import QEngineCPU
+
+        return lambda n, **kw: QEngineCPU(n, **{**opts, **kw})
+    if name == "hybrid":
+        from .engines.hybrid import QHybrid
+
+        return lambda n, **kw: QHybrid(n, **{**opts, **kw})
     if name == "turboquant":
         from .engines.turboquant import QEngineCUDATurboQuant
 
@@ -45,7 +58,8 @@ def build_factory(layers: Sequence[str], **opts) -> Callable:
 def create_quantum_interface(layers: Union[str, Sequence[str]], qubit_count: int,
                              init_state: int = 0, **kwargs):
     """Build a simulator stack, e.g. ``create_quantum_interface("cuda", 30)``,
-    ``create_quantum_interface("turboquant", 32)`` or, on the CPU,
+    ``create_quantum_interface("turboquant", 32)``,
+    ``create_quantum_interface("hybrid", 10)`` or, on the CPU,
     ``create_quantum_interface("cuda", 10, device="cpu")``."""
     if isinstance(layers, str):
         layers = (layers,)

@@ -4,9 +4,9 @@ Mirrors the reference's ALU API and fallback constructions (reference:
 include/qalu.hpp:22-249; src/qalu.cpp — carry/borrow wrappers;
 src/qinterface/arithmetic.cpp:20-420 — CNOT/CCNOT-ladder INC/CINC,
 shift-add MULModNOut, full-adder chains). Dense engines override the
-hot ops with vectorized index-permutation kernels (the analogue of
-the reference's qheader_alu.cl kernel set; in this package they are
-not ported yet, so the syntheses below serve every engine).
+hot ops with vectorized index-permutation kernels
+(ops/alu_kernels.py through engines/qengine.py — the analogue of the
+reference's qheader_alu.cl kernel set).
 
 Register convention matches the reference: `start` is the LSB of a
 `length`-bit little-endian register; signed ops use two's complement

@@ -1,0 +1,146 @@
+"""Fused random-circuit-sampling programs — the RCS headline benchmark.
+
+The reference's RCS benchmarks dispatch one kernel per gate (reference:
+test/benchmarks.cpp:4141 test_random_circuit_sampling_nn — random
+sqrt-root layers + brick-wall ISwap couplers).  Here a whole depth-d
+circuit is one plain torch program over (2, 2^n) planes, as it was one
+XLA program in the JAX package: the single-qubit roots of a layer fuse
+into 2^k-wide cluster contractions (gatekernels.apply_kxk) and each
+coupler layer is one gather plus one phase pass.  No hand-written
+kernel: the engine path of the same circuit
+(algorithms.random_circuit_sampling) is the one that runs the window
+kernel.
+
+The sharded program of the JAX package (make_sharded_rcs_fn) waits for
+the pager (ROADMAP item 13).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from .. import matrices as mat
+from ..ops import gatekernels as gk
+from ..utils.rng import QrackRandom
+
+_ISWAP4 = np.array(
+    [[1, 0, 0, 0], [0, 0, 1j, 0], [0, 1j, 0, 0], [0, 0, 0, 1]],
+    dtype=np.complex128,
+)
+_ROOTS = (mat.SQRTX2, mat.SQRTY2, mat.SQRTW2)
+# i^k for k = 0..3, split into real and imaginary parts
+_IPOW_RE = (1.0, 0.0, -1.0, 0.0)
+_IPOW_IM = (0.0, 1.0, 0.0, -1.0)
+
+
+def rcs_layers(n: int, depth: int, seed: int):
+    """Deterministic gate plan: per layer, a random root per qubit and the
+    brick-wall ISwap pairing, drawn in the order of
+    models.algorithms.random_circuit_sampling with QrackRandom(seed)."""
+    rng = QrackRandom(seed)
+    plan = []
+    for d in range(depth):
+        roots = [rng.randint(0, 3) for _ in range(n)]
+        off = d & 1
+        pairs = [(q, q + 1) for q in range(off, n - 1, 2)]
+        plan.append((roots, pairs))
+    return plan
+
+
+def rcs_qcircuit(n: int, depth: int, seed: int):
+    """The RCS gate plan as a ``QCircuit`` gate list.  ``QCircuitGate``
+    is a controlled-1q payload model, so the brick-wall couplers are CZ
+    instead of ISwap: same entangling topology, payload-representable."""
+    from ..layers.qcircuit import QCircuit
+
+    cz = mat.phase_mtrx(1.0, -1.0)
+    c = QCircuit(n)
+    for roots, pairs in rcs_layers(n, depth, seed):
+        for q, g in enumerate(roots):
+            c.append_1q(q, _ROOTS[g])
+        for a, b in pairs:
+            c.append_ctrl((a,), b, cz, 1)
+    return c
+
+
+def _iswap_layer(planes, pairs):
+    """A whole brick-wall ISwap layer as ONE gather + ONE phase pass.
+
+    ISwap = SWAP . diag(1, i, i, 1): disjoint pairs make the layer's
+    permutation part one index map (each pair's two bits exchanged, which
+    changes an index only where they differ) and its phase part i^(number
+    of pairs whose bits differ) — one elementwise complex multiply.  The
+    JAX package transposes one axis per qubit instead; torch caps a
+    tensor at 25 dimensions, which a w30 ket's 31 axes would pass."""
+    idx = gk.iota_for(planes)
+    src, k = idx, None
+    for (a, b) in pairs:
+        t = ((idx >> a) ^ (idx >> b)) & 1
+        src = src ^ ((t << a) | (t << b))
+        k = t if k is None else k + t
+    out = gk.gather(planes, src)
+    k = k & 3
+    re = torch.tensor(_IPOW_RE, dtype=planes.dtype).to(planes.device)[k]
+    im = torch.tensor(_IPOW_IM, dtype=planes.dtype).to(planes.device)[k]
+    return gk.cmul(re, im, out)
+
+
+def _cluster_mats(roots, k: int):
+    """Kron the layer's single-qubit roots into per-cluster 2^k x 2^k
+    matrices over CONTIGUOUS qubit spans (all roots in a layer act on
+    disjoint qubits, so grouping is exact).  np.kron(next, acc) keeps
+    the earlier qubit least significant, matching the index convention."""
+    out = []
+    for c0 in range(0, len(roots), k):
+        ms = [_ROOTS[g] for g in roots[c0:c0 + k]]
+        acc = ms[0]
+        for m in ms[1:]:
+            acc = np.kron(m, acc)
+        out.append((c0, len(ms), acc))
+    return out
+
+
+def resolve_fuse_qb(n: int, fuse_qb: int | None = None) -> int:
+    """Single source of truth for the root-cluster width
+    (QRACK_RCS_FUSE_QB, default 6)."""
+    if fuse_qb is None:
+        fuse_qb = int(os.environ.get("QRACK_RCS_FUSE_QB", "6"))
+    return max(1, min(fuse_qb, n))
+
+
+def make_rcs_fn(n: int, depth: int, seed: int, fuse_qb: int | None = None):
+    """Whole-RCS program over (2, 2^n) planes, fn(planes) -> planes.
+
+    Root layers fuse into 2^k-wide cluster contractions (one pass over
+    the ket per cluster instead of per qubit); k defaults to
+    QRACK_RCS_FUSE_QB (6); k=1 recovers the per-gate program.  The
+    cluster matrices go to the planes' device once per call."""
+    fuse_qb = resolve_fuse_qb(n, fuse_qb)
+    plan = rcs_layers(n, depth, seed)
+    baked = [(_cluster_mats(roots, fuse_qb), pairs)
+             for (roots, pairs) in plan]
+
+    def fn(planes):
+        for (clusters, pairs) in baked:
+            for (c0, w, m) in clusters:
+                mp = gk.mtrx_planes(m, planes.dtype, device=planes.device)
+                planes = gk.apply_kxk(planes, mp, n, c0, w)
+            if pairs:
+                planes = _iswap_layer(planes, pairs)
+        return planes
+
+    return fn
+
+
+def reference_rcs_state(n: int, depth: int, seed: int, engine) -> np.ndarray:
+    """Same plan through a gate-at-a-time engine (parity checking)."""
+    plan = rcs_layers(n, depth, seed)
+    for (roots, pairs) in plan:
+        for q, g in enumerate(roots):
+            engine.Mtrx(_ROOTS[g], q)
+        for (a, b) in pairs:
+            engine.Apply4x4(_ISWAP4, a, b)
+    return np.asarray(engine.GetQuantumState())

@@ -28,7 +28,6 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from ..utils.states import insertion_axes
 
 # Flat indices are int32: a single dense shard holds at most 2^30
 # amplitudes (engines/cuda.py MAX_DENSE_QB), so every mask fits.
@@ -68,6 +67,15 @@ def _host_planes(mp) -> np.ndarray:
     if isinstance(mp, torch.Tensor):
         return mp.detach().to("cpu", torch.float64).numpy()
     return np.asarray(mp, dtype=np.float64)
+
+
+def _dev_planes(mp, like):
+    """Matrix planes in `like`'s dtype on its device; a tensor already
+    there is used as it is (no host round trip, no wait on the device)."""
+    if isinstance(mp, torch.Tensor):
+        return mp.to(like.device, like.dtype)
+    return torch.as_tensor(np.asarray(mp, dtype=np.float64),
+                           dtype=like.dtype).to(like.device)
 
 
 def _mix(mp):
@@ -171,7 +179,7 @@ def apply_invert(planes, tr_re, tr_im, bl_re, bl_im, n: int, target: int, cmask=
 def apply_kxk(planes, mp, n: int, start: int, k: int):
     """Arbitrary gate on k CONTIGUOUS qubits [start, start+k) as one
     plane-mixing contraction; `mp` is (2, 2^k, 2^k) matrix planes."""
-    mp = torch.as_tensor(_host_planes(mp), dtype=planes.dtype).to(planes.device)
+    mp = _dev_planes(mp, planes)
     high = 1 << (n - start - k)
     low = 1 << start
     v = planes.reshape(2, high, 1 << k, low)
@@ -195,6 +203,27 @@ def apply_4x4(planes, mp4, n: int, q1: int, q2: int):
     return out.reshape(2, -1)
 
 
+def _bit_view(n: int, bits):
+    """(shape, axis_of, rest): a view of (2, 2^n) planes with one axis of
+    size 2 for each bit of `bits` and one axis for each run of the other
+    bits, high bits first (`rest` lists those axes in order).  It has at
+    most 2 len(bits) + 2 axes, so a w30 ket stays under torch's limit of
+    25 dimensions, which one axis per qubit would pass."""
+    shape, axis_of, rest = [2], {}, []
+    hi = n
+    for b in sorted(bits, reverse=True):
+        if hi - b - 1:
+            rest.append(len(shape))
+            shape.append(1 << (hi - b - 1))
+        axis_of[b] = len(shape)
+        shape.append(2)
+        hi = b
+    if hi:
+        rest.append(len(shape))
+        shape.append(1 << hi)
+    return shape, axis_of, rest
+
+
 def uc_2x2(planes, mps, n: int, target: int, controls):
     """Uniformly-controlled gate: per-control-permutation payloads
     (reference kernel uniformlycontrolled, qengine.cl:409).
@@ -202,18 +231,16 @@ def uc_2x2(planes, mps, n: int, target: int, controls):
     control-key axis."""
     mps = torch.as_tensor(_host_planes(mps), dtype=planes.dtype).to(planes.device)
     k = len(controls)
-    t = planes.reshape((2,) + (2,) * n)
-    # qubit q lives on tensor axis 1 + (n - 1 - q)
-    caxes = [1 + n - 1 - c for c in list(controls)[::-1]]
-    tax = 1 + n - 1 - target
-    rest = [a for a in range(1, n + 1) if a not in caxes and a != tax]
-    perm = [0] + caxes + [tax] + rest
-    v = t.permute(perm).reshape(2, 1 << k, 2, -1)
+    shape, axis_of, rest = _bit_view(n, list(controls) + [target])
+    # the key's bit j is controls[j]: the last control is its top bit
+    perm = ([0] + [axis_of[c] for c in list(controls)[::-1]]
+            + [axis_of[target]] + rest)
+    v = planes.reshape(shape).permute(perm).reshape(2, 1 << k, 2, -1)
     re, im = mps[0], mps[1]  # [2^k, 2, 2]
     vr, vi = v[0], v[1]
     outr = torch.bmm(re, vr) - torch.bmm(im, vi)
     outi = torch.bmm(re, vi) + torch.bmm(im, vr)
-    out = torch.stack([outr, outi]).reshape((2,) + (2,) * n)
+    out = torch.stack([outr, outi]).reshape([shape[a] for a in perm])
     inv = np.argsort(np.asarray(perm))
     return out.permute(list(inv)).reshape(2, -1)
 
@@ -237,6 +264,20 @@ def swap_bits(planes, n: int, q1: int, q2: int):
 def gather(planes, src_idx):
     """Basis permutation (ALU family, reference qheader_alu.cl)."""
     return torch.index_select(planes, 1, src_idx)
+
+
+def out_of_place(planes, src_idx, dst_idx, passthrough_cmask=None):
+    """new[:, dst] = planes[:, src] over zeros (the MUL/DIV/*ModNOut
+    scatter, reference qheader_alu.cl); with a control mask, indices
+    outside the control subspace keep their amplitudes."""
+    if passthrough_cmask is None:
+        new = torch.zeros_like(planes)
+    else:
+        idx = iota_for(planes)
+        keep = (idx & passthrough_cmask) != passthrough_cmask
+        new = torch.where(keep, planes, 0.0)
+    new[:, dst_idx] = torch.index_select(planes, 1, src_idx)
+    return new
 
 
 def prob_mask_sum(planes, mask, val):
@@ -324,21 +365,20 @@ def allocate(planes, n: int, start: int, length: int):
 
 def compose(planes_self, planes_other, n: int, m: int, start: int):
     """Tensor product with other's qubits inserted at `start`
-    (reference kernel compose, qengine.cl:521)."""
+    (reference kernel compose, qengine.cl:521): the result's bits are
+    self's high bits, then other's, then self's low `start` bits."""
     re = (torch.outer(planes_other[0], planes_self[0])
           - torch.outer(planes_other[1], planes_self[1]))
     im = (torch.outer(planes_other[0], planes_self[1])
           + torch.outer(planes_other[1], planes_self[0]))
-    t = torch.stack([re, im]).reshape((2,) + (2,) * (m + n))
-    return t.permute(insertion_axes(n, m, start, lead=1)).reshape(2, -1)
+    t = torch.stack([re, im]).reshape(2, 1 << m, 1 << (n - start), 1 << start)
+    return t.permute(0, 2, 1, 3).reshape(2, -1)
 
 
 def split_matrix(planes, n: int, start: int, length: int):
     """Reshape ket planes to (2, remainder, dest) for dest = [start,
     start+length) (reference kernels decomposeprob/decomposeamp,
-    qengine.cl:569-702)."""
-    t = planes.reshape((2,) + (2,) * n)
-    dest_axes = [1 + n - 1 - q for q in range(start + length - 1, start - 1, -1)]
-    rem_axes = [a for a in range(1, n + 1) if a not in dest_axes]
-    tt = t.permute([0] + rem_axes + dest_axes)
-    return tt.reshape(2, 1 << (n - length), 1 << length)
+    qengine.cl:569-702); the remainder index is the other bits in
+    order."""
+    t = planes.reshape(2, 1 << (n - start - length), 1 << length, 1 << start)
+    return t.permute(0, 1, 3, 2).reshape(2, 1 << (n - length), 1 << length)

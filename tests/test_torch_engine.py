@@ -187,13 +187,17 @@ def test_non_f32_planes_are_refused():
 
 
 def test_alu_without_index_kernels():
-    """INC runs through interface/alu.py's gate-level synthesis; the ALU
-    ops that need index kernels raise until they are ported."""
+    """The ALU ops that once raised here for want of index kernels (MUL)
+    now run, as INC does, through the engine's index kernels
+    (ops/alu_kernels.py; tests/test_torch_alu.py holds every op)."""
     port, ref = _pair(N, 7)
     for e in (port, ref):
         e.SetPermutation(3)
         e.INC(5, 0, 4)
     assert port.ProbAll(8) == pytest.approx(1.0, abs=1e-6)
     assert _fidelity(port.GetQuantumState(), ref.GetQuantumState()) >= 1 - 1e-6
-    with pytest.raises(NotImplementedError):
-        port.MUL(3, 0, 3, 3)
+    for e in (port, ref):
+        e.SetPermutation(3)
+        e.MUL(3, 0, 3, 3)
+    assert port.ProbAll(9) == pytest.approx(1.0, abs=1e-6)
+    assert _fidelity(port.GetQuantumState(), ref.GetQuantumState()) >= 1 - 1e-6
