@@ -66,8 +66,10 @@ csrc/turboquant_kernel.cu):
 7. times: the w32 QFT and IQFT end to end by CUDA events, the two
    float32 products of one sweep through torch.matmul (context only,
    beside the mean time of K3's fully dirty sweep), and every launch of
-   the main path again with the kernel and its plain version timed and
-   compared on the same input, beside the bound: the bytes of the tiles
+   the main path again, timed, beside the bound; K3's and K4's launches
+   and K5's first launch and a seeded sixth of the rest (TQ_WINDOW_HELD:
+   replaying all 79 took 179 s) also run as the plain version on the
+   same input, timed and compared.  The bound: the bytes of the tiles
    it requantizes, or their products as the TF32 tensor-core passes the
    kernel runs (2 + 3 at int8, 40 * D flops per amplitude; 3 + 3 at
    int16, 48 * D) plus the gates' flops on the CUDA cores, whichever
@@ -115,12 +117,49 @@ scatters, the RCS ISwap layer and the Grover passes are plain torch):
     shrinks the norm by 3.4e-8, 0.5% over the run), and the search's
     MAll then returns the seeded target.
 
-The kernels line counts K1/K2 launches over every dense path (phases 3,
-8-12); their times and errors are those of the launches held to plain
-(phase 4 and the Shor IQFT of phase 10).
+Then the FPPOW slice: K1 and K2 in float64, bfloat16 and float16 planes,
+the float32 -> float64 drift escalation, the whole-circuit programs and
+the uniformly controlled gate past 10 controls:
+
+13. fppow kernel against plain, n = 24, for each of float64, bfloat16
+    and float16: the four random windows and the three pair-led cases of
+    phase 2 (the pair layout of the dtype, every route reached), kernel
+    against its plain version.  Bars, here and on every probed launch of
+    phase 14: max abs diff <= 1e-13 of the largest |amp| at float64; at
+    16 bits <= 4 ulps of the dtype at the largest |amp| (both compute in
+    float32 and round once a sweep; FMA contraction moves a value across
+    a rounding boundary now and then);
+14. fppow at w30: create_quantum_interface("cuda", 30, dtype=float64),
+    QFT (every |amp|^2 2^-30 to 1e-9 relative), IQFT (ProbAll back >=
+    1 - 1e-9), and RunFused of qft_qcircuit(30) on float64 planes (the
+    same |amp|^2 bar, fidelity to the engine's ket >= 1 - 1e-9); then the
+    bfloat16 and float16 engine QFTs, their fidelity to the float64 ket
+    held to HALF_QFT_BAR (predicted in PERF.md before the first run);
+    each dtype's K1/K2 launches counted.  Then every launch of each
+    dtype's engine QFT again beside its plain version;
+15. drift, w24: Grover (grover_amplify, 3216 iterations) on float32
+    planes with QRACK_TPU_AUTO_F64_DRIFT = 1e-5 checked every 64 gates.
+    The engine must escalate (float64 planes afterwards, one warning),
+    and its raw ProbAll(target), without NormalizeState, must be within
+    1e-4 of make_grover_fn's;
+16. circuit_forms: QCircuit.compile_fn_pallas of qft_qcircuit(30)
+    against RunFused (fidelity >= 1 - 1e-5), its K1/K2 launches counted;
+    make_qft_fn(30) in the unrolled and the carried-fraction form against
+    the engine's QFT (>= 1 - 1e-5); compile_batched_fn of a seeded
+    48-gate circuit on 4 kets of 28 qubits against compile_fn on each
+    ket alone (fidelity >= 1 - 1e-6, max abs diff <= 1e-6);
+17. uc_wide, n = 27: UniformlyControlledRY with 12 scattered controls
+    (a single permuted view would need 28 dimensions; uc_2x2 gathers)
+    against the same 4096 payloads as single controlled gates through
+    the window kernel (a pair sweep each), fidelity >= 1 - 1e-5.
+
+The kernels line counts K1/K2 launches by dtype form over every dense
+path (phases 3, 8-12 and 14-17); their times and errors are those of the
+launches held to plain (float32: phase 4 and the Shor IQFT of phase 10;
+the other forms: phase 14).
 
 ``--tq-only`` runs the build and phases 5-7 alone; ``--algo-only`` the
-build and phases 8-12.
+build and phases 8-12; ``--fppow-only`` the build and phases 13-17.
 
 The line before the last is the "kernels" summary, the last line
 {"ok": true, "device": {...}}.  Any failed check raises, so the script
@@ -171,8 +210,27 @@ TQ_CODE_FRAC = {8: 1e-3, 16: 1e-2}
 TQ_SCALE_REL = 1e-5
 # flops per amplitude an op acts on (complex product, or a 2x2 row)
 TQ_OP_FLOPS = {0: 6, 1: 6, 3: 14}
+TQ_WINDOW_HELD = 1 / 6  # share of tq_window's launches held to plain
+TQ_WINDOW_SEED = 79
 
 ALU_WIDTH = 22        # the CUDA engine against the complex128 oracle
+# FPPOW planes (phases 13-16)
+FPPOW_DTYPES = (torch.float64, torch.bfloat16, torch.float16)
+PEAK_F64_S = 34e12    # H100 SXM float64 on the CUDA cores (data sheet)
+ULP_BITS = {torch.bfloat16: 7, torch.float16: 10}  # significand bits
+F64_REL_BAR = 1e-13   # kernel against plain at float64, of the largest |amp|
+HALF_ULP_BAR = 4      # ... at 16 bits, in ulps of the dtype there
+F64_QFT_BAR = 1e-9    # the float64 w30 QFT: |amp|^2 rel. error, 1 - ProbAll
+# the 16-bit w30 QFTs against the float64 ket: 1 - fidelity, predicted
+# in PERF.md from the plain version on the CPU (w10-w22, grown to w30)
+HALF_QFT_BAR = {torch.bfloat16: 1e-3, torch.float16: 2e-5}
+DRIFT_THRESH = "1e-5"  # QRACK_TPU_AUTO_F64_DRIFT of the drift phase
+DRIFT_EVERY = "64"     # QRACK_TPU_DRIFT_CHECK_GATES
+BATCH_WIDTH = 28      # compile_batched_fn: 4 kets of 28 qubits
+BATCH = 4
+BATCH_GATES = 48
+UC_WIDTH = 27         # UniformlyControlledRY with 12 scattered controls
+UC_CONTROLS = 12
 PLANE_BOUND_MS = 2 * 2 * (1 << WIDTH) * 4 / PEAK_BYTES_S * 1e3
 SHOR_MOD = 32639      # 127 * 257
 SHOR_BASE = 21591     # 3 mod 257 (a primitive root), 1 mod 127: order 256
@@ -218,26 +276,53 @@ def release() -> None:
     torch.cuda.empty_cache()
 
 
+def chunked_max(x, y=None) -> float:
+    """max |x| (or max |x - y|) in float64, a slice of the planes at a
+    time: a float64 w30 ket is 16 GiB, and a whole difference as much."""
+    x = x.reshape(2, -1)
+    y = None if y is None else y.reshape(2, -1)
+    step = 1 << 26
+    most = 0.0
+    for s0 in range(0, x.shape[1], step):
+        a = x[:, s0:s0 + step].double()
+        if y is not None:
+            a = a - y[:, s0:s0 + step].double()
+        most = max(most, float(a.abs().max()))
+    return most
+
+
+def plain_bar(dtype, scale: float) -> float:
+    """The kernel-against-plain bar at the largest |amp| `scale`: float32
+    min(ABS_BAR, REL_BAR * scale); float64 F64_REL_BAR * scale; 16-bit
+    planes HALF_ULP_BAR units in the last place of the dtype at scale."""
+    if dtype == torch.float64:
+        return F64_REL_BAR * scale
+    if dtype in ULP_BITS:
+        return HALF_ULP_BAR * 2.0 ** (np.floor(np.log2(scale)) - ULP_BITS[dtype])
+    return min(ABS_BAR, REL_BAR * scale)
+
+
 def held_to_plain(got, want, what: str) -> tuple:
     """(max abs diff, that diff over the largest |amp| of `want`); raises
-    when the diff is above min(ABS_BAR, REL_BAR * max|amp|)."""
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    bar = min(ABS_BAR, REL_BAR * scale)
+    when the diff is above plain_bar for the planes' dtype."""
+    err = chunked_max(got, want)
+    scale = chunked_max(want)
+    bar = plain_bar(want.dtype, scale)
     check(err <= bar, f"{what}: kernel differs from plain by {err} "
-                      f"(bar {bar}, largest |amp| {scale})")
+                      f"(bar {bar}, largest |amp| {scale}, {want.dtype})")
     return err, err / scale
 
 
 def fidelity(a, b) -> float:
     """|<a|b>|^2 / (<a|a><b|b>) of two (2, N) plane tensors, accumulated
-    in float64 chunk by chunk."""
+    in float64 chunk by chunk on a's device (b may lie on the host)."""
     a, b = a.reshape(2, -1), b.reshape(2, -1)
     step = 1 << 26
     re = im = na = nb = 0.0
     for s in range(0, a.shape[1], step):
         a0, a1 = a[0, s:s + step].double(), a[1, s:s + step].double()
-        b0, b1 = b[0, s:s + step].double(), b[1, s:s + step].double()
+        b0 = b[0, s:s + step].to(a.device).double()
+        b1 = b[1, s:s + step].to(a.device).double()
         re += float(a0 @ b0 + a1 @ b1)
         im += float(a0 @ b1 - a1 @ b0)
         na += float(a0 @ a0 + a1 @ a1)
@@ -277,15 +362,15 @@ def random_window(rng, n: int, k: int, fu):
             for _ in range(k)]
 
 
-def pair_cases(rng, n: int, bp: int, fu, wk) -> list:
+def pair_cases(rng, n: int, bp: int, fu, wk, dtype=torch.float32) -> list:
     """(label, ops) of pair-led segments at width n, each one window
     that plans as a single pair sweep: in-tile inv/gen whose targets
-    cycle through the register, lane and warp bits of the pair layout,
-    with diagonal ops between; a 256-op diagonal run after a cross-tile
-    H; the trailing segment of qft_qcircuit(n)."""
+    cycle through the register, lane and warp bits of the pair layout of
+    `dtype` planes, with diagonal ops between; a 256-op diagonal run
+    after a cross-tile H; the trailing segment of qft_qcircuit(n)."""
     from qrack_tpu_torch.models.qft import qft_qcircuit
 
-    lay = wk.pair_layout(bp)
+    lay = wk.pair_layout(bp, dtype)
     classes = [lay["register"], lay["lane"], lay["warp"]]
     routes = [random_op(rng, n, 3, bp + 4, fu)]
     for i in range(72):
@@ -305,24 +390,30 @@ def pair_cases(rng, n: int, bp: int, fu, wk) -> list:
             ("qft_tail", qft[xop:])]
 
 
-def launch_bound(n: int, rows, iv) -> tuple:
+def launch_bound(n: int, rows, iv, dtype=torch.float32) -> tuple:
     """(bytes time, operations time) in ms of one sweep: both planes read
-    and written once, and the flops the window's ops need on this data
-    (a controlled op touches 2^n / 2^popcount(mask) amplitudes)."""
-    bytes_ms = 2 * 2 * (1 << n) * 4 / PEAK_BYTES_S * 1e3
+    and written once in `dtype`, and the flops the window's ops need on
+    this data (a controlled op touches 2^n / 2^popcount(mask) amplitudes)
+    at the card's float64 rate for float64 planes and its float32 rate
+    for the others (16-bit planes compute in float32)."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    bytes_ms = 2 * 2 * (1 << n) * esize / PEAK_BYTES_S * 1e3
     flops = 0
     for kind, t, has_ctrl, _foff, ioff in rows:
         cm = int(iv[ioff]) if has_ctrl else 0
         mask = cm | (1 << t) if kind == 0 else cm
         flops += FLOPS_PER_AMP[kind] * ((1 << n) >> bin(mask).count("1"))
-    return bytes_ms, flops / PEAK_F32_S * 1e3
+    peak = PEAK_F64_S if dtype == torch.float64 else PEAK_F32_S
+    return bytes_ms, flops / peak * 1e3
 
 
 class SweepProbe:
     """Wraps the two sweep entry points of ops/window_kernel.py.  Every
     launch the wrapped main path makes is run as the kernel and as its
     plain version on the same input, each between CUDA events, and the
-    two results are compared; the kernel's result goes on."""
+    two results are compared; the kernel's result goes on.  Stats go
+    under the entry (float32), entry_dtype (the other dtype forms) and
+    (label, entry)."""
 
     def __init__(self, wk):
         self.wk = wk
@@ -333,6 +424,8 @@ class SweepProbe:
         self.label = None
 
     def _entry(self, name):
+        from qrack_tpu_torch.ops.gatekernels import dtype_name
+
         def run(planes, n, bp, table, fv, iv, *span):
             ref = planes.clone()
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -352,9 +445,14 @@ class SweepProbe:
                 range(first, first + count))
             host_table = table.cpu().tolist()
             host_iv = iv.cpu().tolist()
-            b_ms, o_ms = launch_bound(n, [host_table[i] for i in idx], host_iv)
+            b_ms, o_ms = launch_bound(n, [host_table[i] for i in idx], host_iv,
+                                      planes.dtype)
             ms = ev[0].elapsed_time(ev[1])
-            for key in (name, (self.label, name)):
+            # float32 launches under the entry's name, the other dtype
+            # forms under entry_dtype
+            form = (name if planes.dtype == torch.float32
+                    else f"{name}_{dtype_name(planes.dtype)}")
+            for key in (form, (self.label, name)):
                 s = self.stats.setdefault(key, {
                     "launches": 0, "ms": 0.0, "plain_ms": 0.0,
                     "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0,
@@ -480,6 +578,17 @@ class TQProbe:
         self.plain = {e: getattr(tqk, f"tq_{e}_plain") for e in self.ENTRIES}
         self.stats = {}
         self.label = None
+        # tq_window's launches held to plain: the first, then a seeded
+        # draw of TQ_WINDOW_HELD of the rest (its plain replay of all 79
+        # took 179 s); every launch is timed
+        self._draw = np.random.default_rng(TQ_WINDOW_SEED)
+        self._seen = 0
+
+    def _held(self, name) -> bool:
+        if name != "window":
+            return True
+        self._seen += 1
+        return self._seen == 1 or self._draw.random() < TQ_WINDOW_HELD
 
     def _dirty_flops(self, name, codes, tp, args):
         tqk = self.tqk
@@ -510,27 +619,33 @@ class TQProbe:
 
     def _entry(self, name):
         def run(codes, scales, rot, rot_t, bits, tp, *args):
-            inp_c, inp_s = codes.clone(), scales.clone()
-            pc, ps = codes.clone(), scales.clone()
+            held = self._held(name)
+            if held:
+                inp_c, inp_s = codes.clone(), scales.clone()
+                pc, ps = codes.clone(), scales.clone()
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             sync()
             ev[0].record()
             self.real[name](codes, scales, rot, rot_t, bits, tp, *args)
             ev[1].record()
             ev[2].record()
-            self.plain[name](pc, ps, rot, rot_t, bits, tp, *args)
+            if held:
+                self.plain[name](pc, ps, rot, rot_t, bits, tp, *args)
             ev[3].record()
             sync()
             dirty, gflops = self._dirty_flops(name, codes, tp, args)
             bp, T, TB, _nblk = self.tqk.layout(codes, tp)
-            res = tq_compare(codes, scales, pc, ps, inp_c, inp_s, dirty, TB,
-                             bits, f"{self.label} {name}")
-            del inp_c, inp_s, pc, ps
+            res = {}
+            if held:
+                res = tq_compare(codes, scales, pc, ps, inp_c, inp_s, dirty,
+                                 TB, bits, f"{self.label} {name}")
+                del inp_c, inp_s, pc, ps
             n_dirty = int(dirty.sum())
             b_ms, o_ms, core_ms = tq_bound(bits, 1 << bp, T, n_dirty, gflops)
             for key in (name, (self.label, name)):
                 s = self.stats.setdefault(key, {
                     "launches": 0, "ms": 0.0, "plain_ms": 0.0,
+                    "held_launches": 0, "held_ms": 0.0,
                     "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0,
                     "f32_core_bound_ms": 0.0,
                     "dirty_tiles": 0, "tiles": 0, "max_abs_err": 0.0,
@@ -538,15 +653,17 @@ class TQProbe:
                     "scale_max_rel_err": 0.0})
                 s["launches"] += 1
                 s["ms"] += ev[0].elapsed_time(ev[1])
-                s["plain_ms"] += ev[2].elapsed_time(ev[3])
+                if held:
+                    s["held_launches"] += 1
+                    s["held_ms"] += ev[0].elapsed_time(ev[1])
+                    s["plain_ms"] += ev[2].elapsed_time(ev[3])
                 s["bytes_ms"] += b_ms
                 s["ops_ms"] += o_ms
                 s["bound_ms"] += max(b_ms, o_ms)
                 s["f32_core_bound_ms"] += max(b_ms, core_ms)
                 s["dirty_tiles"] += n_dirty
                 s["tiles"] += int(dirty.numel())
-                for k in ("max_abs_err", "code_max_diff", "code_diff_frac",
-                          "scale_max_rel_err"):
+                for k in res:
                     s[k] = max(s[k], res[k])
             return codes, scales
         return run
@@ -804,6 +921,7 @@ def tq_phases(card: str, dev) -> list:
             "code_diff_frac": s["code_diff_frac"],
             "scale_max_rel_err": s["scale_max_rel_err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"],
+            "held_launches": s["held_launches"], "held_ms": s["held_ms"],
             "bound_ms": s["bound_ms"],
             "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"]
             else "operations",
@@ -860,8 +978,8 @@ def dense_kernel_checks(card: str, dev) -> None:
         wk.reset_launches()
         got = wk.make_window_fn(n, structure)(x.clone(), *operands)
         sync()
-        check(wk.LAUNCHES == {"in_tile": 0, "pair": 1},
-              f"{label}: launches {wk.LAUNCHES}")
+        check(wk.launches() == {"in_tile": 0, "pair": 1},
+              f"{label}: launches {wk.launches()}")
         want = wk.make_window_fn(n, structure, plain=True)(x.clone(), *operands)
         sync()
         err, rel = held_to_plain(got, want, f"n={n} pair case {label}")
@@ -921,7 +1039,7 @@ def dense_phases(card: str, dev, probe) -> dict:
     q.IQFT(0, WIDTH)
     back = q.ProbAll(PERM)
     check(back >= 1 - 1e-3, f"IQFT round trip: ProbAll {back}")
-    engine_launches = dict(wk.LAUNCHES)
+    engine_launches = wk.launches()
     check(engine_launches["in_tile"] > 0 and engine_launches["pair"] > 0,
           f"engine path skipped a kernel entry point: {engine_launches}")
     del q
@@ -932,7 +1050,7 @@ def dense_phases(card: str, dev, probe) -> dict:
     qft_qcircuit(WIDTH).RunFused(r)
     f_fused = fidelity(r.device_planes, qft_state)
     check(f_fused >= 1 - 1e-5, f"RunFused against engine QFT: {f_fused}")
-    launches = dict(wk.LAUNCHES)
+    launches = wk.launches()
     # the QFT circuit opens with H on its top qubit, so every segment of
     # its single window is led by a cross-tile op: RunFused adds pair
     # sweeps only
@@ -1096,7 +1214,7 @@ def alu_vs_oracle(card: str, dev) -> dict:
         f = fidelity(q.device_planes, host_planes(o.GetQuantumState(), dev))
         check(f >= 1 - 1e-5, f"n={n} {name}: fidelity {f} against the oracle")
         fids[name] = f
-    launches = dict(wk.LAUNCHES)
+    launches = wk.launches()
     emit({"phase": "alu_vs_oracle", "card": card, "width": n,
           "ops": len(fids), "min_fidelity": min(fids.values()),
           "fidelity": fids, "indexed_returns_cuda_cpu": returns,
@@ -1156,7 +1274,7 @@ def alu_round_trips(card: str, dev) -> dict:
         emit({"phase": "alu_w30", "card": card, "width": n, "pair": label,
               "bit_equal": True, "plane_bound_ms": PLANE_BOUND_MS,
               "ops": ops})
-    launches = dict(wk.LAUNCHES)
+    launches = wk.launches()
     emit({"phase": "alu_w30_launches", "card": card, "launches": launches})
     del q, before
     release()
@@ -1192,9 +1310,9 @@ def shor_phase(card: str, dev, probe) -> dict:
     prepare(q)
     pow_ms = timed(lambda: (q.POWModNOut(base, mod_n, 0, w, w),
                             q.device_planes))
-    before_iqft = dict(wk.LAUNCHES)
+    before_iqft = wk.launches()
     iqft_ms = timed(lambda: (q.IQFT(0, w), q.device_planes))
-    iqft_launches = {k: v - before_iqft[k] for k, v in wk.LAUNCHES.items()}
+    iqft_launches = {k: v - before_iqft[k] for k, v in wk.launches().items()}
     check(iqft_launches["in_tile"] > 0 and iqft_launches["pair"] > 0,
           f"the IQFT skipped a kernel entry point: {iqft_launches}")
     planes = q.device_planes
@@ -1213,7 +1331,7 @@ def shor_phase(card: str, dev, probe) -> dict:
     t0 = time.time()
     factor = al.shor_order_find(q, base, mod_n, w)
     round_s = time.time() - t0
-    launches = dict(wk.LAUNCHES)
+    launches = wk.launches()
 
     # every launch of the IQFT again, each beside its plain version
     prepare(q)
@@ -1277,7 +1395,7 @@ def hybrid_rcs(card: str, dev) -> dict:
     start = h.device_planes.clone()
     rcs_ms = timed(lambda: (al.random_circuit_sampling(
         h, RCS_DEPTH, QrackRandom(RCS_SEED)), h.device_planes))
-    launches = dict(wk.LAUNCHES)
+    launches = wk.launches()
     check(launches["in_tile"] > 0 and launches["pair"] > 0,
           f"the hybrid RCS skipped a kernel entry point: {launches}")
     fn = rcs.make_rcs_fn(WIDTH, RCS_DEPTH, RCS_SEED)
@@ -1331,7 +1449,7 @@ def grover_phase(card: str, dev) -> dict:
           f"w{n} engine ProbAll {p_engine} against make_grover_fn {p_fused}")
     got = q.MAll()
     check(got == target, f"w{n} Grover search found {got}, not {target}")
-    launches = dict(wk.LAUNCHES)
+    launches = wk.launches()
     check(launches["in_tile"] > 0 and launches["pair"] > 0,
           f"the Grover path skipped a kernel entry point: {launches}")
     h = np.float32(1.0 / np.sqrt(2.0))
@@ -1347,6 +1465,442 @@ def grover_phase(card: str, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# FPPOW planes, the drift escalation, the whole-circuit forms, uc_2x2
+# ---------------------------------------------------------------------------
+
+def amp2_rel_err(planes, n: int) -> float:
+    """max | |amp|^2 * 2^n - 1 | in float64, a slice at a time."""
+    step = 1 << 26
+    most = 0.0
+    for s0 in range(0, planes.shape[1], step):
+        p = planes[:, s0:s0 + step].double()
+        most = max(most, float(((p[0] ** 2 + p[1] ** 2) * float(1 << n)
+                                - 1.0).abs().max()))
+    return most
+
+
+def dtype_launches(wk) -> dict:
+    """The window kernel's launches by dtype form, read now."""
+    return {k: dict(v) for k, v in wk.DTYPE_LAUNCHES.items()}
+
+
+def fppow_kernel_checks(card: str, dev) -> None:
+    """Phase 13 (module docstring)."""
+    from qrack_tpu_torch.ops import fusion as fu
+    from qrack_tpu_torch.ops.gatekernels import dtype_name
+    from qrack_tpu_torch.ops import window_kernel as wk
+
+    n, bp = CHECK_WIDTH, wk.DEFAULT_BLOCK_POW
+    for dt in FPPOW_DTYPES:
+        rng = np.random.default_rng(2024)
+        worst = worst_rel = 0.0
+        wk.reset_launches()
+        for w in range(4):
+            ops = random_window(rng, n, 40, fu)
+            structure = fu.structure_of(ops)
+            operands = fu.dense_operands(ops, dt)
+            x = unit_planes(rng, n, dev).to(dt)
+            got = wk.make_window_fn(n, structure)(x.clone(), *operands)
+            want = wk.make_window_fn(n, structure, plain=True)(x.clone(),
+                                                               *operands)
+            sync()
+            err, rel = held_to_plain(got, want, f"{dt} n={n} window {w}")
+            worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        windows = dict(wk.DTYPE_LAUNCHES[dtype_name(dt)])
+        check(windows["in_tile"] > 0 and windows["pair"] > 0,
+              f"{dt} random windows skipped an entry point: {windows}")
+        reached = set()
+        cases = {}
+        for label, ops in pair_cases(rng, n, bp, fu, wk, dt):
+            structure = fu.structure_of(ops)
+            check(wk.segment_launches(structure, bp) == [(0, 1, len(ops) - 1)],
+                  f"{dt} {label}: not one pair-led segment")
+            reached |= {wk.pair_route(op.kind, op.target, bp, dt)
+                        for op in ops}
+            operands = fu.dense_operands(ops, dt)
+            x = unit_planes(rng, n, dev).to(dt)
+            wk.reset_launches()
+            got = wk.make_window_fn(n, structure)(x.clone(), *operands)
+            sync()
+            check(wk.launches() == {"in_tile": 0, "pair": 1},
+                  f"{dt} {label}: launches {wk.launches()}")
+            want = wk.make_window_fn(n, structure, plain=True)(x.clone(),
+                                                               *operands)
+            sync()
+            cases[label] = held_to_plain(got, want, f"{dt} pair case {label}")
+        check(reached == set(wk.PAIR_ROUTES),
+              f"{dt} pair cases reached the routes {sorted(reached)} only")
+        emit({"phase": "fppow_kernel_vs_plain", "card": card,
+              "dtype": dtype_name(dt), "width": n, "block_pow": bp,
+              "bar": ("f64: 1e-13 of the largest |amp|" if dt == torch.float64
+                      else f"{HALF_ULP_BAR} ulps of the dtype at the largest "
+                           "|amp|"),
+              "windows_max_abs_err": worst, "windows_max_rel_err": worst_rel,
+              "windows_launches": windows,
+              "pair_cases_max_abs_err": {k: v[0] for k, v in cases.items()},
+              "pair_layout": wk.pair_layout(bp, dt)})
+    del x, got, want
+    release()
+
+
+def fppow_phase(card: str, dev, probe) -> dict:
+    """Phases 13-14 (module docstring); returns the launches by dtype."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.ops.gatekernels import dtype_name
+    from qrack_tpu_torch.models.qft import qft_qcircuit
+    from qrack_tpu_torch.ops import window_kernel as wk
+
+    fppow_kernel_checks(card, dev)
+    launches = {}
+
+    # float64: the engine path and RunFused
+    wk.reset_launches()
+    q = qt.create_quantum_interface("cuda", WIDTH, dtype=torch.float64)
+    check(q.device_planes.dtype == torch.float64, "no float64 planes")
+    q.SetPermutation(PERM)
+    t0 = time.time()
+    q.QFT(0, WIDTH)
+    q.Finish()
+    qft_s = time.time() - t0
+    # the float64 ket waits on the host: beside a second float64 w30
+    # engine and its gate temporaries it would not fit the card
+    ref64 = q.device_planes.to("cpu", copy=True)
+    amp_err = amp2_rel_err(q.device_planes, WIDTH)
+    check(amp_err <= F64_QFT_BAR,
+          f"float64 QFT |amp|^2 off 2^-{WIDTH} by {amp_err} rel.")
+    q.IQFT(0, WIDTH)
+    back = q.ProbAll(PERM)
+    check(back >= 1 - F64_QFT_BAR, f"float64 IQFT round trip: {back}")
+    engine = dict(wk.DTYPE_LAUNCHES["float64"])
+    check(engine["in_tile"] > 0 and engine["pair"] > 0,
+          f"the float64 engine path skipped an entry point: {engine}")
+    del q
+    release()
+    r = qt.create_quantum_interface("cuda", WIDTH, dtype=torch.float64)
+    r.SetPermutation(PERM)
+    qft_qcircuit(WIDTH).RunFused(r)
+    fused_err = amp2_rel_err(r.device_planes, WIDTH)
+    check(fused_err <= F64_QFT_BAR,
+          f"float64 RunFused |amp|^2 off 2^-{WIDTH} by {fused_err} rel.")
+    f_fused = fidelity(r.device_planes, ref64)
+    check(f_fused >= 1 - F64_QFT_BAR, f"float64 RunFused against the "
+                                      f"engine QFT: {f_fused}")
+    launches["float64"] = dict(wk.DTYPE_LAUNCHES["float64"])
+    check(sum(launches["float64"].values()) > sum(engine.values()),
+          "float64 RunFused launched no kernel")
+    emit({"phase": "fppow_float64", "card": card, "width": WIDTH,
+          "qft_amp2_max_rel_err": amp_err, "iqft_prob_back": back,
+          "runfused_amp2_max_rel_err": fused_err,
+          "runfused_fidelity": f_fused, "engine_qft_s": qft_s,
+          "launches_engine_qft_iqft": engine,
+          "launches_total": launches["float64"]})
+    del r
+    release()
+
+    # 16-bit planes: the engine path against the float64 ket
+    for dt in (torch.bfloat16, torch.float16):
+        name = dtype_name(dt)
+        wk.reset_launches()
+        q = qt.create_quantum_interface("cuda", WIDTH, dtype=dt)
+        q.SetPermutation(PERM)
+        q.QFT(0, WIDTH)
+        planes = q.device_planes
+        check(planes.dtype == dt, f"no {name} planes")
+        f = fidelity(planes, ref64)
+        norm = float(sum(float((planes[:, s0:s0 + (1 << 26)].double() ** 2)
+                               .sum()) for s0 in range(0, 1 << WIDTH,
+                                                       1 << 26)))
+        del planes
+        q.IQFT(0, WIDTH)
+        back = q.ProbAll(PERM)
+        launches[name] = dict(wk.DTYPE_LAUNCHES[name])
+        check(launches[name]["in_tile"] > 0 and launches[name]["pair"] > 0,
+              f"the {name} engine path skipped an entry point: "
+              f"{launches[name]}")
+        emit({"phase": f"fppow_{name}", "card": card, "width": WIDTH,
+              "qft_fidelity_vs_float64": f, "infidelity": 1 - f,
+              "infidelity_bar": HALF_QFT_BAR[dt], "qft_norm": norm,
+              "iqft_prob_back": back, "launches": launches[name]})
+        check(1 - f <= HALF_QFT_BAR[dt],
+              f"{name} w{WIDTH} QFT: infidelity {1 - f} against float64 "
+              f"(bar {HALF_QFT_BAR[dt]})")
+        del q
+        release()
+    del ref64
+    release()
+
+    # every launch of each dtype's engine QFT, beside its plain version
+    # (SweepProbe, with the dtype's bar)
+    for dt in FPPOW_DTYPES:
+        name = dtype_name(dt)
+        q = qt.create_quantum_interface("cuda", WIDTH, dtype=dt)
+        q.SetPermutation(PERM)
+        q.Finish()
+        wk.reset_launches()
+        with probe:
+            probe.label = f"fppow_{name}_qft"
+            q.QFT(0, WIDTH)
+            q.Finish()
+        for entry in ("in_tile", "pair"):
+            got_n = probe.stats.get(f"{entry}_{name}",
+                                    {"launches": 0})["launches"]
+            want_n = wk.DTYPE_LAUNCHES[name][entry]
+            check(got_n == want_n, f"probe saw {got_n} {name} {entry} "
+                                   f"launches, the path {want_n}")
+        del q
+        release()
+    for dt in FPPOW_DTYPES:
+        name = dtype_name(dt)
+        emit({"phase": "fppow_sweeps", "card": card, "dtype": name,
+              **{e: probe.stats[f"{e}_{name}"] for e in ("in_tile", "pair")}})
+    return launches
+
+
+def drift_phase(card: str, dev) -> dict:
+    """Phase 15 (module docstring); returns the launches by dtype."""
+    import warnings
+
+    from qrack_tpu_torch.ops.gatekernels import dtype_name
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.models import algorithms as al
+    from qrack_tpu_torch.models import grover
+    from qrack_tpu_torch.models.qft import basis_planes
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    n = GROVER_WIDTH
+    target = int(np.random.default_rng(n).integers(1, 1 << n))
+    fn, iters = grover.make_grover_fn(n, target)
+    p_fused = grover.success_probability(fn(basis_planes(n, 0, device=dev)),
+                                         target)
+    env = {"QRACK_TPU_AUTO_F64_DRIFT": DRIFT_THRESH,
+           "QRACK_TPU_DRIFT_CHECK_GATES": DRIFT_EVERY}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        q = qt.create_quantum_interface("cuda", n, rng=QrackRandom(8),
+                                        rand_global_phase=False)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    check(q.dtype == torch.float32, "the drift phase starts on float32")
+    wk.reset_launches()
+    t0 = time.time()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        al.grover_amplify(q, target)
+        p_raw = q.ProbAll(target)
+    amplify_s = time.time() - t0
+    launches = dtype_launches(wk)
+    warned = [str(w.message) for w in seen if "escalating" in str(w.message)]
+    check(q.dtype == torch.float64 and q.device_planes.dtype == torch.float64,
+          f"w{n} Grover did not escalate: {q.dtype}")
+    check(len(warned) == 1, f"{len(warned)} escalation warnings")
+    check(abs(p_raw - p_fused) <= 1e-4,
+          f"w{n} escalated ProbAll {p_raw} against make_grover_fn {p_fused}")
+    for name in ("float32", "float64"):
+        check(sum(launches[name].values()) > 0,
+              f"the drift path launched no {name} kernel: {launches}")
+    emit({"phase": "drift", "card": card, "width": n, "target": target,
+          "iterations": iters, "threshold": DRIFT_THRESH,
+          "check_gates": DRIFT_EVERY, "warning": warned[0],
+          "dtype_after": dtype_name(q.dtype), "prob_target_raw": p_raw,
+          "success_fused": p_fused, "grover_amplify_s": amplify_s,
+          "launches": launches})
+    del q
+    release()
+    return launches
+
+
+def batch_circuit(n: int, k: int, seed: int):
+    """A seeded circuit of k gates: H, RZ, general 2x2, CNOT, controlled
+    phase, on any qubits."""
+    from qrack_tpu_torch import matrices as mat
+    from qrack_tpu_torch.layers.qcircuit import QCircuit
+
+    rng = np.random.default_rng(seed)
+    c = QCircuit(n)
+    for _ in range(k):
+        kind = int(rng.integers(5))
+        t = int(rng.integers(n))
+        o = int(rng.choice([q for q in range(n) if q != t]))
+        if kind == 0:
+            c.append_1q(t, np.asarray(mat.H2))
+        elif kind == 1:
+            a = float(rng.uniform(0, 2 * np.pi))
+            c.append_1q(t, np.diag([np.exp(-0.5j * a), np.exp(0.5j * a)]))
+        elif kind == 2:
+            z = rng.normal(size=(2, 2)) + 1j * rng.normal(size=(2, 2))
+            c.append_1q(t, np.linalg.qr(z)[0])
+        elif kind == 3:
+            c.append_ctrl((o,), t, np.asarray(mat.X2), 1)
+        else:
+            c.append_ctrl((o,), t, np.diag([1.0, np.exp(1j * rng.uniform(
+                0, 2 * np.pi))]), 1)
+    return c
+
+
+def circuit_forms_phase(card: str, dev) -> dict:
+    """Phase 16 (module docstring); returns the launches by dtype."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.models.qft import (basis_planes, make_qft_fn,
+                                            qft_qcircuit)
+    from qrack_tpu_torch.ops import window_kernel as wk
+
+    circ = qft_qcircuit(WIDTH)
+    q = qt.create_quantum_interface("cuda", WIDTH)
+    q.SetPermutation(PERM)
+    q.QFT(0, WIDTH)
+    engine = q.device_planes.clone()
+    del q
+    r = qt.create_quantum_interface("cuda", WIDTH)
+    r.SetPermutation(PERM)
+    circ.RunFused(r)
+    fused = r.device_planes
+    del r
+    release()
+
+    fn = circ.compile_fn_pallas(WIDTH)
+    x = basis_planes(WIDTH, PERM, device=dev)
+    wk.reset_launches()
+    pallas_ms = timed(lambda: fn(x))
+    launches = dtype_launches(wk)
+    check(sum(launches["float32"].values()) > 0,
+          f"compile_fn_pallas launched no kernel: {launches}")
+    f_pallas = fidelity(x, fused)
+    check(f_pallas >= 1 - 1e-5, f"compile_fn_pallas against RunFused: "
+                                f"{f_pallas}")
+    del x, fused
+    release()
+    forms = {}
+    for fast in (False, True):
+        out = []
+        ms = timed(lambda: out.append(make_qft_fn(WIDTH, fast=fast)(
+            basis_planes(WIDTH, PERM, device=dev))))
+        f = fidelity(out[0], engine)
+        check(f >= 1 - 1e-5, f"make_qft_fn(fast={fast}) against the engine "
+                             f"QFT: {f}")
+        forms["fast" if fast else "unrolled"] = {"ms": ms, "fidelity": f}
+        del out
+        release()
+    del engine
+    release()
+
+    n, B = BATCH_WIDTH, BATCH
+    c = batch_circuit(n, BATCH_GATES, 28)
+    g = torch.Generator(device=dev)
+    g.manual_seed(28)
+    stacked = torch.randn((B, 2, 1 << n), device=dev, generator=g)
+    stacked /= stacked.pow(2).sum(dim=(1, 2), keepdim=True).sqrt()
+    out = []
+    batched_ms = timed(lambda: out.append(c.compile_batched_fn(n)(stacked)))
+    alone_f, alone_err = [], []
+    single = c.compile_fn(n)
+    alone_ms = 0.0
+    for b in range(B):
+        one = []
+        alone_ms += timed(lambda: one.append(single(stacked[b])))
+        alone_f.append(fidelity(out[0][b], one[0]))
+        alone_err.append(chunked_max(out[0][b], one[0]))
+        del one
+    check(min(alone_f) >= 1 - 1e-6 and max(alone_err) <= 1e-6,
+          f"compile_batched_fn against each ket alone: {alone_f}, "
+          f"{alone_err}")
+    emit({"phase": "circuit_forms", "card": card, "width": WIDTH,
+          "compile_fn_pallas_sweeps": fn.sweeps,
+          "compile_fn_pallas_ms": pallas_ms,
+          "compile_fn_pallas_fidelity_vs_runfused": f_pallas,
+          "make_qft_fn": forms, "batched_width": n, "batch": B,
+          "batched_gates": BATCH_GATES, "batched_ms": batched_ms,
+          "alone_ms": alone_ms, "batched_fidelity_vs_alone": alone_f,
+          "batched_max_abs_err_vs_alone": alone_err, "launches": launches})
+    del out, stacked
+    release()
+    return launches
+
+
+def uc_wide_phase(card: str, dev) -> dict:
+    """Phase 17 (module docstring); returns the launches by dtype."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.layers.qcircuit import QCircuitGate
+    from qrack_tpu_torch.ops import fusion as fu
+    from qrack_tpu_torch.ops import gatekernels as gk
+    from qrack_tpu_torch.ops import window_kernel as wk
+
+    n, k = UC_WIDTH, UC_CONTROLS
+    controls = tuple(2 * i + 1 for i in range(k))
+    target = 2 * k + 1
+    shape, _a, _r = gk._bit_view(n, list(controls) + [target])
+    angles = np.random.default_rng(n).uniform(0, 2 * np.pi, 1 << k)
+    ms = [np.array([[np.cos(a / 2), -np.sin(a / 2)],
+                    [np.sin(a / 2), np.cos(a / 2)]], dtype=np.complex128)
+          for a in angles]
+    engines = []
+    for _ in range(2):
+        q = qt.create_quantum_interface("cuda", n, rand_global_phase=False)
+        for b in range(0, n, 2):
+            q.H(b)
+        q.H(target)
+        q.Finish()
+        engines.append(q)
+    wk.reset_launches()
+    uc_ms = timed(lambda: (engines[0].UniformlyControlledRY(
+        controls, target, angles), engines[0].device_planes))
+    # the same payloads as single controlled gates, one per control
+    # value, through the window kernel: one pair sweep each (the fuser
+    # would merge 4096 consecutive MCMtrxPerm calls pairwise, quadratic
+    # in host time, and the cost model sends a window that saves no
+    # sweep to the plain gate functions)
+    ops = fu.lower_gates([QCircuitGate(target, dict(enumerate(ms)),
+                                       controls)])
+    fn = wk.make_window_fn(n, fu.structure_of(ops))
+    operands = fu.dense_operands(ops)
+    gates_ms = timed(lambda: fn(engines[1].device_planes, *operands))
+    launches = dtype_launches(wk)
+    f = fidelity(engines[0].device_planes, engines[1].device_planes)
+    check(f >= 1 - 1e-5, f"w{n} UniformlyControlledRY with {k} controls "
+                         f"against single controlled gates: {f}")
+    check(launches["float32"]["pair"] >= 1 << k,
+          f"the controlled gates skipped the kernel: {launches}")
+    emit({"phase": "uc_wide", "card": card, "width": n, "controls": k,
+          "single_view_dims": len(shape), "uc_ms": uc_ms,
+          "gate_by_gate_ms": gates_ms, "fidelity": f, "launches": launches})
+    del engines
+    release()
+    return launches
+
+
+def dtype_entries(probe, launches: dict) -> list:
+    """The kernels-line entries of the float64, bfloat16 and float16 forms
+    of K1 and K2: launches over the paths that run them, times and errors
+    over the launches `probe` held to plain."""
+    from qrack_tpu_torch.ops.gatekernels import dtype_name
+
+    kernels = []
+    for dt in FPPOW_DTYPES:
+        name = dtype_name(dt)
+        for entry, k in (("in_tile", "K1"), ("pair", "K2")):
+            s = probe.stats[f"{entry}_{name}"]
+            kernels.append({
+                "name": f"window_{entry}_{name}", "id": k, "dtype": name,
+                "route": "cuda", "source": KERNEL_SOURCE,
+                "replaces": REPLACES[entry],
+                "launches": launches.get(name, {}).get(entry, 0),
+                "probed_launches": s["launches"],
+                "max_abs_err": s["max_abs_err"],
+                "max_rel_err": s["max_rel_err"],
+                "ms": s["ms"], "plain_ms": s["plain_ms"],
+                "bound_ms": s["bound_ms"],
+                "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"]
+                else "operations",
+                "library_ms": None})
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -1359,6 +1913,7 @@ def main() -> int:
 
     tq_only = "--tq-only" in sys.argv[1:]
     algo_only = "--algo-only" in sys.argv[1:]
+    fppow_only = "--fppow-only" in sys.argv[1:]
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -1377,23 +1932,35 @@ def main() -> int:
           "ptxas": ptxas})
 
     probe = SweepProbe(wk)
-    paths = {}
-    if not (tq_only or algo_only):
-        paths["qft"] = dense_phases(card, dev, probe)
-    tq_kernels = [] if algo_only else tq_phases(card, dev)
-    if not tq_only:
-        paths["alu_vs_oracle"] = alu_vs_oracle(card, dev)
-        paths["alu_w30"] = alu_round_trips(card, dev)
-        paths["shor"] = shor_phase(card, dev, probe)
-        paths["hybrid_rcs"] = hybrid_rcs(card, dev)
-        paths["grover"] = grover_phase(card, dev)
+    paths = {}   # path -> launches by dtype name
+    only = tq_only or algo_only or fppow_only
+    if not only:
+        paths["qft"] = {"float32": dense_phases(card, dev, probe)}
+    tq_kernels = tq_phases(card, dev) if tq_only or not only else []
+    if algo_only or not only:
+        for name, fn in (("alu_vs_oracle", alu_vs_oracle),
+                         ("alu_w30", alu_round_trips)):
+            paths[name] = {"float32": fn(card, dev)}
+        paths["shor"] = {"float32": shor_phase(card, dev, probe)}
+        for name, fn in (("hybrid_rcs", hybrid_rcs), ("grover", grover_phase)):
+            paths[name] = {"float32": fn(card, dev)}
+    if fppow_only or not only:
+        paths["fppow"] = fppow_phase(card, dev, probe)
+        paths["drift"] = drift_phase(card, dev)
+        paths["circuit_forms"] = circuit_forms_phase(card, dev)
+        paths["uc_wide"] = uc_wide_phase(card, dev)
     kernels = []
     if paths:
-        launches = {k: sum(p[k] for p in paths.values())
-                    for k in ("in_tile", "pair")}
+        launches = {dt: {k: sum(p.get(dt, {}).get(k, 0)
+                                for p in paths.values())
+                         for k in ("in_tile", "pair")}
+                    for dt in wk.DTYPE_LAUNCHES}
         emit({"phase": "dense_launches", "card": card, "paths": paths,
               "total": launches})
-        kernels = window_entries(probe, launches)
+        if "qft" in paths:
+            kernels = window_entries(probe, launches["float32"])
+        if "fppow" in paths:
+            kernels += dtype_entries(probe, launches)
     kernels += tq_kernels
     emit({"phase": "done", "card": card, "seconds": time.time() - T_START})
     print(json.dumps({"kernels": kernels}), flush=True)

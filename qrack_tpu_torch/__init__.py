@@ -19,7 +19,7 @@ _torch.backends.cudnn.allow_tf32 = False
 
 from .interface import QInterface  # noqa: E402,F401
 from .engines import (QEngine, QEngineCPU, QEngineCUDA,  # noqa: E402,F401
-                      QEngineCUDATurboQuant, QHybrid)
+                      QEngineCUDATurboQuant, QEngineSparse, QHybrid)
 from .pauli import Pauli  # noqa: E402,F401
 from .config import get_config, set_config  # noqa: E402,F401
 from .hamiltonian import HamiltonianOp, uniform_hamiltonian_op  # noqa: E402,F401

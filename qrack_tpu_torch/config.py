@@ -128,11 +128,9 @@ class QrackConfig:
     def device_real_dtype(self):
         """torch plane dtype honoring the FPPOW policy on the device path
         (engines/cuda.py defaults to this)."""
-        import torch
+        from .ops.gatekernels import plane_dtype
 
-        return {"float32": torch.float32, "float64": torch.float64,
-                "bfloat16": torch.bfloat16,
-                "float16": torch.float16}[self.real_dtype_name]
+        return plane_dtype(self.real_dtype_name)
 
 
 _config = QrackConfig()

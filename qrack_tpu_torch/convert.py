@@ -14,27 +14,40 @@ import numpy as np
 import torch
 
 from .layers.qcircuit import QCircuit, QCircuitGate
+from .ops import gatekernels as gk
 from .utils.device import resolve_device
 
 
-def planes_from_numpy(planes, device=None, dtype=torch.float32):
-    """A (2, 2^n) real planes array (the JAX engine's layout) or a complex
-    ket, as this package's planes on `device`, ``cuda`` by default (always
-    a copy)."""
+def planes_from_numpy(planes, device=None, dtype=None):
+    """A (2, 2^n) real planes array (the JAX engine's layout, in any of its
+    plane dtypes: float32, float64, float16 or bfloat16) or a complex ket,
+    as this package's planes on `device`, ``cuda`` by default (always a
+    copy).  ``dtype=None`` keeps a planes array's dtype and gives float32
+    planes for a complex ket; a given dtype rounds as the JAX package
+    rounds (gatekernels.host_tensor)."""
     arr = np.asarray(planes)
+    own = gk.PLANE_DTYPES.get(arr.dtype.name, torch.float32)
     if np.iscomplexobj(arr) or arr.ndim == 1:
         arr = arr.reshape(-1)
         arr = np.stack([arr.real, arr.imag])
+        own = torch.float32
     if arr.ndim != 2 or arr.shape[0] != 2:
         raise ValueError(f"expected (2, N) planes or a complex ket, got "
                          f"shape {arr.shape}")
-    return torch.tensor(arr, dtype=dtype, device=resolve_device(device))
+    if arr.dtype.name == "bfloat16":  # no numpy dtype: float32 is exact
+        arr = arr.astype(np.float32)
+    return gk.host_tensor(arr, own if dtype is None else dtype).to(
+        resolve_device(device))
 
 
 def planes_to_numpy(planes) -> np.ndarray:
     """This package's planes as a (2, 2^n) numpy array on the host (a
-    copy)."""
-    return planes.detach().to("cpu").numpy().copy()
+    copy), in their dtype; bfloat16 planes, which numpy cannot hold, come
+    as float32, exactly."""
+    host = planes.detach().to("cpu")
+    if host.dtype == torch.bfloat16:
+        host = host.to(torch.float32)
+    return host.numpy().copy()
 
 
 def turboquant_from_numpy(codes, scales, n: int, bits: int, block_pow: int,

@@ -1,8 +1,16 @@
 """QEngineCUDA: dense state vector on one CUDA device as split real/imag
 planes (the counterpart of the JAX package's QEngineTPU).
 
-  * Amplitudes are (2, 2^n) float32 planes, plane 0 = Re, plane 1 = Im —
-    the layout of the fused window kernel's operands.
+  * Amplitudes are (2, 2^n) planes, plane 0 = Re, plane 1 = Im — the
+    layout of the fused window kernel's operands — in float32 by default,
+    or float64, bfloat16 or float16 (the FPPOW policy: ``dtype=`` or
+    ``QRACK_TPU_FPPOW``, config.py).  Every dtype runs its fused windows
+    through the window kernel.
+  * Opt-in float32 -> float64 escalation: with
+    ``QRACK_TPU_AUTO_F64_DRIFT`` set to a threshold, every
+    ``QRACK_TPU_DRIFT_CHECK_GATES`` (64) mixing gates the engine reads the
+    total probability, and past the threshold it re-casts its own planes
+    to float64 and warns (:meth:`QEngineCUDA.EscalateToF64`).
   * Gates queue into a GateStreamFuser window (ops/fusion.py) and flush
     at every read: a multi-op window goes through the single-sweep
     window kernel (ops/window_kernel.py) when the cost model picks it,
@@ -20,6 +28,8 @@ raises.
 from __future__ import annotations
 
 import math
+import os
+import warnings
 
 import numpy as np
 import torch
@@ -31,9 +41,9 @@ from .qengine import QEngine
 from .. import matrices as mat
 
 # one-device dense width ceiling: int32 flat indices and masks, and the
-# window kernel's int32 tile ids
+# window kernel's int32 tile ids (for every plane dtype: float64 planes
+# at w30 are 16 GiB)
 MAX_DENSE_QB = 30
-
 
 class QEngineCUDA(QEngine):
     """Dense ket on one CUDA device (or the CPU, when asked)."""
@@ -50,11 +60,14 @@ class QEngineCUDA(QEngine):
             from ..config import get_config
 
             dtype = get_config().device_real_dtype()
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                f"{dtype} planes are not ported yet; this engine holds "
-                "float32 planes")
-        self.dtype = dtype
+        self.dtype = gk.plane_dtype(dtype)
+        # the drift escalation's threshold (0: off) and its period in
+        # mixing gates
+        self._drift_thresh = float(os.environ.get(
+            "QRACK_TPU_AUTO_F64_DRIFT", "0"))
+        self._drift_check_every = max(1, int(os.environ.get(
+            "QRACK_TPU_DRIFT_CHECK_GATES", "64")))
+        self._gate_count = 0
         # install the fuser BEFORE the first _state write so the property
         # sees it from the start
         self._fuser = fu.make_fuser(self)
@@ -115,12 +128,61 @@ class QEngineCUDA(QEngine):
         return cmask, control_offset(controls, perm)
 
     # ------------------------------------------------------------------
+    # precision escalation
+    # ------------------------------------------------------------------
+
+    def _drift_tick(self) -> None:
+        """Opt-in float32 -> float64 escalation (QRACK_TPU_AUTO_F64_DRIFT):
+        every K mixing gates read the total probability back; unitary
+        circuits keep it at 1, so a sustained drift means the planes are
+        losing precision, and they are re-cast to float64.  Ticked from
+        every mixing kernel (2x2, invert, diagonal, 4x4, uniformly
+        controlled) and per queued gate under fusion; swaps and gathers
+        are exact permutations and cannot drift the norm."""
+        self._drift_tick_n(1)
+
+    def _drift_tick_n(self, k: int) -> None:
+        """Advance the drift accounting by `k` gates at once."""
+        if self._drift_thresh <= 0 or self.dtype == torch.float64:
+            return
+        before = self._gate_count
+        self._gate_count += k
+        if (before // self._drift_check_every) == (
+                self._gate_count // self._drift_check_every):
+            return
+        nrm = float(gk.prob_mask_sum(self._state, 0, 0))  # total probability
+        if abs(1.0 - nrm) > self._drift_thresh:
+            self.EscalateToF64(nrm)
+
+    def EscalateToF64(self, observed_norm: float = None) -> None:
+        """Re-cast this engine's planes to float64 (reference analogue:
+        rebuilding at a higher FPPOW, qrack_types.hpp:88-138).  A cast of
+        the engine's own tensor: nothing else in the process changes."""
+        if self.dtype == torch.float64:
+            return
+        warnings.warn(
+            f"{self.dtype} norm drift {observed_norm!r} exceeded "
+            f"QRACK_TPU_AUTO_F64_DRIFT={self._drift_thresh}: escalating "
+            "amplitude planes to float64", RuntimeWarning)
+        st = self._state  # flushes any pending window in the old dtype
+        self.dtype = torch.float64
+        if st is not None:
+            self._state = st.to(torch.float64)
+
+    # ------------------------------------------------------------------
     # fusion hooks (ops/fusion.py)
     # ------------------------------------------------------------------
 
     def _fuse_admit(self, m, target, controls) -> bool:
         # every 2x2 gate lowers into a dense parametric window
         return True
+
+    def _fuse_tick(self) -> None:
+        # drift accounting advances per logical gate at queue time (the
+        # eager kernels tick per dispatch; a fused window would otherwise
+        # under-count merged-away gates).  A boundary crossing reads the
+        # state norm, which flushes the pending window first.
+        self._drift_tick()
 
     def _fuse_flush(self, gates) -> int:
         """Lower the pending window and apply it.  A window that merged
@@ -130,12 +192,11 @@ class QEngineCUDA(QEngine):
             return 0
         if len(ops) == 1:
             op = ops[0]
-            controls, perm = fu.controls_perm(op)
             if op.kind in ("cphase", "diag"):
-                self._k_apply_diag(op.m[0, 0], op.m[1, 1], op.target,
-                                   controls, perm)
+                self._apply_diag(op.m[0, 0], op.m[1, 1], op.target, op.cmask,
+                                 op.cval)
             else:
-                self._k_apply_2x2(op.m, op.target, controls, perm)
+                self._apply_2x2(op.m, op.target, op.cmask, op.cval)
             return 1
         self._state = fu.flush_window(self._state, self.qubit_count, ops)
         return 1
@@ -144,8 +205,7 @@ class QEngineCUDA(QEngine):
     # kernel contract
     # ------------------------------------------------------------------
 
-    def _k_apply_2x2(self, m2, target, controls, perm) -> None:
-        cmask, cval = self._cmask_cval(controls, perm)
+    def _apply_2x2(self, m2, target, cmask, cval) -> None:
         n = self.qubit_count
         if mat.is_invert(m2):
             tr, bl = complex(m2[0, 1]), complex(m2[1, 0])
@@ -153,19 +213,30 @@ class QEngineCUDA(QEngine):
                                           bl.real, bl.imag, n, target,
                                           cmask, cval)
         else:
-            mp = np.stack([m2.real, m2.imag]).astype(np.float32)
+            mp = gk.mtrx_planes(m2, self.dtype, "cpu")
             self._state = gk.apply_2x2(self._state, mp, n, target, cmask, cval)
 
-    def _k_apply_diag(self, d0, d1, target, controls, perm) -> None:
-        cmask, cval = self._cmask_cval(controls, perm)
+    def _apply_diag(self, d0, d1, target, cmask, cval) -> None:
         d0, d1 = complex(d0), complex(d1)
         self._state = gk.apply_diag(self._state, d0.real, d0.imag, d1.real,
                                     d1.imag, self.qubit_count, 1 << target,
                                     cmask, cval)
 
+    def _k_apply_2x2(self, m2, target, controls, perm) -> None:
+        cmask, cval = self._cmask_cval(controls, perm)
+        self._apply_2x2(m2, target, cmask, cval)
+        self._drift_tick()
+
+    def _k_apply_diag(self, d0, d1, target, controls, perm) -> None:
+        cmask, cval = self._cmask_cval(controls, perm)
+        self._apply_diag(d0, d1, target, cmask, cval)
+        self._drift_tick()
+
     def _k_apply_4x4(self, m4, q1, q2) -> None:
-        mp = np.stack([m4.real, m4.imag]).astype(np.float32)
-        self._state = gk.apply_4x4(self._state, mp, self.qubit_count, q1, q2)
+        m4 = np.asarray(m4, dtype=np.complex128)
+        self._state = gk.apply_4x4(self._state, np.stack([m4.real, m4.imag]),
+                                   self.qubit_count, q1, q2)
+        self._drift_tick()
 
     def UCMtrx(self, controls, mtrxs, target, mtrx_skip_powers=(), mtrx_skip_value_mask=0) -> None:
         """Uniformly-controlled gate in one batched product (reference
@@ -173,9 +244,9 @@ class QEngineCUDA(QEngine):
         if mtrx_skip_powers:
             return super().UCMtrx(controls, mtrxs, target, mtrx_skip_powers, mtrx_skip_value_mask)
         stack = np.stack([np.asarray(m, dtype=np.complex128).reshape(2, 2) for m in mtrxs])
-        mps = np.stack([stack.real, stack.imag]).astype(np.float32)
-        self._state = gk.uc_2x2(self._state, mps, self.qubit_count, target,
-                                tuple(controls))
+        self._state = gk.uc_2x2(self._state, np.stack([stack.real, stack.imag]),
+                                self.qubit_count, target, tuple(controls))
+        self._drift_tick()
 
     def _k_gather(self, src_fn) -> None:
         st = self._state
@@ -194,7 +265,7 @@ class QEngineCUDA(QEngine):
 
     def _k_phase_fn(self, fn) -> None:
         st = self._state
-        fre, fim = fn(torch, gk.iota_for(st))
+        fre, fim = fn(gk.plane_where(st), gk.iota_for(st))
         self._state = gk.phase_factor_apply(st, fre, fim)
 
     def _k_probs(self) -> np.ndarray:

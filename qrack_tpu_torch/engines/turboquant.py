@@ -128,8 +128,12 @@ class QEngineCUDATurboQuant(QEngineCUDA):
         self.peak_transient_amps = 0
         device = resolve_device(device)
         self._set_rotation(device)
-        super().__init__(qubit_count, init_state=init_state, dtype=dtype,
-                         device=device, **kwargs)
+        # the codes decode to float32 planes whatever the FPPOW policy
+        if dtype is not None and gk.plane_dtype(dtype) != torch.float32:
+            raise ValueError("QEngineCUDATurboQuant decodes to float32 "
+                             f"planes; dtype {dtype!r} is not offered")
+        super().__init__(qubit_count, init_state=init_state,
+                         dtype=torch.float32, device=device, **kwargs)
 
     def _set_rotation(self, device) -> None:
         d = 1 << self._tq_block_pow
@@ -449,6 +453,19 @@ class QEngineCUDATurboQuant(QEngineCUDA):
         # a window runs as one kernel sweep; only non-diagonal targets
         # above the tile stay per-gate (the chunk pair path)
         return mat.is_phase(m) or target < self._pallas_tile_pow()
+
+    # No drift accounting, eager or fused: a norm check would decompress
+    # the whole ket, and the codes decode to float32 whatever the norm.
+    def _fuse_tick(self) -> None:
+        pass
+
+    def _drift_tick(self) -> None:
+        pass
+
+    def EscalateToF64(self, observed_norm: float = None) -> None:
+        raise NotImplementedError(
+            "QEngineCUDATurboQuant holds float32 block codes; it has no "
+            "float64 form")
 
     def _fuse_flush(self, gates) -> int:
         ops = fu.lower_gates(gates)

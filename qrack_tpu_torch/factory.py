@@ -8,6 +8,10 @@ CreateQuantumInterface).  The ported terminals:
   "hybrid"      QHybrid: QEngineCPU below hybrid_tpu_threshold_qubits
                 (QRACK_TPU_THRESHOLD_QB, 13), QEngineCUDA from there to
                 max_page_qubits; ``device``/``dtype`` reach the CUDA half
+  "sparse"      QEngineSparse: sorted int64 indices and complex128
+                amplitudes on the host, up to 62 qubits (numpy; takes no
+                device; env QRACK_SPARSE_TRUNCATION_THRESHOLD,
+                QRACK_SPARSE_MAX_ALLOC_MB)
   "turboquant"  QEngineCUDATurboQuant block-compressed resident ket
                 (options bits, block_pow, chunk_qb, seed_rot; env
                 QRACK_TURBO_BITS, QRACK_TURBO_BLOCK_POW,
@@ -20,7 +24,7 @@ from __future__ import annotations
 
 from typing import Callable, Sequence, Union
 
-_TERMINAL = {"cuda", "cpu", "hybrid", "turboquant"}
+_TERMINAL = {"cuda", "cpu", "hybrid", "sparse", "turboquant"}
 
 
 def _terminal_factory(name: str, **opts) -> Callable:
@@ -36,6 +40,10 @@ def _terminal_factory(name: str, **opts) -> Callable:
         from .engines.hybrid import QHybrid
 
         return lambda n, **kw: QHybrid(n, **{**opts, **kw})
+    if name == "sparse":
+        from .engines.sparse import QEngineSparse
+
+        return lambda n, **kw: QEngineSparse(n, **{**opts, **kw})
     if name == "turboquant":
         from .engines.turboquant import QEngineCUDATurboQuant
 

@@ -6,7 +6,17 @@ permutation -> 2x2>, controls}; AppendGate merging src/qcircuit.cpp:101;
 Run :173).  `RunFused` applies the whole circuit
 as one fused window on the dense engine (ops/fusion.py): the window
 kernel pays one sweep over the ket per planned segment instead of one
-per gate.
+per gate.  The whole-circuit programs over planes:
+
+* :meth:`QCircuit.compile_fn` — plain torch, one gate function per
+  payload;
+* :meth:`QCircuit.compile_fn_pallas` — the window kernel (K1/K2) over the
+  circuit's planned segments (the JAX package's Pallas form);
+* :meth:`QCircuit.compile_batched_fn` — compile_fn over a leading batch
+  axis of kets.
+
+The sharded program (compile_sharded_fn) waits for the pager (ROADMAP
+item 13) and PastLightCone for the light-cone engine (item 11).
 """
 
 from __future__ import annotations
@@ -14,8 +24,14 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .. import matrices as mat
+
+
+def _is_unitary_2x2(m: np.ndarray, tol: float = 1e-9) -> bool:
+    m = np.asarray(m, dtype=np.complex128).reshape(2, 2)
+    return bool(np.allclose(m.conj().T @ m, np.eye(2), atol=tol))
 
 
 class QCircuitGate:
@@ -76,6 +92,10 @@ class QCircuit:
         # circuit once per submit AND once per dispatch, and sha1 over
         # every payload's bytes is milliseconds on ~100-gate circuits
         self._digest_cache: Optional[str] = None
+        # memoized rolling prefix-digest chain (prefix_digest): entry k
+        # hashes gates[:k+1].  AppendGate's merging can change earlier
+        # gates, so any append invalidates it, like _digest_cache.
+        self._prefix_chain: Optional[List[str]] = None
 
     # ------------------------------------------------------------------
 
@@ -85,6 +105,7 @@ class QCircuit:
         commuting past disjoint gates)."""
         self.qubit_count = max(self.qubit_count, max(gate.qubits()) + 1)
         self._digest_cache = None
+        self._prefix_chain = None
         # walk back past gates on disjoint qubits to find a merge partner
         i = len(self.gates) - 1
         gset = set(gate.qubits())
@@ -120,6 +141,16 @@ class QCircuit:
         return len(self.gates)
 
     # ------------------------------------------------------------------
+
+    def _lookahead_entries(self) -> List[Tuple[str, int]]:
+        """(kind, target) stream in :meth:`Run`'s dispatch order, for a
+        fuser that plans past its pending window (the pager's remap
+        planner, ROADMAP item 13)."""
+        out: List[Tuple[str, int]] = []
+        for g in self.gates:
+            for _perm, m in g.payloads.items():
+                out.append(("diag" if mat.is_phase(m) else "gen", g.target))
+        return out
 
     def Run(self, qsim) -> None:
         """Execute on any QInterface (reference: src/qcircuit.cpp:173)."""
@@ -170,6 +201,13 @@ class QCircuit:
         out.gates = [g.clone() for g in self.gates]
         return out
 
+    @staticmethod
+    def _hash_gate(h, g: QCircuitGate) -> None:
+        h.update(f"t{g.target};c{g.controls};".encode())
+        for perm in sorted(g.payloads):
+            h.update(f"p{perm}:".encode())
+            h.update(np.ascontiguousarray(g.payloads[perm]).tobytes())
+
     def structure_digest(self) -> str:
         """Stable content hash of the gate sequence — targets, controls,
         AND payload values; byte for byte the JAX package's digest of the
@@ -180,9 +218,159 @@ class QCircuit:
 
         h = hashlib.sha1()
         for g in self.gates:
-            h.update(f"t{g.target};c{g.controls};".encode())
-            for perm in sorted(g.payloads):
-                h.update(f"p{perm}:".encode())
-                h.update(np.ascontiguousarray(g.payloads[perm]).tobytes())
+            self._hash_gate(h, g)
         self._digest_cache = h.hexdigest()
         return self._digest_cache
+
+    def _prefix_digests(self) -> List[str]:
+        """Rolling digest chain: entry k is the digest of gates[:k+1],
+        built in one pass (a hashlib digest is readable mid-stream).
+        Entry -1 equals structure_digest()."""
+        if self._prefix_chain is None:
+            import hashlib
+
+            chain: List[str] = []
+            h = hashlib.sha1()
+            for g in self.gates:
+                self._hash_gate(h, g)
+                chain.append(h.hexdigest())
+            self._prefix_chain = chain
+        return self._prefix_chain
+
+    def prefix_digest(self, k: int) -> str:
+        """Digest of the first `k` gates: two circuits share it iff their
+        first k gates are equal (targets, controls, payload bytes).  k = 0
+        is the empty prefix's digest; k = len(gates) equals
+        structure_digest()."""
+        if k <= 0:
+            import hashlib
+
+            return hashlib.sha1().hexdigest()
+        chain = self._prefix_digests()
+        if k > len(chain):
+            raise IndexError(f"prefix length {k} > gate count {len(chain)}")
+        return chain[k - 1]
+
+    def shareable_prefix_len(self) -> int:
+        """Longest gate prefix whose payloads are all unitary: a
+        non-unitary payload (a recorded measurement or projection) ends
+        the prefix a cached ket may be shared over."""
+        for i, g in enumerate(self.gates):
+            for m in g.payloads.values():
+                if not _is_unitary_2x2(m):
+                    return i
+        return len(self.gates)
+
+    def split_at(self, k: int) -> Tuple["QCircuit", "QCircuit"]:
+        """(prefix, suffix) copies split before gate index `k`, gate for
+        gate (not through AppendGate, whose merging could reshape the
+        sequence the prefix digest hashed)."""
+        pre = QCircuit(self.qubit_count)
+        pre.gates = [g.clone() for g in self.gates[:k]]
+        suf = QCircuit(self.qubit_count)
+        suf.gates = [g.clone() for g in self.gates[k:]]
+        return pre, suf
+
+    def shape_key(self, n: int) -> Tuple[int, int, str]:
+        """Batch-bucket key at engine width `n`: (width, gate-count
+        bucket, structure digest)."""
+        return (n, len(self.gates).bit_length(), self.structure_digest())
+
+    # ------------------------------------------------------------------
+    # the whole circuit as one program over planes
+    # ------------------------------------------------------------------
+
+    def _plain_body(self):
+        """fn(planes, width) applying every payload through the plain gate
+        functions (gatekernels); gates act below bit n of a ket of any
+        width >= n."""
+        from ..ops import gatekernels as gk
+
+        gates = [(g.target, g.controls, dict(g.payloads)) for g in self.gates]
+
+        def body(planes, width: int):
+            for (target, controls, payloads) in gates:
+                for perm, m in payloads.items():
+                    cmask = 0
+                    cval = 0
+                    for j, c in enumerate(controls):
+                        cmask |= 1 << c
+                        if (perm >> j) & 1:
+                            cval |= 1 << c
+                    if mat.is_phase(m):
+                        planes = gk.apply_diag(
+                            planes, m[0, 0].real, m[0, 0].imag,
+                            m[1, 1].real, m[1, 1].imag,
+                            width, 1 << target, cmask, cval)
+                    elif mat.is_invert(m):
+                        planes = gk.apply_invert(
+                            planes, m[0, 1].real, m[0, 1].imag,
+                            m[1, 0].real, m[1, 0].imag,
+                            width, target, cmask, cval)
+                    else:
+                        mp = gk.mtrx_planes(m, planes.dtype, "cpu")
+                        planes = gk.apply_2x2(planes, mp, width, target,
+                                              cmask, cval)
+            return planes
+
+        return body
+
+    def compile_fn(self, n: int):
+        """fn(planes) applying the whole circuit to (2, 2^n) split planes
+        through the plain gate functions, gate by gate; returns new planes
+        (the input is left alone)."""
+        body = self._plain_body()
+
+        def fn(planes):
+            return body(planes, n)
+
+        return fn
+
+    def compile_fn_pallas(self, n: int, block_pow: Optional[int] = None):
+        """fn(planes) applying the circuit through the window kernel
+        (K1/K2, ops/window_kernel.py): one sweep over the ket per planned
+        segment, matrices and masks as runtime operands in the planes'
+        dtype.  Updates the planes in place and returns them.
+        ``fn.sweeps`` is the planned sweep count.  The name keeps the JAX
+        package's, whose form is its Pallas kernel; on a CPU tensor the
+        kernel's plain version runs."""
+        from ..ops import fusion as fu
+        from ..ops import window_kernel as wk
+
+        self._check_fused_range(n)
+        ops = fu.lower_gates(self.gates)
+        structure = fu.structure_of(ops)
+        wfn = wk.make_window_fn(
+            n, structure,
+            block_pow=wk.DEFAULT_BLOCK_POW if block_pow is None else block_pow)
+
+        def fn(planes):
+            if not ops:
+                return planes
+            return wfn(planes, *fu.dense_operands(ops, planes.dtype))
+
+        fn.sweeps = wfn.sweeps if ops else 0
+        return fn
+
+    def compile_batched_fn(self, n: int):
+        """fn(stacked) applying the circuit to each ket of a (B, 2, 2^n)
+        batch; returns a new (B, 2, 2^n) batch.  The batch axis becomes
+        the high bits of one ket of n + ceil(log2 B) qubits (padded with
+        zero kets to a power of two): every gate acts below bit n, so
+        each plain gate pass covers the whole batch and its masks see each
+        ket alone (the JAX package vmaps compile_fn)."""
+        self._check_fused_range(n)
+        body = self._plain_body()
+
+        def fn(stacked):
+            B = stacked.shape[0]
+            b = (B - 1).bit_length()
+            flat = stacked.transpose(0, 1)
+            if B != 1 << b:
+                pad = flat.new_zeros((2, (1 << b) - B, 1 << n))
+                flat = torch.cat([flat, pad], dim=1)
+            out = body(flat.reshape(2, -1), n + b)
+            return out.reshape(2, 1 << b, 1 << n)[:, :B].transpose(0, 1) \
+                .contiguous()
+
+        return fn

@@ -23,8 +23,9 @@ Operand layout (per op, in window order):
   inv       (2,2) [[tr.re,tr.im],[bl.re,bl.im]]  cmask:int, cval:int
   gen       (2,2,2) mtrx_planes                  cmask:int, cval:int
 
-Payloads are host numpy arrays in the planes' dtype (rounded exactly as
-the JAX package rounds them); masks are Python ints.  "cphase" is the
+Payloads are host tensors in the planes' dtype (float32, float64,
+float16 or bfloat16, rounded exactly as the JAX package rounds them);
+masks are Python ints.  "cphase" is the
 controlled phase with d0 == 1 and positive controls (every QFT phase):
 its factor select collapses to one combined-mask test.
 """
@@ -154,28 +155,22 @@ def window_fn(n: int, structure: Tuple):
     return fn
 
 
-def _np_dtype(dtype):
-    return torch.empty((), dtype=dtype).numpy().dtype
-
-
 def dense_operands(ops: Sequence[FusedOp], dtype=torch.float32) -> List:
-    """The operand vector of a window in the layout above."""
-    dt = _np_dtype(dtype)
+    """The operand vector of a window in the layout above: payloads as
+    host tensors in `dtype`, rounded as the JAX package's dense_operands
+    rounds them (gatekernels.host_tensor)."""
     out: List = []
     for op in ops:
         m = np.asarray(op.m)
         if op.kind == "cphase":
-            out.append(np.asarray([m[1, 1].real, m[1, 1].imag], dtype=dt))
+            p = [m[1, 1].real, m[1, 1].imag]
         elif op.kind == "diag":
-            out.append(np.asarray(
-                [[m[0, 0].real, m[0, 0].imag], [m[1, 1].real, m[1, 1].imag]],
-                dtype=dt))
+            p = [[m[0, 0].real, m[0, 0].imag], [m[1, 1].real, m[1, 1].imag]]
         elif op.kind == "inv":
-            out.append(np.asarray(
-                [[m[0, 1].real, m[0, 1].imag], [m[1, 0].real, m[1, 0].imag]],
-                dtype=dt))
+            p = [[m[0, 1].real, m[0, 1].imag], [m[1, 0].real, m[1, 0].imag]]
         else:
-            out.append(np.stack([m.real, m.imag]).astype(dt))
+            p = np.stack([m.real, m.imag])
+        out.append(gk.host_tensor(p, dtype))
         if op.cmask:
             out.append(int(op.cmask))
             out.append(int(op.cval))
@@ -213,7 +208,6 @@ def sharded_operands(ops: Sequence[FusedOp], L: int, dtype=torch.float32,
     from ..utils.device import resolve_device
     from .sharded import split_masks
 
-    dt = _np_dtype(dtype)
     floats: List[np.ndarray] = []
     ints: List[int] = []
     slots: List[Tuple] = []   # ("f", index, shape) or ("i", index)
@@ -221,7 +215,7 @@ def sharded_operands(ops: Sequence[FusedOp], L: int, dtype=torch.float32,
         m = np.asarray(op.m)
         kind = "gen" if op.kind == "inv" else op.kind
         if kind == "cphase":
-            p = np.asarray([m[1, 1].real, m[1, 1].imag], dtype=dt)
+            p = np.asarray([m[1, 1].real, m[1, 1].imag])
             masks = []
             if op.cmask:
                 comb = (1 << op.target) | op.cmask
@@ -229,9 +223,9 @@ def sharded_operands(ops: Sequence[FusedOp], L: int, dtype=torch.float32,
         else:
             if kind == "diag":
                 p = np.asarray([[m[0, 0].real, m[0, 0].imag],
-                                [m[1, 1].real, m[1, 1].imag]], dtype=dt)
+                                [m[1, 1].real, m[1, 1].imag]])
             else:
-                p = np.stack([m.real, m.imag]).astype(dt)
+                p = np.stack([m.real, m.imag])
             masks = list(split_masks(op.cmask, op.cval, L)) if op.cmask else []
         slots.append(("f", len(floats), p.shape))
         floats.append(p)
@@ -239,8 +233,8 @@ def sharded_operands(ops: Sequence[FusedOp], L: int, dtype=torch.float32,
             slots.append(("i", len(ints)))
             ints.append(int(v))
     dev = resolve_device(device)
-    fbuf = torch.from_numpy(np.concatenate(
-        [p.reshape(-1) for p in floats] or [np.zeros(0, dt)])).to(dev)
+    fbuf = gk.host_tensor(np.concatenate(
+        [p.reshape(-1) for p in floats] or [np.zeros(0)]), dtype).to(dev)
     ibuf = torch.tensor(ints, dtype=torch.int32).to(dev)
     offs = [0]
     for p in floats:

@@ -23,6 +23,8 @@ target t is (high = 2^(n-1-t), 2, low = 2^t).
 from __future__ import annotations
 
 import functools
+import math
+import types
 
 import numpy as np
 import torch
@@ -33,18 +35,54 @@ from ..utils.device import resolve_device
 # amplitudes (engines/cuda.py MAX_DENSE_QB), so every mask fits.
 IDX_DTYPE = torch.int32
 
+#: the planes' dtypes, by name (the FPPOW policy, config.py)
+PLANE_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+                "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def plane_dtype(dtype) -> torch.dtype:
+    """A plane dtype from a torch dtype or its name; raises for any
+    other."""
+    dt = PLANE_DTYPES.get(dtype, dtype) if isinstance(dtype, str) else dtype
+    if dt not in PLANE_DTYPES.values():
+        raise ValueError(f"plane dtype must be one of {sorted(PLANE_DTYPES)}, "
+                         f"not {dtype!r}")
+    return dt
+
+
+def dtype_name(dtype) -> str:
+    """A plane dtype's name, as in PLANE_DTYPES."""
+    return str(dtype).removeprefix("torch.")
+
+
+def compute_dtype(dtype) -> torch.dtype:
+    """The dtype arithmetic over planes of `dtype` runs in: float64 for
+    float64 planes, float32 for the others (16-bit planes are read into
+    float32 and rounded once, at the store)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
 
 # ---------------------------------------------------------------------------
 # plane representation helpers
 # ---------------------------------------------------------------------------
 
+def host_tensor(values, dtype=torch.float32) -> torch.Tensor:
+    """Host float values as a CPU tensor in `dtype`, rounded as the JAX
+    package rounds them: float16 directly from float64 (numpy's rule),
+    bfloat16 through float32 (ml_dtypes' rule, which torch's conversion
+    follows)."""
+    a = np.asarray(values, dtype=np.float64)
+    if dtype == torch.float16:
+        return torch.from_numpy(a.astype(np.float16))
+    return torch.from_numpy(a).to(dtype)
+
+
 def to_planes(state_complex, dtype=torch.float32, device=None):
     """Host complex vector -> (2, N) real planes on `device`, ``cuda`` by
     default (a copy)."""
     arr = np.asarray(state_complex)
-    host = np.stack([arr.real, arr.imag]).astype(
-        torch.empty((), dtype=dtype).numpy().dtype)
-    return torch.from_numpy(host).to(resolve_device(device))
+    return host_tensor(np.stack([arr.real, arr.imag]), dtype).to(
+        resolve_device(device))
 
 
 def from_planes(planes) -> np.ndarray:
@@ -57,9 +95,8 @@ def mtrx_planes(m, dtype=torch.float32, device=None):
     """Host complex (d, d) matrix -> (2, d, d) real planes on `device`,
     ``cuda`` by default."""
     m = np.asarray(m)
-    return torch.stack([torch.tensor(m.real, dtype=dtype),
-                        torch.tensor(m.imag, dtype=dtype)]).to(
-                            resolve_device(device))
+    return host_tensor(np.stack([m.real, m.imag]), dtype).to(
+        resolve_device(device))
 
 
 def _host_planes(mp) -> np.ndarray:
@@ -74,8 +111,7 @@ def _dev_planes(mp, like):
     there is used as it is (no host round trip, no wait on the device)."""
     if isinstance(mp, torch.Tensor):
         return mp.to(like.device, like.dtype)
-    return torch.as_tensor(np.asarray(mp, dtype=np.float64),
-                           dtype=like.dtype).to(like.device)
+    return host_tensor(mp, like.dtype).to(like.device)
 
 
 def _mix(mp):
@@ -114,6 +150,14 @@ def _where(cond, a, b, like):
     return torch.where(cond, a, b)
 
 
+def plane_where(like):
+    """What a phase function ``fn(xp, idx)`` is given as ``xp`` over
+    torch planes: its one call, ``xp.where``, keeps scalar branches in
+    the planes' dtype (torch.where makes them float32, and float64 planes
+    would lose their precision there)."""
+    return types.SimpleNamespace(where=functools.partial(_where, like=like))
+
+
 # ---------------------------------------------------------------------------
 # gate kernels
 # ---------------------------------------------------------------------------
@@ -134,15 +178,15 @@ def apply_2x2(planes, mp, n: int, target: int, cmask=0, cval=0):
     v = planes.reshape(2, high, 2, low)
     a0r, a1r = v[0, :, 0, :], v[0, :, 1, :]
     a0i, a1i = v[1, :, 0, :], v[1, :, 1, :]
-    rows = []
+    # each row goes straight into the result: a float64 w30 ket is 16 GiB,
+    # so the temporaries of a whole-ket stack would not fit beside it
+    out = torch.empty_like(planes)
+    ov = out.view(2, high, 2, low)
     for r in range(2):
         mr0, mi0 = float(m[0, r, 0]), float(m[1, r, 0])
         mr1, mi1 = float(m[0, r, 1]), float(m[1, r, 1])
-        rows.append((mr0 * a0r - mi0 * a0i + mr1 * a1r - mi1 * a1i,
-                     mr0 * a0i + mi0 * a0r + mr1 * a1i + mi1 * a1r))
-    out = torch.stack([torch.stack([rows[0][0], rows[1][0]], dim=1),
-                       torch.stack([rows[0][1], rows[1][1]], dim=1)])
-    out = out.reshape(2, -1)
+        ov[0, :, r, :] = mr0 * a0r - mi0 * a0i + mr1 * a1r - mi1 * a1i
+        ov[1, :, r, :] = mr0 * a0i + mi0 * a0r + mr1 * a1i + mi1 * a1r
     if cmask == 0:
         return out
     return _ctrl_select(out, planes, cmask, cval)
@@ -189,7 +233,7 @@ def apply_kxk(planes, mp, n: int, start: int, k: int):
 
 def apply_4x4(planes, mp4, n: int, q1: int, q2: int):
     """Arbitrary two-qubit gate as one plane-mixing contraction."""
-    mp4 = torch.as_tensor(_host_planes(mp4), dtype=planes.dtype).to(planes.device)
+    mp4 = host_tensor(_host_planes(mp4), planes.dtype).to(planes.device)
     lo, hi = (q1, q2) if q1 < q2 else (q2, q1)
     h = 1 << (n - 1 - hi)
     m = 1 << (hi - lo - 1)
@@ -203,12 +247,17 @@ def apply_4x4(planes, mp4, n: int, q1: int, q2: int):
     return out.reshape(2, -1)
 
 
+# torch refuses a CUDA tensor of more dimensions than this (the CPU
+# does not check it): every view a function here builds stays within it
+MAX_DIMS = 25
+
+
 def _bit_view(n: int, bits):
     """(shape, axis_of, rest): a view of (2, 2^n) planes with one axis of
     size 2 for each bit of `bits` and one axis for each run of the other
     bits, high bits first (`rest` lists those axes in order).  It has at
-    most 2 len(bits) + 2 axes, so a w30 ket stays under torch's limit of
-    25 dimensions, which one axis per qubit would pass."""
+    most 2 len(bits) + 2 axes: callers take it only when that is within
+    MAX_DIMS."""
     shape, axis_of, rest = [2], {}, []
     hi = n
     for b in sorted(bits, reverse=True):
@@ -224,23 +273,64 @@ def _bit_view(n: int, bits):
     return shape, axis_of, rest
 
 
+def _runs(bits):
+    """Ascending bits as (first, length) runs of consecutive bits."""
+    runs = []
+    for b in sorted(bits):
+        if runs and runs[-1][0] + runs[-1][1] == b:
+            runs[-1][1] += 1
+        else:
+            runs.append([b, 1])
+    return runs
+
+
+def _key_order_index(n: int, target: int, controls, device):
+    """The flat index of every amplitude in key order: position p =
+    (key << (n - k)) | (target bit << (n - k - 1)) | rest, where the
+    key's bit j is controls[j] and rest holds the other bits in order —
+    the order uc_2x2's view puts them in, as one index vector."""
+    k = len(controls)
+    p = _iota(1 << n, device)
+    src = ((p >> (n - k - 1)) & 1) << target
+    for j, c in enumerate(controls):
+        src |= ((p >> (n - k + j)) & 1) << c
+    other = sorted(set(range(n)) - set(controls) - {target})
+    pos = 0
+    for first, length in _runs(other):
+        src |= ((p >> pos) & ((1 << length) - 1)) << first
+        pos += length
+    return src
+
+
 def uc_2x2(planes, mps, n: int, target: int, controls):
     """Uniformly-controlled gate: per-control-permutation payloads
     (reference kernel uniformlycontrolled, qengine.cl:409).
     mps: (2, 2^k, 2, 2) matrix planes, as a batched 2x2 product over the
-    control-key axis."""
-    mps = torch.as_tensor(_host_planes(mps), dtype=planes.dtype).to(planes.device)
+    control-key axis.  The amplitudes reach key order through a
+    permuted view while it has at most MAX_DIMS axes (up to 10 scattered
+    controls), and past that through one gather and one scatter."""
+    mps = host_tensor(_host_planes(mps), planes.dtype).to(planes.device)
+    controls = tuple(controls)
     k = len(controls)
+    re, im = mps[0], mps[1]  # [2^k, 2, 2]
+
+    def mix(v):
+        vr, vi = v[0], v[1]
+        return torch.stack([torch.bmm(re, vr) - torch.bmm(im, vi),
+                            torch.bmm(re, vi) + torch.bmm(im, vr)])
+
     shape, axis_of, rest = _bit_view(n, list(controls) + [target])
+    if len(shape) > MAX_DIMS:
+        src = _key_order_index(n, target, controls, planes.device)
+        out = mix(planes.index_select(1, src).view(2, 1 << k, 2, -1))
+        new = torch.empty_like(planes)
+        new[:, src] = out.reshape(2, -1)
+        return new
     # the key's bit j is controls[j]: the last control is its top bit
-    perm = ([0] + [axis_of[c] for c in list(controls)[::-1]]
+    perm = ([0] + [axis_of[c] for c in controls[::-1]]
             + [axis_of[target]] + rest)
     v = planes.reshape(shape).permute(perm).reshape(2, 1 << k, 2, -1)
-    re, im = mps[0], mps[1]  # [2^k, 2, 2]
-    vr, vi = v[0], v[1]
-    outr = torch.bmm(re, vr) - torch.bmm(im, vi)
-    outi = torch.bmm(re, vi) + torch.bmm(im, vr)
-    out = torch.stack([outr, outi]).reshape([shape[a] for a in perm])
+    out = mix(v).reshape([shape[a] for a in perm])
     inv = np.argsort(np.asarray(perm))
     return out.permute(list(inv)).reshape(2, -1)
 
@@ -290,9 +380,13 @@ def prob_mask_sum(planes, mask, val):
     return torch.where((idx & mask) == val, p, 0.0).sum()
 
 
-def _f32_rsqrt(nrm_sq: float) -> float:
-    # 1/sqrt in float32, as the JAX program computes it at f32 planes
-    return float(np.float32(1.0) / np.sqrt(np.float32(nrm_sq)))
+def _rsqrt(nrm_sq: float, dtype) -> float:
+    """1/sqrt(nrm_sq) as the JAX program computes it: in float64 at
+    float64 planes, else in float32, then rounded to the planes' dtype."""
+    if dtype == torch.float64:
+        return 1.0 / math.sqrt(nrm_sq)
+    s = np.float32(1.0) / np.sqrt(np.float32(nrm_sq))
+    return float(host_tensor(s, dtype))
 
 
 def collapse(planes, mask, val, nrm_sq):
@@ -300,11 +394,11 @@ def collapse(planes, mask, val, nrm_sq):
     qengine.cl:1013-1045)."""
     idx = iota_for(planes)
     keep = (idx & mask) == val
-    return torch.where(keep, planes * _f32_rsqrt(nrm_sq), 0.0)
+    return torch.where(keep, planes * _rsqrt(nrm_sq, planes.dtype), 0.0)
 
 
 def normalize(planes, nrm_sq):
-    return planes * _f32_rsqrt(nrm_sq)
+    return planes * _rsqrt(nrm_sq, planes.dtype)
 
 
 def probs(planes):

@@ -30,6 +30,12 @@ which follows the kernel's decomposition: planes viewed as
 ``(2, n_tiles, 2^bp)``, the same lo/hi mask split and the same pair
 mapping.  Both update the planes in place.
 
+The planes may be float32, float64, float16 or bfloat16, and fv is in
+their dtype (:data:`DTYPE_CODE`).  The kernel computes in float64 for
+float64 planes and in float32 for the others: 16-bit planes are read
+into float32, the whole segment runs there, and each amplitude is
+rounded back once per sweep.  The plain versions do the same.
+
 The pair kernel keeps a tile pair in registers (:func:`pair_layout`) and
 sends each op down one route (:func:`pair_route`); it decodes both from
 the op table on the device.  :func:`pair_sweep_emulated` computes a pair
@@ -49,27 +55,61 @@ from . import gatekernels as gk
 from ..utils.device import resolve_device
 
 # A tile is 2^bp amplitudes of both planes in one block's shared memory:
-# 32 KiB at bp = 12.  The pair kernel keeps a pair in registers, and an
-# exchange buffer of the pair's size (64 KiB) in shared memory.  (The
-# Pallas kernel's 2^16 tile is a TPU VMEM size; a block has at most 227 KB.)
+# 32 KiB at bp = 12 in float32.  The pair kernel keeps a pair in
+# registers, and an exchange buffer of the pair's size (64 KiB in float32)
+# in shared memory.  (The Pallas kernel's 2^16 tile is a TPU VMEM size; a
+# block has at most 227 KB.)
 DEFAULT_BLOCK_POW = 12
-MAX_BLOCK_POW = 13          # a tile pair must fit a block's shared memory
 MAX_QB = 30                 # int32 masks and tile ids, as in the JAX kernel
 
-# floats each op contributes to the packed scalar vector (dense layout
+# The planes' dtypes the kernel takes, by the code its C entry points
+# read.  Arithmetic runs in float64 for float64 planes and in float32 for
+# the others; 16-bit planes round once per sweep, at the store.
+DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
+              torch.bfloat16: 3}
+# A tile pair must fit a block's shared memory: the pair kernel's exchange
+# buffer holds it in the compute type, 2^(bp + 2) values, so float64
+# planes take one tile bit less (max_block_pow).
+MAX_BLOCK_POW = 13
+# The pair kernel's groups of four amplitudes move as one vector access a
+# plane (two 16-byte halves for float64); the planes' start must be
+# aligned to it.
+VECTOR_BYTES = {torch.float32: 16, torch.float64: 16, torch.float16: 8,
+                torch.bfloat16: 8}
+
+
+def max_block_pow(dtype=torch.float32) -> int:
+    """The widest tile the kernel takes for planes of `dtype`."""
+    return MAX_BLOCK_POW - 1 if dtype == torch.float64 else MAX_BLOCK_POW
+
+
+# values each op contributes to the packed scalar vector (dense layout
 # order: cphase [f.re,f.im]; diag [d0.re,d0.im,d1.re,d1.im];
 # inv [tr.re,tr.im,bl.re,bl.im]; gen mtrx_planes (2,2,2) row-major)
 _NFLOATS = {"cphase": 2, "diag": 4, "inv": 4, "gen": 8}
 KIND_CODE = {"cphase": 0, "diag": 1, "inv": 2, "gen": 3}
 _ROW = 5  # op-table columns: kind, target, has_ctrl, float offset, int offset
 
-#: kernel launches per entry point (never the plain version's calls)
-LAUNCHES = {"in_tile": 0, "pair": 0}
+#: kernel launches per entry point, by the planes' dtype name: one count
+#: per dtype form (never the plain version's calls)
+DTYPE_LAUNCHES = {gk.dtype_name(dt): {"in_tile": 0, "pair": 0}
+                  for dt in DTYPE_CODE}
+
+
+def launches() -> dict:
+    """Kernel launches per entry point, over every dtype."""
+    return {k: sum(c[k] for c in DTYPE_LAUNCHES.values())
+            for k in ("in_tile", "pair")}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in DTYPE_LAUNCHES.values():
+        for k in counts:
+            counts[k] = 0
+
+
+def _count(entry: str, dtype) -> None:
+    DTYPE_LAUNCHES[gk.dtype_name(dtype)][entry] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -125,25 +165,26 @@ def _operand_slots(structure: Tuple):
 def pack_operands(structure: Tuple, operands: Sequence,
                   dtype=torch.float32, device=None):
     """Flatten a dense-layout operand vector (fusion.dense_operands) into
-    the kernel's packed scalar vectors: fv (F,) float, iv (I,) int32 —
-    the same values, in the same order, as the Pallas kernel's columns —
-    on `device`, ``cuda`` by default."""
+    the kernel's packed scalar vectors: fv (F,) in `dtype`, iv (I,) int32
+    — the same values, in the same order, as the Pallas kernel's columns
+    (``pallas_kernels.pack_operands(structure, operands, planes.dtype)``)
+    — on `device`, ``cuda`` by default.  Payloads already in `dtype`
+    (as dense_operands gives them) pass unchanged."""
     device = resolve_device(device)
-    fs: List[float] = []
+    fs: List[torch.Tensor] = []
     iv: List[int] = []
     k = 0
     for kind, target, has_ctrl in structure:
-        p = np.asarray(operands[k])
+        fs.append(torch.as_tensor(operands[k]).reshape(-1).to(dtype))
         k += 1
-        fs += [float(x) for x in p.reshape(-1)]
         if has_ctrl:
             iv += [int(operands[k]), int(operands[k + 1])]
             k += 2
     if not iv:
         iv = [0]  # keep the vector non-empty; never read
-    fv = torch.tensor(fs, dtype=dtype).to(device)
+    fv = torch.cat(fs) if fs else torch.zeros(0, dtype=dtype)
     ivec = torch.tensor(iv, dtype=torch.int32).to(device)
-    return fv, ivec
+    return fv.to(device), ivec
 
 
 def op_table(structure: Tuple, device=None):
@@ -292,29 +333,48 @@ def _tiles(planes, n: int, bp: int):
     return v, lidx, blk
 
 
-def in_tile_sweep_plain(planes, n: int, bp: int, table, fv, iv,
-                        first: int, count: int):
-    """Plain version of :func:`in_tile_sweep` (in place, returns planes)."""
-    v, lidx, blk = _tiles(planes, n, bp)
-    for row in _rows(table, first, count):
-        _tile_op_plain(v, lidx, blk, bp, row, fv, iv)
+def _in_compute_type(planes, fv, body):
+    """Run ``body(w, fv)`` on the planes in the kernel's compute type: in
+    place for float32 and float64 planes; for 16-bit planes on a float32
+    copy, rounded back to the planes once at the end, as the kernel
+    rounds once at its store.  Returns planes."""
+    if gk.compute_dtype(planes.dtype) == planes.dtype:
+        body(planes, fv)
+        return planes
+    w = planes.to(torch.float32)
+    body(w, fv.to(torch.float32))
+    planes.copy_(w)
     return planes
 
 
-def pair_sweep_plain(planes, n: int, bp: int, table, fv, iv, xop: int,
-                     first: int, count: int):
-    """Plain version of :func:`pair_sweep` (in place, returns planes):
-    tile i (target bit clear) and its partner j = i | (1 << h) mix
-    through the leading op's 2x2, each with its own control select, then
-    the segment's in-tile ops run on every tile."""
-    kind, t, has_ctrl, foff, ioff = _rows(table, xop, 1)[0]
-    h = t - bp
-    nblk = 1 << (n - bp)
-    block = 1 << bp
-    pv = planes.view(2, nblk >> (h + 1), 2, 1 << h, block)
-    lo, hi = pv[:, :, 0], pv[:, :, 1]
+# amplitudes a plain sweep takes at a time: tiles and tile pairs are
+# independent, so steps of this size bound its temporaries (a float64
+# w30 ket is 16 GiB) without changing a value
+PLAIN_STEP = 1 << 24
+
+
+def _in_tile_body(planes, n: int, bp: int, table, fv, iv, first: int,
+                  count: int):
+    v, lidx, blk = _tiles(planes, n, bp)
+    rows = _rows(table, first, count)
+    step = max(1, PLAIN_STEP >> bp)
+    for b0 in range(0, v.shape[1], step):
+        vc, bc = v[:, b0:b0 + step], blk[b0:b0 + step]
+        for row in rows:
+            _tile_op_plain(vc, lidx, bc, bp, row, fv, iv)
+
+
+def in_tile_sweep_plain(planes, n: int, bp: int, table, fv, iv,
+                        first: int, count: int):
+    """Plain version of :func:`in_tile_sweep` (in place, returns planes)."""
+    return _in_compute_type(planes, fv, lambda w, f: _in_tile_body(
+        w, n, bp, table, f, iv, first, count))
+
+
+def _pair_mix(lo, hi, f, kind, sel_lo, sel_hi):
+    """The leading op's 2x2 on tile views lo (target bit clear) and hi,
+    in place; sel_* are the control selects or None."""
     lo_r, lo_i, hi_r, hi_i = lo[0], lo[1], hi[0], hi[1]
-    f = fv[foff:foff + _NFLOATS["gen" if kind == KIND_CODE["gen"] else "inv"]]
     if kind == KIND_CODE["gen"]:
         nlo_r = f[0] * lo_r - f[4] * lo_i + f[1] * hi_r - f[5] * hi_i
         nlo_i = f[0] * lo_i + f[4] * lo_r + f[1] * hi_i + f[5] * hi_r
@@ -327,16 +387,50 @@ def pair_sweep_plain(planes, n: int, bp: int, table, fv, iv, xop: int,
         nhi_i = f[2] * lo_i + f[3] * lo_r
     nlo = torch.stack([nlo_r, nlo_i])
     nhi = torch.stack([nhi_r, nhi_i])
-    if has_ctrl:
-        lm, lv, gm, gv = _masks(iv, has_ctrl, ioff, bp, planes)
-        lidx = gk._iota(block, planes.device)
-        ids = gk._iota(nblk, planes.device).view(nblk >> (h + 1), 2, 1 << h, 1)
-        lsel = (lidx & lm) == lv
-        nlo = torch.where(lsel & ((ids[:, 0] & gm) == gv), nlo, lo)
-        nhi = torch.where(lsel & ((ids[:, 1] & gm) == gv), nhi, hi)
+    if sel_lo is not None:
+        nlo = torch.where(sel_lo, nlo, lo)
+        nhi = torch.where(sel_hi, nhi, hi)
     lo.copy_(nlo)
     hi.copy_(nhi)
-    return in_tile_sweep_plain(planes, n, bp, table, fv, iv, first, count)
+
+
+def _pair_body(planes, n: int, bp: int, table, fv, iv, xop: int,
+               first: int, count: int):
+    kind, t, has_ctrl, foff, ioff = _rows(table, xop, 1)[0]
+    h = t - bp
+    nblk = 1 << (n - bp)
+    block = 1 << bp
+    A, B = nblk >> (h + 1), 1 << h
+    pv = planes.view(2, A, 2, B, block)
+    f = fv[foff:foff + _NFLOATS["gen" if kind == KIND_CODE["gen"] else "inv"]]
+    if has_ctrl:
+        lm, lv, gm, gv = _masks(iv, has_ctrl, ioff, bp, planes)
+        lsel = (gk._iota(block, planes.device) & lm) == lv
+        ids = gk._iota(nblk, planes.device).view(A, 2, B, 1)
+    # steps over the (A, B) grid of tile pairs, PLAIN_STEP amplitudes each
+    sb = min(B, max(1, PLAIN_STEP // (2 * block)))
+    sa = max(1, PLAIN_STEP // (2 * block * B)) if sb == B else 1
+    for a0 in range(0, A, sa):
+        for b0 in range(0, B, sb):
+            lo = pv[:, a0:a0 + sa, 0, b0:b0 + sb]
+            hi = pv[:, a0:a0 + sa, 1, b0:b0 + sb]
+            sel_lo = sel_hi = None
+            if has_ctrl:
+                cid = ids[a0:a0 + sa, :, b0:b0 + sb]
+                sel_lo = lsel & ((cid[:, 0] & gm) == gv)
+                sel_hi = lsel & ((cid[:, 1] & gm) == gv)
+            _pair_mix(lo, hi, f, kind, sel_lo, sel_hi)
+    _in_tile_body(planes, n, bp, table, fv, iv, first, count)
+
+
+def pair_sweep_plain(planes, n: int, bp: int, table, fv, iv, xop: int,
+                     first: int, count: int):
+    """Plain version of :func:`pair_sweep` (in place, returns planes):
+    tile i (target bit clear) and its partner j = i | (1 << h) mix
+    through the leading op's 2x2, each with its own control select, then
+    the segment's in-tile ops run on every tile."""
+    return _in_compute_type(planes, fv, lambda w, f: _pair_body(
+        w, n, bp, table, f, iv, xop, first, count))
 
 
 # ---------------------------------------------------------------------------
@@ -348,15 +442,23 @@ LANE_BITS = 5       # a warp's 32 lanes
 PAIR_ROUTES = ("pair", "diagonal", "register", "lane", "warp")
 
 
-def pair_layout(bp: int) -> dict:
-    """Where the pair kernel keeps each in-tile bit of a tile pair.
+def pair_reg_bits(dtype=torch.float32) -> int:
+    """In-tile register bits of a pair-sweep thread at bp >= them: one
+    less for float64 planes, whose values take two registers each."""
+    return PAIR_REG_BITS - 1 if dtype == torch.float64 else PAIR_REG_BITS
+
+
+def pair_layout(bp: int, dtype=torch.float32) -> dict:
+    """Where the pair kernel keeps each in-tile bit of a tile pair of
+    `dtype` planes.
 
     A thread holds the amplitudes of its ``register`` bits (the two
-    lowest in-tile bits and the highest ``min(4, bp) - 2``) in both tiles
-    of the pair: 2^(len(register) + 1) of them.  The other in-tile bits
-    index the thread, low to high: ``lane`` bits first (up to five), then
-    ``warp`` bits.  Neighbouring threads hold neighbouring float4s."""
-    rin = min(PAIR_REG_BITS, bp)
+    lowest in-tile bits and the highest ``min(R, bp) - 2``, R =
+    :func:`pair_reg_bits`) in both tiles of the pair: 2^(len(register) +
+    1) of them.  The other in-tile bits index the thread, low to high:
+    ``lane`` bits first (up to five), then ``warp`` bits.  Neighbouring
+    threads hold neighbouring groups of four amplitudes."""
+    rin = min(pair_reg_bits(dtype), bp)
     lo = min(2, rin)
     hs = bp - (rin - lo)
     thread = list(range(lo, hs))
@@ -365,7 +467,8 @@ def pair_layout(bp: int) -> dict:
             "threads": 1 << len(thread)}
 
 
-def pair_route(kind: str, target: int, bp: int) -> str:
+def pair_route(kind: str, target: int, bp: int,
+               dtype=torch.float32) -> str:
     """The pair kernel's route for one op of a pair-led segment: the
     leading cross-tile inv/gen (``pair``) and in-tile inv/gen on a
     ``register`` bit mix registers, a ``lane`` bit exchanges by warp
@@ -375,7 +478,7 @@ def pair_route(kind: str, target: int, bp: int) -> str:
         return "diagonal"
     if target >= bp:
         return "pair"
-    lay = pair_layout(bp)
+    lay = pair_layout(bp, dtype)
     return next(r for r in ("register", "lane", "warp") if target in lay[r])
 
 
@@ -386,12 +489,19 @@ def pair_sweep_emulated(planes, n: int, bp: int, table, fv, iv, xop: int,
     ``(2, pairs, threads, registers)``, every op decoded as the kernel
     decodes it (its masks split into tile, thread and register parts) and
     applied by its route, in order; then scattered back.  In place,
-    returns planes."""
+    returns planes; 16-bit planes compute in float32 and round once, as
+    the kernel does."""
+    return _in_compute_type(planes, fv, lambda w, f: _pair_emulated_body(
+        w, n, bp, table, f, iv, xop, first, count, planes.dtype))
+
+
+def _pair_emulated_body(planes, n, bp, table, fv, iv, xop, first, count,
+                        dtype):
     names = {v: k for k, v in KIND_CODE.items()}
     rows = table.cpu().tolist()
     ivh = iv.cpu().tolist()
     h = rows[xop][1] - bp
-    lay = pair_layout(bp)
+    lay = pair_layout(bp, dtype)
     regbits = lay["register"] + [bp + h]      # register index bit -> index bit
     thrbits = lay["lane"] + lay["warp"]       # thread index bit -> index bit
     nr, nt = 1 << len(regbits), lay["threads"]
@@ -479,30 +589,32 @@ def load_library():
     process."""
     lib = cuda_build.load(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.qtt_window_in_tile.argtypes = [ptr, i32, i32, ptr, i32, i32,
+    lib.qtt_window_in_tile.argtypes = [ptr, i32, i32, i32, ptr, i32, i32,
                                        ptr, ptr, ptr]
     lib.qtt_window_in_tile.restype = i32
-    lib.qtt_window_pair.argtypes = [ptr, i32, i32, ptr, i32, i32, i32,
+    lib.qtt_window_pair.argtypes = [ptr, i32, i32, i32, ptr, i32, i32, i32,
                                     ptr, ptr, ptr]
     lib.qtt_window_pair.restype = i32
     return lib
 
 
 def _check_launch(planes, n: int, bp: int, table, fv, iv, rows: Sequence[int]):
-    if planes.dtype != torch.float32:
-        raise NotImplementedError(
-            f"window kernel takes float32 planes, not {planes.dtype}")
+    if planes.dtype not in DTYPE_CODE:
+        raise ValueError(f"window kernel takes {sorted(map(str, DTYPE_CODE))} "
+                         f"planes, not {planes.dtype}")
     if tuple(planes.shape) != (2, 1 << n) or not planes.is_contiguous():
         raise ValueError(f"planes must be contiguous (2, 2^{n}), got "
                          f"{tuple(planes.shape)}")
-    if planes.data_ptr() % 16:
-        raise ValueError("planes must start on a 16-byte boundary (the pair "
-                         "kernel moves float4s)")
-    if not (1 <= bp <= min(n, MAX_BLOCK_POW)) or n > MAX_QB:
-        raise ValueError(f"window kernel needs 1 <= bp <= min(n, "
-                         f"{MAX_BLOCK_POW}) and n <= {MAX_QB} (n={n}, bp={bp})")
-    for name, t, dt in (("table", table, torch.int32), ("fv", fv, torch.float32),
-                        ("iv", iv, torch.int32)):
+    vec = VECTOR_BYTES[planes.dtype]
+    if planes.data_ptr() % vec:
+        raise ValueError(f"{planes.dtype} planes must start on a {vec}-byte "
+                         "boundary (the pair kernel's vector accesses)")
+    top = max_block_pow(planes.dtype)
+    if not (1 <= bp <= min(n, top)) or n > MAX_QB:
+        raise ValueError(f"window kernel needs 1 <= bp <= min(n, {top}) and "
+                         f"n <= {MAX_QB} at {planes.dtype} (n={n}, bp={bp})")
+    for name, t, dt in (("table", table, torch.int32),
+                        ("fv", fv, planes.dtype), ("iv", iv, torch.int32)):
         if t.device != planes.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dt} tensor on "
                              f"{planes.device}")
@@ -530,11 +642,12 @@ def in_tile_sweep(planes, n: int, bp: int, table, fv, iv,
     lib = load_library()
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
-        err = lib.qtt_window_in_tile(planes.data_ptr(), n, bp,
+        err = lib.qtt_window_in_tile(planes.data_ptr(),
+                                     DTYPE_CODE[planes.dtype], n, bp,
                                      table.data_ptr(), first, count,
                                      fv.data_ptr(), iv.data_ptr(), stream)
     _raise_on(err, "in_tile")
-    LAUNCHES["in_tile"] += 1
+    _count("in_tile", planes.dtype)
     return planes
 
 
@@ -551,11 +664,12 @@ def pair_sweep(planes, n: int, bp: int, table, fv, iv, xop: int,
     lib = load_library()
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
-        err = lib.qtt_window_pair(planes.data_ptr(), n, bp, table.data_ptr(),
-                                  xop, first, count, fv.data_ptr(),
-                                  iv.data_ptr(), stream)
+        err = lib.qtt_window_pair(planes.data_ptr(),
+                                  DTYPE_CODE[planes.dtype], n, bp,
+                                  table.data_ptr(), xop, first, count,
+                                  fv.data_ptr(), iv.data_ptr(), stream)
     _raise_on(err, "pair")
-    LAUNCHES["pair"] += 1
+    _count("pair", planes.dtype)
     return planes
 
 

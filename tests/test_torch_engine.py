@@ -178,12 +178,40 @@ def test_blind_overwrite_drops_pending_gates():
 
 
 def test_non_f32_planes_are_refused():
+    """Planes of a dtype outside the FPPOW set are refused (float64,
+    bfloat16 and float16 planes build: test_fppow_planes_build), and so
+    is a width past one dense shard."""
     import torch
 
-    with pytest.raises(NotImplementedError):
-        qt.QEngineCUDA(3, dtype=torch.float64, device="cpu")
+    for dt in (torch.int32, torch.complex64, "float8"):
+        with pytest.raises(ValueError):
+            qt.QEngineCUDA(3, dtype=dt, device="cpu")
     with pytest.raises(MemoryError):
         qt.QEngineCUDA(31, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["float32", "float64", "bfloat16", "float16"])
+def test_fppow_planes_build(name):
+    """Each FPPOW dtype builds, by argument and through the config's
+    FPPOW name (QRACK_TPU_FPPOW), and a Bell pair in it reads back as
+    one."""
+    import torch
+
+    from qrack_tpu_torch import config
+
+    dt = getattr(torch, name)
+    before = config.get_config().real_dtype_name
+    config.set_config(real_dtype_name=name)
+    try:
+        engines = (qt.QEngineCUDA(3, dtype=dt, device="cpu"),
+                   qt.QEngineCUDA(3, device="cpu"))
+    finally:
+        config.set_config(real_dtype_name=before)
+    for q in engines:
+        assert q.dtype == dt and q.device_planes.dtype == dt
+        q.H(0)
+        q.CNOT(0, 1)
+        assert q.ProbAll(3) == pytest.approx(0.5, abs=1e-2)
 
 
 def test_alu_without_index_kernels():

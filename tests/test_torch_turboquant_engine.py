@@ -15,6 +15,7 @@ codes by one.
 """
 
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -343,3 +344,66 @@ def test_kernel_rejects_tiles_beyond_shared_memory():
         <= tqk.SMEM_LIMIT
     assert os.environ.get("QRACK_PALLAS_TQ_TILE_QB") or \
         q._pallas_tile_pow() == tqk.DEFAULT_TILE_POW
+
+
+@pytest.mark.parametrize("window", [1, 16])
+def test_drift_escalation_leaves_the_codes_alone(window, pallas,
+                                                  monkeypatch):
+    """With QRACK_TPU_AUTO_F64_DRIFT set, 150 gates (the check period is
+    64) decode nothing, escalate nothing and warn nothing: the compressed
+    engine keeps no drift accounting, as in the JAX package, since a norm
+    check would decode the whole ket.  The codes equal, bit for bit,
+    those of a twin built without the variable."""
+    monkeypatch.setenv("QRACK_TPU_FUSE_WINDOW", str(window))
+    twin = _pair(8, 72, bits=16, chunk_qb=5, block_pow=2)[0]
+    monkeypatch.setenv("QRACK_TPU_AUTO_F64_DRIFT", "1e-12")
+    port = _pair(8, 72, bits=16, chunk_qb=5, block_pow=2)[0]
+    assert port._drift_thresh == 1e-12 and twin._drift_thresh == 0
+    for _ in range(10):
+        _gate_mix(twin)
+    twin.Finish()
+
+    def decode(self):
+        raise AssertionError("the whole ket was decoded")
+
+    real_decode = QEngineCUDATurboQuant._decompress_planes
+    monkeypatch.setattr(QEngineCUDATurboQuant, "_decompress_planes", decode)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        for _ in range(10):
+            _gate_mix(port)
+        port.Finish()
+    assert port.dtype == torch.float32
+    assert torch.equal(port._codes, twin._codes)
+    assert torch.equal(port._scales, twin._scales)
+    monkeypatch.setattr(QEngineCUDATurboQuant, "_decompress_planes",
+                        real_decode)
+    # the ops that decode by design (4x4, uniformly controlled) do not tick
+    m4 = np.linalg.qr(np.random.default_rng(72).normal(size=(4, 4)))[0]
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        for _ in range(70):
+            port.Apply4x4(m4, 0, 5)
+            port.UniformlyControlledRY((1, 2), 3, [0.1, 0.2, 0.3, 0.4])
+    assert port.dtype == torch.float32
+
+
+def test_plane_dtype_is_float32_only():
+    """The codes decode to float32 planes: another dtype is refused, the
+    FPPOW policy does not reach the compressed engine, and it has no
+    float64 escalation."""
+    from qrack_tpu_torch import config
+
+    for dt in (torch.float64, "bfloat16", torch.float16):
+        with pytest.raises(ValueError):
+            QEngineCUDATurboQuant(4, bits=16, device="cpu", dtype=dt)
+    before = config.get_config().real_dtype_name
+    config.set_config(real_dtype_name="float64")
+    try:
+        q = QEngineCUDATurboQuant(4, bits=16, device="cpu")
+    finally:
+        config.set_config(real_dtype_name=before)
+    assert q.dtype == torch.float32
+    with pytest.raises(NotImplementedError):
+        q.EscalateToF64(0.5)
+    assert q.dtype == torch.float32

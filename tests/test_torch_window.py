@@ -119,7 +119,7 @@ def test_plain_window_matches_pallas_interpret(n, bp, k):
     assert fn.sweeps == pk.plan_sweeps(structure, bp)
     assert np.abs(want - got).max() <= 1e-6
     # the CPU runs the plain version: no kernel launch is counted
-    assert wk.LAUNCHES == {"in_tile": 0, "pair": 0}
+    assert wk.launches() == {"in_tile": 0, "pair": 0}
 
 
 def test_interpret_cases_reach_pair_sweeps_and_controls():
@@ -195,9 +195,19 @@ def test_wrapper_rejects_other_devices_and_bad_operands():
     with pytest.raises(ValueError):
         wk._check_launch(torch.zeros((2, 64)), 6, 3, table.double(), fv, iv,
                          [0, 1])
-    with pytest.raises(NotImplementedError):
+    # planes outside the four plane dtypes, fv in another dtype than the
+    # planes, and a float64 tile pair past the shared memory of a block
+    with pytest.raises(ValueError):
+        wk._check_launch(torch.zeros((2, 64), dtype=torch.int32), 6, 3,
+                         table, fv, iv, [0, 1])
+    with pytest.raises(ValueError):
         wk._check_launch(torch.zeros((2, 64), dtype=torch.float64), 6, 3,
                          table, fv, iv, [0, 1])
+    with pytest.raises(ValueError):
+        wk._check_launch(torch.zeros((2, 1 << 14), dtype=torch.float64), 14,
+                         13, table, fv.double(), iv, [0, 1])
+    wk._check_launch(torch.zeros((2, 1 << 14), dtype=torch.float64), 14, 12,
+                     table, fv.double(), iv, [0, 1])
     with pytest.raises(ValueError):
         wk._check_launch(torch.zeros((2, 64)), 6, 14, table, fv, iv, [0, 1])
 
@@ -227,5 +237,5 @@ def test_cuda_kernel_matches_plain(cuda_device, seed):
     torch.cuda.synchronize()
     want = wk.make_window_fn(n, structure, block_pow=bp, plain=True)(
         psi.clone(), *operands)
-    assert sum(wk.LAUNCHES.values()) == wk.plan_sweeps(structure, bp)
+    assert sum(wk.launches().values()) == wk.plan_sweeps(structure, bp)
     assert float((got - want).abs().max()) <= 1e-5

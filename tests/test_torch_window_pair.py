@@ -252,7 +252,7 @@ def kernel_and_plain(dev, n, bp, ops, psi):
     wk.reset_launches()
     got = wk.pair_sweep(x.clone(), *args)
     torch.cuda.synchronize()
-    assert wk.LAUNCHES == {"in_tile": 0, "pair": 1}
+    assert wk.launches() == {"in_tile": 0, "pair": 1}
     want = wk.pair_sweep_plain(x.clone(), *args)
     return float((got - want).abs().max())
 
