@@ -135,8 +135,9 @@ the uniformly controlled gate past 10 controls:
     same |amp|^2 bar, fidelity to the engine's ket >= 1 - 1e-9); then the
     bfloat16 and float16 engine QFTs, their fidelity to the float64 ket
     held to HALF_QFT_BAR (predicted in PERF.md before the first run);
-    each dtype's K1/K2 launches counted.  Then every launch of each
-    dtype's engine QFT again beside its plain version;
+    each dtype's K1/K2 launches counted.  Then the engine QFT of each
+    dtype again, every second launch (FPPOW_PROBE_EVERY) beside its
+    plain version;
 15. drift, w24: Grover (grover_amplify, 3216 iterations) on float32
     planes with QRACK_TPU_AUTO_F64_DRIFT = 1e-5 checked every 64 gates.
     The engine must escalate (float64 planes afterwards, one warning),
@@ -153,13 +154,52 @@ the uniformly controlled gate past 10 controls:
     against the same 4096 payloads as single controlled gates through
     the window kernel (a pair sweep each), fidelity >= 1 - 1e-5.
 
+Then the layers above the terminals (QStabilizer and its native tableau
+library, QStabilizerHybrid, QUnit, QUnitClifford), stacked by the
+factory; phase 18 runs right after the build, 19-22 at the end:
+
+18. stack_native: native/tableau.cpp built with g++ into
+    qrack_tpu_torch/_build/ and loaded (its build seconds printed); a
+    counting stand-in replaces the library for the rest of the run, and
+    a w64 GHZ on QStabilizer must make native calls (Prob 0.5 on every
+    qubit, MAll all zeros or all ones).  No native library, no run;
+19. qv_optimal: quantum_volume's gates (algorithms.quantum_volume_ops)
+    at n = 30, depth 30, before its MAll, through
+    create_quantum_interface("optimal", 30) and through ("cuda", 30),
+    each with the K1/K2 counts set to 0 just before and read just
+    after (both must have launched).  Bars: Prob(q) within 1e-4 for
+    every q; over 4096 seeded indices read with GetAmplitude,
+    |<a|b>|^2 / (<a|a><b|b>) >= 1 - 1e-4.  Printed: both walls, the
+    unit count, largest unit and host seconds after each layer (the
+    device may still be behind), the unit Composes,
+    QHybrid's host stagings and the in-unit Swaps; then MAll on the
+    stack, whose outcome must match the collapsed Probs;
+20. qft_optimal: SetPermutation of a seeded 40-bit value and QFT(0, 40)
+    through OPTIMAL: no unit is built (QUnit's closed-form product
+    path), every Prob(q) is 0.5 within 1e-12, and 256 seeded amplitudes
+    match 2^-20 exp(2 pi i x rev(k) / 2^40) within 1e-9 of their
+    modulus.  At w30 the same through OPTIMAL against the "cuda"
+    engine's QFT (K1/K2): 4096 seeded amplitudes within 1e-3 * 2^-15;
+21. clifford_wide: GHZ on 40 qubits through OPTIMAL, then T(0): the
+    unit's QStabilizerHybrid keeps the T as a phase shard (or a gadget
+    ancilla) on the tableau, no host staging; every Prob(q) 0.5 within
+    1e-9 and MAll all zeros or all ones.  GHZ on 64 qubits through
+    "unit_clifford", the same bars;
+22. stab_switch, n = 18: ["stabilizer_hybrid", "hybrid"], 400 seeded
+    Clifford gates, then RX(0.3) on qubit 0 and CNOT(0, 1), which forces
+    SwitchToEngine into a QEngineCUDA (18 >= 13): it must run once, and
+    the ket must match the same gates on the "cuda" engine at fidelity
+    >= 1 - 1e-5.  Printed: the switch's seconds and microseconds per
+    amplitude.  The native call count must have grown over 19-22.
+
 The kernels line counts K1/K2 launches by dtype form over every dense
-path (phases 3, 8-12 and 14-17); their times and errors are those of the
+path (phases 3, 8-12, 14-17 and 19-22); their times and errors are those of the
 launches held to plain (float32: phase 4 and the Shor IQFT of phase 10;
 the other forms: phase 14).
 
 ``--tq-only`` runs the build and phases 5-7 alone; ``--algo-only`` the
-build and phases 8-12; ``--fppow-only`` the build and phases 13-17.
+build and phases 8-12; ``--fppow-only`` the build and phases 13-17;
+``--layers-only`` the build and phases 18-22.
 
 The line before the last is the "kernels" summary, the last line
 {"ok": true, "device": {...}}.  Any failed check raises, so the script
@@ -224,6 +264,9 @@ F64_QFT_BAR = 1e-9    # the float64 w30 QFT: |amp|^2 rel. error, 1 - ProbAll
 # the 16-bit w30 QFTs against the float64 ket: 1 - fidelity, predicted
 # in PERF.md from the plain version on the CPU (w10-w22, grown to w30)
 HALF_QFT_BAR = {torch.bfloat16: 1e-3, torch.float16: 2e-5}
+# phase 14 holds every second launch of each dtype's w30 QFT to plain
+# (holding all of them took 105 s of an 822.7 s run on the H100)
+FPPOW_PROBE_EVERY = 2
 DRIFT_THRESH = "1e-5"  # QRACK_TPU_AUTO_F64_DRIFT of the drift phase
 DRIFT_EVERY = "64"     # QRACK_TPU_DRIFT_CHECK_GATES
 BATCH_WIDTH = 28      # compile_batched_fn: 4 kets of 28 qubits
@@ -241,6 +284,18 @@ HYBRID_GROW = 14      # composed on: 24 qubits, QEngineCUDA
 RCS_DEPTH = 12
 RCS_SEED = 7
 GROVER_WIDTH = 24     # 3216 iterations
+# the layers above the terminals (phases 18-22)
+QV_WIDTH = WIDTH      # quantum_volume's gates through OPTIMAL and "cuda"
+QV_DEPTH = 30
+QV_SEED = 30
+QV_AMPS = 4096        # seeded GetAmplitude reads compared
+QFT_WIDE = 40         # the permutation-init QFT that QUnit keeps factored
+QFT_WIDE_AMPS = 256
+GHZ_OPTIMAL = 40      # GHZ + T through OPTIMAL, on the tableau
+GHZ_CLIFFORD = 64     # GHZ through "unit_clifford"
+SWITCH_WIDTH = 18     # the tableau -> QEngineCUDA switch
+SWITCH_DEPTH = 400    # seeded Clifford gates before the forcing gate
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 T_START = time.time()
@@ -413,7 +468,8 @@ class SweepProbe:
     plain version on the same input, each between CUDA events, and the
     two results are compared; the kernel's result goes on.  Stats go
     under the entry (float32), entry_dtype (the other dtype forms) and
-    (label, entry)."""
+    (label, entry).  With ``every`` = k only the first of each k launches
+    of a form is replayed and held; the others run the kernel alone."""
 
     def __init__(self, wk):
         self.wk = wk
@@ -422,11 +478,21 @@ class SweepProbe:
                       "pair": wk.pair_sweep_plain}
         self.stats = {}
         self.label = None
+        self.every = 1
+        self.seen = {}
 
     def _entry(self, name):
         from qrack_tpu_torch.ops.gatekernels import dtype_name
 
         def run(planes, n, bp, table, fv, iv, *span):
+            # float32 launches under the entry's name, the other dtype
+            # forms under entry_dtype
+            form = (name if planes.dtype == torch.float32
+                    else f"{name}_{dtype_name(planes.dtype)}")
+            k = self.seen.get(form, 0)
+            self.seen[form] = k + 1
+            if k % self.every:
+                return self.real[name](planes, n, bp, table, fv, iv, *span)
             ref = planes.clone()
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             sync()
@@ -448,10 +514,6 @@ class SweepProbe:
             b_ms, o_ms = launch_bound(n, [host_table[i] for i in idx], host_iv,
                                       planes.dtype)
             ms = ev[0].elapsed_time(ev[1])
-            # float32 launches under the entry's name, the other dtype
-            # forms under entry_dtype
-            form = (name if planes.dtype == torch.float32
-                    else f"{name}_{dtype_name(planes.dtype)}")
             for key in (form, (self.label, name)):
                 s = self.stats.setdefault(key, {
                     "launches": 0, "ms": 0.0, "plain_ms": 0.0,
@@ -1630,8 +1692,9 @@ def fppow_phase(card: str, dev, probe) -> dict:
     del ref64
     release()
 
-    # every launch of each dtype's engine QFT, beside its plain version
-    # (SweepProbe, with the dtype's bar)
+    # every second launch of each dtype's engine QFT, beside its plain
+    # version (SweepProbe, with the dtype's bar)
+    probe.every, probe.seen = FPPOW_PROBE_EVERY, {}
     for dt in FPPOW_DTYPES:
         name = dtype_name(dt)
         q = qt.create_quantum_interface("cuda", WIDTH, dtype=dt)
@@ -1646,10 +1709,12 @@ def fppow_phase(card: str, dev, probe) -> dict:
             got_n = probe.stats.get(f"{entry}_{name}",
                                     {"launches": 0})["launches"]
             want_n = wk.DTYPE_LAUNCHES[name][entry]
-            check(got_n == want_n, f"probe saw {got_n} {name} {entry} "
-                                   f"launches, the path {want_n}")
+            held = -(-want_n // FPPOW_PROBE_EVERY)
+            check(got_n == held, f"probe held {got_n} {name} {entry} "
+                                 f"launches of the path's {want_n}")
         del q
         release()
+    probe.every = 1
     for dt in FPPOW_DTYPES:
         name = dtype_name(dt)
         emit({"phase": "fppow_sweeps", "card": card, "dtype": name,
@@ -1874,6 +1939,330 @@ def uc_wide_phase(card: str, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the layers above the terminals: QStabilizer, QStabilizerHybrid, QUnit,
+# QUnitClifford and the OPTIMAL stack
+# ---------------------------------------------------------------------------
+
+class TableauCalls:
+    """Counts the calls into the native tableau library: the stabilizer
+    module reads the library through ``get_tableau_lib`` at every use,
+    and this hands it a counting stand-in."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self.calls = {}
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+
+        def call(*args):
+            self.calls[name] = self.calls.get(name, 0) + 1
+            return fn(*args)
+
+        return call
+
+    def total(self) -> int:
+        return sum(self.calls.values())
+
+
+def stack_native(card: str) -> TableauCalls:
+    """Phase 18 (module docstring); returns the call counter, left in
+    place for the later phases."""
+    from qrack_tpu_torch import native
+    from qrack_tpu_torch.layers import stabilizer as st
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    t0 = time.time()
+    lib = native.get_tableau_lib()
+    load_s = time.time() - t0
+    check(lib is not None, "the native tableau library did not build or "
+                           "load: the stabilizer would run its Python loops")
+    path = native.library_path(native.TABLEAU_SRC, "g++")
+    check(path.exists(), f"no {path}")
+    calls = TableauCalls(lib)
+    st.get_tableau_lib = lambda: calls
+    q = st.QStabilizer(64, rng=QrackRandom(18))
+    q.H(0)
+    for i in range(63):
+        q.CNOT(i, i + 1)
+    probs = [q.Prob(i) for i in range(64)]
+    got = q.MAll()
+    check(all(p == 0.5 for p in probs) and got in (0, (1 << 64) - 1),
+          f"w64 GHZ on the tableau: probs {set(probs)}, MAll {got}")
+    check(calls.total() > 0, "the tableau ran no native call")
+    emit({"phase": "stack_native", "card": card,
+          "build_s": native.BUILD_SECONDS.get("tableau.cpp", 0.0),
+          "load_s": load_s, "library": os.path.relpath(path, ROOT),
+          "native_calls": dict(calls.calls)})
+    return calls
+
+
+def reset_stagings() -> dict:
+    """Reset and return the host-staging counters of QHybrid."""
+    from qrack_tpu_torch.engines import hybrid
+
+    for k in hybrid.HOST_STAGINGS:
+        hybrid.HOST_STAGINGS[k] = 0
+    return hybrid.HOST_STAGINGS
+
+
+def amplitudes(q, idx) -> np.ndarray:
+    return np.array([q.GetAmplitude(int(i)) for i in idx])
+
+
+def qv_optimal(card: str, dev) -> dict:
+    """Phase 19 (module docstring); returns the window kernel's launches
+    of both runs."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.models import algorithms as al
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    n = QV_WIDTH
+    ops = list(al.quantum_volume_ops(n, QV_DEPTH, QrackRandom(QV_SEED)))
+    stagings = reset_stagings()
+    wk.reset_launches()
+    q = qt.create_quantum_interface("optimal", n, rng=QrackRandom(QV_SEED),
+                                    rand_global_phase=False)
+    units, layer_s = [], []
+    t0 = time.time()
+    for i, (layer, name, args) in enumerate(ops):
+        getattr(q, name)(*args)
+        if i + 1 == len(ops) or ops[i + 1][0] != layer:
+            units.append((q.GetUnitCount(), q.GetMaxUnitSize()))
+            layer_s.append(time.time() - t0)
+    q.Finish()
+    sync()
+    opt_s = time.time() - t0
+    t0 = time.time()
+    p_opt = [q.Prob(b) for b in range(n)]
+    opt_prob_s = time.time() - t0
+    opt = {"launches": wk.launches(), "stagings": dict(stagings),
+           "composes": q.compose_count, "swaps": q.swap_count,
+           "dispatches": q.dispatch_count}
+    check(opt["launches"]["in_tile"] + opt["launches"]["pair"] > 0,
+          f"the OPTIMAL QV launched no K1/K2: {opt['launches']}")
+    check(q.GetMaxUnitSize() == n, f"QV w{n} left units {units[-1]}")
+
+    wk.reset_launches()
+    c = qt.create_quantum_interface("cuda", n, rng=QrackRandom(QV_SEED),
+                                    rand_global_phase=False)
+    t0 = time.time()
+    for _layer, name, args in ops:
+        getattr(c, name)(*args)
+    c.Finish()
+    sync()
+    bare_s = time.time() - t0
+    p_bare = [c.Prob(b) for b in range(n)]
+    bare_launches = wk.launches()
+    check(bare_launches["in_tile"] + bare_launches["pair"] > 0,
+          f"the bare QV launched no K1/K2: {bare_launches}")
+    dp = max(abs(a - b) for a, b in zip(p_opt, p_bare))
+    check(dp <= 1e-4, f"QV w{n}: Prob differs by {dp} (bar 1e-4)")
+    idx = np.random.default_rng(QV_SEED).integers(0, 1 << n, QV_AMPS)
+    t0 = time.time()
+    a = amplitudes(q, idx)
+    amp_s = time.time() - t0
+    b = amplitudes(c, idx)
+    overlap = abs(np.vdot(a, b)) ** 2 / (np.vdot(a, a).real * np.vdot(b, b).real)
+    check(overlap >= 1 - 1e-4, f"QV w{n}: amplitude overlap {overlap}")
+    t0 = time.time()
+    got = q.MAll()
+    mall_s = time.time() - t0
+    check(0 <= got < 1 << n and all(
+        q.Prob(i) == float((got >> i) & 1) for i in range(n)),
+        f"QV w{n}: MAll {got} does not match the collapsed Probs")
+    emit({"phase": "qv_optimal", "card": card, "width": n, "depth": QV_DEPTH,
+          "gates": len(ops), "optimal_s": opt_s, "cuda_s": bare_s,
+          "optimal_prob_s": opt_prob_s, "get_amplitude_us":
+          amp_s / QV_AMPS * 1e6, "mall_s": mall_s,
+          "units_per_layer": units, "host_s_after_layer": layer_s,
+          "optimal": opt,
+          "cuda_launches": bare_launches, "max_prob_diff": dp,
+          "amplitude_overlap": overlap, "mall": got})
+    del q, c
+    release()
+    return {"optimal": opt["launches"], "cuda": bare_launches}
+
+
+def qft_closed_form(x: int, k: int, n: int) -> complex:
+    """Amplitude k of QFT(0, n) on |x>: this package's QFT has no final
+    bit reversal, so 2^(-n/2) exp(2 pi i x rev(k) / 2^n)."""
+    krev = int(f"{k:0{n}b}"[::-1], 2)
+    return 2.0 ** (-n / 2) * np.exp(2j * np.pi * ((x * krev) % (1 << n))
+                                    / 2.0 ** n)
+
+
+def qft_optimal(card: str, dev) -> dict:
+    """Phase 20 (module docstring); returns the launches of the bare
+    engine's w30 QFT."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    n = QFT_WIDE
+    rng = np.random.default_rng(n)
+    x = int(rng.integers(0, 1 << n))
+    q = qt.create_quantum_interface("optimal", n, rng=QrackRandom(n),
+                                    rand_global_phase=False)
+    t0 = time.time()
+    q.SetPermutation(x)
+    q.QFT(0, n)
+    wide_s = time.time() - t0
+    check(q.GetMaxUnitSize() == 1 and q.dispatch_count == 0,
+          f"w{n} QFT built a unit of {q.GetMaxUnitSize()}")
+    dp = max(abs(q.Prob(b) - 0.5) for b in range(n))
+    check(dp <= 1e-12, f"w{n} QFT: Prob off 0.5 by {dp}")
+    idx = rng.integers(0, 1 << n, QFT_WIDE_AMPS)
+    err = max(abs(q.GetAmplitude(int(k)) - qft_closed_form(x, int(k), n))
+              for k in idx)
+    check(err <= 1e-9 * 2.0 ** (-n / 2),
+          f"w{n} QFT: amplitude off the closed form by {err}")
+
+    n = WIDTH
+    perm = PERM & ((1 << n) - 1)
+    o = qt.create_quantum_interface("optimal", n, rng=QrackRandom(n),
+                                    rand_global_phase=False)
+    t0 = time.time()
+    o.SetPermutation(perm)
+    o.QFT(0, n)
+    opt_s = time.time() - t0
+    wk.reset_launches()
+    c = qt.create_quantum_interface("cuda", n, rng=QrackRandom(n),
+                                    rand_global_phase=False)
+    c.SetPermutation(perm)
+    sync()
+    t0 = time.time()
+    c.QFT(0, n)
+    c.Finish()
+    sync()
+    cuda_s = time.time() - t0
+    launches = wk.launches()
+    check(launches["in_tile"] + launches["pair"] > 0,
+          f"the w{n} engine QFT launched no K1/K2: {launches}")
+    idx = np.random.default_rng(n).integers(0, 1 << n, QV_AMPS)
+    a, b = amplitudes(o, idx), amplitudes(c, idx)
+    d30 = float(np.abs(a - b).max())
+    check(o.GetMaxUnitSize() == 1 and d30 <= 1e-3 * 2.0 ** (-n / 2),
+          f"w{n} QFT: OPTIMAL against the engine by {d30}")
+    emit({"phase": "qft_optimal", "card": card, "wide_width": QFT_WIDE,
+          "wide_qft_s": wide_s, "wide_max_prob_diff": dp,
+          "wide_max_amp_err": err, "width": n, "optimal_qft_s": opt_s,
+          "cuda_qft_s": cuda_s, "max_amp_diff": d30, "cuda_launches": launches})
+    del o, c
+    release()
+    return launches
+
+
+def clifford_wide(card: str, dev) -> None:
+    """Phase 21 (module docstring)."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.models import algorithms as al
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    n = GHZ_OPTIMAL
+    stagings = reset_stagings()
+    q = qt.create_quantum_interface("optimal", n, rng=QrackRandom(n),
+                                    rand_global_phase=False)
+    t0 = time.time()
+    al.ghz(q)
+    q.T(0)
+    # push QUnit's buffered T into the unit (a read would do the same,
+    # but every amplitude read of a sharded tableau builds the ket)
+    q._flush_all()
+    unit = q.shards[0].unit
+    check(q.GetMaxUnitSize() == n and unit.on_tableau()
+          and (unit.shards[0] is not None or unit._anc > 0),
+          f"w{n} GHZ + T left the tableau: units {q.GetMaxUnitSize()}, "
+          f"on_tableau {unit.on_tableau()}, ancillae {unit._anc}")
+    dp = max(abs(q.Prob(b) - 0.5) for b in range(n))
+    got = q.MAll()
+    opt_s = time.time() - t0
+    check(dp <= 1e-9 and got in (0, (1 << n) - 1) and unit.on_tableau()
+          and stagings["switch"] == 0,
+          f"w{n} GHZ + T: Prob off 0.5 by {dp}, MAll {got}")
+
+    m = GHZ_CLIFFORD
+    u = qt.create_quantum_interface("unit_clifford", m, rng=QrackRandom(m),
+                                    rand_global_phase=False)
+    t0 = time.time()
+    al.ghz(u)
+    du = max(abs(u.Prob(b) - 0.5) for b in range(m))
+    got_u = u.MAll()
+    uc_s = time.time() - t0
+    check(du <= 1e-9 and got_u in (0, (1 << m) - 1),
+          f"w{m} unit_clifford GHZ: Prob off 0.5 by {du}, MAll {got_u}")
+    emit({"phase": "clifford_wide", "card": card, "optimal_width": n,
+          "optimal_s": opt_s, "optimal_t_on": "shard" if unit._anc == 0
+          else "ancilla", "optimal_mall": got, "unit_clifford_width": m,
+          "unit_clifford_s": uc_s, "unit_clifford_mall": got_u})
+
+
+def switch_circuit(n: int, depth: int, seed: int) -> list:
+    """A seeded Clifford circuit (H, S, CNOT, CZ) as (name, args)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(depth):
+        kind = int(rng.integers(4))
+        a, b = (int(v) for v in rng.choice(n, 2, replace=False))
+        out.append([("H", (a,)), ("S", (a,)), ("CNOT", (a, b)),
+                    ("CZ", (a, b))][kind])
+    return out
+
+
+def stab_switch(card: str, dev, n: int = None) -> dict:
+    """Phase 22 (module docstring); returns the window kernel's launches
+    of the switched stack."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.engines.cuda import QEngineCUDA
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    n = SWITCH_WIDTH if n is None else n
+    ops = switch_circuit(n, SWITCH_DEPTH, n) + [("RX", (0.3, 0)),
+                                                 ("CNOT", (0, 1))]
+    wk.reset_launches()
+    q = qt.create_quantum_interface(["stabilizer_hybrid", "hybrid"], n,
+                                    rng=QrackRandom(n), rand_global_phase=False)
+    switched = []
+    real_switch = q.SwitchToEngine
+
+    def timed_switch():
+        t0 = time.time()
+        real_switch()
+        sync()
+        switched.append(time.time() - t0)
+
+    q.SwitchToEngine = timed_switch
+    t0 = time.time()
+    for name, args in ops:
+        getattr(q, name)(*args)
+    q.Finish()
+    sync()
+    wall_s = time.time() - t0
+    launches = wk.launches()
+    check(len(switched) == 1 and not q.on_tableau()
+          and isinstance(q.engine._engine, QEngineCUDA),
+          f"w{n}: the switch ran {len(switched)} times into "
+          f"{type(getattr(q.engine, '_engine', q.engine)).__name__}")
+    c = qt.create_quantum_interface("cuda", n, rng=QrackRandom(n),
+                                    rand_global_phase=False)
+    for name, args in ops:
+        getattr(c, name)(*args)
+    a, b = q.GetQuantumState(), c.GetQuantumState()
+    f = abs(np.vdot(a, b)) ** 2 / (np.vdot(a, a).real * np.vdot(b, b).real)
+    check(f >= 1 - 1e-5, f"w{n} switched ket against the engine: {f}")
+    emit({"phase": "stab_switch", "card": card, "width": n,
+          "clifford_gates": SWITCH_DEPTH, "wall_s": wall_s,
+          "switch_s": switched[0],
+          "switch_us_per_amp": switched[0] / (1 << n) * 1e6,
+          "fidelity": f, "launches": launches})
+    del q, c
+    release()
+    return launches
+
+
 def dtype_entries(probe, launches: dict) -> list:
     """The kernels-line entries of the float64, bfloat16 and float16 forms
     of K1 and K2: launches over the paths that run them, times and errors
@@ -1914,6 +2303,7 @@ def main() -> int:
     tq_only = "--tq-only" in sys.argv[1:]
     algo_only = "--algo-only" in sys.argv[1:]
     fppow_only = "--fppow-only" in sys.argv[1:]
+    layers_only = "--layers-only" in sys.argv[1:]
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -1931,9 +2321,10 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "ptxas": ptxas})
 
+    only = tq_only or algo_only or fppow_only or layers_only
+    tableau = stack_native(card) if layers_only or not only else None
     probe = SweepProbe(wk)
     paths = {}   # path -> launches by dtype name
-    only = tq_only or algo_only or fppow_only
     if not only:
         paths["qft"] = {"float32": dense_phases(card, dev, probe)}
     tq_kernels = tq_phases(card, dev) if tq_only or not only else []
@@ -1949,6 +2340,18 @@ def main() -> int:
         paths["drift"] = drift_phase(card, dev)
         paths["circuit_forms"] = circuit_forms_phase(card, dev)
         paths["uc_wide"] = uc_wide_phase(card, dev)
+    if layers_only or not only:
+        before = tableau.total()
+        qv = qv_optimal(card, dev)
+        paths["qv_optimal"] = {"float32": qv["optimal"]}
+        paths["qv_cuda"] = {"float32": qv["cuda"]}
+        paths["qft_cuda_w30"] = {"float32": qft_optimal(card, dev)}
+        clifford_wide(card, dev)
+        paths["stab_switch"] = {"float32": stab_switch(card, dev)}
+        check(tableau.total() > before,
+              "the layer phases made no native tableau call")
+        emit({"phase": "layers_native", "card": card,
+              "native_calls": dict(tableau.calls)})
     kernels = []
     if paths:
         launches = {dt: {k: sum(p.get(dt, {}).get(k, 0)

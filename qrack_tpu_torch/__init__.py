@@ -4,7 +4,9 @@ The same universal gate-level QInterface API over a dense split-plane
 state vector that lives on an NVIDIA GPU (Hopper, sm_90a), with the
 fused gate window as a hand-written CUDA kernel (csrc/); the numpy
 complex128 oracle (QEngineCPU) and QHybrid's width switch between the
-two; and the algorithm programs (models/).  The JAX
+two; the layers above them (QUnit, QStabilizerHybrid, QStabilizer,
+QUnitClifford), which the factory stacks into the OPTIMAL stack; and
+the algorithm programs (models/).  The JAX
 package beside it is the reference the port is tested against; this
 package imports neither it nor JAX.
 """
@@ -23,7 +25,10 @@ from .engines import (QEngine, QEngineCPU, QEngineCUDA,  # noqa: E402,F401
 from .pauli import Pauli  # noqa: E402,F401
 from .config import get_config, set_config  # noqa: E402,F401
 from .hamiltonian import HamiltonianOp, uniform_hamiltonian_op  # noqa: E402,F401
-from .factory import create_quantum_interface  # noqa: E402,F401
+from .layers import (QStabilizer, QStabilizerHybrid, QUnit,  # noqa: E402,F401
+                     QUnitClifford)
+from .factory import (build_factory, create_arranged_layers_full,  # noqa: E402,F401
+                      create_quantum_interface)
 from .qneuron import QNeuron, ActivationFn  # noqa: E402,F401
 
 __version__ = "0.1.0"

@@ -13,6 +13,11 @@ device error and carries on on the CPU.  Past `pager_threshold_qubits`
 the JAX package's QHybrid moves to the pager, which is not ported
 (ROADMAP item 13), so a width there raises.  ``device=`` and ``dtype=``
 go to the CUDA half only; QEngineCPU takes neither.
+
+``HOST_STAGINGS`` counts the kets that pass through the host, and their
+amplitudes: a whole ket when the width crosses the threshold
+(``"switch"``), and the other operand of a Compose onto a CUDA engine
+(``"compose"``, which QEngineCUDA pulls through GetQuantumState).
 """
 
 from __future__ import annotations
@@ -26,6 +31,9 @@ from ..utils.rng import QrackRandom
 from ..utils.states import compose_states
 from .cpu import QEngineCPU
 from .cuda import QEngineCUDA
+
+HOST_STAGINGS = {"switch": 0, "switch_amps": 0, "compose": 0,
+                 "compose_amps": 0}
 
 
 class QHybrid:
@@ -76,6 +84,8 @@ class QHybrid:
         have = "cpu" if isinstance(self._engine, QEngineCPU) else "cuda"
         if self._mode_for(n) == have:
             return
+        HOST_STAGINGS["switch"] += 1
+        HOST_STAGINGS["switch_amps"] += 1 << n
         state = self._engine.GetQuantumState()
         rng = self._engine.rng
         new = self._make_engine(n)
@@ -94,6 +104,8 @@ class QHybrid:
 
     def _grow_to(self, n_new: int, mode: str, full_state) -> None:
         """Host-stage into a target-mode engine at the grown width."""
+        HOST_STAGINGS["switch"] += 1
+        HOST_STAGINGS["switch_amps"] += 1 << n_new
         rng = self._engine.rng
         grown = self._make_engine(n_new, mode=mode)
         grown.rng = rng
@@ -106,6 +118,9 @@ class QHybrid:
         n_new = n_cur + inner.qubit_count
         want = self._mode_for(n_new)
         if want == self._mode_for(n_cur):
+            if want == "cuda":
+                HOST_STAGINGS["compose"] += 1
+                HOST_STAGINGS["compose_amps"] += 1 << inner.qubit_count
             return self._engine.Compose(inner, start)
         if start is None:
             start = n_cur

@@ -1,30 +1,68 @@
 """Stack factory (reference: include/qfactory.hpp:49
-CreateQuantumInterface).  The ported terminals:
+CreateQuantumInterface — recursive layer construction from a type
+vector; :265 CreateArrangedLayersFull — boolean layer toggles).  The
+ported layers, top-down:
 
-  "cuda"        QEngineCUDA single-device dense engine (the JAX package's
-                "tpu" terminal)
-  "cpu"         QEngineCPU host oracle (numpy, complex128 by default;
-                takes no device)
-  "hybrid"      QHybrid: QEngineCPU below hybrid_tpu_threshold_qubits
-                (QRACK_TPU_THRESHOLD_QB, 13), QEngineCUDA from there to
-                max_page_qubits; ``device``/``dtype`` reach the CUDA half
-  "sparse"      QEngineSparse: sorted int64 indices and complex128
-                amplitudes on the host, up to 62 qubits (numpy; takes no
-                device; env QRACK_SPARSE_TRUNCATION_THRESHOLD,
-                QRACK_SPARSE_MAX_ALLOC_MB)
-  "turboquant"  QEngineCUDATurboQuant block-compressed resident ket
-                (options bits, block_pow, chunk_qb, seed_rot; env
-                QRACK_TURBO_BITS, QRACK_TURBO_BLOCK_POW,
-                QRACK_TURBOQUANT_CHUNK_QB, QRACK_PALLAS_TQ_TILE_QB)
+  "unit"               QUnit Schmidt factoring over lower-layer units
+  "stabilizer_hybrid"  Clifford tableau until a non-Clifford op forces a
+                       dense engine
 
-The CUDA engines run on ``cuda`` unless ``device="cpu"``.  The other
-layers of the JAX package's factory are not ported yet (ROADMAP.md)."""
+and the ported terminals:
+
+  "cuda"          QEngineCUDA single-device dense engine (the JAX
+                  package's "tpu" terminal)
+  "cpu"           QEngineCPU host oracle (numpy, complex128 by default;
+                  takes no device)
+  "hybrid"        QHybrid: QEngineCPU below hybrid_tpu_threshold_qubits
+                  (QRACK_TPU_THRESHOLD_QB, 13), QEngineCUDA from there to
+                  max_page_qubits; ``device``/``dtype`` reach the CUDA half
+  "sparse"        QEngineSparse: sorted int64 indices and complex128
+                  amplitudes on the host, up to 62 qubits (numpy; takes no
+                  device; env QRACK_SPARSE_TRUNCATION_THRESHOLD,
+                  QRACK_SPARSE_MAX_ALLOC_MB)
+  "turboquant"    QEngineCUDATurboQuant block-compressed resident ket
+                  (options bits, block_pow, chunk_qb, seed_rot; env
+                  QRACK_TURBO_BITS, QRACK_TURBO_BLOCK_POW,
+                  QRACK_TURBOQUANT_CHUNK_QB, QRACK_PALLAS_TQ_TILE_QB)
+  "stabilizer"    QStabilizer bare CHP tableau (Clifford only; host)
+  "unit_clifford" QUnitClifford: QUnit over per-subsystem tableaus
+
+``"optimal"`` is OPTIMAL = ["unit", "stabilizer_hybrid", "hybrid"], the
+reference's production stack shape over the CUDA dense bottom.
+``device``/``dtype`` go to the terminal, so every engine a stack builds
+lies on ``cuda`` unless ``device="cpu"``.  The JAX package's other
+layers raise ValueError naming their ROADMAP item."""
 
 from __future__ import annotations
 
-from typing import Callable, Sequence, Union
+from typing import Callable, List, Sequence, Union
 
-_TERMINAL = {"cuda", "cpu", "hybrid", "sparse", "turboquant"}
+OPTIMAL = ("unit", "stabilizer_hybrid", "hybrid")
+
+_TERMINAL = {"cuda", "cpu", "hybrid", "sparse", "turboquant", "stabilizer",
+             "unit_clifford"}
+
+#: layers of the JAX package's factory that the port lacks, with the
+#: ROADMAP item that brings each
+_NOT_PORTED = {
+    "tpu": "the port's dense terminal is 'cuda'",
+    "pager": "ROADMAP item 13 (pager)",
+    "turboquant_pager": "ROADMAP item 13 (pager)",
+    "unit_multi": "ROADMAP item 13 (pager: QUnitMulti)",
+    "optimal_multi": "ROADMAP item 13 (pager: QUnitMulti)",
+    "bdt": "ROADMAP item 11 (layers/qbdt.py)",
+    "bdt_attached": "ROADMAP item 11 (layers/qbdt.py)",
+    "bdt_hybrid": "ROADMAP item 11 (layers/qbdthybrid.py)",
+    "tensor_network": "ROADMAP item 11 (layers/qtensornetwork.py)",
+    "noisy": "ROADMAP item 11 (layers/noisy.py)",
+    "lightcone": "ROADMAP item 11 (lightcone/engine.py)",
+    "route": "ROADMAP item 16 (route/)",
+}
+
+
+def _not_ported(name: str) -> ValueError:
+    return ValueError(f"layer {name!r} is not ported yet: "
+                      f"{_NOT_PORTED[name]}")
 
 
 def _terminal_factory(name: str, **opts) -> Callable:
@@ -48,29 +86,81 @@ def _terminal_factory(name: str, **opts) -> Callable:
         from .engines.turboquant import QEngineCUDATurboQuant
 
         return lambda n, **kw: QEngineCUDATurboQuant(n, **{**opts, **kw})
+    if name == "stabilizer":
+        from .layers.stabilizer import QStabilizer
+
+        return lambda n, **kw: QStabilizer(n, **{**opts, **kw})
+    if name == "unit_clifford":
+        from .layers.qunitclifford import QUnitClifford
+
+        return lambda n, **kw: QUnitClifford(n, **{**opts, **kw})
     raise ValueError(f"unknown terminal layer {name!r}")
 
 
 def build_factory(layers: Sequence[str], **opts) -> Callable:
-    """Compose a constructor fn(n, **kw) from a top-down layer list."""
+    """Compose a constructor fn(n, **kw) from a top-down layer list
+    (reference: CreateQuantumInterface recursion, qfactory.hpp:189-258)."""
     if not layers:
         raise ValueError("empty layer list")
     head, rest = layers[0], layers[1:]
-    if head not in _TERMINAL:
-        raise ValueError(f"layer {head!r} is not ported yet")
-    if rest:
-        raise ValueError(f"terminal layer {head!r} must be last")
-    return _terminal_factory(head, **opts)
+    if head in _NOT_PORTED:
+        raise _not_ported(head)
+    if head in _TERMINAL:
+        if rest:
+            raise ValueError(f"terminal layer {head!r} must be last")
+        return _terminal_factory(head, **opts)
+    if head not in ("unit", "stabilizer_hybrid"):
+        raise ValueError(f"unknown layer {head!r}")
+    below = build_factory(rest, **opts) if rest else None
+    if head == "unit":
+        from .layers.qunit import QUnit
+
+        return lambda n, **kw: QUnit(n, unit_factory=below, **kw)
+    from .layers.stabilizerhybrid import QStabilizerHybrid
+
+    return lambda n, **kw: QStabilizerHybrid(n, engine_factory=below, **kw)
 
 
 def create_quantum_interface(layers: Union[str, Sequence[str]], qubit_count: int,
                              init_state: int = 0, **kwargs):
-    """Build a simulator stack, e.g. ``create_quantum_interface("cuda", 30)``,
-    ``create_quantum_interface("turboquant", 32)``,
-    ``create_quantum_interface("hybrid", 10)`` or, on the CPU,
-    ``create_quantum_interface("cuda", 10, device="cpu")``."""
+    """Build a simulator stack, e.g. ``create_quantum_interface("optimal",
+    40)``, ``create_quantum_interface("cuda", 30)``,
+    ``create_quantum_interface(["stabilizer_hybrid", "hybrid"], 18)`` or,
+    on the CPU, ``create_quantum_interface("optimal", 10, device="cpu")``."""
     if isinstance(layers, str):
-        layers = (layers,)
+        layers = OPTIMAL if layers == "optimal" else (layers,)
     opts = {k: kwargs.pop(k) for k in ("dtype", "device") if k in kwargs}
     factory = build_factory(tuple(layers), **opts)
     return factory(qubit_count, init_state=init_state, **kwargs)
+
+
+def create_arranged_layers_full(nw: bool = False, md: bool = False, sd: bool = True,
+                                sh: bool = True, bdt: bool = False, pg: bool = True,
+                                tn: bool = False, hy: bool = True, oc: bool = True,
+                                qubit_count: int = 1, **kwargs):
+    """Boolean layer toggles matching the reference's pinvoke `init`
+    signature (reference: include/qfactory.hpp:265
+    CreateArrangedLayersFull): nw=noisy wrapper, md=multi-device QUnit,
+    sd=Schmidt decomposition (QUnit), sh=stabilizer hybrid, bdt=binary
+    decision tree hybrid, pg=paging, tn=tensor network, hy=hybrid,
+    oc="OpenCL", the accelerator ("cuda" here)."""
+    layers: List[str] = []
+    if nw:
+        layers.append("noisy")
+    if tn:
+        layers.append("tensor_network")
+    if sd:
+        layers.append("unit_multi" if md else "unit")
+    if sh:
+        layers.append("stabilizer_hybrid")
+    if bdt:
+        layers.append("bdt_hybrid")
+    if hy:
+        layers.append("hybrid")
+    elif pg and oc:
+        layers.append("pager")
+    elif oc:
+        layers.append("cuda")
+    else:
+        layers.append("cpu")
+    return create_quantum_interface(layers, qubit_count, **kwargs)

@@ -136,6 +136,28 @@ def random_circuit_sampling(qsim, depth: int, rng, n: Optional[int] = None) -> N
             qsim.ISwap(q, q + 1)
 
 
+def quantum_volume_ops(n: int, depth: int, rng):
+    """The gate calls of :func:`quantum_volume` as ``(layer, name, args)``,
+    each drawn from `rng` just before it is yielded, so a caller that
+    applies them one by one draws in quantum_volume's order."""
+    for layer in range(depth):
+        perm = list(range(n))
+        for i in range(n - 1, 0, -1):
+            j = rng.randint(0, i + 1)
+            perm[i], perm[j] = perm[j], perm[i]
+        for k in range(0, n - 1, 2):
+            a, b = perm[k], perm[k + 1]
+            for q in (a, b):
+                yield layer, "U", (q, rng.rand() * math.pi,
+                                   rng.rand() * 2 * math.pi,
+                                   rng.rand() * 2 * math.pi)
+            yield layer, "CNOT", (a, b)
+            for q in (a, b):
+                yield layer, "U", (q, rng.rand() * math.pi,
+                                   rng.rand() * 2 * math.pi,
+                                   rng.rand() * 2 * math.pi)
+
+
 def quantum_volume(qsim, depth: Optional[int] = None, rng=None) -> int:
     """QV-style circuit: `depth` rounds of random SU(4)-ish blocks on a
     random qubit pairing (reference: examples/quantum_volume.cpp:1-110).
@@ -144,20 +166,8 @@ def quantum_volume(qsim, depth: Optional[int] = None, rng=None) -> int:
         rng = qsim.rng
     n = qsim.GetQubitCount()
     depth = depth if depth is not None else n
-    for _ in range(depth):
-        perm = list(range(n))
-        for i in range(n - 1, 0, -1):
-            j = rng.randint(0, i + 1)
-            perm[i], perm[j] = perm[j], perm[i]
-        for k in range(0, n - 1, 2):
-            a, b = perm[k], perm[k + 1]
-            for q in (a, b):
-                qsim.U(q, rng.rand() * math.pi, rng.rand() * 2 * math.pi,
-                       rng.rand() * 2 * math.pi)
-            qsim.CNOT(a, b)
-            for q in (a, b):
-                qsim.U(q, rng.rand() * math.pi, rng.rand() * 2 * math.pi,
-                       rng.rand() * 2 * math.pi)
+    for _layer, name, args in quantum_volume_ops(n, depth, rng):
+        getattr(qsim, name)(*args)
     return qsim.MAll()
 
 

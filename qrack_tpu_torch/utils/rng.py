@@ -1,19 +1,58 @@
-"""Deterministic RNG wrapper.
+"""Deterministic RNG wrapper and hardware entropy source.
 
-Replaces the reference's mt19937_64 stack (reference:
-include/common/qrack_types.hpp:157 qrack_rand_gen). The stream is numpy
-PCG64, the same generator the JAX package draws from, so two engines
-seeded alike draw the same measurement outcomes draw for draw. An
-unseeded stream takes its seed from ``os.urandom``; the RDRAND loader
-of the JAX package is not ported yet.
+Replaces the reference's mt19937_64 and hardware RDRAND stack
+(reference: include/common/qrack_types.hpp:157 qrack_rand_gen;
+include/common/rdrandwrapper.hpp). The stream is numpy PCG64, the same
+generator the JAX package draws from, so two engines seeded alike draw
+the same measurement outcomes draw for draw. An unseeded stream takes
+its seed from the RDRAND instruction through a small native wrapper
+(native/hwrng.c, built at first use), or from ``os.urandom`` where the
+CPU or the toolchain lacks it.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import Optional
 
 import numpy as np
+
+
+def _hwrng():
+    """The RDRAND wrapper library (native/__init__.py), or None."""
+    from ..native import get_hwrng_lib
+
+    return get_hwrng_lib()
+
+
+def hw_rdrand_supported() -> bool:
+    """True when the RDRAND instruction path is live (reference:
+    RdRandom::SupportsRDRAND, rdrandwrapper.hpp)."""
+    return _hwrng() is not None
+
+
+def hw_entropy_bytes(n: int) -> bytes:
+    """n bytes of entropy: the RDRAND instruction when available, else
+    os.urandom (the reference's non-RDRAND fallback)."""
+    lib = _hwrng()
+    if lib is not None:
+        buf = ctypes.create_string_buffer(n)
+        if lib.qrack_rdrand_fill(buf, n):
+            return buf.raw[:n]
+    return os.urandom(n)
+
+
+def hw_rand64() -> Optional[int]:
+    """One raw RDRAND draw (None when unsupported) — the reference's
+    RdRandom::NextRaw."""
+    lib = _hwrng()
+    if lib is None:
+        return None
+    v = ctypes.c_uint64()
+    if lib.qrack_rdrand64(ctypes.byref(v)):
+        return int(v.value)
+    return None
 
 
 class QrackRandom:
@@ -22,7 +61,7 @@ class QrackRandom:
 
     def seed(self, seed: Optional[int] = None) -> None:
         if seed is None:
-            seed = int.from_bytes(os.urandom(8), "little")
+            seed = int.from_bytes(hw_entropy_bytes(8), "little")
         self._seed = seed
         self._gen = np.random.Generator(np.random.PCG64(seed))
 

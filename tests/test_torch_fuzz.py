@@ -7,7 +7,10 @@ terminals against the JAX package's complex128 oracle, QEngineCPU:
 * "cpu", the port's own complex128 oracle;
 * "hybrid" with a low threshold, so its CUDA half runs;
 * "turboquant" with 16-bit codes;
-* "sparse".
+* "sparse";
+* "optimal" (QUnit over QStabilizerHybrid over QHybrid) with QHybrid's
+  threshold at 3 qubits, so its CUDA half runs;
+* "unit_clifford" on the Clifford part of the vocabulary.
 
 SetBit, the one measuring op of the vocabulary, is left out: its draws
 diverge across stacks by design.  Bars: fidelity >= 1 - 1e-6 and Prob
@@ -44,13 +47,20 @@ STACKS = {
                                     "chunk_qb": 3, "block_pow": 2},
                      {}, (1e-5, 5e-4)),
     "sparse": ("sparse", {}, {}, EXACT),
+    "optimal": ("optimal", {"device": "cpu", "tpu_threshold_qubits": 3},
+                {}, F32),
+    "unit_clifford": ("unit_clifford", {}, {}, EXACT),
 }
+# stacks that take only the Clifford part of the vocabulary
+CLIFFORD_ONLY = {"unit_clifford"}
+CLIFFORD_OPS = {"H", "X", "Y", "Z", "S", "CNOT", "CZ", "Swap", "ISwap",
+                "XMask", "ZMask"}
 
 
-def unmeasured_op(rng):
+def unmeasured_op(rng, clifford=False):
     while True:
         name, args = _ops(rng)
-        if name != "SetBit":
+        if name != "SetBit" and (not clifford or name in CLIFFORD_OPS):
             return name, args
 
 
@@ -65,7 +75,7 @@ def test_fuzz_port_stacks_match_jax_oracle(stack, trial, monkeypatch):
     s = qt.create_quantum_interface(layer, N, rng=QrackRandom(trial),
                                     rand_global_phase=False, **kw)
     for step in range(30):
-        name, args = unmeasured_op(rng)
+        name, args = unmeasured_op(rng, stack in CLIFFORD_ONLY)
         getattr(o, name)(*args)
         getattr(s, name)(*args)
         if rng.integers(0, 8) == 0:     # occasional mid-stream reads

@@ -42,6 +42,20 @@ t.QFT(0, 8)
 t.H(7)
 assert 0.0 <= t.Prob(7) <= 1.0
 t.LossySaveStateVector(sys.argv[1])
+o = qt.create_quantum_interface("optimal", 8, device="cpu",
+                                tpu_threshold_qubits=3)
+for i in range(8):
+    o.RY(0.3 + i, i)
+o.T(0)
+for i in range(7):
+    o.CNOT(i, i + 1)
+o.QFT(0, 8)
+assert 0.0 <= o.Prob(7) <= 1.0 and o.GetMaxUnitSize() == 8
+c = qt.create_quantum_interface("unit_clifford", 40)
+c.H(0)
+for i in range(39):
+    c.CNOT(i, i + 1)
+assert c.MAll() in (0, (1 << 40) - 1)
 print(sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "qrack_tpu")
              or m.startswith(("jax.", "jaxlib.", "qrack_tpu."))))
