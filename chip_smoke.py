@@ -63,8 +63,9 @@ csrc/turboquant_kernel.cu):
    The three launch counts are set to 0 just before and read just
    after: each must have launched.  Then a w30 QFT on the turboquant
    engine against the dense "cuda" engine: fidelity >= 0.99;
-7. times: the w32 QFT and IQFT end to end by CUDA events, the two
-   float32 products of one sweep through torch.matmul (context only,
+7. times: the w32 QFT and IQFT end to end by CUDA events (those of
+   phase 6's main path, the first QFT of the engine; a separate timed
+   run was cut for the run budget), the two float32 products of one sweep through torch.matmul (context only,
    beside the mean time of K3's fully dirty sweep), and every launch of
    the main path again, timed, beside the bound; K3's and K4's launches
    and K5's first launch and a seeded sixth of the rest (TQ_WINDOW_HELD:
@@ -136,7 +137,7 @@ the uniformly controlled gate past 10 controls:
     bfloat16 and float16 engine QFTs, their fidelity to the float64 ket
     held to HALF_QFT_BAR (predicted in PERF.md before the first run);
     each dtype's K1/K2 launches counted.  Then the engine QFT of each
-    dtype again, every second launch (FPPOW_PROBE_EVERY) beside its
+    dtype again, every fourth launch (FPPOW_PROBE_EVERY) beside its
     plain version;
 15. drift, w24: Grover (grover_amplify, 3216 iterations) on float32
     planes with QRACK_TPU_AUTO_F64_DRIFT = 1e-5 checked every 64 gates.
@@ -164,7 +165,7 @@ factory; phase 18 runs right after the build, 19-22 at the end:
     a w64 GHZ on QStabilizer must make native calls (Prob 0.5 on every
     qubit, MAll all zeros or all ones).  No native library, no run;
 19. qv_optimal: quantum_volume's gates (algorithms.quantum_volume_ops)
-    at n = 30, depth 30, before its MAll, through
+    at n = 30, depth 20 (QV_DEPTH), before its MAll, through
     create_quantum_interface("optimal", 30) and through ("cuda", 30),
     each with the K1/K2 counts set to 0 just before and read just
     after (both must have launched).  Bars: Prob(q) within 1e-4 for
@@ -192,14 +193,72 @@ factory; phase 18 runs right after the build, 19-22 at the end:
     >= 1 - 1e-5.  Printed: the switch's seconds and microseconds per
     amplitude.  The native call count must have grown over 19-22.
 
+Then the decision-tree layers, the tensor network and the noise plane,
+each stack built by create_quantum_interface(..., rng=QrackRandom(seed),
+rand_global_phase=False) on the card, each phase with its walls:
+
+23. bdt_wide: SetPermutation of a seeded 48-bit value and QFT(0, 48)
+    through ["bdt_hybrid", "hybrid"]: it stays a tree (at most 2 * 48
+    nodes, no switch), and 4096 seeded amplitudes match the closed form
+    within 1e-9 of their modulus; GHZ on 64 qubits then T(0), every
+    Prob(q) 0.5 within 1e-12;
+24. bdt_attached: "bdt_attached" at n = 36 with 16 attached qubits (the
+    leaves are float32 (2, 2^16) planes on the card; any leaf elsewhere
+    fails), a seeded depth-10 circuit (U3 on each qubit, CNOT on
+    alternating pairs) on the attached qubits and H, T on each of the 20
+    tree qubits: Prob(q) within 1e-5 of the same circuit on a bare w16
+    "cuda" engine (attached qubits) and of 0.5 (tree qubits);
+25. bdt_switch, n = 20: ["bdt_hybrid", "hybrid"] with a node budget of
+    2^20 / 64 (BDT_SWITCH_RATIO), H on every qubit and seeded phases of
+    random angles on random pairs until the tree stops compressing: it
+    must switch once, into a QEngineCUDA; then 10 seeded layers on the
+    card (K1/K2 must launch), and the ket must match the same gates on a
+    bare "cuda" engine at fidelity >= 1 - 1e-5.  Printed: the switch's
+    seconds and microseconds per amplitude, the tree walk's
+    (GetQuantumState) alone, and the node count at the switch;
+26. tn_cone: ["tensor_network", "unit", "stabilizer_hybrid", "hybrid"]
+    over a seeded brickwork of non-Clifford bricks, depth 8.  At n = 30,
+    Prob(q) of 8 seeded qubits, each read through its past light cone
+    (the stack stays buffered), within 1e-5 of a bare w30 "cuda" engine
+    that ran the whole circuit; at n = 64, Prob(32), whose cone of about
+    18 qubits becomes a unit on the card (K1/K2 must launch), within
+    1e-5 of the cone alone on a bare engine of its width.  Printed: the
+    cone width, the gates kept against the gates buffered, the launches;
+27. noisy_stack: ["noisy", "unit", "stabilizer_hybrid", "hybrid"] at
+    n = 24 over a seeded depth-12 circuit.  With lambda 0 the ket matches
+    the bare "cuda" engine's at fidelity >= 1 - 1e-5; with lambda 1e-3
+    GetUnitaryFidelity() equals (1 - lambda)^k within 1e-12, k the
+    (gate, distinct qubit) pairs the phase counts at the wrapper's funnel
+    points (MCMtrxPerm, Apply4x4, Swap).  K1/K2 must launch.  Printed:
+    the overlap with the ideal ket and the Paulis the channel applied;
+28. trajectories: run_trajectories at n = 24 over a seeded depth-10
+    circuit, B = 64 (8 GiB of float32 planes on the card).  With a
+    noise-free model every trajectory's p1 is the bare engine's Prob(q)
+    within 1e-5, weights 1; with NoiseModel(default=depolarizing(1e-3))
+    the same key twice gives identical samples, and
+    QRACK_NOISE_TRAJ_CHUNK=16 (4 chunks) the same samples, weights
+    within 1e-6 and p1 within 1e-5.  Then a ballast tensor leaves the
+    card free memory for about 20.5 trajectories, and a B = 64
+    amplitude-damping run of one layer (the Kraus step) takes the chunk
+    that traj_chunk sizes from that budget: it must run in
+    ceil(64 / chunk) chunks of 16 or more without running out of memory.
+    The peak of device memory per amplitude
+    (torch.cuda.max_memory_allocated), of the unchunked run and of that
+    one, must not pass trajectories.BYTES_PER_AMP, the coefficient that
+    sizes a chunk.  Printed: trajectories a second, the peaks, and the
+    CUDA-event time (warmed once, the median of 3) of one batched general
+    2x2 on qubits 0, 12 and 23 and of the readout over a random
+    (64, 2, 2^24) batch, beside their byte bounds (the 2x2 reads and
+    writes the batch, the readout reads it).
+
 The kernels line counts K1/K2 launches by dtype form over every dense
-path (phases 3, 8-12, 14-17 and 19-22); their times and errors are those of the
-launches held to plain (float32: phase 4 and the Shor IQFT of phase 10;
-the other forms: phase 14).
+path (phases 3, 8-12, 14-17, 19-22 and 24-28); their times and errors
+are those of the launches held to plain (float32: phase 4 and the Shor
+IQFT of phase 10; the other forms: phase 14).
 
 ``--tq-only`` runs the build and phases 5-7 alone; ``--algo-only`` the
 build and phases 8-12; ``--fppow-only`` the build and phases 13-17;
-``--layers-only`` the build and phases 18-22.
+``--layers-only`` the build and phases 18-28.
 
 The line before the last is the "kernels" summary, the last line
 {"ok": true, "device": {...}}.  Any failed check raises, so the script
@@ -264,9 +323,10 @@ F64_QFT_BAR = 1e-9    # the float64 w30 QFT: |amp|^2 rel. error, 1 - ProbAll
 # the 16-bit w30 QFTs against the float64 ket: 1 - fidelity, predicted
 # in PERF.md from the plain version on the CPU (w10-w22, grown to w30)
 HALF_QFT_BAR = {torch.bfloat16: 1e-3, torch.float16: 2e-5}
-# phase 14 holds every second launch of each dtype's w30 QFT to plain
-# (holding all of them took 105 s of an 822.7 s run on the H100)
-FPPOW_PROBE_EVERY = 2
+# phase 14 holds every fourth launch of each dtype's w30 QFT to plain
+# (holding all of them took 105 s of an 822.7 s run on the H100, every
+# second 264.6 s for phases 13-17 against 322)
+FPPOW_PROBE_EVERY = 4
 DRIFT_THRESH = "1e-5"  # QRACK_TPU_AUTO_F64_DRIFT of the drift phase
 DRIFT_EVERY = "64"     # QRACK_TPU_DRIFT_CHECK_GATES
 BATCH_WIDTH = 28      # compile_batched_fn: 4 kets of 28 qubits
@@ -286,7 +346,7 @@ RCS_SEED = 7
 GROVER_WIDTH = 24     # 3216 iterations
 # the layers above the terminals (phases 18-22)
 QV_WIDTH = WIDTH      # quantum_volume's gates through OPTIMAL and "cuda"
-QV_DEPTH = 30
+QV_DEPTH = 20          # 30 until the run budget took the cut (PERF.md)
 QV_SEED = 30
 QV_AMPS = 4096        # seeded GetAmplitude reads compared
 QFT_WIDE = 40         # the permutation-init QFT that QUnit keeps factored
@@ -295,6 +355,33 @@ GHZ_OPTIMAL = 40      # GHZ + T through OPTIMAL, on the tableau
 GHZ_CLIFFORD = 64     # GHZ through "unit_clifford"
 SWITCH_WIDTH = 18     # the tableau -> QEngineCUDA switch
 SWITCH_DEPTH = 400    # seeded Clifford gates before the forcing gate
+# the decision tree, the tensor network and the noise plane (phases 23-28)
+BDT_QFT_WIDTH = 48    # permutation-init QFT through "bdt_hybrid"
+BDT_AMPS = 4096
+BDT_GHZ = 64
+BDT_ATT_WIDTH = 36    # "bdt_attached": 20 tree qubits over 2^16 leaves
+BDT_ATT_QB = 16
+BDT_ATT_DEPTH = 10
+BDT_SWITCH_WIDTH = 20
+# QBdtHybrid's node budget, ratio * 2^n: 2^14 nodes at w20.  Every gate
+# walks the whole tree on the host, so reaching the default 0.25 (2^18
+# nodes) would cost 16 times the walks of every gate near the budget
+BDT_SWITCH_RATIO = 1 / 64
+BDT_SWITCH_AFTER = 10  # layers on the card after the switch
+TN_WIDTH = 30
+TN_WIDE = 64
+TN_DEPTH = 8
+TN_PROBES = 8
+TN_WIDE_PROBE = 32
+NOISY_WIDTH = 24
+NOISY_DEPTH = 12
+NOISY_LAMBDA = 1e-3
+TRAJ_WIDTH = 24
+TRAJ_DEPTH = 10
+TRAJ_B = 64           # 8 GiB of float32 planes
+TRAJ_CHUNK = "16"
+TRAJ_ROOM = 20.5      # trajectories' peak bytes left free for the budget run
+TRAJ_KEY = 24
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -544,6 +631,12 @@ class SweepProbe:
     def __exit__(self, *exc):
         self.wk.in_tile_sweep = self.real["in_tile"]
         self.wk.pair_sweep = self.real["pair"]
+
+
+def timed_warm(fn, reps: int = 3) -> float:
+    """Median ms of `reps` timed calls of fn(), after one warm call."""
+    fn()
+    return float(np.median([timed(fn) for _ in range(reps)]))
 
 
 def timed(fn) -> float:
@@ -853,14 +946,14 @@ def tq_phases(card: str, dev) -> list:
     check(q.device == dev and q._codes.is_cuda,
           "the compressed ket did not land on the card")
     q.SetPermutation(TQ_PERM)
-    q.QFT(0, TQ_WIDTH)
+    qft_ms = timed(lambda: (q.QFT(0, TQ_WIDTH), q._codes))
     mass = float(q._chunk_masses().sum())
     check(abs(mass - 1.0) <= 1e-2, f"w{TQ_WIDTH} QFT: chunk masses sum to "
                                    f"{mass}")
     page = q.GetAmplitudePage(TQ_PERM & ~0xFFF, 4096)
     page_mean = float(np.mean(np.abs(page) ** 2) * 2.0 ** TQ_WIDTH)
     qft_launches = dict(tqk.LAUNCHES)
-    q.IQFT(0, TQ_WIDTH)
+    iqft_ms = timed(lambda: (q.IQFT(0, TQ_WIDTH), q._codes))
     raw_back = q.ProbAll(TQ_PERM)
     # each requantization moves the norm a little; NormalizeState
     # rescales it from the chunk masses, without a decode
@@ -913,9 +1006,6 @@ def tq_phases(card: str, dev) -> list:
 
     # ---- 7. times ------------------------------------------------------
     q = qt.create_quantum_interface("turboquant", TQ_WIDTH)
-    q.SetPermutation(TQ_PERM)
-    qft_ms = timed(lambda: (q.QFT(0, TQ_WIDTH), q._codes))
-    iqft_ms = timed(lambda: (q.IQFT(0, TQ_WIDTH), q._codes))
     # context only: the two float32 products of one w32 sweep through
     # torch.matmul (cuBLAS), never called on the path
     D = q._block
@@ -1692,7 +1782,7 @@ def fppow_phase(card: str, dev, probe) -> dict:
     del ref64
     release()
 
-    # every second launch of each dtype's engine QFT, beside its plain
+    # every fourth launch of each dtype's engine QFT, beside its plain
     # version (SweepProbe, with the dtype's bar)
     probe.every, probe.seen = FPPOW_PROBE_EVERY, {}
     for dt in FPPOW_DTYPES:
@@ -2263,6 +2353,571 @@ def stab_switch(card: str, dev, n: int = None) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the decision-tree layers, the tensor network and the noise plane
+# ---------------------------------------------------------------------------
+
+def random_layers(qubits, depth: int, seed: int) -> list:
+    """Seeded layers over `qubits` as (layer, name, args): U3 with random
+    angles on each qubit, then CNOT on alternating neighbour pairs."""
+    rng = np.random.default_rng(seed)
+    qubits = list(qubits)
+    out = []
+    for layer in range(depth):
+        for q in qubits:
+            th = [float(v) for v in rng.uniform(-np.pi, np.pi, 3)]
+            out.append((layer, "U", (q, *th)))
+        for i in range(layer % 2, len(qubits) - 1, 2):
+            out.append((layer, "CNOT", (qubits[i], qubits[i + 1])))
+    return out
+
+
+def brickwork(n: int, depth: int, seed: int) -> list:
+    """A seeded brickwork of non-Clifford 2-qubit bricks as (name, args):
+    U3 and RY, a CNOT and a controlled phase of a random angle on each
+    neighbour pair of the layer."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for layer in range(depth):
+        for a in range(layer % 2, n - 1, 2):
+            th = [float(v) for v in rng.uniform(-np.pi, np.pi, 4)]
+            out += [("U", (a, th[0], th[1], th[2])), ("RY", (th[3], a + 1)),
+                    ("CNOT", (a, a + 1)),
+                    ("MCPhase", ((a,), 1.0, np.exp(1j * th[1]), a + 1))]
+    return out
+
+
+def ket_fidelity(a, b) -> float:
+    """|<a|b>|^2 / (<a|a><b|b>) of two host kets."""
+    return float(abs(np.vdot(a, b)) ** 2
+                 / (np.vdot(a, a).real * np.vdot(b, b).real))
+
+
+def tree_leaves(bdt) -> list:
+    """The distinct dense leaves of a QBdt."""
+    from qrack_tpu_torch.layers.qbdt import _EngLeaf
+
+    out, seen, todo = [], set(), [bdt.root]
+    while todo:
+        node = todo.pop()
+        if node is None or id(node) in seen:
+            continue
+        seen.add(id(node))
+        if isinstance(node, _EngLeaf):
+            out.append(node)
+        elif isinstance(node, tuple) and len(node) == 4:
+            todo += [node[1], node[3]]
+    return out
+
+
+def bdt_wide(card: str, dev) -> None:
+    """Phase 23 (module docstring)."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.models import algorithms as al
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    n = BDT_QFT_WIDTH
+    rng = np.random.default_rng(n)
+    x = int(rng.integers(0, 1 << n))
+    q = qt.create_quantum_interface(["bdt_hybrid", "hybrid"], n,
+                                    rng=QrackRandom(n),
+                                    rand_global_phase=False)
+    check(q.bdt.device.type == dev.type,
+          f"the tree's device is {q.bdt.device}")
+    t0 = time.time()
+    q.SetPermutation(x)
+    q.QFT(0, n)
+    qft_s = time.time() - t0
+    check(q.isBinaryDecisionTree(), f"w{n} QFT left the tree")
+    nodes = q.bdt.node_count()
+    check(nodes <= 2 * n, f"w{n} QFT: {nodes} nodes (bar {2 * n})")
+    idx = rng.integers(0, 1 << n, BDT_AMPS)
+    t0 = time.time()
+    err = max(abs(q.GetAmplitude(int(k)) - qft_closed_form(x, int(k), n))
+              for k in idx)
+    amp_s = time.time() - t0
+    check(err <= 1e-9 * 2.0 ** (-n / 2),
+          f"w{n} QFT: amplitude off the closed form by {err}")
+
+    m = BDT_GHZ
+    g = qt.create_quantum_interface(["bdt_hybrid", "hybrid"], m,
+                                    rng=QrackRandom(m),
+                                    rand_global_phase=False)
+    t0 = time.time()
+    al.ghz(g)
+    g.T(0)
+    dp = max(abs(g.Prob(b) - 0.5) for b in range(m))
+    ghz_s = time.time() - t0
+    check(g.isBinaryDecisionTree() and dp <= 1e-12,
+          f"w{m} GHZ + T on the tree: Prob off 0.5 by {dp}")
+    emit({"phase": "bdt_wide", "card": card, "qft_width": n, "qft_s": qft_s,
+          "qft_nodes": nodes, "amps": BDT_AMPS, "amp_read_us":
+          amp_s / BDT_AMPS * 1e6, "max_amp_err": err, "ghz_width": m,
+          "ghz_s": ghz_s, "ghz_nodes": g.bdt.node_count(),
+          "ghz_max_prob_diff": dp})
+
+
+def bdt_attached(card: str, dev) -> dict:
+    """Phase 24 (module docstring); returns the launches of the bare
+    engine."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    n, k = BDT_ATT_WIDTH, BDT_ATT_QB
+    tq = n - k
+    q = qt.create_quantum_interface("bdt_attached", n, attached_qubits=k,
+                                    rng=QrackRandom(n),
+                                    rand_global_phase=False)
+    check(q._leaf_on_device() and q.tree_qubits == tq,
+          f"w{n}: {k} attached qubits keep no device leaves")
+    ops = random_layers(range(tq, n), BDT_ATT_DEPTH, n)
+    t0 = time.time()
+    for _layer, name, args in ops:
+        getattr(q, name)(*args)
+    for t in range(tq):
+        q.H(t)
+        q.T(t)
+    sync()
+    wall_s = time.time() - t0
+    leaves = tree_leaves(q)
+    check(leaves and all(lf.on_device and lf.planes.device.type == dev.type
+                         and lf.planes.dtype == torch.float32
+                         and lf.planes.shape == (2, 1 << k)
+                         for lf in leaves),
+          f"w{n}: a leaf is not float32 (2, 2^{k}) planes on the card")
+    t0 = time.time()
+    probs = [q.Prob(b) for b in range(n)]
+    prob_s = time.time() - t0
+    wk.reset_launches()
+    c = qt.create_quantum_interface("cuda", k, rng=QrackRandom(k),
+                                    rand_global_phase=False)
+    for _layer, name, args in random_layers(range(k), BDT_ATT_DEPTH, n):
+        getattr(c, name)(*args)
+    want = [c.Prob(b) for b in range(k)]
+    launches = wk.launches()
+    d_att = max(abs(probs[tq + b] - want[b]) for b in range(k))
+    d_tree = max(abs(probs[t] - 0.5) for t in range(tq))
+    check(d_att <= 1e-5 and d_tree <= 1e-5,
+          f"w{n} attached: Prob off the bare w{k} engine by {d_att}, the "
+          f"tree qubits off 0.5 by {d_tree}")
+    emit({"phase": "bdt_attached", "card": card, "width": n,
+          "attached": k, "leaf_gates": len(ops), "wall_s": wall_s,
+          "prob_s": prob_s, "nodes": q.node_count(), "leaves": len(leaves),
+          "leaf_bytes": sum(lf.planes.numel() * 4 for lf in leaves),
+          "max_prob_diff_attached": d_att, "max_prob_diff_tree": d_tree,
+          "cuda_launches": launches})
+    del q, c
+    release()
+    return launches
+
+
+def bdt_switch(card: str, dev) -> dict:
+    """Phase 25 (module docstring); returns the window kernel's launches
+    of the switched stack."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.engines.cuda import QEngineCUDA
+    from qrack_tpu_torch.layers.qbdt import QBdt
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    n = BDT_SWITCH_WIDTH
+    rng = np.random.default_rng(n)
+    q = qt.create_quantum_interface(["bdt_hybrid", "hybrid"], n,
+                                    rng=QrackRandom(n),
+                                    rand_global_phase=False,
+                                    ratio_threshold=BDT_SWITCH_RATIO)
+    switches, walks = [], []
+    real_maybe, real_walk = q._maybe_switch, QBdt.GetQuantumState
+
+    def timed_walk(self):
+        t0 = time.time()
+        out = real_walk(self)
+        walks.append(time.time() - t0)
+        return out
+
+    def timed_maybe():
+        tree = q.bdt
+        t0 = time.time()
+        real_maybe()
+        if tree is not None and q.engine is not None:
+            sync()
+            switches.append((time.time() - t0, tree.node_count(),
+                             tree.attached_qubits))
+
+    q._maybe_switch = timed_maybe
+    QBdt.GetQuantumState = timed_walk
+    wk.reset_launches()
+    done = []
+    t0 = time.time()
+    try:
+        for a in range(n):
+            q.H(a)
+            done.append(("H", (a,)))
+        # random phases of random angles, the control above the target
+        # in the tree (the tree's cheap order; a phase is symmetric)
+        while q.isBinaryDecisionTree() and len(done) < 40 * n:
+            a, b = sorted(int(v) for v in rng.choice(n, 2, replace=False))
+            call = ("MCPhase", ((a,), 1.0,
+                                np.exp(1j * rng.uniform(-np.pi, np.pi)), b))
+            getattr(q, call[0])(*call[1])
+            done.append(call)
+        tree_s = time.time() - t0
+        check(len(switches) == 1, f"w{n}: the tree switched "
+                                  f"{len(switches)} times before the layers")
+        for _layer, name, args in random_layers(range(n), BDT_SWITCH_AFTER,
+                                                n + 1):
+            getattr(q, name)(*args)
+            done.append((name, args))
+        q.Finish()
+        sync()
+    finally:
+        QBdt.GetQuantumState = real_walk
+    wall_s = time.time() - t0
+    launches = wk.launches()
+    check(len(switches) == 1 and isinstance(q.engine._engine, QEngineCUDA)
+          and q.engine._engine.device.type == dev.type,
+          f"w{n}: {len(switches)} switches, into "
+          f"{type(getattr(q.engine, '_engine', q.engine)).__name__}")
+    check(launches["in_tile"] + launches["pair"] > 0,
+          f"the switched w{n} stack launched no K1/K2: {launches}")
+    c = qt.create_quantum_interface("cuda", n, rng=QrackRandom(n),
+                                    rand_global_phase=False)
+    for name, args in done:
+        getattr(c, name)(*args)
+    f = ket_fidelity(q.GetQuantumState(), c.GetQuantumState())
+    check(f >= 1 - 1e-5, f"w{n} switched ket against the engine: {f}")
+    switch_s, nodes, attached = switches[0]
+    emit({"phase": "bdt_switch", "card": card, "width": n,
+          "ratio": BDT_SWITCH_RATIO, "gates": len(done),
+          "gates_on_tree": len(done) - len(random_layers(
+              range(n), BDT_SWITCH_AFTER, n + 1)),
+          "tree_s": tree_s, "wall_s": wall_s, "switch_s": switch_s,
+          "switch_us_per_amp": switch_s / (1 << n) * 1e6,
+          "walk_s": walks, "walk_us_per_amp": [w / (1 << n) * 1e6
+                                               for w in walks],
+          "nodes_at_switch": nodes, "attached_at_switch": attached,
+          "fidelity": f, "launches": launches})
+    del q, c
+    release()
+    return launches
+
+
+def tn_cone(card: str, dev) -> dict:
+    """Phase 26 (module docstring); returns the launches of the stack's
+    cone reads and of the bare engine."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    layers = ["tensor_network", "unit", "stabilizer_hybrid", "hybrid"]
+    n = TN_WIDTH
+    ops = brickwork(n, TN_DEPTH, n)
+    q = qt.create_quantum_interface(layers, n, rng=QrackRandom(n),
+                                    rand_global_phase=False)
+    for name, args in ops:
+        getattr(q, name)(*args)
+    probes = sorted(int(b) for b in np.random.default_rng(n).choice(
+        n, TN_PROBES, replace=False))
+    wk.reset_launches()
+    t0 = time.time()
+    got = [q.Prob(b) for b in probes]
+    sync()
+    tn_s = time.time() - t0
+    tn_launches = wk.launches()
+    check(q.isBuffering() and q.sim is None,
+          f"w{n}: the cone reads materialized the stack")
+    wk.reset_launches()
+    c = qt.create_quantum_interface("cuda", n, rng=QrackRandom(n),
+                                    rand_global_phase=False)
+    t0 = time.time()
+    for name, args in ops:
+        getattr(c, name)(*args)
+    want = [c.Prob(b) for b in probes]
+    sync()
+    cuda_s = time.time() - t0
+    cuda_launches = wk.launches()
+    dp = max(abs(a - b) for a, b in zip(got, want))
+    check(dp <= 1e-5, f"w{n} cones: Prob off the bare engine by {dp}")
+    check(tn_launches["in_tile"] + tn_launches["pair"] > 0,
+          f"the w{n} cone reads launched no K1/K2: {tn_launches}")
+    del c
+    release()
+
+    m, b = TN_WIDE, TN_WIDE_PROBE
+    wide_ops = brickwork(m, TN_DEPTH, m)
+    w = qt.create_quantum_interface(layers, m, rng=QrackRandom(m),
+                                    rand_global_phase=False)
+    for name, args in wide_ops:
+        getattr(w, name)(*args)
+    cone = w.circuit.PastLightCone([b])
+    cone_q = sorted({x for g in cone.gates for x in g.qubits()})
+    wk.reset_launches()
+    t0 = time.time()
+    p = w.Prob(b)
+    sync()
+    wide_s = time.time() - t0
+    wide_launches = wk.launches()
+    check(wide_launches["in_tile"] + wide_launches["pair"] > 0,
+          f"the w{m} cone read launched no K1/K2: {wide_launches}")
+    # the cone alone on a bare engine of its width (its qubits are one
+    # contiguous run of the brickwork)
+    lo = cone_q[0]
+    check(cone_q == list(range(lo, lo + len(cone_q))),
+          f"w{m}: the cone of {b} is not contiguous: {cone_q}")
+    e = qt.create_quantum_interface("cuda", len(cone_q), rng=QrackRandom(m),
+                                    rand_global_phase=False)
+    for g in cone.gates:
+        for perm, mtx in g.payloads.items():
+            e.MCMtrxPerm(tuple(x - lo for x in g.controls), mtx,
+                         g.target - lo, perm)
+    pe = e.Prob(b - lo)
+    check(abs(p - pe) <= 1e-5, f"w{m} cone: Prob({b}) {p} against the "
+                               f"w{len(cone_q)} engine's {pe}")
+    emit({"phase": "tn_cone", "card": card, "width": n, "depth": TN_DEPTH,
+          "gates": len(ops), "probes": probes, "cone_reads_s": tn_s,
+          "cuda_s": cuda_s, "max_prob_diff": dp, "cone_launches":
+          tn_launches, "cuda_launches": cuda_launches,
+          "wide_width": m, "wide_probe": b, "cone_width": len(cone_q),
+          "gates_kept": cone.GetGateCount(),
+          "gates_buffered": w.circuit.GetGateCount(), "wide_read_s": wide_s,
+          "wide_launches": wide_launches, "wide_prob": p,
+          "wide_prob_diff": abs(p - pe)})
+    del q, w, e
+    release()
+    return {"cones": {k: tn_launches[k] + wide_launches[k]
+                      for k in tn_launches}, "cuda": cuda_launches}
+
+
+def noisy_stack(card: str, dev) -> dict:
+    """Phase 27 (module docstring); returns the launches of the noisy
+    stacks and of the bare engine."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    layers = ["noisy", "unit", "stabilizer_hybrid", "hybrid"]
+    n = NOISY_WIDTH
+    ops = [(name, args) for _l, name, args in
+           random_layers(range(n), NOISY_DEPTH, n)]
+    wk.reset_launches()
+    c = qt.create_quantum_interface("cuda", n, rng=QrackRandom(n),
+                                    rand_global_phase=False)
+    for name, args in ops:
+        getattr(c, name)(*args)
+    ideal = c.GetQuantumState()
+    cuda_launches = wk.launches()
+    del c
+    release()
+
+    wk.reset_launches()
+    q0 = qt.create_quantum_interface(layers, n, noise=0.0,
+                                     rng=QrackRandom(n),
+                                     rand_global_phase=False)
+    t0 = time.time()
+    for name, args in ops:
+        getattr(q0, name)(*args)
+    q0.Finish()
+    sync()
+    clean_s = time.time() - t0
+    f0 = ket_fidelity(q0.GetQuantumState(), ideal)
+    check(f0 >= 1 - 1e-5 and q0.GetUnitaryFidelity() == 1.0,
+          f"w{n} noisy stack at lambda 0 against the engine: {f0}")
+    del q0
+    release()
+
+    q = qt.create_quantum_interface(layers, n, noise=NOISY_LAMBDA,
+                                    rng=QrackRandom(n),
+                                    rand_global_phase=False)
+    pairs, paulis = [0], {"X": 0, "Y": 0, "Z": 0}
+    in_noise = [False]
+
+    def funnel(name):
+        real = getattr(q, name)
+
+        def call(*args):
+            qubits = {"MCMtrxPerm": lambda c, m, t, p: (t,) + tuple(c),
+                      "Apply4x4": lambda m, a, b: (a, b),
+                      "Swap": lambda a, b: (a, b)}[name](*args)
+            pairs[0] += len(set(qubits))
+            return real(*args)
+
+        setattr(q, name, call)
+
+    for name in ("MCMtrxPerm", "Apply4x4", "Swap"):
+        funnel(name)
+    real_noise = q._apply_noise
+
+    def counted_noise(qubits):
+        in_noise[0] = True
+        try:
+            real_noise(qubits)
+        finally:
+            in_noise[0] = False
+
+    q._apply_noise = counted_noise
+    for p in paulis:
+        real_p = getattr(q.inner, p)
+
+        def pauli(t, _p=p, _real=real_p):
+            if in_noise[0]:
+                paulis[_p] += 1
+            return _real(t)
+
+        setattr(q.inner, p, pauli)
+    t0 = time.time()
+    for name, args in ops:
+        getattr(q, name)(*args)
+    q.Finish()
+    sync()
+    noisy_s = time.time() - t0
+    launches = wk.launches()
+    want = (1.0 - NOISY_LAMBDA) ** pairs[0]
+    got = q.GetUnitaryFidelity()
+    check(abs(got - want) <= 1e-12,
+          f"w{n} noisy stack: fidelity {got} against (1 - lambda)^"
+          f"{pairs[0]} = {want}")
+    check(launches["in_tile"] + launches["pair"] > 0,
+          f"the w{n} noisy stacks launched no K1/K2: {launches}")
+    overlap = ket_fidelity(q.GetQuantumState(), ideal)
+    emit({"phase": "noisy_stack", "card": card, "width": n,
+          "depth": NOISY_DEPTH, "gates": len(ops), "lambda": NOISY_LAMBDA,
+          "clean_s": clean_s, "noisy_s": noisy_s, "clean_fidelity": f0,
+          "funnel_pairs": pairs[0], "unitary_fidelity": got,
+          "expected": want, "overlap_with_ideal": overlap,
+          "paulis": paulis, "launches": launches,
+          "cuda_launches": cuda_launches})
+    del q
+    release()
+    return {"stacks": launches, "cuda": cuda_launches}
+
+
+def trajectories(card: str, dev) -> dict:
+    """Phase 28 (module docstring); returns the launches of the bare
+    engine."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch import matrices as mat
+    from qrack_tpu_torch.layers.qcircuit import QCircuit
+    from qrack_tpu_torch.noise import (NoiseModel, amplitude_damping,
+                                       depolarizing, run_trajectories)
+    from qrack_tpu_torch.noise import trajectories as traj
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    n, B = TRAJ_WIDTH, TRAJ_B
+    amps = B * (1 << n)
+    circ = QCircuit(n)
+    for _l, name, args in random_layers(range(n), TRAJ_DEPTH, n + 2):
+        if name == "U":
+            circ.append_1q(args[0], mat.u3_mtrx(*args[1:]))
+        else:
+            circ.append_ctrl((args[0],), args[1], mat.X2, 1)
+    wk.reset_launches()
+    c = qt.create_quantum_interface("cuda", n, rng=QrackRandom(n),
+                                    rand_global_phase=False)
+    circ.Run(c)
+    want = np.array([c.Prob(b) for b in range(n)])
+    launches = wk.launches()
+    del c
+    release()
+
+    t0 = time.time()
+    clean = run_trajectories(circ, NoiseModel(), B, key=TRAJ_KEY)
+    clean_s = time.time() - t0
+    dp = float(np.abs(clean.p1 - want[None, :]).max())
+    check(dp <= 1e-5 and np.all(clean.weights == 1.0),
+          f"w{n} noise-free trajectories: p1 off the engine by {dp}, "
+          f"weights {set(clean.weights.tolist())}")
+
+    model = NoiseModel(default=depolarizing(NOISY_LAMBDA))
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.time()
+    first = run_trajectories(circ, model, B, key=TRAJ_KEY)
+    noisy_s = time.time() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / amps
+    # the planes alone are 8 bytes an amplitude: less means they did not
+    # live on the card
+    check(peak >= 8 and first.chunks == 1,
+          f"w{n} B{B}: {peak} bytes an amplitude on the card, "
+          f"{first.chunks} chunks")
+    again = run_trajectories(circ, model, B, key=TRAJ_KEY)
+    check(np.array_equal(again.samples, first.samples)
+          and np.array_equal(again.p1, first.p1)
+          and np.array_equal(again.weights, first.weights),
+          f"w{n}: the same key drew other samples")
+    os.environ["QRACK_NOISE_TRAJ_CHUNK"] = TRAJ_CHUNK
+    try:
+        chunked = run_trajectories(circ, model, B, key=TRAJ_KEY)
+    finally:
+        del os.environ["QRACK_NOISE_TRAJ_CHUNK"]
+    check(chunked.chunks == B // int(TRAJ_CHUNK)
+          and np.array_equal(chunked.samples, first.samples)
+          and float(np.abs(chunked.weights - first.weights).max()) <= 1e-6
+          and float(np.abs(chunked.p1 - first.p1).max()) <= 1e-5,
+          f"w{n}: chunks of {TRAJ_CHUNK} against one chunk")
+    # the general-Kraus step (renormalise and weigh) on one layer, with
+    # the chunk that the budget sizes: a ballast leaves the card room for
+    # TRAJ_ROOM trajectories at the coefficient, so a chunk near the
+    # limit runs on the real allocator
+    kc = QCircuit(n)
+    for g in circ.gates[:n]:
+        kc.gates.append(g.clone())
+    release()
+    per_traj = traj.BYTES_PER_AMP * (1 << n)
+    free, _total = torch.cuda.mem_get_info()
+    ballast = torch.empty(free - int(TRAJ_ROOM * per_traj),
+                          dtype=torch.uint8, device=dev)
+    budget = traj.budget_bytes(dev)
+    budget_chunk = traj.traj_chunk(n, B, dev)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kraus = run_trajectories(kc, NoiseModel(default=amplitude_damping(0.01)),
+                             B, key=TRAJ_KEY)
+    kraus_peak = (torch.cuda.max_memory_allocated() - base) / (
+        budget_chunk * (1 << n))
+    del ballast
+    release()
+    check(budget_chunk >= 16 and kraus.chunks == -(-B // budget_chunk),
+          f"w{n}: a budget of {budget} bytes gave chunks of {budget_chunk}, "
+          f"{kraus.chunks} chunks")
+    check(traj.BYTES_PER_AMP >= max(peak, kraus_peak),
+          f"traj.BYTES_PER_AMP {traj.BYTES_PER_AMP} is below the measured "
+          f"peak {max(peak, kraus_peak)}: a chunk could start that does "
+          "not fit")
+    noise_slots = sum(1 for op in traj.lower_noisy(circ, model)
+                      if isinstance(op, traj.NoiseSlot))
+    # one batched general 2x2 on three targets, and the readout, against
+    # the bytes of the batch (read once, written once)
+    release()
+    planes = torch.randn((B, 2, 1 << n), device=dev)
+    mp = torch.randn((B, 2, 2, 2), device=dev)
+    u = torch.rand((B,), device=dev)
+    op_ms = {t: timed_warm(lambda t=t: traj.apply_2x2(planes, mp, n, t))
+             for t in (0, n // 2, n - 1)}
+    readout_ms = timed_warm(lambda: traj.readout(planes, u))
+    read_ms = planes.numel() * 4 / PEAK_BYTES_S * 1e3
+    del planes, mp, u
+    emit({"phase": "trajectories", "card": card, "width": n,
+          "trajectories": B, "gates": len(circ.gates),
+          "noise_slots": noise_slots, "clean_s": clean_s,
+          "max_p1_diff": dp, "noisy_s": noisy_s,
+          "trajectories_per_s": B / noisy_s,
+          "peak_bytes_per_amp": peak, "kraus_peak_bytes_per_amp": kraus_peak,
+          "kraus_budget_bytes": budget, "kraus_budget_chunk": budget_chunk,
+          "kraus_chunks": kraus.chunks,
+          "bytes_per_amp_coefficient": traj.BYTES_PER_AMP,
+          "aggregate_p1_mean": float(first.aggregate_p1.mean()),
+          "min_kraus_weight": float(kraus.weights.min()),
+          "chunked_chunks": chunked.chunks, "gen_op_ms_by_target": op_ms,
+          "readout_ms": readout_ms, "gen_op_bound_ms": 2 * read_ms,
+          "readout_bound_ms": read_ms,
+          "cuda_launches": launches})
+    release()
+    return launches
+
+
 def dtype_entries(probe, launches: dict) -> list:
     """The kernels-line entries of the float64, bfloat16 and float16 forms
     of K1 and K2: launches over the paths that run them, times and errors
@@ -2352,6 +3007,19 @@ def main() -> int:
               "the layer phases made no native tableau call")
         emit({"phase": "layers_native", "card": card,
               "native_calls": dict(tableau.calls)})
+        t0 = time.time()
+        bdt_wide(card, dev)
+        paths["bdt_attached_cuda"] = {"float32": bdt_attached(card, dev)}
+        paths["bdt_switch"] = {"float32": bdt_switch(card, dev)}
+        tn = tn_cone(card, dev)
+        paths["tn_cone"] = {"float32": tn["cones"]}
+        paths["tn_cuda"] = {"float32": tn["cuda"]}
+        noisy = noisy_stack(card, dev)
+        paths["noisy_stack"] = {"float32": noisy["stacks"]}
+        paths["noisy_cuda"] = {"float32": noisy["cuda"]}
+        paths["traj_cuda"] = {"float32": trajectories(card, dev)}
+        emit({"phase": "slice8_phases", "card": card,
+              "seconds": time.time() - t0})
     kernels = []
     if paths:
         launches = {dt: {k: sum(p.get(dt, {}).get(k, 0)

@@ -5,8 +5,10 @@ state vector that lives on an NVIDIA GPU (Hopper, sm_90a), with the
 fused gate window as a hand-written CUDA kernel (csrc/); the numpy
 complex128 oracle (QEngineCPU) and QHybrid's width switch between the
 two; the layers above them (QUnit, QStabilizerHybrid, QStabilizer,
-QUnitClifford), which the factory stacks into the OPTIMAL stack; and
-the algorithm programs (models/).  The JAX
+QUnitClifford, QBdt, QBdtHybrid, QTensorNetwork, QInterfaceNoisy),
+which the factory stacks into the OPTIMAL stack and the others; the
+noise plane (noise/: Kraus channels and shot-parallel trajectories);
+and the algorithm programs (models/).  The JAX
 package beside it is the reference the port is tested against; this
 package imports neither it nor JAX.
 """
@@ -25,8 +27,10 @@ from .engines import (QEngine, QEngineCPU, QEngineCUDA,  # noqa: E402,F401
 from .pauli import Pauli  # noqa: E402,F401
 from .config import get_config, set_config  # noqa: E402,F401
 from .hamiltonian import HamiltonianOp, uniform_hamiltonian_op  # noqa: E402,F401
-from .layers import (QStabilizer, QStabilizerHybrid, QUnit,  # noqa: E402,F401
+from .layers import (QBdt, QBdtHybrid, QInterfaceNoisy,  # noqa: E402,F401
+                     QStabilizer, QStabilizerHybrid, QTensorNetwork, QUnit,
                      QUnitClifford)
+from . import noise  # noqa: E402,F401
 from .factory import (build_factory, create_arranged_layers_full,  # noqa: E402,F401
                       create_quantum_interface)
 from .qneuron import QNeuron, ActivationFn  # noqa: E402,F401

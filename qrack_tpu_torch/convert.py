@@ -79,3 +79,14 @@ def circuit_from_gates(gates: Iterable[Tuple[int, Sequence[int],
         circ.qubit_count = max(circ.qubit_count, max(g.qubits()) + 1)
         circ.gates.append(g)
     return circ
+
+
+def bdt_from_numpy(meta: Mapping, arrays: Mapping[str, np.ndarray],
+                   device=None, **kwargs):
+    """The port's QBdt holding a JAX QBdt's decision diagram, from the
+    ``meta``/``arrays`` of its checkpoint capture (the JAX package's
+    ``QBdt._ckpt_capture``), node for node; device leaf planes land on
+    `device`, ``cuda`` by default (``QBdt._from_capture``)."""
+    from .layers.qbdt import QBdt
+
+    return QBdt._from_capture(meta, arrays, device=device, **kwargs)

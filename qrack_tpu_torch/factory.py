@@ -3,9 +3,19 @@ CreateQuantumInterface — recursive layer construction from a type
 vector; :265 CreateArrangedLayersFull — boolean layer toggles).  The
 ported layers, top-down:
 
+  "noisy"              QInterfaceNoisy: a weak depolarizing channel after
+                       every gate on every touched qubit (``noise`` opt,
+                       else QRACK_GATE_DEPOLARIZATION); as a terminal,
+                       QNoisy, the one-trajectory engine of noise/
+                       (``model``/``noise`` opts) over the "cuda"
+                       engine, or the "cpu" oracle when device="cpu"
+  "tensor_network"     QTensorNetwork: circuit buffering, past-light-cone
+                       reads
   "unit"               QUnit Schmidt factoring over lower-layer units
   "stabilizer_hybrid"  Clifford tableau until a non-Clifford op forces a
                        dense engine
+  "bdt_hybrid"         QBdtHybrid: decision tree until it stops
+                       compressing, then the layers below
 
 and the ported terminals:
 
@@ -26,21 +36,31 @@ and the ported terminals:
                   QRACK_TURBOQUANT_CHUNK_QB, QRACK_PALLAS_TQ_TILE_QB)
   "stabilizer"    QStabilizer bare CHP tableau (Clifford only; host)
   "unit_clifford" QUnitClifford: QUnit over per-subsystem tableaus
+  "bdt"           QBdt decision tree (host nodes; device leaves)
+  "bdt_attached"  QBdt with dense leaf kets under the tree
+                  (attached_qubits kwarg; default n // 2 or
+                  QRACK_QBDT_ATTACH_QB), on the card from
+                  QRACK_QBDT_LEAF_DEVICE_QB (14) attached qubits
 
 ``"optimal"`` is OPTIMAL = ["unit", "stabilizer_hybrid", "hybrid"], the
 reference's production stack shape over the CUDA dense bottom.
-``device``/``dtype`` go to the terminal, so every engine a stack builds
-lies on ``cuda`` unless ``device="cpu"``.  The JAX package's other
-layers raise ValueError naming their ROADMAP item."""
+``device``/``dtype`` go to the terminal, and to "bdt_hybrid" for its
+tree, so every engine a stack builds lies on ``cuda`` unless
+``device="cpu"``.  The JAX package's other layers raise ValueError
+naming their ROADMAP item."""
 
 from __future__ import annotations
 
+import os
 from typing import Callable, List, Sequence, Union
 
 OPTIMAL = ("unit", "stabilizer_hybrid", "hybrid")
 
 _TERMINAL = {"cuda", "cpu", "hybrid", "sparse", "turboquant", "stabilizer",
-             "unit_clifford"}
+             "unit_clifford", "bdt", "bdt_attached"}
+
+#: terminals that run on the host and refuse a device
+_HOST_TERMINALS = {"cpu", "sparse"}
 
 #: layers of the JAX package's factory that the port lacks, with the
 #: ROADMAP item that brings each
@@ -50,12 +70,8 @@ _NOT_PORTED = {
     "turboquant_pager": "ROADMAP item 13 (pager)",
     "unit_multi": "ROADMAP item 13 (pager: QUnitMulti)",
     "optimal_multi": "ROADMAP item 13 (pager: QUnitMulti)",
-    "bdt": "ROADMAP item 11 (layers/qbdt.py)",
-    "bdt_attached": "ROADMAP item 11 (layers/qbdt.py)",
-    "bdt_hybrid": "ROADMAP item 11 (layers/qbdthybrid.py)",
-    "tensor_network": "ROADMAP item 11 (layers/qtensornetwork.py)",
-    "noisy": "ROADMAP item 11 (layers/noisy.py)",
-    "lightcone": "ROADMAP item 11 (lightcone/engine.py)",
+    "lightcone": "ROADMAP item 16 (lightcone/engine.py, which builds its "
+                 "cones through 'route')",
     "route": "ROADMAP item 16 (route/)",
 }
 
@@ -94,6 +110,21 @@ def _terminal_factory(name: str, **opts) -> Callable:
         from .layers.qunitclifford import QUnitClifford
 
         return lambda n, **kw: QUnitClifford(n, **{**opts, **kw})
+    if name == "bdt":
+        from .layers.qbdt import QBdt
+
+        return lambda n, **kw: QBdt(n, **{**opts, **kw})
+    if name == "bdt_attached":
+        from .layers.qbdt import QBdt
+
+        def mk_attached(n, **kw):
+            kw = {**opts, **kw}
+            if "attached_qubits" not in kw:
+                kw["attached_qubits"] = int(os.environ.get(
+                    "QRACK_QBDT_ATTACH_QB", str(n // 2)))
+            return QBdt(n, **kw)
+
+        return mk_attached
     raise ValueError(f"unknown terminal layer {name!r}")
 
 
@@ -105,20 +136,53 @@ def build_factory(layers: Sequence[str], **opts) -> Callable:
     head, rest = layers[0], layers[1:]
     if head in _NOT_PORTED:
         raise _not_ported(head)
+    dev = {k: v for k, v in opts.items() if k in ("device", "dtype")}
     if head in _TERMINAL:
         if rest:
             raise ValueError(f"terminal layer {head!r} must be last")
-        return _terminal_factory(head, **opts)
-    if head not in ("unit", "stabilizer_hybrid"):
-        raise ValueError(f"unknown layer {head!r}")
-    below = build_factory(rest, **opts) if rest else None
+        return _terminal_factory(head, **dev)
+    below = None
+    if rest:
+        # a host terminal ("cpu", "sparse") under a layer takes no device
+        # or plane dtype: those are the layers' (a tree's device leaves)
+        host = len(rest) == 1 and rest[0] in _HOST_TERMINALS
+        below = build_factory(rest, **({k: v for k, v in opts.items()
+                                        if k not in dev} if host else opts))
     if head == "unit":
         from .layers.qunit import QUnit
 
         return lambda n, **kw: QUnit(n, unit_factory=below, **kw)
-    from .layers.stabilizerhybrid import QStabilizerHybrid
+    if head == "stabilizer_hybrid":
+        from .layers.stabilizerhybrid import QStabilizerHybrid
 
-    return lambda n, **kw: QStabilizerHybrid(n, engine_factory=below, **kw)
+        return lambda n, **kw: QStabilizerHybrid(n, engine_factory=below,
+                                                 **kw)
+    if head == "tensor_network":
+        from .layers.qtensornetwork import QTensorNetwork
+
+        return lambda n, **kw: QTensorNetwork(n, stack_factory=below, **kw)
+    if head == "bdt_hybrid":
+        from .layers.qbdthybrid import QBdtHybrid
+
+        return lambda n, **kw: QBdtHybrid(n, engine_factory=below,
+                                          **{**dev, **kw})
+    if head == "noisy":
+        noise = opts.get("noise")
+        if below is None:
+            # terminal form: the trajectory-rng QNoisy engine over the
+            # dense engine (the host oracle with device="cpu") — branch
+            # choices come from (key, trajectory_id, app_seq) counters,
+            # not the engine's sequential rng stream (noise/channels.py)
+            from .noise.channels import QNoisy
+
+            model = opts.get("model")
+            return lambda n, **kw: QNoisy(n, model=model, noise=noise,
+                                          **{**dev, **kw})
+        from .layers.noisy import QInterfaceNoisy
+
+        return lambda n, **kw: QInterfaceNoisy(n, inner_factory=below,
+                                               noise=noise, **kw)
+    raise ValueError(f"unknown layer {head!r}")
 
 
 def create_quantum_interface(layers: Union[str, Sequence[str]], qubit_count: int,
@@ -129,7 +193,8 @@ def create_quantum_interface(layers: Union[str, Sequence[str]], qubit_count: int
     on the CPU, ``create_quantum_interface("optimal", 10, device="cpu")``."""
     if isinstance(layers, str):
         layers = OPTIMAL if layers == "optimal" else (layers,)
-    opts = {k: kwargs.pop(k) for k in ("dtype", "device") if k in kwargs}
+    opts = {k: kwargs.pop(k) for k in ("dtype", "device", "noise", "model")
+            if k in kwargs}
     factory = build_factory(tuple(layers), **opts)
     return factory(qubit_count, init_state=init_state, **kwargs)
 

@@ -15,8 +15,9 @@ per gate.  The whole-circuit programs over planes:
 * :meth:`QCircuit.compile_batched_fn` — compile_fn over a leading batch
   axis of kets.
 
-The sharded program (compile_sharded_fn) waits for the pager (ROADMAP
-item 13) and PastLightCone for the light-cone engine (item 11).
+:meth:`QCircuit.PastLightCone` cuts the sub-circuit a set of qubits
+depends on (QTensorNetwork's reads).  The sharded program
+(compile_sharded_fn) waits for the pager (ROADMAP item 13).
 """
 
 from __future__ import annotations
@@ -185,6 +186,21 @@ class QCircuit:
             qsim._state = fu.flush_window(qsim._state, n, ops)
             return
         self.Run(qsim)
+
+    def PastLightCone(self, qubits) -> "QCircuit":
+        """Sub-circuit causally relevant to `qubits` (reference:
+        include/qcircuit.hpp:824; used by QTensorNetwork): a reverse walk
+        that grows the cone by every gate it meets, the kept gates cloned
+        in circuit order."""
+        cone = set(qubits)
+        keep: List[QCircuitGate] = []
+        for g in reversed(self.gates):
+            if set(g.qubits()) & cone:
+                cone |= set(g.qubits())
+                keep.append(g)
+        out = QCircuit(self.qubit_count)
+        out.gates = [g.clone() for g in reversed(keep)]
+        return out
 
     def Inverse(self) -> "QCircuit":
         out = QCircuit(self.qubit_count)

@@ -105,6 +105,11 @@ def test_optimal_is_unit_over_stabilizer_hybrid_over_hybrid():
     {"hy": False, "pg": False},
     {"hy": False, "pg": False, "oc": False},
     {"sd": False, "hy": False, "pg": False, "oc": False},
+    {"nw": True},
+    {"tn": True},
+    {"bdt": True},
+    {"nw": True, "tn": True, "bdt": True},
+    {"bdt": True, "sd": False, "sh": False},
 ])
 def test_arranged_layers_full_matches_jax(toggles):
     n = 4
@@ -131,13 +136,41 @@ def test_arranged_layers_full_matches_jax(toggles):
 
 @pytest.mark.parametrize("layers", [
     ["unit_multi", "stabilizer_hybrid", "hybrid"], "optimal_multi",
-    ["tensor_network", "unit", "cpu"], ["unit", "bdt_hybrid", "cpu"],
-    ["noisy", "cpu"], "pager", "bdt", "lightcone", "route", "tpu",
-    "turboquant_pager",
+    "pager", "lightcone", "route", "tpu", "turboquant_pager",
+    ["unit", "lightcone"],
 ])
 def test_unported_layers_raise_with_their_roadmap_item(layers):
     with pytest.raises(ValueError, match="not ported yet"):
         qt.create_quantum_interface(layers, 3, device="cpu")
+
+
+@pytest.mark.parametrize("layers", ["lightcone", "route"])
+def test_lightcone_and_route_name_item_16(layers):
+    with pytest.raises(ValueError, match="ROADMAP item 16"):
+        qt.create_quantum_interface(layers, 3, device="cpu")
+
+
+@pytest.mark.parametrize("layers,kind", [
+    (["tensor_network", "unit", "cpu"], "QTensorNetwork"),
+    (["unit", "bdt_hybrid", "cpu"], "QUnit"),
+    (["noisy", "cpu"], "QInterfaceNoisy"),
+    ("noisy", "QNoisy"),
+    ("bdt", "QBdt"),
+    ("bdt_attached", "QBdt"),
+    (["bdt_hybrid", "hybrid"], "QBdtHybrid"),
+])
+def test_layers_of_this_slice_build_like_jax(layers, kind):
+    """The layers that once raised here build the JAX package's classes
+    and run a Bell pair to its probabilities."""
+    # a "cpu" terminal under a layer leaves the device to the layers
+    port = qt.create_quantum_interface(layers, 3, rng=QrackRandom(5),
+                                       rand_global_phase=False, device="cpu")
+    ref = jax_create(layers, 3, rng=JaxRandom(5), rand_global_phase=False)
+    assert type(port).__name__ == type(ref).__name__ == kind
+    for q in (port, ref):
+        q.H(0)
+        q.CNOT(0, 1)
+    assert port.Prob(1) == pytest.approx(ref.Prob(1), abs=1e-6)
 
 
 def test_unknown_and_misplaced_layers_raise():

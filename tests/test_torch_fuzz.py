@@ -10,7 +10,10 @@ terminals against the JAX package's complex128 oracle, QEngineCPU:
 * "sparse";
 * "optimal" (QUnit over QStabilizerHybrid over QHybrid) with QHybrid's
   threshold at 3 qubits, so its CUDA half runs;
-* "unit_clifford" on the Clifford part of the vocabulary.
+* "unit_clifford" on the Clifford part of the vocabulary;
+* "bdt" (the decision tree, host nodes), ("bdt_hybrid", "hybrid") and
+  ("tensor_network", "unit", "stabilizer_hybrid", "hybrid"), the last two
+  with QHybrid's threshold at 3 qubits.
 
 SetBit, the one measuring op of the vocabulary, is left out: its draws
 diverge across stacks by design.  Bars: fidelity >= 1 - 1e-6 and Prob
@@ -50,6 +53,12 @@ STACKS = {
     "optimal": ("optimal", {"device": "cpu", "tpu_threshold_qubits": 3},
                 {}, F32),
     "unit_clifford": ("unit_clifford", {}, {}, EXACT),
+    "bdt": ("bdt", {"device": "cpu"}, {}, EXACT),
+    "bdt_hybrid": (("bdt_hybrid", "hybrid"),
+                   {"device": "cpu", "tpu_threshold_qubits": 3}, {}, F32),
+    "tensor_network": (("tensor_network", "unit", "stabilizer_hybrid",
+                        "hybrid"),
+                       {"device": "cpu", "tpu_threshold_qubits": 3}, {}, F32),
 }
 # stacks that take only the Clifford part of the vocabulary
 CLIFFORD_ONLY = {"unit_clifford"}

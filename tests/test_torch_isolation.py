@@ -28,6 +28,7 @@ def _forbidden(module: str) -> bool:
 
 _PROBE = r"""
 import sys
+import numpy as np
 import qrack_tpu_torch as qt
 from qrack_tpu_torch.models.qft import qft_qcircuit
 q = qt.create_quantum_interface("cuda", 6, device="cpu")
@@ -56,6 +57,25 @@ c.H(0)
 for i in range(39):
     c.CNOT(i, i + 1)
 assert c.MAll() in (0, (1 << 40) - 1)
+from qrack_tpu_torch.layers.qcircuit import QCircuit
+from qrack_tpu_torch.noise import NoiseModel, depolarizing, run_trajectories
+stacks = [qt.create_quantum_interface(layers, 6, device="cpu",
+                                      tpu_threshold_qubits=3, noise=0.01)
+          for layers in (["bdt_hybrid", "hybrid"], "bdt_attached",
+                         ["tensor_network", "unit", "stabilizer_hybrid",
+                          "hybrid"], ["noisy", "unit", "hybrid"])]
+stacks.append(qt.create_quantum_interface("bdt", 6, device="cpu"))
+for s in stacks:
+    s.H(0)
+    s.CNOT(0, 5)
+    s.T(5)
+    assert abs(s.Prob(5) - 0.5) < 1e-6
+circ = QCircuit(4)
+circ.append_1q(0, np.eye(2) * 1j)
+circ.append_ctrl((0,), 3, np.array([[0, 1], [1, 0]]), 0)
+res = run_trajectories(circ, NoiseModel(default=depolarizing(0.1)), 3,
+                       device="cpu")
+assert res.p1.shape == (3, 4)
 print(sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "qrack_tpu")
              or m.startswith(("jax.", "jaxlib.", "qrack_tpu."))))
@@ -106,6 +126,30 @@ def test_turboquant_default_device_needs_a_gpu(monkeypatch):
     assert q.device.type == "cpu" and q._codes.device.type == "cpu"
 
 
+def _device_leaf(**kw):
+    """The planes of a QBdt's device leaf (device leaves from 2 attached
+    qubits)."""
+    from qrack_tpu_torch.layers.qbdt import QBdt
+
+    q = QBdt(4, attached_qubits=2, **kw)
+    q._leaf_device_qb = 2
+    q.SetPermutation(0b0110)
+    node = q.root
+    while isinstance(node, tuple):
+        node = node[1] if node[1] is not None else node[3]
+    return node.planes
+
+
+def _trajectory_job(**kw):
+    """A trajectory job, whose planes live on its device."""
+    from qrack_tpu_torch.layers.qcircuit import QCircuit
+    from qrack_tpu_torch.noise import NoiseModel, TrajectoryJob
+
+    circ = QCircuit(2)
+    circ.append_1q(1, np.eye(2))
+    return TrajectoryJob(circ, NoiseModel(), 2, width=2, **kw)
+
+
 def _tensor_builders():
     """The public functions that build a ket or a kernel operand, each
     taking an optional ``device=``."""
@@ -121,6 +165,8 @@ def _tensor_builders():
     op = fu.FusedOp("gen", 1, 0b100, 0b100, np.eye(2, dtype=complex))
     codes = np.zeros((4, 4), np.int8)
     return {
+        "qbdt_device_leaf": _device_leaf,
+        "trajectory_job": _trajectory_job,
         "basis_planes": lambda **kw: basis_planes(3, 5, **kw),
         "planes_from_numpy":
             lambda **kw: planes_from_numpy(np.eye(2, 8), **kw),
@@ -150,6 +196,27 @@ def test_tensor_builders_default_to_cuda(entry, monkeypatch):
         call()
     out = call(device="cpu")
     assert out.device.type == "cpu"
+
+
+def test_noisy_terminal_defaults_to_cuda(monkeypatch):
+    """The factory's "noisy" terminal builds its one-trajectory engine
+    over the card's dense engine, and raises where there is none; the
+    complex128 host oracle only with ``device="cpu"``, and never for
+    another device."""
+    from qrack_tpu_torch.engines.cpu import QEngineCPU
+    from qrack_tpu_torch.engines.cuda import QEngineCUDA
+    from qrack_tpu_torch.noise import QNoisy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            qt.create_quantum_interface("noisy", 3, noise=0.1, **kw)
+    with pytest.raises(ValueError, match="host"):
+        QNoisy(3, inner_layers="cpu", device="cuda")
+    q = qt.create_quantum_interface("noisy", 3, noise=0.1, device="cpu")
+    assert isinstance(q.inner, QEngineCPU)
+    q = QNoisy(3, noise=0.1, inner_layers="cuda", device="cpu")
+    assert isinstance(q.inner, QEngineCUDA) and q.inner.device.type == "cpu"
 
 
 def test_chip_smoke_refuses_without_gpu():
