@@ -9,7 +9,10 @@ them; then each phase prints JSON lines:
 
 1. build: both kernel libraries from qrack_tpu_torch/csrc, one nvcc per
    source started together (ops/cuda_build.py), with ptxas's registers
-   and spills;
+   and spills for each kernel instance (cuda_build.ptxas_report); the
+   window kernel's instances of a full-width tile (window_tiles<T, R,
+   pair>, R = window_kernel.reg_bits: every launch of the main paths)
+   must not spill;
 2. kernel against plain: random fused windows at n = 24 over the whole
    vocabulary (cross-tile inv/gen, high and low controls); pair-led
    segments at n = 24 that reach every route of the pair kernel
@@ -17,7 +20,15 @@ them; then each phase prints JSON lines:
    bits, a 256-op diagonal run after a cross-tile H, the trailing segment
    of qft_qcircuit(24), controls below and above the tile with mixed
    values); and one whole qft_qcircuit(30) window; the CUDA kernel
-   against its plain PyTorch version on the same inputs.  Bar, here and
+   against its plain PyTorch version on the same inputs.  Then the
+   in-tile kernel (K1) in float32, float64, bfloat16 and float16: at
+   n = 24 (bp = 12) one segment whose inv/gen cycle through the register,
+   lane and warp bits of the dtype's tile layout (window_kernel.
+   tile_route: every route reached) with diagonal ops anywhere, and a
+   256-op diagonal run ending in an inv/gen on a warp bit; at n = 1-6
+   (bp = n, the whole ket one tile) the first kind, through the routes
+   that tile has.  Each must launch K1 once and hold the dtype's bar of
+   phase 13 (float32: the one below).  Bar, here and
    on every launch of the main path in phase 4: max abs diff <=
    min(1e-6, 1e-4 * the largest |amp| of the plain result), so it scales
    with the amplitudes (about 3e-5 at the end of a w30 QFT); plus
@@ -476,7 +487,7 @@ def random_op(rng, n: int, kind: int, t: int, fu):
     """One fused op of kind 0-3 (cphase, diag, inv, gen) on target t: 0-2
     controls anywhere else, mixed control values but for a cphase."""
     others = [q for q in range(n) if q != t]
-    nc = int(rng.integers(0, 3))
+    nc = min(int(rng.integers(0, 3)), len(others))
     cmask = 0
     for c in (rng.choice(others, nc, replace=False) if nc else ()):
         cmask |= 1 << int(c)
@@ -532,6 +543,32 @@ def pair_cases(rng, n: int, bp: int, fu, wk, dtype=torch.float32) -> list:
             ("qft_tail", qft[xop:])]
 
 
+def tile_cases(rng, n: int, bp: int, fu, wk, dtype=torch.float32) -> list:
+    """(label, ops) of in-tile segments at width n, each one window that
+    plans as a single in-tile sweep: inv/gen whose targets cycle through
+    the register, lane and warp bits of the tile layout of `dtype` planes
+    that bp has, with diagonal ops (targets anywhere) between; at n > bp
+    also a 256-op diagonal run that ends in an inv/gen on the highest
+    thread bit (or a register bit)."""
+    lay = wk.tile_layout(bp, dtype)
+    classes = [c for c in (lay["register"], lay["lane"], lay["warp"]) if c]
+    routes = []
+    for i in range(72):
+        bits = classes[(i // 2) % len(classes)]
+        routes.append(
+            random_op(rng, n, 2 + int(rng.integers(2)),
+                      int(bits[int(rng.integers(len(bits)))]), fu)
+            if i % 2 == 0 else
+            random_op(rng, n, int(rng.integers(2)), int(rng.integers(n)), fu))
+    if n == bp:
+        return [("routes", routes)]
+    diagonal = [random_op(rng, n, int(rng.integers(2)), int(rng.integers(n)),
+                          fu) for _ in range(256)]
+    top = (lay["warp"] or lay["lane"] or lay["register"])[-1]
+    diagonal.append(random_op(rng, n, 3, top, fu))
+    return [("routes", routes), ("diagonal_run", diagonal)]
+
+
 def launch_bound(n: int, rows, iv, dtype=torch.float32) -> tuple:
     """(bytes time, operations time) in ms of one sweep: both planes read
     and written once in `dtype`, and the flops the window's ops need on
@@ -556,7 +593,9 @@ class SweepProbe:
     two results are compared; the kernel's result goes on.  Stats go
     under the entry (float32), entry_dtype (the other dtype forms) and
     (label, entry).  With ``every`` = k only the first of each k launches
-    of a form is replayed and held; the others run the kernel alone."""
+    of a form is replayed and held; the others run the kernel alone.  A
+    held in-tile launch is also timed with no op (copy_only_ms), so
+    copy_ms sums the loads and stores alone of the launches in ms."""
 
     def __init__(self, wk):
         self.wk = wk
@@ -592,6 +631,8 @@ class SweepProbe:
             sync()
             err, rel = held_to_plain(planes, ref,
                                      f"{self.label} {name} sweep")
+            copy_ms = (copy_only_ms(self.wk, ref, n, bp, table, fv, iv,
+                                    span[-2]) if name == "in_tile" else None)
             del ref
             first, count = span[-2], span[-1]
             idx = ([span[0]] if name == "pair" else []) + list(
@@ -616,6 +657,8 @@ class SweepProbe:
                 s["bound_ms"] += max(b_ms, o_ms)
                 s["max_abs_err"] = max(s["max_abs_err"], err)
                 s["max_rel_err"] = max(s["max_rel_err"], rel)
+                if copy_ms is not None:
+                    s["copy_ms"] = s.get("copy_ms", 0.0) + copy_ms
                 if len(idx) > s["largest_ops"]:
                     s["largest_ops"] = len(idx)
                     s["largest_ms"] = ms
@@ -631,6 +674,21 @@ class SweepProbe:
     def __exit__(self, *exc):
         self.wk.in_tile_sweep = self.real["in_tile"]
         self.wk.pair_sweep = self.real["pair"]
+
+
+def copy_only_ms(wk, planes, n, bp, table, fv, iv, first) -> float:
+    """ms of the in-tile kernel on `planes` with no op (count 0): it
+    loads each tile and stores it back unchanged, the byte part of a
+    launch without its ops.  Called on the library, not through
+    window_kernel.in_tile_sweep, so the launch counts nowhere."""
+    lib = wk.load_library()
+    stream = torch.cuda.current_stream(planes.device).cuda_stream
+    err = []
+    ms = timed(lambda: err.append(lib.qtt_window_in_tile(
+        planes.data_ptr(), wk.DTYPE_CODE[planes.dtype], n, bp,
+        table.data_ptr(), first, 0, fv.data_ptr(), iv.data_ptr(), stream)))
+    check(err == [0], f"copy-only in-tile launch failed: CUDA error {err}")
+    return ms
 
 
 def timed_warm(fn, reps: int = 3) -> float:
@@ -1164,6 +1222,73 @@ def dense_kernel_checks(card: str, dev) -> None:
           f"w{WIDTH}_max_rel_err": rel30})
     del x, got, want
     release()
+    tile_kernel_checks(card, dev)
+
+
+TILE_CHECK_WIDTHS = (CHECK_WIDTH, 1, 2, 3, 4, 5, 6)
+
+
+def tile_kernel_checks(card: str, dev) -> None:
+    """Phase 2's in-tile cases (module docstring): K1 in every plane
+    dtype, every route its tile layout has, against its plain version."""
+    from qrack_tpu_torch.ops import fusion as fu
+    from qrack_tpu_torch.ops.gatekernels import dtype_name
+    from qrack_tpu_torch.ops import window_kernel as wk
+
+    for dt in (torch.float32,) + FPPOW_DTYPES:
+        name = dtype_name(dt)
+        rng = np.random.default_rng(2025)
+        cases = {}
+        for n in TILE_CHECK_WIDTHS:
+            bp = min(wk.DEFAULT_BLOCK_POW, n)
+            lay = wk.tile_layout(bp, dt)
+            offered = {"diagonal"} | {r for r in ("register", "lane", "warp")
+                                      if lay[r]}
+            for label, ops in tile_cases(rng, n, bp, fu, wk, dt):
+                structure = fu.structure_of(ops)
+                check(wk.segment_launches(structure, bp)
+                      == [(None, 0, len(ops))],
+                      f"{name} n={n} {label}: not one in-tile segment")
+                routes = {}
+                for op in ops:
+                    r = wk.tile_route(op.kind, op.target, bp, dt)
+                    routes[r] = routes.get(r, 0) + 1
+                # the routes case reaches every route the layout has
+                # (all of them at n = 24)
+                check(label != "routes" or set(routes) == offered,
+                      f"{name} n={n} {label}: routes {sorted(routes)} of "
+                      f"{sorted(offered)}")
+                check(n != CHECK_WIDTH or offered == set(wk.TILE_ROUTES),
+                      f"{name} n={n}: the layout lacks a route")
+                operands = fu.dense_operands(ops, dt)
+                x = unit_planes(rng, n, dev).to(dt)
+                wk.reset_launches()
+                got = wk.make_window_fn(n, structure)(x.clone(), *operands)
+                sync()
+                check(wk.launches() == {"in_tile": 1, "pair": 0},
+                      f"{name} n={n} {label}: launches {wk.launches()}")
+                want = wk.make_window_fn(n, structure, plain=True)(
+                    x.clone(), *operands)
+                sync()
+                err, rel = held_to_plain(got, want,
+                                         f"{name} n={n} in-tile {label}")
+                cases[f"n{n}_{label}"] = {"block_pow": bp, "ops": len(ops),
+                                          "routes": routes,
+                                          "max_abs_err": err,
+                                          "max_rel_err": rel}
+        emit({"phase": "tile_kernel_vs_plain", "card": card, "dtype": name,
+              "bar": plain_bar_text(dt), "cases": cases,
+              "tile_layout": wk.tile_layout(wk.DEFAULT_BLOCK_POW, dt)})
+    del x, got, want
+    release()
+
+
+def plain_bar_text(dtype) -> str:
+    if dtype == torch.float64:
+        return f"f64: {F64_REL_BAR} of the largest |amp|"
+    if dtype in ULP_BITS:
+        return f"{HALF_ULP_BAR} ulps of the dtype at the largest |amp|"
+    return f"min({ABS_BAR}, {REL_BAR} * the largest |amp|)"
 
 
 def dense_phases(card: str, dev, probe) -> dict:
@@ -1279,7 +1404,7 @@ def window_entries(probe, launches: dict) -> list:
             "bound_ms": s["bound_ms"],
             "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"]
             else "operations",
-            "library_ms": None})
+            "library_ms": None, "copy_ms": s.get("copy_ms")})
     return kernels
 
 
@@ -1685,9 +1810,7 @@ def fppow_kernel_checks(card: str, dev) -> None:
               f"{dt} pair cases reached the routes {sorted(reached)} only")
         emit({"phase": "fppow_kernel_vs_plain", "card": card,
               "dtype": dtype_name(dt), "width": n, "block_pow": bp,
-              "bar": ("f64: 1e-13 of the largest |amp|" if dt == torch.float64
-                      else f"{HALF_ULP_BAR} ulps of the dtype at the largest "
-                           "|amp|"),
+              "bar": plain_bar_text(dt),
               "windows_max_abs_err": worst, "windows_max_rel_err": worst_rel,
               "windows_launches": windows,
               "pair_cases_max_abs_err": {k: v[0] for k, v in cases.items()},
@@ -2941,8 +3064,18 @@ def dtype_entries(probe, launches: dict) -> list:
                 "bound_ms": s["bound_ms"],
                 "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"]
                 else "operations",
-                "library_ms": None})
+                "library_ms": None, "copy_ms": s.get("copy_ms")})
     return kernels
+
+
+def main_path_instances(wk) -> list:
+    """The window kernel's template instances of a full-width tile:
+    window_tiles<T, R, pair> with R = window_kernel.reg_bits."""
+    ctype = {torch.float32: "float", torch.float64: "double",
+             torch.float16: "__half", torch.bfloat16: "__nv_bfloat16"}
+    return [f"window_tiles<{ctype[dt]}, {wk.reg_bits(dt, pair)}, "
+            f"{'true' if pair else 'false'}>"
+            for dt in wk.DTYPE_CODE for pair in (False, True)]
 
 
 def main() -> int:
@@ -2969,12 +3102,22 @@ def main() -> int:
     cuda_build.build([wk.SOURCE, tqk.SOURCE])
     wk.load_library()
     tqk.load_library()
-    ptxas = {src: [ln.strip() for ln in log.splitlines()
-                   if "registers" in ln or "spill" in ln]
-             for src, log in cuda_build.BUILD_LOGS.items()}
+    # ptxas's report of each library's build, kept beside it (so also
+    # when an earlier run built it)
+    ptxas = {src.name: cuda_build.ptxas_report(cuda_build.build_log(src))
+             for src in (wk.SOURCE, tqk.SOURCE)}
     emit({"phase": "build", "card": card, "seconds": time.time() - t0,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "ptxas": ptxas})
+    # the K1/K2 instances of a tile of 2^R or more amplitudes (every
+    # launch of the main paths, at bp = 12) must not spill; narrower
+    # tiles take the smaller instances
+    report = {r["kernel"]: r for r in ptxas[wk.SOURCE.name]}
+    for name in main_path_instances(wk):
+        r = report.get(name)
+        check(r is not None, f"ptxas reports no {name}")
+        check(not (r["spill_stores"] or r["spill_loads"]),
+              f"{name} spills: {r}")
 
     only = tq_only or algo_only or fppow_only or layers_only
     tableau = stack_native(card) if layers_only or not only else None

@@ -30,54 +30,69 @@
 // 16 bits.  Masks and tile ids are int32, as in the JAX kernel (n <= 30);
 // global offsets are 64-bit (2^31 amplitudes at n = 30).
 //
-// K1, window_in_tile (pallas_kernels.py:294): one block per tile.  The
-// block loads its tile into shared memory (in C: 32 KB at bp = 12 for
-// float and 16-bit planes, 64 KB for double), applies the segment's ops
-// in order with a barrier after each (tile_op passes over the whole
-// tile), and writes the tile back.
+// Both sweeps run on one register engine, window_tiles<T, RB, PAIR>: K1
+// with PAIR = false on one tile, K2 with PAIR = true on a tile pair.
 //
-// K2, window_pair (pallas_kernels.py:315): one block per tile PAIR i,
+// K1, the in-tile sweep (pallas_kernels.py:294): one block per tile, the
+// tile in registers.  A design that keeps the tile in shared memory and
+// passes over it once per op with a barrier after each (K1's first
+// design) moves one element per load and instruction and keeps few
+// bytes in flight a thread: on an H100 SXM at 700 W it read 27.5% of
+// its byte bound at 16 bits, 50% in float32 and 69% in float64, the
+// share following the width of an access, whatever the op count.  So
+// the tile moves by vector accesses, all of a thread's loads issued
+// before its first op, as K2's pair does; it then reads about 86% of
+// its byte bound in float32 and float64 on the same card, and about 70%
+// at 16 bits, whose byte time is half (PERF.md times a launch with its
+// ops and without them).
+//
+// K2, the pair sweep (pallas_kernels.py:315): one block per tile PAIR i,
 // j = i | (1 << h), h = target - bp of the segment's leading inv/gen.  One
 // block owns both tiles, since the sweep writes in place.  What bounds
 // it: the bytes above for short segments; for long ones (RunFused of a
 // QFT puts about 294 ops in its last segment) the instructions the CUDA
-// cores issue per op.  A design that passes over a tile in shared memory
-// once per op, as K1 does, is bound instead by shared-memory bandwidth
-// (2^13 amplitudes * 16 B per pair and op), far above both.  So the pair
-// lives in registers:
-//  * Layout (pair_layout in ops/window_kernel.py mirrors it).  A thread
-//    holds NR = 2^(RIN + 1) amplitudes, RIN = min(R, bp) with R = 4 for
-//    float and 16-bit planes and R = 3 for double (a double takes two
-//    registers: 16 of them a plane keep the data at 64 registers, as 32
-//    floats do): both tiles of the pair (register bit RIN) times RIN
-//    in-tile "register bits", the two lowest in-tile bits and the RIN - 2
-//    highest.  The other in-tile bits index the thread: its low five are
-//    the lane, the rest the warp.  Neighbouring threads hold neighbouring
-//    groups of four amplitudes, so every load and store is one vector
-//    access a thread per group and plane (16 B for float, two of 16 B for
-//    double, 8 B for 16-bit planes), coalesced.  At bp = 12 a block is
-//    256 threads of 32 amplitudes (512 threads of 16 for double).
+// cores issue per op.  A pass over the pair in shared memory per op would
+// be bound instead by shared-memory bandwidth (2^13 amplitudes * 16 B per
+// pair and op), far above both.
+//
+// The engine:
+//  * Layout (tile_layout in ops/window_kernel.py mirrors it).  A thread
+//    holds NR = 2^NB amplitudes a plane: RB = min(R, bp) in-tile
+//    "register bits", the two lowest in-tile bits and the RB - 2 highest,
+//    and for K2 the pair bit (NB = RB + 1).  R is 5 for K1 in float
+//    planes and 4 in double and 16-bit planes, and for K2 4 in float and
+//    16-bit planes and 3 in double (a double takes two registers: 32
+//    floats or 16 doubles a plane keep the data at 64 registers; 16-bit
+//    K1 read best with 4 bits, float32 with 5, on an H100: PERF.md).  The other in-tile bits index the thread: its low five
+//    are the lane, the rest the warp.  Neighbouring threads hold
+//    neighbouring groups of four amplitudes, so every load and store is
+//    one vector access a thread per group and plane (16 B for float, two
+//    of 16 B for double, 8 B for 16-bit planes), coalesced.  At bp = 12 a
+//    K1 block is 128 threads of 32 amplitudes (256 of 16 for double and
+//    16-bit planes), a K2 block 256 threads of 32 (512 of 16 for
+//    double).
 //  * Decode.  Each op's masks are split once per block into a tile part
-//    (tested against tile i; a failing op is skipped by the whole
-//    block), a thread part and a register part, and written with its
-//    route and payload to a descriptor in shared memory, CHUNK ops at a
-//    time.  So an op costs each thread a few shared-memory broadcasts
-//    and a test, not a test per element.
+//    (m >> bp, tested against the block's tile, and for K2 without the
+//    pair bit; a failing op is skipped by the whole block, and its tile
+//    keeps its values exactly), a thread part and a register part, and
+//    written with its route and payload to a descriptor in shared
+//    memory, CHUNK ops at a time.  So an op costs each thread a few
+//    shared-memory broadcasts and a test, not a test per element.
 //  * Diagonal ops (cphase, diag; any target, any controls) run in
 //    registers with no barrier: the register part picks the registers a
 //    cphase touches through a switch over compile-time subsets, so a
 //    cphase costs about its touched amplitudes.
-//  * inv/gen.  The leading cross-tile op and in-tile targets on a
+//  * inv/gen.  K2's leading cross-tile op and in-tile targets on a
 //    register bit mix registers; a lane-bit target exchanges with
-//    __shfl_xor_sync; a warp-bit target takes one round through shared
-//    memory (store, barrier, load the partner thread's values, barrier).
-//    Only that route pays barriers.
+//    __shfl_xor_sync; a warp-bit target takes one round through a
+//    shared-memory exchange buffer the size of the block's tiles (store,
+//    barrier, load the partner thread's values, barrier).  Only that
+//    route pays barriers.
 //  * Occupancy: at most 128 registers a thread (launch bounds 512).
-//    Shared memory at bp = 12: about 68 KB for float and 16-bit planes
-//    (two blocks an SM, so one block's loads overlap the other's ops),
-//    134 KB for double (one block an SM).  A double pair at bp = 13
-//    would need 262 KB, past the 227 KB a block may take, so double
-//    planes take bp <= 12 (window_kernel.MAX_BLOCK_POW).
+//    Shared memory at bp = 12: K1 about 36 KB for float and 16-bit planes
+//    and 70 KB for double; K2 about 68 KB and 134 KB.  A double pair at
+//    bp = 13 would need 262 KB, past the 227 KB a block may take, so
+//    double planes take bp <= 12 (window_kernel.MAX_BLOCK_POW).
 
 #include <cuda_runtime.h>
 #include <cuda_fp16.h>
@@ -87,7 +102,6 @@ namespace {
 
 enum { K_CPHASE = 0, K_DIAG = 1, K_INV = 2, K_GEN = 3 };
 constexpr int ROW = 5;        // op-table columns
-constexpr int THREADS = 512;
 
 // dtype codes of the C entry points (window_kernel.DTYPE_CODE)
 enum { DT_F32 = 0, DT_F64 = 1, DT_F16 = 2, DT_BF16 = 3 };
@@ -97,14 +111,17 @@ struct Quad {
   C x, y, z, w;
 };
 
-// Amplitude storage type T: its compute type C, one-value conversions,
-// and the four-value vector accesses of the pair kernel's groups.
+// Amplitude storage type T: its compute type C, the register bits of a
+// thread (R of the header note, for K1 and K2; window_kernel.reg_bits
+// mirrors them), one-value conversions, and the four-value vector
+// accesses of a thread's groups.
 template <typename T>
 struct Amp;
 
 template <>
 struct Amp<float> {
   using C = float;
+  static constexpr int TILE_REG_BITS = 5;
   static constexpr int PAIR_REG_BITS = 4;
   static __device__ __forceinline__ float load(float x) { return x; }
   static __device__ __forceinline__ float store(float x) { return x; }
@@ -120,6 +137,7 @@ struct Amp<float> {
 template <>
 struct Amp<double> {
   using C = double;
+  static constexpr int TILE_REG_BITS = 4;
   static constexpr int PAIR_REG_BITS = 3;
   static __device__ __forceinline__ double load(double x) { return x; }
   static __device__ __forceinline__ double store(double x) { return x; }
@@ -144,6 +162,7 @@ struct __align__(8) Bf4 {
 template <>
 struct Amp<__half> {
   using C = float;
+  static constexpr int TILE_REG_BITS = 4;
   static constexpr int PAIR_REG_BITS = 4;
   static __device__ __forceinline__ float load(__half x) {
     return __half2float(x);
@@ -167,6 +186,7 @@ struct Amp<__half> {
 template <>
 struct Amp<__nv_bfloat16> {
   using C = float;
+  static constexpr int TILE_REG_BITS = 4;
   static constexpr int PAIR_REG_BITS = 4;
   static __device__ __forceinline__ float load(__nv_bfloat16 x) {
     return __bfloat162float(x);
@@ -188,121 +208,12 @@ struct Amp<__nv_bfloat16> {
   }
 };
 
-// One in-tile op on one resident tile (re, im: 2^bp values each) whose
-// tile id is blk.  Every thread of the block calls it; the caller puts a
-// barrier after it.  A tile that fails the high part of the control mask
-// keeps its values exactly, as the JAX kernel's select does.
-template <typename T, typename C>
-__device__ __forceinline__ void tile_op(C* re, C* im, int bp, int blk,
-                                        const int* __restrict__ row,
-                                        const T* __restrict__ fv,
-                                        const int* __restrict__ iv) {
-  const int kind = row[0], t = row[1], has_ctrl = row[2];
-  const T* f = fv + row[3];
-  const int cm = has_ctrl ? iv[row[4]] : 0;
-  const int cv = has_ctrl ? iv[row[4] + 1] : 0;
-  const int block = 1 << bp;
-  const int lbits = block - 1;
-
-  if (kind == K_CPHASE) {
-    // combined mask (1 << t) | cm, split at bp
-    const int comb = (1 << t) | cm;
-    const int clo = comb & lbits, chi = comb >> bp;
-    if ((blk & chi) != chi) return;
-    const C fr = Amp<T>::load(f[0]), fi = Amp<T>::load(f[1]);
-    for (int e = threadIdx.x; e < block; e += blockDim.x) {
-      if ((e & clo) == clo) {
-        const C a = re[e], b = im[e];
-        re[e] = a * fr - b * fi;
-        im[e] = a * fi + b * fr;
-      }
-    }
-    return;
-  }
-
-  const int lm = cm & lbits, lv = cv & lbits, gm = cm >> bp, gv = cv >> bp;
-  if ((blk & gm) != gv) return;
-
-  if (kind == K_DIAG) {
-    // target below bp: per element; at or above bp: per tile
-    const int tlo = t < bp ? (1 << t) : 0;
-    const bool hib = t >= bp && ((blk >> (t - bp)) & 1);
-    const C d0r = Amp<T>::load(f[0]), d0i = Amp<T>::load(f[1]);
-    const C d1r = Amp<T>::load(f[2]), d1i = Amp<T>::load(f[3]);
-    for (int e = threadIdx.x; e < block; e += blockDim.x) {
-      if ((e & lm) == lv) {
-        const bool bit = hib || (e & tlo) != 0;
-        const C fr = bit ? d1r : d0r, fi = bit ? d1i : d0i;
-        const C a = re[e], b = im[e];
-        re[e] = a * fr - b * fi;
-        im[e] = a * fi + b * fr;
-      }
-    }
-    return;
-  }
-
-  // inv / gen with t < bp: pair (i0, i1) at distance 2^t inside the tile
-  // an inv op has 4 values in fv, a gen op 8: read no further
-  const int nf = kind == K_GEN ? 8 : 4;
-  C m[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) m[k] = k < nf ? Amp<T>::load(f[k]) : C(0);
-  const int half = block >> 1, low = (1 << t) - 1;
-  for (int p = threadIdx.x; p < half; p += blockDim.x) {
-    const int i0 = ((p >> t) << (t + 1)) | (p & low);
-    const int i1 = i0 | (1 << t);
-    const C a0r = re[i0], a0i = im[i0], a1r = re[i1], a1i = im[i1];
-    C n0r, n0i, n1r, n1i;
-    if (kind == K_INV) {  // [tr.re, tr.im, bl.re, bl.im]
-      n0r = m[0] * a1r - m[1] * a1i;
-      n0i = m[0] * a1i + m[1] * a1r;
-      n1r = m[2] * a0r - m[3] * a0i;
-      n1i = m[2] * a0i + m[3] * a0r;
-    } else {  // [re00, re01, re10, re11, im00, im01, im10, im11]
-      n0r = m[0] * a0r - m[4] * a0i + m[1] * a1r - m[5] * a1i;
-      n0i = m[0] * a0i + m[4] * a0r + m[1] * a1i + m[5] * a1r;
-      n1r = m[2] * a0r - m[6] * a0i + m[3] * a1r - m[7] * a1i;
-      n1i = m[2] * a0i + m[6] * a0r + m[3] * a1i + m[7] * a1r;
-    }
-    if ((i0 & lm) == lv) { re[i0] = n0r; im[i0] = n0i; }
-    if ((i1 & lm) == lv) { re[i1] = n1r; im[i1] = n1i; }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-window_in_tile(T* __restrict__ planes, int n, int bp,
-               const int* __restrict__ table, int first, int count,
-               const T* __restrict__ fv, const int* __restrict__ iv) {
-  using C = typename Amp<T>::C;
-  extern __shared__ float4 smem4[];
-  const int block = 1 << bp;
-  C* re = reinterpret_cast<C*>(smem4);
-  C* im = re + block;
-  const int blk = blockIdx.x;
-  T* gre = planes + ((long long)blk << bp);
-  T* gim = gre + (1LL << n);
-  for (int e = threadIdx.x; e < block; e += blockDim.x) {
-    re[e] = Amp<T>::load(gre[e]);
-    im[e] = Amp<T>::load(gim[e]);
-  }
-  __syncthreads();
-  for (int k = 0; k < count; ++k) {
-    tile_op<T, C>(re, im, bp, blk, table + (first + k) * ROW, fv, iv);
-    __syncthreads();
-  }
-  for (int e = threadIdx.x; e < block; e += blockDim.x) {
-    gre[e] = Amp<T>::store(re[e]);
-    gim[e] = Amp<T>::store(im[e]);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K2: the pair sweep in registers
+// the register engine of K1 and K2
 // ---------------------------------------------------------------------------
 
 constexpr int LANE_BITS = 5;
-constexpr int PAIR_THREADS = 512; // the most a pair block has
+constexpr int MAX_THREADS = 512;  // the most a block has (K2 at bp = 13)
 constexpr int CHUNK = 64;         // op descriptors decoded per round
 
 // descriptor routes
@@ -323,22 +234,35 @@ struct __align__(16) Desc {
   C f[8];    // cphase [re, im]; diag [d0, d1]; 2x2 [re00 re01 re10 re11 im..]
 };
 
-template <int RIN>
-struct PairLayout {
-  static constexpr int LO = RIN < 2 ? RIN : 2;  // low in-tile register bits
-  static constexpr int HI = RIN - LO;           // high in-tile register bits
-  int bp, h, hs, tbits, tile;  // hs = bp - HI; tile i (bit h clear)
+// Where a block keeps the in-tile bits of its tile (PAIR = false, K1) or
+// tile pair (PAIR = true, K2): RB in-tile register bits, then the pair
+// bit for K2.
+template <int RB, bool PAIR>
+struct TileLayout {
+  static constexpr int LO = RB < 2 ? RB : 2;  // low in-tile register bits
+  static constexpr int HI = RB - LO;          // high in-tile register bits
+  static constexpr int NB = RB + (PAIR ? 1 : 0);  // register index bits
+  static constexpr int NR = 1 << NB;          // amplitudes a thread, a plane
+  static constexpr int TILES = PAIR ? 2 : 1;
+  static constexpr bool IS_PAIR = PAIR;
+  // the register switches (cphase_regs, diag_op, reg_op) cover register
+  // masks 0-31 and register bits 0-4
+  static_assert(NB >= 1 && NB <= 5, "register index bits outside 1-5");
+  int bp, h, hs, tbits, tile;  // hs = bp - HI; K2: tile i (bit h clear)
 
   // register part: bits 0..LO-1, then bits hs..bp-1, then the pair bit
   __device__ __forceinline__ int rpart(int m) const {
-    return (m & ((1 << LO) - 1)) | (((m >> hs) & ((1 << HI) - 1)) << LO) |
-           (((m >> (bp + h)) & 1) << RIN);
+    int r = (m & ((1 << LO) - 1)) | (((m >> hs) & ((1 << HI) - 1)) << LO);
+    if constexpr (PAIR) r |= ((m >> (bp + h)) & 1) << RB;
+    return r;
   }
   __device__ __forceinline__ int tpart(int m) const {
     return (m >> LO) & tbits;
   }
+  // tile part, tested against the block's tile id
   __device__ __forceinline__ int gpart(int m) const {
-    return (m >> bp) & ~(1 << h);
+    if constexpr (PAIR) return (m >> bp) & ~(1 << h);
+    return m >> bp;
   }
   // register bit of an in-tile bit, or -1 for a thread bit
   __device__ __forceinline__ int regbit(int t) const {
@@ -346,12 +270,13 @@ struct PairLayout {
   }
 };
 
-template <typename T, int RIN>
+template <typename T, typename Lay>
 __device__ Desc<typename Amp<T>::C> decode(const int* __restrict__ row,
                                            const T* __restrict__ fv,
                                            const int* __restrict__ iv,
-                                           const PairLayout<RIN>& L) {
+                                           const Lay& L) {
   using C = typename Amp<T>::C;
+  constexpr int RB = Lay::LO + Lay::HI;
   Desc<C> d;
   const int kind = row[0], t = row[1], has_ctrl = row[2];
   const T* f = fv + row[3];
@@ -385,9 +310,9 @@ __device__ Desc<typename Amp<T>::C> decode(const int* __restrict__ row,
     if (t < L.bp) {
       const int r = L.regbit(t);
       if (r >= 0) d.idx = r;
-      else d.tt = 1 << (t - L.LO);
-    } else if (t == L.bp + L.h) {
-      d.idx = RIN;
+      else d.tt = 1 << (t - Lay::LO);
+    } else if (Lay::IS_PAIR && t == L.bp + L.h) {
+      d.idx = RB;
     } else {
       d.ub = (L.tile >> (t - L.bp)) & 1;
     }
@@ -402,14 +327,16 @@ __device__ Desc<typename Amp<T>::C> decode(const int* __restrict__ row,
     d.f[2] = Amp<T>::load(f[2]);
     d.f[6] = Amp<T>::load(f[3]);
   }
-  if (t >= L.bp) {  // the leading cross-tile op: the pair bit
-    d.type = D_REG;
-    d.idx = RIN;
+  if (t >= L.bp) {
+    // K2's leading cross-tile op: the pair bit.  An in-tile segment never
+    // holds one (the planner leads a pair sweep with it).
+    d.type = Lay::IS_PAIR ? D_REG : D_SKIP;
+    d.idx = RB;
   } else if (L.regbit(t) >= 0) {
     d.type = D_REG;
     d.idx = L.regbit(t);
   } else {
-    d.idx = t - L.LO;
+    d.idx = t - Lay::LO;
     d.type = d.idx < LANE_BITS ? D_LANE : D_SMEM;
   }
   if (!on) d.type = D_SKIP;
@@ -439,6 +366,7 @@ __device__ __forceinline__ void cmul_subset(C (&re)[NR], C (&im)[NR], C fr,
     if constexpr (R < NR) cmul_subset<C, NR, R>(re, im, fr, fi); \
     break;
 
+// NR <= 32 (TileLayout's static_assert), so rm < 32 and a case covers it
 template <typename C, int NR>
 __device__ __forceinline__ void cphase_regs(int rm, C (&re)[NR], C (&im)[NR],
                                             C fr, C fi) {
@@ -496,37 +424,38 @@ __device__ __forceinline__ void mix_regs(int rm, int rv, C (&re)[NR],
   }
 }
 
+// register bits 0-4 (NB <= 5, TileLayout's static_assert)
 #define QTT_BIT_CASE(I, CALL) \
   case I:                     \
-    if constexpr (I <= RIN) CALL; \
+    if constexpr (I < NB) CALL; \
     break;
 
-template <typename C, int RIN>
+template <typename C, int NB>
 __device__ __forceinline__ void diag_op(const Desc<C>& d, bool tbit,
-                                        C (&re)[2 << RIN], C (&im)[2 << RIN]) {
-  constexpr int NR = 2 << RIN;
+                                        C (&re)[1 << NB], C (&im)[1 << NB]) {
+  constexpr int NR = 1 << NB;
   switch (d.idx) {
     QTT_BIT_CASE(0, (diag_regs<C, NR, 0>(d.rm, d.rv, re, im, d.f, tbit)))
     QTT_BIT_CASE(1, (diag_regs<C, NR, 1>(d.rm, d.rv, re, im, d.f, tbit)))
     QTT_BIT_CASE(2, (diag_regs<C, NR, 2>(d.rm, d.rv, re, im, d.f, tbit)))
     QTT_BIT_CASE(3, (diag_regs<C, NR, 3>(d.rm, d.rv, re, im, d.f, tbit)))
     QTT_BIT_CASE(4, (diag_regs<C, NR, 4>(d.rm, d.rv, re, im, d.f, tbit)))
-    default:
+    default:  // idx -1: the target is a thread or tile bit
       diag_regs<C, NR, -1>(d.rm, d.rv, re, im, d.f, tbit);
   }
 }
 
-template <typename C, int RIN>
-__device__ __forceinline__ void reg_op(const Desc<C>& d, C (&re)[2 << RIN],
-                                       C (&im)[2 << RIN]) {
-  constexpr int NR = 2 << RIN;
+template <typename C, int NB>
+__device__ __forceinline__ void reg_op(const Desc<C>& d, C (&re)[1 << NB],
+                                       C (&im)[1 << NB]) {
+  constexpr int NR = 1 << NB;
   switch (d.idx) {
     QTT_BIT_CASE(0, (mix_regs<C, NR, 0>(d.rm, d.rv, re, im, d.f)))
     QTT_BIT_CASE(1, (mix_regs<C, NR, 1>(d.rm, d.rv, re, im, d.f)))
     QTT_BIT_CASE(2, (mix_regs<C, NR, 2>(d.rm, d.rv, re, im, d.f)))
     QTT_BIT_CASE(3, (mix_regs<C, NR, 3>(d.rm, d.rv, re, im, d.f)))
     QTT_BIT_CASE(4, (mix_regs<C, NR, 4>(d.rm, d.rv, re, im, d.f)))
-    default: break;
+    default: break;  // decode gives a D_REG op a register bit < NB
   }
 }
 
@@ -569,29 +498,29 @@ __device__ __forceinline__ void lane_op(const Desc<C>& d, bool ok, int tid,
 
 // Global or shared offset of a thread's register group g (four
 // consecutive registers when LO = 2) within one tile plane.
-template <int RIN>
-__device__ __forceinline__ int group_offset(const PairLayout<RIN>& L, int tid,
-                                            int khi) {
-  return (khi << L.hs) | (tid << L.LO);
+template <typename Lay>
+__device__ __forceinline__ int group_offset(const Lay& L, int tid, int khi) {
+  return (khi << L.hs) | (tid << Lay::LO);
 }
 
-// A thread's registers <-> a pair laid out as [tile][plane][2^bp], in
-// groups of 2^LO consecutive values (one vector access a plane when
-// LO = 2).  P is the storage type there (the planes' type in device
-// memory, C in shared memory); a store to 16-bit planes rounds.
-template <int RIN, bool LOAD, typename P, typename C>
-__device__ __forceinline__ void move_pair(const PairLayout<RIN>& L, int tid,
-                                          P* t0, P* t1, long long plane,
-                                          C (&re)[2 << RIN],
-                                          C (&im)[2 << RIN]) {
-  constexpr int LO = PairLayout<RIN>::LO, HI = PairLayout<RIN>::HI;
+// A thread's registers <-> the block's tiles laid out as
+// [tile][plane][2^bp] (t1 is read only for a pair), in groups of 2^LO
+// consecutive values (one vector access a plane when LO = 2).  P is the
+// storage type there (the planes' type in device memory, C in shared
+// memory); a store to 16-bit planes rounds.
+template <bool LOAD, typename Lay, typename P, typename C, int NR>
+__device__ __forceinline__ void move_tiles(const Lay& L, int tid, P* t0,
+                                           P* t1, long long plane,
+                                           C (&re)[NR], C (&im)[NR]) {
+  static_assert(NR == Lay::NR, "a thread holds Lay::NR values a plane");
+  constexpr int LO = Lay::LO, HI = Lay::HI, RB = LO + HI;
 #pragma unroll
-  for (int p = 0; p < 2; ++p) {
+  for (int p = 0; p < Lay::TILES; ++p) {
 #pragma unroll
     for (int khi = 0; khi < (1 << HI); ++khi) {
       P* r = (p ? t1 : t0) + group_offset(L, tid, khi);
       P* i = r + plane;
-      const int k = (p << RIN) | (khi << LO);
+      const int k = (p << RB) | (khi << LO);
       if constexpr (LO == 2) {
         if constexpr (LOAD) {
           const Quad<C> a = Amp<P>::load4(r);
@@ -618,28 +547,29 @@ __device__ __forceinline__ void move_pair(const PairLayout<RIN>& L, int tid,
   }
 }
 
-// 2x2 on a warp bit: one round through shared memory (the pair at its
-// in-tile positions, [tile][plane][2^bp], in C), two barriers.  The
-// partner's values are read group by group, so they need few registers.
-template <typename C, int RIN>
+// 2x2 on a warp bit: one round through shared memory (the block's tiles
+// at their in-tile positions, [tile][plane][2^bp], in C), two barriers.
+// The partner's values are read group by group, so they need few
+// registers.
+template <typename C, typename Lay, int NR>
 __device__ __forceinline__ void smem_op(const Desc<C>& d, bool ok, int tid,
-                                        const PairLayout<RIN>& L, C* xbuf,
-                                        C (&re)[2 << RIN], C (&im)[2 << RIN]) {
-  constexpr int LO = PairLayout<RIN>::LO, HI = PairLayout<RIN>::HI;
+                                        const Lay& L, C* xbuf, C (&re)[NR],
+                                        C (&im)[NR]) {
+  constexpr int LO = Lay::LO, HI = Lay::HI, RB = LO + HI;
   const int block = 1 << L.bp;
-  C* x0 = xbuf;              // tile i: re, then im
-  C* x1 = xbuf + 2 * block;  // tile j
-  move_pair<RIN, false>(L, tid, x0, x1, block, re, im);
+  C* x0 = xbuf;              // the tile (K2: tile i): re, then im
+  C* x1 = xbuf + 2 * block;  // K2: tile j
+  move_tiles<false>(L, tid, x0, x1, block, re, im);
   __syncthreads();
   C cor, coi, cpr, cpi;
   own_row(d, tid, cor, coi, cpr, cpi);
   const int partner = tid ^ (1 << d.idx);
 #pragma unroll
-  for (int p = 0; p < 2; ++p) {
+  for (int p = 0; p < Lay::TILES; ++p) {
 #pragma unroll
     for (int khi = 0; khi < (1 << HI); ++khi) {
       const C* r = (p ? x1 : x0) + group_offset(L, partner, khi);
-      const int k = (p << RIN) | (khi << LO);
+      const int k = (p << RB) | (khi << LO);
 #pragma unroll
       for (int e = 0; e < (1 << LO); ++e)
         if (ok && ((k + e) & d.rm) == d.rv)
@@ -650,24 +580,33 @@ __device__ __forceinline__ void smem_op(const Desc<C>& d, bool ok, int tid,
   __syncthreads();
 }
 
-template <typename T, int RIN>
-__global__ void __launch_bounds__(PAIR_THREADS)
-window_pair(T* __restrict__ planes, int n, int bp,
-            const int* __restrict__ table, int xop, int first, int count,
-            const T* __restrict__ fv, const int* __restrict__ iv) {
+// K1 (PAIR = false): rows [first, first + count) on tile blockIdx.x.
+// K2 (PAIR = true): the cross-tile op at row xop on tile pair blockIdx.x,
+// then rows [first, first + count) on both tiles.
+template <typename T, int RB, bool PAIR>
+__global__ void __launch_bounds__(MAX_THREADS)
+window_tiles(T* __restrict__ planes, int n, int bp,
+             const int* __restrict__ table, int xop, int first, int count,
+             const T* __restrict__ fv, const int* __restrict__ iv) {
   using C = typename Amp<T>::C;
-  constexpr int NR = 2 << RIN;
+  using Lay = TileLayout<RB, PAIR>;
+  constexpr int NR = Lay::NR;
   extern __shared__ float4 smem4[];
   Desc<C>* descs = reinterpret_cast<Desc<C>*>(smem4);
   C* xbuf = reinterpret_cast<C*>(descs + CHUNK);
 
-  PairLayout<RIN> L;
+  Lay L;
   L.bp = bp;
-  L.h = table[xop * ROW + 1] - bp;
-  L.hs = bp - PairLayout<RIN>::HI;
-  L.tbits = (1 << (bp - RIN)) - 1;
-  const int q = blockIdx.x;
-  L.tile = ((q >> L.h) << (L.h + 1)) | (q & ((1 << L.h) - 1));
+  L.hs = bp - Lay::HI;
+  L.tbits = (1 << (bp - RB)) - 1;
+  if constexpr (PAIR) {
+    L.h = table[xop * ROW + 1] - bp;
+    const int q = blockIdx.x;
+    L.tile = ((q >> L.h) << (L.h + 1)) | (q & ((1 << L.h) - 1));
+  } else {
+    L.h = 0;
+    L.tile = blockIdx.x;
+  }
   const int tid = threadIdx.x;
   const unsigned warp_mask =
       blockDim.x >= 32 ? 0xffffffffu : (1u << blockDim.x) - 1u;
@@ -675,21 +614,22 @@ window_pair(T* __restrict__ planes, int n, int bp,
   C re[NR], im[NR];
   const long long amps = 1LL << n;
   T* t0 = planes + ((long long)L.tile << bp);
-  T* t1 = planes + ((long long)(L.tile | (1 << L.h)) << bp);
-  move_pair<RIN, true>(L, tid, t0, t1, amps, re, im);
+  T* t1 = t0;
+  if constexpr (PAIR) t1 = planes + ((long long)(L.tile | (1 << L.h)) << bp);
+  move_tiles<true>(L, tid, t0, t1, amps, re, im);
 
-  // the leading cross-tile op: every thread holds both rows
-  {
-    const Desc<C> x = decode<T, RIN>(table + xop * ROW, fv, iv, L);
+  if constexpr (PAIR) {
+    // the leading cross-tile op: every thread holds both rows
+    const Desc<C> x = decode<T>(table + xop * ROW, fv, iv, L);
     if (x.type != D_SKIP && (tid & x.tm) == x.tv)
-      mix_regs<C, NR, RIN>(x.rm, x.rv, re, im, x.f);
+      mix_regs<C, NR, RB>(x.rm, x.rv, re, im, x.f);
   }
 
   for (int c0 = 0; c0 < count; c0 += CHUNK) {
     const int cn = min(CHUNK, count - c0);
     if (c0) __syncthreads();  // every thread is done with the last chunk
     for (int o = tid; o < cn; o += blockDim.x)
-      descs[o] = decode<T, RIN>(table + (first + c0 + o) * ROW, fv, iv, L);
+      descs[o] = decode<T>(table + (first + c0 + o) * ROW, fv, iv, L);
     __syncthreads();
     for (int o = 0; o < cn; ++o) {
       const Desc<C> d = descs[o];
@@ -699,16 +639,16 @@ window_pair(T* __restrict__ planes, int n, int bp,
           if (ok) cphase_regs<C, NR>(d.rm, re, im, d.f[0], d.f[1]);
           break;
         case D_DIAG:
-          if (ok) diag_op<C, RIN>(d, ((tid & d.tt) != 0) || d.ub, re, im);
+          if (ok) diag_op<C, Lay::NB>(d, ((tid & d.tt) != 0) || d.ub, re, im);
           break;
         case D_REG:
-          if (ok) reg_op<C, RIN>(d, re, im);
+          if (ok) reg_op<C, Lay::NB>(d, re, im);
           break;
         case D_LANE:
           lane_op<C, NR>(d, ok, tid, warp_mask, re, im);
           break;
         case D_SMEM:
-          smem_op<C, RIN>(d, ok, tid, L, xbuf, re, im);
+          smem_op<C>(d, ok, tid, L, xbuf, re, im);
           break;
         default:
           break;
@@ -716,66 +656,74 @@ window_pair(T* __restrict__ planes, int n, int bp,
     }
   }
 
-  move_pair<RIN, false>(L, tid, t0, t1, amps, re, im);
+  move_tiles<false>(L, tid, t0, t1, amps, re, im);
 }
 
-template <typename T, int RIN>
-int launch_pair(void* planes, int n, int bp, const int* table, int xop,
-                int first, int count, const void* fv, const int* iv,
-                cudaStream_t stream) {
+template <typename T, int RB, bool PAIR>
+int launch_tiles(void* planes, int n, int bp, const int* table, int xop,
+                 int first, int count, const void* fv, const int* iv,
+                 cudaStream_t stream) {
   using C = typename Amp<T>::C;
-  // CHUNK descriptors, then the pair (2 tiles x 2 planes x 2^bp values)
-  const size_t smem = CHUNK * sizeof(Desc<C>) + (sizeof(C) << (bp + 2));
+  // CHUNK descriptors, then the exchange buffer: the block's tiles, both
+  // planes, 2^bp values each
+  const size_t smem = CHUNK * sizeof(Desc<C>) +
+                      (sizeof(C) << (bp + 1 + (PAIR ? 1 : 0)));
   cudaError_t err = cudaFuncSetAttribute(
-      window_pair<T, RIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      window_tiles<T, RB, PAIR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const unsigned grid = 1u << (n - bp - 1);
-  const unsigned threads = 1u << (bp - RIN);
-  window_pair<T, RIN><<<grid, threads, smem, stream>>>(
+  const unsigned grid = 1u << (n - bp - (PAIR ? 1 : 0));
+  const unsigned threads = 1u << (bp - RB);
+  window_tiles<T, RB, PAIR><<<grid, threads, smem, stream>>>(
       static_cast<T*>(planes), n, bp, table, xop, first, count,
       static_cast<const T*>(fv), iv);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_pair_for(void* planes, int n, int bp, const int* table, int xop,
-                    int first, int count, const void* fv, const int* iv,
-                    cudaStream_t st) {
-  constexpr int R = Amp<T>::PAIR_REG_BITS;
-  switch (bp < R ? bp : R) {
-    case 1:
-      return launch_pair<T, 1>(planes, n, bp, table, xop, first, count, fv,
-                               iv, st);
-    case 2:
-      return launch_pair<T, 2>(planes, n, bp, table, xop, first, count, fv,
-                               iv, st);
-    case 3:
-      return launch_pair<T, 3>(planes, n, bp, table, xop, first, count, fv,
-                               iv, st);
-    default:
-      if constexpr (R >= 4)
-        return launch_pair<T, 4>(planes, n, bp, table, xop, first, count, fv,
-                                 iv, st);
-      return (int)cudaErrorInvalidValue;
-  }
+// The instance with RB = rb register bits, rb in 1..RB
+template <typename T, bool PAIR, int RB>
+int launch_rb(int rb, void* planes, int n, int bp, const int* table, int xop,
+              int first, int count, const void* fv, const int* iv,
+              cudaStream_t st) {
+  if (rb == RB)
+    return launch_tiles<T, RB, PAIR>(planes, n, bp, table, xop, first, count,
+                                     fv, iv, st);
+  if constexpr (RB > 1)
+    return launch_rb<T, PAIR, RB - 1>(rb, planes, n, bp, table, xop, first,
+                                      count, fv, iv, st);
+  return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
-int launch_in_tile(void* planes, int n, int bp, const int* table, int first,
-                   int count, const void* fv, const int* iv,
-                   cudaStream_t stream) {
-  using C = typename Amp<T>::C;
-  const size_t smem = 2 * sizeof(C) * (size_t(1) << bp);
-  cudaError_t err = cudaFuncSetAttribute(
-      window_in_tile<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = 1u << (n - bp);
-  window_in_tile<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<T*>(planes), n, bp, table, first, count,
-      static_cast<const T*>(fv), iv);
-  return (int)cudaGetLastError();
+// RB = min(R, bp): a tile narrower than R bits lives in registers whole
+template <typename T, bool PAIR>
+int launch_for(void* planes, int n, int bp, const int* table, int xop,
+               int first, int count, const void* fv, const int* iv,
+               cudaStream_t st) {
+  constexpr int R = PAIR ? Amp<T>::PAIR_REG_BITS : Amp<T>::TILE_REG_BITS;
+  return launch_rb<T, PAIR, R>(bp < R ? bp : R, planes, n, bp, table, xop,
+                               first, count, fv, iv, st);
+}
+
+template <bool PAIR>
+int launch_dtype(void* planes, int dtype, int n, int bp, const int* table,
+                 int xop, int first, int count, const void* fv,
+                 const int* iv, cudaStream_t st) {
+  switch (dtype) {
+    case DT_F32:
+      return launch_for<float, PAIR>(planes, n, bp, table, xop, first, count,
+                                     fv, iv, st);
+    case DT_F64:
+      return launch_for<double, PAIR>(planes, n, bp, table, xop, first,
+                                      count, fv, iv, st);
+    case DT_F16:
+      return launch_for<__half, PAIR>(planes, n, bp, table, xop, first,
+                                      count, fv, iv, st);
+    case DT_BF16:
+      return launch_for<__nv_bfloat16, PAIR>(planes, n, bp, table, xop,
+                                             first, count, fv, iv, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -790,45 +738,15 @@ extern "C" {
 int qtt_window_in_tile(void* planes, int dtype, int n, int bp,
                        const int* table, int first, int count, const void* fv,
                        const int* iv, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (dtype) {
-    case DT_F32:
-      return launch_in_tile<float>(planes, n, bp, table, first, count, fv,
-                                   iv, st);
-    case DT_F64:
-      return launch_in_tile<double>(planes, n, bp, table, first, count, fv,
-                                    iv, st);
-    case DT_F16:
-      return launch_in_tile<__half>(planes, n, bp, table, first, count, fv,
-                                    iv, st);
-    case DT_BF16:
-      return launch_in_tile<__nv_bfloat16>(planes, n, bp, table, first, count,
-                                           fv, iv, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return launch_dtype<false>(planes, dtype, n, bp, table, 0, first, count,
+                             fv, iv, (cudaStream_t)stream);
 }
 
 int qtt_window_pair(void* planes, int dtype, int n, int bp, const int* table,
                     int xop, int first, int count, const void* fv,
                     const int* iv, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (dtype) {
-    case DT_F32:
-      return launch_pair_for<float>(planes, n, bp, table, xop, first, count,
-                                    fv, iv, st);
-    case DT_F64:
-      return launch_pair_for<double>(planes, n, bp, table, xop, first, count,
-                                     fv, iv, st);
-    case DT_F16:
-      return launch_pair_for<__half>(planes, n, bp, table, xop, first, count,
-                                     fv, iv, st);
-    case DT_BF16:
-      return launch_pair_for<__nv_bfloat16>(planes, n, bp, table, xop, first,
-                                            count, fv, iv, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return launch_dtype<true>(planes, dtype, n, bp, table, xop, first, count,
+                            fv, iv, (cudaStream_t)stream);
 }
 
 }  // extern "C"

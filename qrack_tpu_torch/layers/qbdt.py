@@ -354,14 +354,16 @@ class QBdt(QInterface):
                    id(b), round(wb.real, _ROUND), round(wb.imag, _ROUND))
             hit = memo.get(key)
             if hit is not None:
-                return hit
+                return hit[0]
             if a.on_device or b.on_device:
                 out = self._t.eng_leaf_planes(
                     _device_axpy(complex(wa), a.planes_on(self.device),
                                  complex(wb), b.planes_on(self.device)))
             else:
                 out = self._t.eng_leaf(wa * a.vec + wb * b.vec)
-            memo[key] = out
+            # the entry keeps a and b alive: a device leaf is in no table,
+            # and a freed one's id, taken by a new leaf, would hit here
+            memo[key] = (out, a, b)
             return out
         key = (id(a), round(wa.real, _ROUND), round(wa.imag, _ROUND),
                id(b), round(wb.real, _ROUND), round(wb.imag, _ROUND))

@@ -36,9 +36,11 @@ float64 planes and in float32 for the others: 16-bit planes are read
 into float32, the whole segment runs there, and each amplitude is
 rounded back once per sweep.  The plain versions do the same.
 
-The pair kernel keeps a tile pair in registers (:func:`pair_layout`) and
-sends each op down one route (:func:`pair_route`); it decodes both from
-the op table on the device.  :func:`pair_sweep_emulated` computes a pair
+Both sweeps run on one register engine: a block keeps its tile (the
+in-tile sweep) or its tile pair (the pair sweep) in registers
+(:func:`tile_layout`) and sends each op down one route
+(:func:`tile_route`); it decodes both from the op table on the device.
+:func:`in_tile_sweep_emulated` and :func:`pair_sweep_emulated` compute a
 sweep in that layout and route by route, for the tests only.
 """
 
@@ -54,11 +56,11 @@ from . import cuda_build
 from . import gatekernels as gk
 from ..utils.device import resolve_device
 
-# A tile is 2^bp amplitudes of both planes in one block's shared memory:
-# 32 KiB at bp = 12 in float32.  The pair kernel keeps a pair in
-# registers, and an exchange buffer of the pair's size (64 KiB in float32)
-# in shared memory.  (The Pallas kernel's 2^16 tile is a TPU VMEM size; a
-# block has at most 227 KB.)
+# A tile is 2^bp amplitudes of both planes.  A block of the kernel keeps
+# its tile (or tile pair) in registers, and an exchange buffer of the same
+# size in shared memory for the ops on a warp bit: 32 KiB at bp = 12 in
+# float32 for a tile, 64 KiB for a pair.  (The Pallas kernel's 2^16 tile
+# is a TPU VMEM size; a block has at most 227 KB.)
 DEFAULT_BLOCK_POW = 12
 MAX_QB = 30                 # int32 masks and tile ids, as in the JAX kernel
 
@@ -71,9 +73,10 @@ DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
 # buffer holds it in the compute type, 2^(bp + 2) values, so float64
 # planes take one tile bit less (max_block_pow).
 MAX_BLOCK_POW = 13
-# The pair kernel's groups of four amplitudes move as one vector access a
+# The kernel's groups of four amplitudes move as one vector access a
 # plane (two 16-byte halves for float64); the planes' start must be
-# aligned to it.
+# aligned to it.  The Im plane then is too: the groups exist from bp = 2
+# on, so it starts 2^n >= 4 values later.
 VECTOR_BYTES = {torch.float32: 16, torch.float64: 16, torch.float16: 8,
                 torch.bfloat16: 8}
 
@@ -434,31 +437,40 @@ def pair_sweep_plain(planes, n: int, bp: int, table, fv, iv, xop: int,
 
 
 # ---------------------------------------------------------------------------
-# the pair kernel's register layout and routes (csrc/window_kernel.cu, K2)
+# the kernel's register layout and routes (csrc/window_kernel.cu)
 # ---------------------------------------------------------------------------
 
-PAIR_REG_BITS = 4   # in-tile register bits of a pair-sweep thread at bp >= 4
+# in-tile register bits of a thread in float32 planes: the in-tile
+# sweep's and the pair sweep's (Amp<T> of the source; reg_bits by dtype)
+TILE_REG_BITS = 5
+PAIR_REG_BITS = 4
 LANE_BITS = 5       # a warp's 32 lanes
 PAIR_ROUTES = ("pair", "diagonal", "register", "lane", "warp")
+TILE_ROUTES = PAIR_ROUTES[1:]
 
 
-def pair_reg_bits(dtype=torch.float32) -> int:
-    """In-tile register bits of a pair-sweep thread at bp >= them: one
-    less for float64 planes, whose values take two registers each."""
-    return PAIR_REG_BITS - 1 if dtype == torch.float64 else PAIR_REG_BITS
+def reg_bits(dtype=torch.float32, pair: bool = False) -> int:
+    """In-tile register bits of a thread at bp >= them.  The pair sweep
+    takes 4, 3 in float64, whose values take two registers each.  The
+    in-tile sweep holds one tile, so float32 takes one bit more, 5;
+    float64 and 16-bit planes take 4 (16-bit K1 reads best with the
+    wider block)."""
+    if pair:
+        return PAIR_REG_BITS - (dtype == torch.float64)
+    return TILE_REG_BITS if dtype == torch.float32 else TILE_REG_BITS - 1
 
 
-def pair_layout(bp: int, dtype=torch.float32) -> dict:
-    """Where the pair kernel keeps each in-tile bit of a tile pair of
-    `dtype` planes.
+def tile_layout(bp: int, dtype=torch.float32, pair: bool = False) -> dict:
+    """Where the kernel keeps each in-tile bit of a tile of `dtype`
+    planes (of both tiles of a pair with ``pair``).
 
     A thread holds the amplitudes of its ``register`` bits (the two
     lowest in-tile bits and the highest ``min(R, bp) - 2``, R =
-    :func:`pair_reg_bits`) in both tiles of the pair: 2^(len(register) +
-    1) of them.  The other in-tile bits index the thread, low to high:
-    ``lane`` bits first (up to five), then ``warp`` bits.  Neighbouring
-    threads hold neighbouring groups of four amplitudes."""
-    rin = min(pair_reg_bits(dtype), bp)
+    :func:`reg_bits`): 2^len(register) of them, twice that for a pair.
+    The other in-tile bits index the thread, low to high: ``lane`` bits
+    first (up to five), then ``warp`` bits.  Neighbouring threads hold
+    neighbouring groups of four amplitudes."""
+    rin = min(reg_bits(dtype, pair), bp)
     lo = min(2, rin)
     hs = bp - (rin - lo)
     thread = list(range(lo, hs))
@@ -467,19 +479,42 @@ def pair_layout(bp: int, dtype=torch.float32) -> dict:
             "threads": 1 << len(thread)}
 
 
-def pair_route(kind: str, target: int, bp: int,
-               dtype=torch.float32) -> str:
-    """The pair kernel's route for one op of a pair-led segment: the
-    leading cross-tile inv/gen (``pair``) and in-tile inv/gen on a
-    ``register`` bit mix registers, a ``lane`` bit exchanges by warp
-    shuffle, a ``warp`` bit through shared memory; cphase and diag run in
-    registers whatever their target (``diagonal``)."""
+def pair_layout(bp: int, dtype=torch.float32) -> dict:
+    """:func:`tile_layout` of the pair sweep."""
+    return tile_layout(bp, dtype, pair=True)
+
+
+def tile_route(kind: str, target: int, bp: int, dtype=torch.float32,
+               pair: bool = False) -> str:
+    """The kernel's route for one op of a segment: cphase and diag run in
+    registers whatever their target (``diagonal``); an in-tile inv/gen on
+    a ``register`` bit mixes registers, on a ``lane`` bit exchanges by
+    warp shuffle, on a ``warp`` bit through shared memory; the pair
+    sweep's leading cross-tile inv/gen (``pair``) mixes registers.  An
+    in-tile segment holds no cross-tile inv/gen (ValueError)."""
     if kind in ("cphase", "diag"):
         return "diagonal"
     if target >= bp:
+        if not pair:
+            raise ValueError(f"{kind} on bit {target} >= bp = {bp} leads a "
+                             "pair sweep; an in-tile segment has none")
         return "pair"
-    lay = pair_layout(bp, dtype)
+    lay = tile_layout(bp, dtype, pair)
     return next(r for r in ("register", "lane", "warp") if target in lay[r])
+
+
+def pair_route(kind: str, target: int, bp: int,
+               dtype=torch.float32) -> str:
+    """:func:`tile_route` of the pair sweep."""
+    return tile_route(kind, target, bp, dtype, pair=True)
+
+
+def in_tile_sweep_emulated(planes, n: int, bp: int, table, fv, iv,
+                           first: int, count: int):
+    """The in-tile kernel's computation in torch, for the tests (never on
+    the main path): see :func:`pair_sweep_emulated`, on one tile."""
+    return _in_compute_type(planes, fv, lambda w, f: _emulated_body(
+        w, n, bp, table, f, iv, None, first, count, planes.dtype))
 
 
 def pair_sweep_emulated(planes, n: int, bp: int, table, fv, iv, xop: int,
@@ -491,23 +526,32 @@ def pair_sweep_emulated(planes, n: int, bp: int, table, fv, iv, xop: int,
     applied by its route, in order; then scattered back.  In place,
     returns planes; 16-bit planes compute in float32 and round once, as
     the kernel does."""
-    return _in_compute_type(planes, fv, lambda w, f: _pair_emulated_body(
+    return _in_compute_type(planes, fv, lambda w, f: _emulated_body(
         w, n, bp, table, f, iv, xop, first, count, planes.dtype))
 
 
-def _pair_emulated_body(planes, n, bp, table, fv, iv, xop, first, count,
-                        dtype):
+def _emulated_body(planes, n, bp, table, fv, iv, xop, first, count, dtype):
+    """Body of both emulations; ``xop`` None is the in-tile sweep."""
     names = {v: k for k, v in KIND_CODE.items()}
     rows = table.cpu().tolist()
     ivh = iv.cpu().tolist()
-    h = rows[xop][1] - bp
-    lay = pair_layout(bp, dtype)
-    regbits = lay["register"] + [bp + h]      # register index bit -> index bit
+    pair = xop is not None
+    lay = tile_layout(bp, dtype, pair)
+    dev = planes.device
+    if pair:
+        h = rows[xop][1] - bp
+        q = gk._iota(1 << (n - bp - 1), dev)
+        tile = ((q >> h) << (h + 1)) | (q & ((1 << h) - 1))
+        regbits = lay["register"] + [bp + h]  # register index bit -> index bit
+        tile_mask = ~(1 << h)                 # the pair bit is a register bit
+        order = [xop] + list(range(first, first + count))
+    else:
+        tile = gk._iota(1 << (n - bp), dev)
+        regbits = lay["register"]
+        tile_mask = -1
+        order = list(range(first, first + count))
     thrbits = lay["lane"] + lay["warp"]       # thread index bit -> index bit
     nr, nt = 1 << len(regbits), lay["threads"]
-    dev = planes.device
-    q = gk._iota(1 << (n - bp - 1), dev)
-    tile = ((q >> h) << (h + 1)) | (q & ((1 << h) - 1))
     tid = gk._iota(nt, dev)
     k = gk._iota(nr, dev)
 
@@ -537,14 +581,14 @@ def _pair_emulated_body(planes, n, bp, table, fv, iv, xop, first, count,
         return (torch.where(s, m[3], m[0]), torch.where(s, m[7], m[4]),
                 torch.where(s, m[2], m[1]), torch.where(s, m[6], m[5]))
 
-    for r in [xop] + list(range(first, first + count)):
+    for r in order:
         kind, t, has_ctrl, foff, ioff = rows[r]
         kind = names[kind]
         cm, cv = (ivh[ioff], ivh[ioff + 1]) if has_ctrl else (0, 0)
         if kind == "cphase":
             cm = cv = cm | (1 << t)
-        gm = (cm >> bp) & ~(1 << h)
-        gv = (cv >> bp) & ~(1 << h)
+        gm = (cm >> bp) & tile_mask
+        gv = (cv >> bp) & tile_mask
         sel = (((tile & gm) == gv).view(-1, 1, 1)
                & ((tid & part(cm, thrbits)) == part(cv, thrbits)).view(1, -1, 1)
                & ((k & part(cm, regbits)) == part(cv, regbits)).view(1, 1, -1))

@@ -299,6 +299,25 @@ def test_carry_tree_across(device_leaves, monkeypatch):
                                atol=1e-6 if device_leaves else 1e-12, rtol=0)
 
 
+def test_leaf_sum_memo_outlives_a_freed_device_leaf():
+    """Device leaves are in no table, so a sum's memo keyed by a leaf's
+    id must keep that leaf alive: a new leaf could otherwise take a
+    freed one's id and read the freed leaf's sum.  Each leaf here is
+    dropped before the next is made, as in a gate's walk."""
+    q = QBdt(3, attached_qubits=2, device="cpu", rng=QrackRandom(1))
+    rng = np.random.default_rng(11)
+    b = _EngLeaf(planes=torch.tensor(rng.normal(size=(2, 4)),
+                                     dtype=torch.float32))
+    memo = {}
+    for _ in range(8):
+        a = _EngLeaf(planes=torch.tensor(rng.normal(size=(2, 4)),
+                                         dtype=torch.float32))
+        want = a.vec + 0.5 * b.vec
+        _, out = q._add(a, 1.0 + 0j, b, 0.5 + 0j, memo)
+        np.testing.assert_allclose(out.vec, want, atol=1e-6, rtol=0)
+        del a, out
+
+
 def test_factory_bdt_terminals(monkeypatch):
     q = qt.create_quantum_interface("bdt", 5, device="cpu",
                                     rng=QrackRandom(96))

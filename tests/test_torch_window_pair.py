@@ -60,7 +60,7 @@ def matrix(rng, kind):
 def controls(rng, n, t, mixed):
     """0-2 controls anywhere but t; with `mixed`, random control values."""
     others = [q for q in range(n) if q != t]
-    nc = int(rng.integers(0, 3))
+    nc = min(int(rng.integers(0, 3)), len(others))
     cm = 0
     for c in rng.choice(others, nc, replace=False) if nc else ():
         cm |= 1 << int(c)
