@@ -41,9 +41,10 @@ them; then each phase prints JSON lines:
    and read just after: both entry points must have launched;
 4. times, by CUDA events: the w30 QFT end to end on the engine path and
    through RunFused (and through the plain gate-function chain, kernel
-   off), then every launch of the main path again with the kernel and
-   its plain version timed and compared on the same input, beside the
-   bound; each path's largest launch (most ops) with its time and bound.
+   off), then the main path again, every second launch (DENSE_PROBE_EVERY:
+   every launch took 81 s of an 850 s run) with the kernel and its plain
+   version timed and compared on the same input, beside the bound; each
+   path's largest held launch (most ops) with its time and bound.
 
 Then the TurboQuant path (the compressed engine, kernels K3-K5 of
 csrc/turboquant_kernel.cu):
@@ -79,8 +80,8 @@ csrc/turboquant_kernel.cu):
    run was cut for the run budget), the two float32 products of one sweep through torch.matmul (context only,
    beside the mean time of K3's fully dirty sweep), and every launch of
    the main path again, timed, beside the bound; K3's and K4's launches
-   and K5's first launch and a seeded sixth of the rest (TQ_WINDOW_HELD:
-   replaying all 79 took 179 s) also run as the plain version on the
+   and K5's first launch and a seeded twelfth of the rest (TQ_WINDOW_HELD:
+   replaying all 79 took 179 s, a sixth about 30 s) also run as the plain version on the
    same input, timed and compared.  The bound: the bytes of the tiles
    it requantizes, or their products as the TF32 tensor-core passes the
    kernel runs (2 + 3 at int8, 40 * D flops per amplitude; 3 + 3 at
@@ -262,14 +263,57 @@ rand_global_phase=False) on the card, each phase with its walls:
     (64, 2, 2^24) batch, beside their byte bounds (the 2x2 reads and
     writes the batch, the readout reads it).
 
+Then the pager (QPager, parallel/pager.py): one ket in pages of at most
+2^30 amplitudes over a device list that names this card once a page;
+its windows run K1/K2 on every page (fusion.sharded_kernel_window_body)
+and its paged-target 2x2s, remaps and page swaps as plain torch passes
+in place (ops/sharded.py):
+
+29. pager_parity, w30 on 4 pages of 2^28: a seeded depth-20 circuit
+    (pager_circuit: H and RY on page bits, CNOTs with a page-bit target
+    and with a page-bit control, CZ and controlled phases between page
+    bits, T and RZ on page bits, U and H in the page, one Swap a layer,
+    local-local, mixed and page-page in turn) on
+    create_quantum_interface("pager", 30, devices=[card] * 4) and on
+    ("cuda", 30): fidelity >= 1 - 1e-5.  The per-page launches must equal
+    the count the window plans predict (parallel/pager.FLUSHES: pages x
+    the in-page sweeps of fusion.sharded_kernel_sweeps), both entry
+    points must launch, and the run must take a page exchange that
+    moves amplitudes between pages.  The first launch of
+    every in-page run and a seeded eighth
+    of the rest (PAGER_HELD) run as the kernel and as its plain version
+    on the same input, held to the bar of phase 2;
+30. pager_qft, w32 on 4 pages of 2^30 (32 GiB of float32 planes): the
+    engine path (QFT(0, 32)) and RunFused(qft_qcircuit(32)) from a basis
+    state; each must launch K1/K2 per page exactly as its plans predict,
+    keep the device memory above the planes within half a page (4 GiB,
+    torch.cuda.max_memory_allocated), and match the closed form
+    2^(-n/2) exp(2 pi i x rev(k) / 2^n) on every amplitude (checked on
+    the card 2^26 at a time: max abs diff <= 1e-4 * 2^(-n/2), fidelity
+    >= 1 - 1e-5); the engine path's IQFT brings ProbAll(x) back to >=
+    1 - 1e-4.  Then 3 warm walls of each by CUDA events, and one more run
+    of each with every launch and every page pass between events
+    (PageTimer): kernel sum against its bound, exchange count, bytes
+    (each element an exchange moves read and written once) and ms;
+31. pager_w33, w33 on 8 pages of 2^30 (64 GiB): one RunFused QFT with the
+    bars of phase 30 (closed form, launches as planned, memory);
+32. pager_factory: create_quantum_interface("pager", 31, devices=[card]
+    * 2) and ("hybrid", 31, devices=...), which builds straight into its
+    pager mode: a GHZ state (H and 30 CNOTs) read across the page bit,
+    Prob of the top qubit and ProbAll of both ends within 1e-5 of 0.5.
+
 The kernels line counts K1/K2 launches by dtype form over every dense
 path (phases 3, 8-12, 14-17, 19-22 and 24-28); their times and errors
 are those of the launches held to plain (float32: phase 4 and the Shor
-IQFT of phase 10; the other forms: phase 14).
+IQFT of phase 10; the other forms: phase 14).  The per-page form of K1
+and K2 has entries of its own: launches over phases 29-32, times and
+errors over the launches held in phase 29, and the w32 engine path's
+launches at pages of 2^30 (l30_*).
 
 ``--tq-only`` runs the build and phases 5-7 alone; ``--algo-only`` the
 build and phases 8-12; ``--fppow-only`` the build and phases 13-17;
-``--layers-only`` the build and phases 18-28.
+``--layers-only`` the build and phases 18-28; ``--pager-only`` the build
+and phases 29-32.
 
 The line before the last is the "kernels" summary, the last line
 {"ok": true, "device": {...}}.  Any failed check raises, so the script
@@ -320,7 +364,7 @@ TQ_CODE_FRAC = {8: 1e-3, 16: 1e-2}
 TQ_SCALE_REL = 1e-5
 # flops per amplitude an op acts on (complex product, or a 2x2 row)
 TQ_OP_FLOPS = {0: 6, 1: 6, 3: 14}
-TQ_WINDOW_HELD = 1 / 6  # share of tq_window's launches held to plain
+TQ_WINDOW_HELD = 1 / 12  # share of tq_window's launches held to plain
 TQ_WINDOW_SEED = 79
 
 ALU_WIDTH = 22        # the CUDA engine against the complex128 oracle
@@ -338,6 +382,8 @@ HALF_QFT_BAR = {torch.bfloat16: 1e-3, torch.float16: 2e-5}
 # (holding all of them took 105 s of an 822.7 s run on the H100, every
 # second 264.6 s for phases 13-17 against 322)
 FPPOW_PROBE_EVERY = 4
+# phase 4 holds every second launch of the w30 main path to plain
+DENSE_PROBE_EVERY = 2
 DRIFT_THRESH = "1e-5"  # QRACK_TPU_AUTO_F64_DRIFT of the drift phase
 DRIFT_EVERY = "64"     # QRACK_TPU_DRIFT_CHECK_GATES
 BATCH_WIDTH = 28      # compile_batched_fn: 4 kets of 28 qubits
@@ -393,6 +439,19 @@ TRAJ_B = 64           # 8 GiB of float32 planes
 TRAJ_CHUNK = "16"
 TRAJ_ROOM = 20.5      # trajectories' peak bytes left free for the budget run
 TRAJ_KEY = 24
+PAGER_PARITY_WIDTH = 30   # 4 pages of 2^28 beside a w30 QEngineCUDA
+PAGER_PAGES = 4
+PAGER_DEPTH = 20
+PAGER_SEED = 10
+PAGER_HELD = 1 / 8        # share of the other per-page launches held
+PAGER_WIDTH = 32          # 4 pages of 2^30 float32: 32 GiB of planes
+PAGER_PERM = 0x9A5C3F1E   # basis state of the w32 QFT (top bit set)
+PAGER_W33 = 33            # 8 pages of 2^30: 64 GiB of planes
+PAGER_W33_PAGES = 8
+PAGER_PERM33 = 0x1A5C3F1E7
+PAGER_FACTORY_WIDTH = 31  # 2 pages of 2^30
+PAGE_MEM_BAR = 4 << 30    # half a page of 2^30 float32 amplitudes
+PAGE_L30 = {}             # the w32 engine path's launches, timed
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -463,7 +522,8 @@ def held_to_plain(got, want, what: str) -> tuple:
     bar = plain_bar(want.dtype, scale)
     check(err <= bar, f"{what}: kernel differs from plain by {err} "
                       f"(bar {bar}, largest |amp| {scale}, {want.dtype})")
-    return err, err / scale
+    # an all-zero input (a page the ket has not reached) must stay zero
+    return err, err / scale if scale else 0.0
 
 
 def fidelity(a, b) -> float:
@@ -617,7 +677,7 @@ class SweepProbe:
                     else f"{name}_{dtype_name(planes.dtype)}")
             k = self.seen.get(form, 0)
             self.seen[form] = k + 1
-            if k % self.every:
+            if not self._held(k):
                 return self.real[name](planes, n, bp, table, fv, iv, *span)
             ref = planes.clone()
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -665,6 +725,10 @@ class SweepProbe:
                     s["largest_bound_ms"] = max(b_ms, o_ms)
             return planes
         return run
+
+    def _held(self, k: int) -> bool:
+        """Is launch k of its dtype form replayed and held to plain?"""
+        return k % self.every == 0
 
     def __enter__(self):
         self.wk.in_tile_sweep = self._entry("in_tile")
@@ -1363,6 +1427,7 @@ def dense_phases(card: str, dev, probe) -> dict:
     emit({"phase": "e2e", "card": card, "width": WIDTH, **e2e,
           "engine_qft_chain_ms": chain_ms})
 
+    probe.every, probe.seen = DENSE_PROBE_EVERY, {}
     with probe:
         probe.label = "engine_qft"
         q.SetPermutation(PERM)
@@ -1381,9 +1446,14 @@ def dense_phases(card: str, dev, probe) -> dict:
             emit({"phase": "sweeps", "card": card, "path": key[0],
                   "entry": key[1], **s})
     for name in launches:
+        seen_n = probe.seen.get(name, 0)
         got_n = probe.stats[name]["launches"]
-        check(got_n == launches[name],
-              f"probe saw {got_n} {name} launches, main path {launches[name]}")
+        check(seen_n == launches[name],
+              f"probe saw {seen_n} {name} launches, main path "
+              f"{launches[name]}")
+        check(got_n >= seen_n // DENSE_PROBE_EVERY,
+              f"probe held {got_n} of {seen_n} {name} launches")
+    probe.every = 1
     release()
     return launches
 
@@ -3041,6 +3111,467 @@ def trajectories(card: str, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the pager: per-page K1/K2, the remap planner and page exchanges
+# ---------------------------------------------------------------------------
+
+class PageProbe(SweepProbe):
+    """SweepProbe over the pager's per-page launches: the first launch
+    of every in-page run and a seeded share (PAGER_HELD) of the rest run
+    as the kernel and as its plain version, each timed, and are held to
+    the bar of phase 2.  A run starts where fusion.sharded_kernel_window
+    _body hands window_kernel.apply_window page 0's payload row (offset
+    0 in the run's (pages, floats) payload tensor)."""
+
+    def __init__(self, wk, seed: int, share: float):
+        super().__init__(wk)
+        self.rng = np.random.default_rng(seed)
+        self.share = share
+        self.run_start = False
+        self.real_apply = wk.apply_window
+
+    def _held(self, k: int) -> bool:
+        first, self.run_start = self.run_start, False
+        return first or k == 0 or self.rng.random() < self.share
+
+    def __enter__(self):
+        def apply(planes, n, structure, fv, *rest, **kw):
+            if fv.storage_offset() == 0:
+                self.run_start = True
+            return self.real_apply(planes, n, structure, fv, *rest, **kw)
+
+        self.wk.apply_window = apply
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        self.wk.apply_window = self.real_apply
+        return super().__exit__(*exc)
+
+
+class PageTimer:
+    """CUDA events around every per-page window-kernel launch (with its
+    bound, launch_bound at the page width) and every page pass of
+    ops/sharded.py (exchanges, and the plain in-page passes of the
+    window chain and of single ops): no replay, no synchronise until
+    ``totals``."""
+
+    PASSES = ("apply_global_2x2", "batched_mixed_swap", "mixed_swap",
+              "swap_bits_", "_relabel", "apply_diag", "apply_local_2x2")
+    EXCHANGE = ("apply_global_2x2", "batched_mixed_swap", "mixed_swap",
+                "swap_bits_", "_relabel")
+
+    def __init__(self, wk, shb):
+        self.wk, self.shb = wk, shb
+        self.real = {"in_tile": wk.in_tile_sweep, "pair": wk.pair_sweep}
+        self.real_pass = {k: getattr(shb, k) for k in self.PASSES}
+        self.launches = []   # (entry, ev0, ev1, bytes_ms, ops_ms)
+        self.passes = []     # (name, ev0, ev1)
+
+    def _entry(self, name):
+        def run(planes, n, bp, table, fv, iv, *span):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            self.real[name](planes, n, bp, table, fv, iv, *span)
+            ev[1].record()
+            first, count = span[-2], span[-1]
+            idx = ([span[0]] if name == "pair" else []) + list(
+                range(first, first + count))
+            rows = table.cpu().tolist()
+            b_ms, o_ms = launch_bound(n, [rows[i] for i in idx],
+                                      iv.cpu().tolist(), planes.dtype)
+            self.launches.append((name, ev[0], ev[1], b_ms, o_ms))
+            return planes
+        return run
+
+    def _pass(self, name):
+        real = self.real_pass[name]
+
+        def run(*args, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = real(*args, **kw)
+            ev[1].record()
+            self.passes.append((name, ev[0], ev[1]))
+            return out
+        return run
+
+    def __enter__(self):
+        self.wk.in_tile_sweep = self._entry("in_tile")
+        self.wk.pair_sweep = self._entry("pair")
+        for k in self.PASSES:
+            setattr(self.shb, k, self._pass(k))
+        return self
+
+    def __exit__(self, *exc):
+        self.wk.in_tile_sweep = self.real["in_tile"]
+        self.wk.pair_sweep = self.real["pair"]
+        for k, fn in self.real_pass.items():
+            setattr(self.shb, k, fn)
+
+    def totals(self) -> dict:
+        sync()
+        out = {}
+        for name in ("in_tile", "pair"):
+            got = [x for x in self.launches if x[0] == name]
+            out[name] = {
+                "launches": len(got),
+                "ms": sum(a.elapsed_time(b) for _, a, b, _, _ in got),
+                "bound_ms": sum(max(bm, om) for *_, bm, om in got),
+                "bytes_ms": sum(bm for *_, bm, _ in got),
+                "ops_ms": sum(om for *_, om in got)}
+        by = {}
+        for name, a, b in self.passes:
+            by.setdefault(name, [0, 0.0])
+            by[name][0] += 1
+            by[name][1] += a.elapsed_time(b)
+        out["passes"] = {k: {"calls": c, "ms": ms} for k, (c, ms) in by.items()}
+        out["exchange_ms"] = sum(by.get(k, [0, 0.0])[1] for k in self.EXCHANGE)
+        return out
+
+
+def pager_circuit(n: int, L: int, depth: int, seed: int) -> list:
+    """A seeded depth-`depth` circuit of (method, args) that reaches every
+    pager path: per layer a page-bit H, an RY on a page bit, CNOTs with a
+    page-bit target and with a page-bit control, CZ and a controlled
+    phase between page bits, T and RZ on page bits, a U and an H on
+    in-page bits, and one Swap (local-local, mixed or page-page in
+    turn)."""
+    rng = np.random.default_rng(seed)
+    loc = lambda: int(rng.integers(0, L))          # noqa: E731
+    top = lambda: int(rng.integers(L, n))          # noqa: E731
+    ang = lambda: float(rng.uniform(0, 2 * np.pi))  # noqa: E731
+    ops = []
+    for d in range(depth):
+        g1, g2 = (int(x) for x in rng.choice(np.arange(L, n), 2,
+                                              replace=False))
+        ops += [("H", (top(),)), ("RY", (ang(), top())),
+                ("CNOT", (loc(), top())), ("CNOT", (top(), loc())),
+                ("CZ", (g1, g2)), ("CPhaseRootN", (int(rng.integers(2, 6)),
+                                                    g1, g2)),
+                ("T", (top(),)), ("RZ", (ang(), top())),
+                ("U", (loc(), ang(), ang(), ang())), ("H", (loc(),)),
+                ("CPhaseRootN", (3, loc(), top()))]
+        a, b = (int(x) for x in rng.choice(L, 2, replace=False))
+        ops.append(("Swap", [(a, b), (loc(), top()), (g1, g2)][d % 3]))
+    return ops
+
+
+def pages_fidelity(pages, planes) -> float:
+    """Fidelity of a pager's pages (logical order: the table identity)
+    to dense planes of the same ket, in float64 chunk by chunk."""
+    step = 1 << 26
+    re = im = na = nb = 0.0
+    off = 0
+    for page in pages:
+        for s in range(0, page.shape[-1], step):
+            e = min(s + step, page.shape[-1])
+            a = page[:, s:e].double()
+            b = planes[:, off + s:off + e].to(page.device).double()
+            re += float(a[0] @ b[0] + a[1] @ b[1])
+            im += float(a[0] @ b[1] - a[1] @ b[0])
+            na += float(a[0] @ a[0] + a[1] @ a[1])
+            nb += float(b[0] @ b[0] + b[1] @ b[1])
+        off += page.shape[-1]
+    return (re * re + im * im) / (na * nb)
+
+
+def pager_closed_form(q, x: int) -> tuple:
+    """(max abs diff, fidelity) of a pager's ket against the QFT of |x>,
+    2^(-n/2) exp(2 pi i x rev(k) / 2^n), amplitude by amplitude on the
+    card, 2^26 at a time (the table is restored to identity first)."""
+    q._unmap()
+    n, L = q.qubit_count, q.local_bits
+    nb = (n + 7) // 8
+    amp = 2.0 ** (-n / 2)
+    step = min(1 << 26, 1 << L)
+    worst = re = im = na = 0.0
+    for p, page in enumerate(q.page_planes):
+        dev = page.device
+        rev8 = torch.tensor([int(f"{v:08b}"[::-1], 2) for v in range(256)],
+                            dtype=torch.int64, device=dev)
+        for s in range(0, 1 << L, step):
+            k = torch.arange(s, s + step, dtype=torch.int64, device=dev)
+            k |= p << L
+            r = torch.zeros_like(k)
+            for i in range(nb):
+                r |= rev8[(k >> (8 * i)) & 255] << (8 * (nb - 1 - i))
+            r >>= 8 * nb - n
+            # x * r mod 2^n without passing 2^63: r in 16-bit halves
+            m = (x * (r & 0xFFFF)
+                 + (((x * (r >> 16)) & ((1 << (n - 16)) - 1)) << 16))
+            m &= (1 << n) - 1
+            ang = m.double() * (2 * np.pi / 2.0 ** n)
+            er, ei = torch.cos(ang) * amp, torch.sin(ang) * amp
+            a = page[:, s:s + step].double()
+            worst = max(worst, float((a[0] - er).abs().max()),
+                        float((a[1] - ei).abs().max()))
+            re += float(er @ a[0] + ei @ a[1])
+            im += float(er @ a[1] - ei @ a[0])
+            na += float(a[0] @ a[0] + a[1] @ a[1])
+    return worst, (re * re + im * im) / na
+
+
+def page_launches(wk) -> dict:
+    return dict(wk.DTYPE_LAUNCHES["float32"])
+
+
+def pager_parity(card: str, dev, probe) -> dict:
+    """Phase 29 (module docstring); returns its per-page launches."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.ops import sharded as shb
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.parallel import pager as pg
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    n, G = PAGER_PARITY_WIDTH, PAGER_PAGES
+    L = n - G.bit_length() + 1
+    ops = pager_circuit(n, L, PAGER_DEPTH, PAGER_SEED)
+    release()
+    q = qt.create_quantum_interface("pager", n, devices=[dev] * G,
+                                    rng=QrackRandom(PAGER_SEED),
+                                    rand_global_phase=False)
+    check(q.devices == [torch.device("cuda", torch.cuda.current_device())]
+          * G, f"pager pages not on the card: {q.devices}")
+    wk.reset_launches()
+    pg.reset_flushes()
+    shb.reset_exchanges()
+    t0 = time.time()
+    with probe:
+        probe.label = "pager_parity"
+        for name, args in ops:
+            getattr(q, name)(*args)
+        q.Finish()
+    wall = time.time() - t0
+    launches = page_launches(wk)
+    predicted = pg.FLUSHES["predicted_launches"]
+    check(sum(launches.values()) == predicted and predicted > 0,
+          f"per-page launches {launches} against the plans' {predicted}")
+    check(launches["in_tile"] > 0 and launches["pair"] > 0,
+          f"pager path skipped a kernel entry point: {launches}")
+    exchanges = dict(shb.EXCHANGES)
+    check(exchanges["global_2x2"] + exchanges["mixed_swap"]
+          + exchanges["batched_swap"] > 0,
+          f"pager path moved nothing between pages: {exchanges}")
+    flushes = dict(pg.FLUSHES)
+    d = qt.create_quantum_interface("cuda", n, rng=QrackRandom(PAGER_SEED),
+                                    rand_global_phase=False)
+    for name, args in ops:
+        getattr(d, name)(*args)
+    q._unmap()
+    f = pages_fidelity(q.page_planes, d.device_planes)
+    check(f >= 1 - 1e-5, f"pager against QEngineCUDA at w{n}: {f}")
+    held = {k: probe.stats[k]["launches"] for k in ("in_tile", "pair")
+            if k in probe.stats}
+    emit({"phase": "pager_parity", "card": card, "width": n, "pages": G,
+          "ops": len(ops), "fidelity_to_dense": f, "host_wall_s": wall,
+          "launches": launches, "predicted_launches": predicted,
+          "held_launches": held, "flushes": flushes,
+          "exchanges": exchanges})
+    del q, d
+    release()
+    return launches
+
+
+def pager_qft(card: str, dev) -> dict:
+    """Phase 30 (module docstring); returns the per-page launches of the
+    engine path and RunFused (their first, checked runs)."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.models.qft import qft_qcircuit
+    from qrack_tpu_torch.ops import sharded as shb
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.parallel import pager as pg
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    n, G = PAGER_WIDTH, PAGER_PAGES
+    release()
+    q = qt.create_quantum_interface("pager", n, devices=[dev] * G,
+                                    rng=QrackRandom(3),
+                                    rand_global_phase=False)
+    planes_bytes = torch.cuda.memory_allocated()
+    circ = qft_qcircuit(n)
+    out = {"phase": "pager_qft", "card": card, "width": n, "pages": G,
+           "planes_gib": planes_bytes / 2 ** 30}
+    launches = {}
+    for path, run in (("engine", lambda: q.QFT(0, n)),
+                      ("runfused", lambda: circ.RunFused(q))):
+        q.SetPermutation(PAGER_PERM)
+        wk.reset_launches()
+        pg.reset_flushes()
+        shb.reset_exchanges()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        run()
+        q.Finish()
+        peak = torch.cuda.max_memory_allocated() - base
+        got = page_launches(wk)
+        launches[path] = got
+        predicted = pg.FLUSHES["predicted_launches"]
+        check(sum(got.values()) == predicted and predicted > 0,
+              f"{path}: per-page launches {got} against the plans' "
+              f"{predicted}")
+        check(peak <= PAGE_MEM_BAR,
+              f"{path}: {peak / 2 ** 30:.3f} GiB above the planes "
+              f"(bar {PAGE_MEM_BAR / 2 ** 30} GiB)")
+        worst, f = pager_closed_form(q, PAGER_PERM)
+        bar = 1e-4 * 2.0 ** (-n / 2)
+        check(worst <= bar and f >= 1 - 1e-5,
+              f"{path} w{n} QFT: max diff {worst} (bar {bar}), fidelity {f}")
+        out[path] = {"launches": got, "predicted_launches": predicted,
+                     "peak_above_planes_gib": peak / 2 ** 30,
+                     "max_abs_diff": worst, "fidelity": f,
+                     "flushes": dict(pg.FLUSHES),
+                     "exchanges": dict(shb.EXCHANGES)}
+        if path == "engine":
+            q.IQFT(0, n)
+            back = q.ProbAll(PAGER_PERM)
+            check(back >= 1 - 1e-4, f"w{n} IQFT round trip: ProbAll {back}")
+            out["iqft_prob_back"] = back
+    # walls: 3 warm reps each (one warm-up run first)
+    for path, run in (("engine", lambda: (q.QFT(0, n), q.page_planes)),
+                      ("runfused", lambda: circ.RunFused(q))):
+        walls = []
+        for _ in range(4):
+            q.SetPermutation(PAGER_PERM)
+            walls.append(timed(run))
+        out[path]["wall_ms"] = walls[1:]
+    # one more run of each, every launch and page pass between events
+    for path, run in (("engine", lambda: q.QFT(0, n)),
+                      ("runfused", lambda: circ.RunFused(q))):
+        q.SetPermutation(PAGER_PERM)
+        shb.reset_exchanges()
+        with PageTimer(wk, shb) as timer:
+            run()
+            q.Finish()
+        tot = timer.totals()
+        moved = shb.EXCHANGES["bytes"]
+        out[path].update({
+            "kernel_ms": tot["in_tile"]["ms"] + tot["pair"]["ms"],
+            "kernel_bound_ms": (tot["in_tile"]["bound_ms"]
+                                + tot["pair"]["bound_ms"]),
+            "by_entry": {k: tot[k] for k in ("in_tile", "pair")},
+            "exchange_ms": tot["exchange_ms"],
+            "exchange_bytes": moved,
+            "exchange_bound_ms": moved / PEAK_BYTES_S * 1e3,
+            "page_passes": tot["passes"]})
+        if path == "engine":
+            PAGE_L30.update({k: tot[k] for k in ("in_tile", "pair")})
+    emit(out)
+    del q
+    release()
+    return launches
+
+
+def pager_w33(card: str, dev) -> dict:
+    """Phase 31 (module docstring); returns its per-page launches."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.models.qft import qft_qcircuit
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.parallel import pager as pg
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    n, G = PAGER_W33, PAGER_W33_PAGES
+    release()
+    q = qt.create_quantum_interface("pager", n, devices=[dev] * G,
+                                    rng=QrackRandom(4),
+                                    rand_global_phase=False)
+    q.SetPermutation(PAGER_PERM33)
+    wk.reset_launches()
+    pg.reset_flushes()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.time()
+    ms = timed(lambda: qft_qcircuit(n).RunFused(q))
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = page_launches(wk)
+    predicted = pg.FLUSHES["predicted_launches"]
+    check(sum(launches.values()) == predicted and predicted > 0,
+          f"w{n}: per-page launches {launches} against {predicted}")
+    check(peak <= PAGE_MEM_BAR,
+          f"w{n}: {peak / 2 ** 30:.3f} GiB above the planes")
+    worst, f = pager_closed_form(q, PAGER_PERM33)
+    bar = 1e-4 * 2.0 ** (-n / 2)
+    check(worst <= bar and f >= 1 - 1e-5,
+          f"w{n} RunFused QFT: max diff {worst} (bar {bar}), fidelity {f}")
+    emit({"phase": "pager_w33", "card": card, "width": n, "pages": G,
+          "planes_gib": base / 2 ** 30, "runfused_ms": ms,
+          "host_wall_s": wall, "peak_above_planes_gib": peak / 2 ** 30,
+          "max_abs_diff": worst, "fidelity": f, "launches": launches,
+          "predicted_launches": predicted})
+    del q
+    release()
+    return launches
+
+
+def pager_factory(card: str, dev) -> dict:
+    """Phase 32 (module docstring); returns its per-page launches."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.engines.hybrid import QHybrid
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.parallel import QPager
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    n = PAGER_FACTORY_WIDTH
+    out = {"phase": "pager_factory", "card": card, "width": n}
+    total = {"in_tile": 0, "pair": 0}
+    for layers in ("pager", "hybrid"):
+        release()
+        wk.reset_launches()
+        t0 = time.time()
+        q = qt.create_quantum_interface(layers, n, devices=[dev] * 2,
+                                        rng=QrackRandom(5),
+                                        rand_global_phase=False)
+        eng = q._engine if isinstance(q, QHybrid) else q
+        check(isinstance(eng, QPager) and eng.n_pages == 2
+              and eng.devices[0].type == "cuda",
+              f"{layers} at w{n} is not a 2-page pager on the card")
+        q.H(0)
+        for i in range(n - 1):
+            q.CNOT(i, i + 1)
+        p_top = q.Prob(n - 1)
+        p0, p1 = q.ProbAll(0), q.ProbAll((1 << n) - 1)
+        got = page_launches(wk)
+        check(abs(p_top - 0.5) <= 1e-5 and abs(p0 - 0.5) <= 1e-5
+              and abs(p1 - 0.5) <= 1e-5,
+              f"{layers} w{n} GHZ: Prob(top) {p_top}, ends {p0}, {p1}")
+        check(sum(got.values()) > 0, f"{layers} w{n} launched no kernel")
+        for k in total:
+            total[k] += got[k]
+        out[layers] = {"prob_top": p_top, "prob_ends": [p0, p1],
+                       "launches": got, "host_wall_s": time.time() - t0}
+        del q, eng
+    emit(out)
+    release()
+    return total
+
+
+def page_entries(probe, launches: dict) -> list:
+    """The kernels-line entries of K1 and K2 in their per-page form:
+    launches over the pager phases; times, plain times and errors over
+    the launches PageProbe held to plain (phase 29, pages of 2^28); the
+    w32 engine path's every launch (pages of 2^30) beside its bound."""
+    kernels = []
+    for name, k in (("in_tile", "K1"), ("pair", "K2")):
+        s = probe.stats.get(name, {})
+        l30 = PAGE_L30.get(name, {})
+        kernels.append({
+            "name": f"window_{name}_per_page", "id": k, "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": REPLACES[name],
+            "form": "per page (qrack_tpu/ops/fusion.py:787)",
+            "launches": launches[name],
+            "probed_launches": s.get("launches", 0),
+            "max_abs_err": s.get("max_abs_err"),
+            "max_rel_err": s.get("max_rel_err"),
+            "ms": s.get("ms"), "plain_ms": s.get("plain_ms"),
+            "bound_ms": s.get("bound_ms"),
+            "bound_by": "bytes" if s.get("bytes_ms", 0) >= s.get("ops_ms", 0)
+            else "operations",
+            "library_ms": None,
+            "l30_launches": l30.get("launches"), "l30_ms": l30.get("ms"),
+            "l30_bound_ms": l30.get("bound_ms")})
+    return kernels
+
+
 def dtype_entries(probe, launches: dict) -> list:
     """The kernels-line entries of the float64, bfloat16 and float16 forms
     of K1 and K2: launches over the paths that run them, times and errors
@@ -3092,6 +3623,7 @@ def main() -> int:
     algo_only = "--algo-only" in sys.argv[1:]
     fppow_only = "--fppow-only" in sys.argv[1:]
     layers_only = "--layers-only" in sys.argv[1:]
+    pager_only = "--pager-only" in sys.argv[1:]
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -3119,7 +3651,7 @@ def main() -> int:
         check(not (r["spill_stores"] or r["spill_loads"]),
               f"{name} spills: {r}")
 
-    only = tq_only or algo_only or fppow_only or layers_only
+    only = tq_only or algo_only or fppow_only or layers_only or pager_only
     tableau = stack_native(card) if layers_only or not only else None
     probe = SweepProbe(wk)
     paths = {}   # path -> launches by dtype name
@@ -3163,6 +3695,20 @@ def main() -> int:
         paths["traj_cuda"] = {"float32": trajectories(card, dev)}
         emit({"phase": "slice8_phases", "card": card,
               "seconds": time.time() - t0})
+    page_kernels = []
+    if pager_only or not only:
+        t0 = time.time()
+        page_probe = PageProbe(wk, PAGER_SEED, PAGER_HELD)
+        page_paths = {"pager_parity": pager_parity(card, dev, page_probe)}
+        for path, got in pager_qft(card, dev).items():
+            page_paths[f"pager_qft_{path}"] = got
+        page_paths["pager_w33"] = pager_w33(card, dev)
+        page_paths["pager_factory"] = pager_factory(card, dev)
+        page_total = {k: sum(p[k] for p in page_paths.values())
+                      for k in ("in_tile", "pair")}
+        emit({"phase": "pager_launches", "card": card, "paths": page_paths,
+              "total": page_total, "seconds": time.time() - t0})
+        page_kernels = page_entries(page_probe, page_total)
     kernels = []
     if paths:
         launches = {dt: {k: sum(p.get(dt, {}).get(k, 0)
@@ -3175,7 +3721,7 @@ def main() -> int:
             kernels = window_entries(probe, launches["float32"])
         if "fppow" in paths:
             kernels += dtype_entries(probe, launches)
-    kernels += tq_kernels
+    kernels += tq_kernels + page_kernels
     emit({"phase": "done", "card": card, "seconds": time.time() - T_START})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@ complex128 oracle (QEngineCPU) and QHybrid's width switch between the
 two; the layers above them (QUnit, QStabilizerHybrid, QStabilizer,
 QUnitClifford, QBdt, QBdtHybrid, QTensorNetwork, QInterfaceNoisy),
 which the factory stacks into the OPTIMAL stack and the others; the
-noise plane (noise/: Kraus channels and shot-parallel trajectories);
+pager (QPager: one ket in pages over a device list, past one dense
+engine's 30 qubits); the noise plane (noise/: Kraus channels and shot-parallel trajectories);
 and the algorithm programs (models/).  The JAX
 package beside it is the reference the port is tested against; this
 package imports neither it nor JAX.
@@ -24,6 +25,7 @@ _torch.backends.cudnn.allow_tf32 = False
 from .interface import QInterface  # noqa: E402,F401
 from .engines import (QEngine, QEngineCPU, QEngineCUDA,  # noqa: E402,F401
                       QEngineCUDATurboQuant, QEngineSparse, QHybrid)
+from .parallel import QPager  # noqa: E402,F401
 from .pauli import Pauli  # noqa: E402,F401
 from .config import get_config, set_config  # noqa: E402,F401
 from .hamiltonian import HamiltonianOp, uniform_hamiltonian_op  # noqa: E402,F401

@@ -90,3 +90,25 @@ def bdt_from_numpy(meta: Mapping, arrays: Mapping[str, np.ndarray],
     from .layers.qbdt import QBdt
 
     return QBdt._from_capture(meta, arrays, device=device, **kwargs)
+
+
+def pager_from_numpy(planes, qmap=None, device=None, devices=None, **kwargs):
+    """The port's QPager holding a JAX pager's ket: its physical planes
+    (``QPager._state_raw`` as a (2, 2^n) numpy array, in any plane dtype)
+    and its placement table ``_qmap`` (None: identity), split into
+    ``n_pages`` pages (a keyword, default the device list's power-of-two
+    prefix) on ``devices``, or on ``device`` repeated, ``cuda`` by
+    default (a copy).  Other keywords go to the QPager (rng, ...)."""
+    from .parallel.pager import QPager
+
+    arr = np.asarray(planes)
+    n = int(arr.shape[-1]).bit_length() - 1
+    host = planes_from_numpy(arr, device="cpu")
+    kwargs.setdefault("dtype", host.dtype)
+    q = QPager(n, init_state=None, devices=devices, device=device, **kwargs)
+    L = q.local_bits
+    q._pages = [host[:, p << L:(p + 1) << L].to(dev).contiguous()
+                for p, dev in enumerate(q.devices)]
+    if qmap is not None:
+        q._map_assign([int(x) for x in qmap])
+    return q

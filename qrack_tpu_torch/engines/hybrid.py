@@ -1,23 +1,25 @@
-"""QHybrid: transparent CPU <-> CUDA switching by width.
+"""QHybrid: transparent CPU <-> CUDA <-> pager switching by width.
 
 Re-design of the reference QHybrid (reference: include/qhybrid.hpp:35,
-SwitchGpuMode :105): below `tpu_threshold_qubits` the numpy engine wins
-(device dispatch latency dwarfs the math on tiny kets); at or above it
-the dense CUDA engine.  The wrapper forwards the entire QInterface
-surface to the active engine and re-materializes the ket across
-representations on width changes (the reference's CopyStateVec
-hand-off), staged through a host complex128 vector.
+SwitchGpuMode :105, SwitchPagerMode :127): below `tpu_threshold_qubits`
+the numpy engine wins (device dispatch latency dwarfs the math on tiny
+kets); at or above it the dense CUDA engine; past
+`pager_threshold_qubits` (QRACK_MAX_PAGE_QB, 30) the QPager over
+``devices=`` (parallel/pager.py; on one card a list that repeats it).
+The wrapper forwards the entire QInterface surface to the active engine
+and re-materializes the ket across representations on width changes
+(the reference's CopyStateVec hand-off), staged through a host
+complex128 vector.
 
 Switching by width is the design, not a fallback: no path catches a
-device error and carries on on the CPU.  Past `pager_threshold_qubits`
-the JAX package's QHybrid moves to the pager, which is not ported
-(ROADMAP item 13), so a width there raises.  ``device=`` and ``dtype=``
-go to the CUDA half only; QEngineCPU takes neither.
+device error and carries on on the CPU.  ``device=`` and ``dtype=`` go
+to the CUDA engine and the pager; QEngineCPU takes neither.
 
 ``HOST_STAGINGS`` counts the kets that pass through the host, and their
 amplitudes: a whole ket when the width crosses the threshold
 (``"switch"``), and the other operand of a Compose onto a CUDA engine
-(``"compose"``, which QEngineCUDA pulls through GetQuantumState).
+(``"compose"``, which QEngineCUDA and QPager pull through
+GetQuantumState).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ class QHybrid:
                  rng: Optional[QrackRandom] = None,
                  tpu_threshold_qubits: Optional[int] = None,
                  pager_threshold_qubits: Optional[int] = None,
-                 device=None, dtype=None, **kwargs):
+                 devices=None, device=None, dtype=None, **kwargs):
         cfg = get_config()
         self._tpu_threshold = (
             tpu_threshold_qubits if tpu_threshold_qubits is not None
@@ -52,6 +54,7 @@ class QHybrid:
             else cfg.max_page_qubits
         )
         self._cuda_kwargs = {"device": device, "dtype": dtype}
+        self._devices = devices
         self._kwargs = dict(kwargs)
         self._kwargs["rng"] = rng if rng is not None else QrackRandom()
         self._engine = self._make_engine(qubit_count, init_state)
@@ -63,10 +66,7 @@ class QHybrid:
             return "cpu"
         if qubit_count <= self._pager_threshold:
             return "cuda"
-        raise NotImplementedError(
-            f"width {qubit_count} is past one dense device "
-            f"({self._pager_threshold} qubits); QHybrid's pager mode waits "
-            "for the pager port (ROADMAP item 13)")
+        return "pager"
 
     def _make_engine(self, qubit_count: int, init_state: int = 0,
                      mode: Optional[str] = None):
@@ -74,15 +74,25 @@ class QHybrid:
             mode = self._mode_for(qubit_count)
         if mode == "cpu":
             return QEngineCPU(qubit_count, init_state=init_state, **self._kwargs)
-        return QEngineCUDA(qubit_count, init_state=init_state,
-                           **self._cuda_kwargs, **self._kwargs)
+        if mode == "cuda":
+            return QEngineCUDA(qubit_count, init_state=init_state,
+                               **self._cuda_kwargs, **self._kwargs)
+        from ..parallel.pager import QPager
+
+        return QPager(qubit_count, init_state=init_state,
+                      devices=self._devices, **self._cuda_kwargs,
+                      **self._kwargs)
+
+    def _mode_of(self, engine) -> str:
+        if isinstance(engine, QEngineCPU):
+            return "cpu"
+        return "cuda" if isinstance(engine, QEngineCUDA) else "pager"
 
     def _maybe_switch(self) -> None:
         """Re-materialize the ket when the width crosses a threshold
         (reference: SwitchGpuMode)."""
         n = self._engine.qubit_count
-        have = "cpu" if isinstance(self._engine, QEngineCPU) else "cuda"
-        if self._mode_for(n) == have:
+        if self._mode_for(n) == self._mode_of(self._engine):
             return
         HOST_STAGINGS["switch"] += 1
         HOST_STAGINGS["switch_amps"] += 1 << n
@@ -118,7 +128,7 @@ class QHybrid:
         n_new = n_cur + inner.qubit_count
         want = self._mode_for(n_new)
         if want == self._mode_for(n_cur):
-            if want == "cuda":
+            if want != "cpu":
                 HOST_STAGINGS["compose"] += 1
                 HOST_STAGINGS["compose_amps"] += 1 << inner.qubit_count
             return self._engine.Compose(inner, start)
@@ -158,6 +168,7 @@ class QHybrid:
         c._tpu_threshold = self._tpu_threshold
         c._pager_threshold = self._pager_threshold
         c._cuda_kwargs = dict(self._cuda_kwargs)
+        c._devices = self._devices
         c._kwargs = dict(self._kwargs)
         # fresh stream: the clone must not consume the original's RNG
         c._kwargs["rng"] = self._kwargs["rng"].spawn()

@@ -25,7 +25,12 @@ and the ported terminals:
                   takes no device)
   "hybrid"        QHybrid: QEngineCPU below hybrid_tpu_threshold_qubits
                   (QRACK_TPU_THRESHOLD_QB, 13), QEngineCUDA from there to
-                  max_page_qubits; ``device``/``dtype`` reach the CUDA half
+                  max_page_qubits (30), QPager past it over ``devices``;
+                  ``device``/``dtype`` reach the CUDA engine and the pager
+  "pager"         QPager: the ket in pages over a device list that may
+                  repeat a device (``devices``, ``n_pages``, ``remap``,
+                  ``collective``; env QRACK_QPAGER_DEVICES), e.g.
+                  ``devices=["cuda:0"] * 4`` for 32 qubits on one card
   "sparse"        QEngineSparse: sorted int64 indices and complex128
                   amplitudes on the host, up to 62 qubits (numpy; takes no
                   device; env QRACK_SPARSE_TRUNCATION_THRESHOLD,
@@ -56,8 +61,8 @@ from typing import Callable, List, Sequence, Union
 
 OPTIMAL = ("unit", "stabilizer_hybrid", "hybrid")
 
-_TERMINAL = {"cuda", "cpu", "hybrid", "sparse", "turboquant", "stabilizer",
-             "unit_clifford", "bdt", "bdt_attached"}
+_TERMINAL = {"cuda", "cpu", "hybrid", "pager", "sparse", "turboquant",
+             "stabilizer", "unit_clifford", "bdt", "bdt_attached"}
 
 #: terminals that run on the host and refuse a device
 _HOST_TERMINALS = {"cpu", "sparse"}
@@ -66,7 +71,6 @@ _HOST_TERMINALS = {"cpu", "sparse"}
 #: ROADMAP item that brings each
 _NOT_PORTED = {
     "tpu": "the port's dense terminal is 'cuda'",
-    "pager": "ROADMAP item 13 (pager)",
     "turboquant_pager": "ROADMAP item 13 (pager)",
     "unit_multi": "ROADMAP item 13 (pager: QUnitMulti)",
     "optimal_multi": "ROADMAP item 13 (pager: QUnitMulti)",
@@ -94,6 +98,10 @@ def _terminal_factory(name: str, **opts) -> Callable:
         from .engines.hybrid import QHybrid
 
         return lambda n, **kw: QHybrid(n, **{**opts, **kw})
+    if name == "pager":
+        from .parallel.pager import QPager
+
+        return lambda n, **kw: QPager(n, **{**opts, **kw})
     if name == "sparse":
         from .engines.sparse import QEngineSparse
 

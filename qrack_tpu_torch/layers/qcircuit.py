@@ -17,7 +17,7 @@ per gate.  The whole-circuit programs over planes:
 
 :meth:`QCircuit.PastLightCone` cuts the sub-circuit a set of qubits
 depends on (QTensorNetwork's reads).  The sharded program
-(compile_sharded_fn) waits for the pager (ROADMAP item 13).
+(compile_sharded_fn) is a later part of ROADMAP item 13.
 """
 
 from __future__ import annotations
@@ -146,7 +146,7 @@ class QCircuit:
     def _lookahead_entries(self) -> List[Tuple[str, int]]:
         """(kind, target) stream in :meth:`Run`'s dispatch order, for a
         fuser that plans past its pending window (the pager's remap
-        planner, ROADMAP item 13)."""
+        planner, ops/fusion.py plan_remaps)."""
         out: List[Tuple[str, int]] = []
         for g in self.gates:
             for _perm, m in g.payloads.items():
@@ -155,9 +155,21 @@ class QCircuit:
 
     def Run(self, qsim) -> None:
         """Execute on any QInterface (reference: src/qcircuit.cpp:173)."""
-        for g in self.gates:
-            for perm, m in g.payloads.items():
-                qsim.MCMtrxPerm(g.controls, m, g.target, perm)
+        # prime the engine fuser's lookahead with the full gate list so
+        # the remap planner sees past the pending window; never clobber
+        # a horizon an outer caller already installed
+        fuser = getattr(qsim, "_fuser", None)
+        primed = False
+        if fuser is not None and fuser.lookahead is None:
+            fuser.set_lookahead(self._lookahead_entries())
+            primed = True
+        try:
+            for g in self.gates:
+                for perm, m in g.payloads.items():
+                    qsim.MCMtrxPerm(g.controls, m, g.target, perm)
+        finally:
+            if primed:
+                fuser.clear_lookahead()
 
     def _check_fused_range(self, n: int) -> None:
         # the per-gate path validates through _check_qubit; the fused
@@ -169,14 +181,27 @@ class QCircuit:
 
     def RunFused(self, qsim) -> None:
         """Execute the whole circuit as ONE fused window when the target
-        is the dense plane engine: the gates lower to the parametric
-        operand layout (ops/fusion.py) and the cost model picks the
-        single-sweep window kernel (one sweep per planned segment) or the
-        per-op window chain.  Per-gate dispatch otherwise (which on a
+        is the dense plane engine or the pager (through QHybrid too): the
+        gates lower to the parametric operand layout (ops/fusion.py) and
+        the cost model picks the single-sweep window kernel (one sweep
+        per planned segment) or the per-op window chain; on the pager the
+        whole op list is also the remap planner's horizon
+        (QPager._run_fused_ops).  Per-gate dispatch otherwise (which on a
         fuse-capable engine still windows through its fuser)."""
         from ..engines.cuda import QEngineCUDA
+        from ..engines.hybrid import QHybrid
         from ..ops import fusion as fu
+        from ..parallel.pager import QPager
 
+        if isinstance(qsim, QHybrid):
+            # fuse onto whatever engine the width switch currently holds
+            inner = qsim._engine
+            if isinstance(inner, (QEngineCUDA, QPager)):
+                return self.RunFused(inner)
+        if isinstance(qsim, QPager) and self.gates:
+            self._check_fused_range(qsim.qubit_count)
+            qsim._run_fused_ops(fu.lower_gates(self.gates))
+            return
         if isinstance(qsim, QEngineCUDA) and self.gates:
             n = qsim.qubit_count
             self._check_fused_range(n)

@@ -50,9 +50,11 @@ keyword arguments (``device``, ``dtype``) and ``self.rng.spawn()`` in
 the JAX package's order, so measurement outcomes agree draw for draw.
 ``compose_count`` and ``swap_count`` count the unit Composes of
 ``_merge`` and the in-unit Swaps of ``_order_contiguous``.  A merge past
-one device's dense width (QRACK_MAX_PAGE_QB, 30) raises QHybrid's
-NotImplementedError, since the pager is not ported (ROADMAP item 13);
-ACE catches only MemoryError, as in the JAX package.  Not ported yet:
+one device's dense width (QRACK_MAX_PAGE_QB, 30) takes QHybrid's pager
+mode: over a ``devices`` list (a keyword the units take) the ket goes
+into pages; without one, one page on one card is too narrow and the
+pager raises MemoryError, which ACE catches, as in the JAX package.
+Not ported yet:
 the telemetry counters (item 14) and the checkpoint hooks (item 15).
 """
 

@@ -11,8 +11,8 @@ use 2^k-wide cluster contractions (H^(x)k kron blocks), as models.rcs
 does.  No hand-written kernel: the engine path of the same search
 (algorithms.grover_search) is the one that runs the window kernel.
 
-The sharded program of the JAX package (make_sharded_grover_fn) waits
-for the pager (ROADMAP item 13).
+The sharded program of the JAX package (make_sharded_grover_fn) is a
+later part of the pager's port (ROADMAP item 13).
 """
 
 from __future__ import annotations

@@ -11,8 +11,8 @@ program and an engine ``QFT`` call give the same state gate for gate.
   package traced them into one XLA program): n H gates, and each stage's
   controlled phases as one elementwise pass.  No hand-written kernel.
 
-The sharded program of the JAX package (make_sharded_qft_fn) waits for
-the pager (ROADMAP item 13).
+The sharded program of the JAX package (make_sharded_qft_fn) is a
+later part of the pager's port (ROADMAP item 13).
 """
 
 from __future__ import annotations

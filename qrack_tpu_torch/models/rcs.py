@@ -11,8 +11,8 @@ kernel: the engine path of the same circuit
 (algorithms.random_circuit_sampling) is the one that runs the window
 kernel.
 
-The sharded program of the JAX package (make_sharded_rcs_fn) waits for
-the pager (ROADMAP item 13).
+The sharded program of the JAX package (make_sharded_rcs_fn) is a
+later part of the pager's port (ROADMAP item 13).
 """
 
 from __future__ import annotations

@@ -181,8 +181,8 @@ def dense_operands(ops: Sequence[FusedOp], dtype=torch.float32) -> List:
 # split-mask ("sharded") operand layout: masks arrive split at a tile,
 # chunk or page boundary into int32 halves, so a mask bit above 31 never
 # travels as one int32.  The TurboQuant window kernel takes this layout
-# (ops/turboquant_kernel.py); the pager's window bodies wait for the
-# pager slice.
+# (ops/turboquant_kernel.py), and so do the pager's window bodies below
+# (parallel/pager.py).
 #
 #   kind      payload operand                      extra (iff controlled)
 #   cphase    (2,)  [d1.re, d1.im]                 comb & (2^L-1), comb >> L
@@ -319,6 +319,441 @@ def flush_window(planes, n: int, ops: Sequence[FusedOp]):
 
 
 # ---------------------------------------------------------------------------
+# communication-minimizing qubit remapping (mpiQulacs discipline,
+# arXiv:2203.16044): the pager keeps a logical->physical placement table
+# and the planner below swaps hot page-placed target qubits into the
+# page before a window flushes, so runs of high-order gates execute as
+# in-page sweeps.  The swaps run as the prologue of the window
+# (sharded.apply_remap).  Host code, copied from the JAX package so both
+# take the same decisions.
+# ---------------------------------------------------------------------------
+
+def remap_mode() -> str:
+    """``QRACK_TPU_REMAP``: auto (default — plan remaps on multi-page
+    pagers), on (alias of auto), off (identity table)."""
+    v = os.environ.get("QRACK_TPU_REMAP", "auto").strip().lower()
+    return v if v in ("auto", "on", "off") else "auto"
+
+
+def collective_mode() -> str:
+    """``QRACK_TPU_COLLECTIVE``: auto (default — each remap prologue as
+    ONE batched exchange, (1-2^-k) of the state moved), on (alias of
+    auto), off (the pair-at-a-time lowering and planner)."""
+    v = os.environ.get("QRACK_TPU_COLLECTIVE", "auto").strip().lower()
+    return v if v in ("auto", "on", "off") else "auto"
+
+
+#: exchange cost of one paged-target 2x2, in units of the state's bytes
+#: (half a page out + half back, summed over pages)
+GEN_GLOBAL_COST = 1.0
+#: exchange cost of one remap transposition touching a page bit when it
+#: moves alone; also the deferral ceiling of the batched planner
+REMAP_PAIR_COST = 0.5
+
+
+def batched_exchange_cost(gbits, weights=None) -> float:
+    """Cost of one k-pair batched mixed exchange over page bits
+    ``gbits``, in state-bytes units: sum over the 2^k - 1 non-zero XOR
+    offsets of 2^-k, each priced at the most expensive page-bit axis it
+    crosses (uniform weights give 1 - 2^-k)."""
+    k = len(gbits)
+    if not k:
+        return 0.0
+    tot = 0.0
+    for d in range(1, 1 << k):
+        w = 1.0
+        if weights:
+            w = max(weights[gbits[j]] for j in range(k) if (d >> j) & 1)
+        tot += w
+    return tot / (1 << k)
+
+
+def plan_remaps(ops: Sequence[FusedOp], L: int, qmap: Sequence[int],
+                lookahead=None, weights=None, batched: bool = True):
+    """Score the pending window (+ lookahead) and pick placement swaps
+    that turn page-placed gen targets into in-page sweeps.  Returns
+    ``(swaps, new_qmap)``: PHYSICAL transpositions for the window
+    prologue and the table after them.  cphase/diag need no exchange at
+    any placement, so only non-diagonal hits score.
+
+    Batched model (default; units of the state's bytes, scaled by the
+    per-page-bit ``weights``): all k mixed pairs of one prologue move
+    together for ``batched_exchange_cost``, so candidates are ranked
+    jointly.  A hot page qubit's benefit is its in-window hits (which
+    otherwise pay GEN_GLOBAL_COST each) plus lookahead hits capped at
+    REMAP_PAIR_COST; a victim's charge is the same quantity for the hits
+    it will pay from the page slot it inherits.  The best hot-desc /
+    cold-asc prefix with positive net fires as ONE batch.
+    ``batched=False`` keeps the greedy pair-at-a-time rule.  Non-uniform
+    ``weights`` add a pass that moves hot qubits onto cheaper page
+    bits."""
+    n = len(qmap)
+    if L >= n:
+        return (), list(qmap)
+    win = [0.0] * n
+    look = [0.0] * n
+    for op in ops:
+        if op.kind in ("gen", "inv") and op.target < n:
+            win[op.target] += 1.0
+    if lookahead:
+        for kind, target in lookahead:
+            if kind in ("gen", "inv") and 0 <= target < n:
+                look[target] += 1.0
+
+    def wt(pos):
+        if weights is None or pos < L:
+            return 1.0
+        return weights[pos - L]
+
+    new_qmap = list(qmap)
+    swaps = []
+    if not batched:
+        hits = [win[q] + look[q] for q in range(n)]
+        while True:
+            glob = [(hits[q], -q) for q in range(n)
+                    if new_qmap[q] >= L and hits[q] > 0]
+            loc = [(hits[q], q) for q in range(n) if new_qmap[q] < L]
+            if not glob or not loc:
+                break
+            gh, negg = max(glob)
+            vh, v = min(loc)
+            if gh <= vh + REMAP_PAIR_COST:
+                break
+            g = -negg
+            p_g, p_v = new_qmap[g], new_qmap[v]
+            swaps.append((p_v, p_g))
+            new_qmap[g], new_qmap[v] = p_v, p_g
+        return tuple(swaps), new_qmap
+
+    def worth(q, pos):
+        return (win[q] * GEN_GLOBAL_COST
+                + min(look[q], REMAP_PAIR_COST)) * wt(pos)
+
+    hot = sorted(((worth(q, new_qmap[q]), q) for q in range(n)
+                  if new_qmap[q] >= L and (win[q] or look[q])),
+                 key=lambda t: (-t[0], t[1]))
+    cold = sorted(((win[q] * GEN_GLOBAL_COST + min(look[q],
+                                                   REMAP_PAIR_COST), q)
+                   for q in range(n) if new_qmap[q] < L),
+                  key=lambda t: (t[0], t[1]))
+    best_k, best_net = 0, 0.0
+    for k in range(1, min(len(hot), len(cold)) + 1):
+        gbits = [new_qmap[q] - L for _, q in hot[:k]]
+        net = -batched_exchange_cost(gbits, weights)
+        for (ben, hq), (esc, cq) in zip(hot[:k], cold[:k]):
+            net += ben - esc * wt(new_qmap[hq])
+        if net > best_net + 1e-9:
+            best_k, best_net = k, net
+    for (_, hq), (_, cq) in zip(hot[:best_k], cold[:best_k]):
+        p_g, p_v = new_qmap[hq], new_qmap[cq]
+        swaps.append((p_v, p_g))
+        new_qmap[hq], new_qmap[cq] = p_v, p_g
+    if weights is not None and len(set(weights)) > 1:
+        h = [win[q] + look[q] for q in range(n)]
+        used = {p - L for pair in swaps for p in pair if p >= L}
+        while True:
+            best = None
+            for q in range(n):
+                pq = new_qmap[q]
+                if pq < L or (pq - L) in used or h[q] <= 0:
+                    continue
+                for r in range(n):
+                    pr = new_qmap[r]
+                    if r == q or pr < L or (pr - L) in used:
+                        continue
+                    gain = ((h[q] - h[r]) * (wt(pq) - wt(pr))
+                            - REMAP_PAIR_COST * max(wt(pq), wt(pr)))
+                    if gain > 1e-9 and (best is None or gain > best[0]):
+                        best = (gain, q, r)
+            if best is None:
+                break
+            _, q, r = best
+            pq, pr = new_qmap[q], new_qmap[r]
+            swaps.append((pr, pq))
+            new_qmap[q], new_qmap[r] = pr, pq
+            used.add(pq - L)
+            used.add(pr - L)
+    return tuple(swaps), new_qmap
+
+
+def translate_ops(ops: Sequence[FusedOp], qmap: Sequence[int]):
+    """Rewrite ops from logical qubit indices to physical bit positions
+    under ``qmap``.  Fresh FusedOps: the caller's window keeps its
+    logical form."""
+    if all(q == p for q, p in enumerate(qmap)):
+        return list(ops)
+    out = []
+    for op in ops:
+        cmask = 0
+        cval = 0
+        m = op.cmask
+        q = 0
+        while m:
+            if m & 1:
+                p = qmap[q]
+                cmask |= 1 << p
+                if (op.cval >> q) & 1:
+                    cval |= 1 << p
+            m >>= 1
+            q += 1
+        out.append(FusedOp(op.kind, qmap[op.target], cmask, cval, op.m))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# pager window bodies: fn(pages, *operands) over the split-mask layout
+# above, with host operands (sharded_operands(..., device="cpu")).  The
+# pages are updated in place and the list (relabeled by page exchanges)
+# is returned.
+# ---------------------------------------------------------------------------
+
+def _host_floats(p) -> List[float]:
+    return [float(x) for x in torch.as_tensor(p).reshape(-1).tolist()]
+
+
+def sharded_window_body(L: int, npg: int, structure: Tuple, remap=(),
+                        batched: bool = True):
+    """The window chain on pages (``fusion.py:560`` of the JAX package):
+    op by op through the page algebra of ops/sharded.py, after the
+    optional remap prologue."""
+    from . import sharded as shb
+
+    lbits = (1 << L) - 1
+
+    def fn(pages, *operands):
+        if remap:
+            pages = shb.apply_remap(pages, L, remap, batched=batched)
+        i = 0
+        for kind, target, has_ctrl in structure:
+            p = operands[i]
+            i += 1
+            tmask = 1 << target
+            if kind == "cphase":
+                if has_ctrl:
+                    clo, chi = int(operands[i]), int(operands[i + 1])
+                    i += 2
+                else:
+                    clo, chi = tmask & lbits, tmask >> L
+                fre, fim = _host_floats(p)
+                # the factor lands where every bit of the combined mask
+                # is set: the target's bit picks d1, the rest control
+                tlo, thi = tmask & lbits, tmask >> L
+                pages = shb.apply_diag(pages, 1.0, 0.0, fre, fim, tlo, thi,
+                                       clo & ~tlo, clo & ~tlo,
+                                       chi & ~thi, chi & ~thi)
+                continue
+            if has_ctrl:
+                lm, lv, gm, gv = (int(x) for x in operands[i:i + 4])
+                i += 4
+            else:
+                lm = lv = gm = gv = 0
+            if kind == "diag":
+                d = _host_floats(p)
+                pages = shb.apply_diag(pages, d[0], d[1], d[2], d[3],
+                                       tmask & lbits, tmask >> L,
+                                       lm, lv, gm, gv)
+            elif target < L:
+                pages = shb.apply_local_2x2(pages, p, L, target,
+                                            lm, lv, gm, gv)
+            else:
+                pages = shb.apply_global_2x2(pages, p, target - L,
+                                             lm, lv, gm, gv)
+        return pages
+
+    return fn
+
+
+def _sharded_segments(structure: Tuple, L: int):
+    """Split a sharded window structure into kernel-lowered in-page runs
+    and pass-through paged-target gens."""
+    segs: List[Tuple] = []
+    cur: List[Tuple] = []
+    for idx, (kind, target, has_ctrl) in enumerate(structure):
+        if kind == "gen" and target >= L:
+            if cur:
+                segs.append(("run", cur))
+                cur = []
+            segs.append(("global", (idx, target, has_ctrl)))
+        else:
+            cur.append((idx, kind, target, has_ctrl))
+    if cur:
+        segs.append(("run", cur))
+    return segs
+
+
+def _sharded_run_structure(run, L: int) -> Tuple:
+    """Dense-kernel structure of one in-page run.  Page-level mask and
+    target bits fold into the payloads against the page id, so every op
+    is 'controlled' with the LOCAL mask halves, and a page-bit
+    cphase/diag becomes a diag whose two factors are equal."""
+    out = []
+    for (idx, kind, target, has_ctrl) in run:
+        if target >= L:  # cphase/diag on a page bit
+            out.append(("diag", 0, True))
+        else:
+            out.append((kind, target, True))
+    return tuple(out)
+
+
+def _sharded_offs(structure: Tuple) -> List[int]:
+    offs: List[int] = []
+    o = 0
+    for kind, target, has_ctrl in structure:
+        offs.append(o)
+        o += 1 + ((2 if kind == "cphase" else 4) if has_ctrl else 0)
+    return offs
+
+
+_IDENT_GEN = [1.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0]
+
+
+def _sharded_run_operands(run, L: int, operands, offs, pid: int):
+    """(floats, ints) of one in-page run on page ``pid`` in the window
+    kernel's packed layout (window_kernel.pack_operands of the run
+    structure): local masks pass through, page-level tests fold into the
+    payload (the identity where this page misses the page mask).  The
+    ints are the same on every page."""
+    lbits = (1 << L) - 1
+    fv: List[float] = []
+    iv: List[int] = []
+    for (idx, kind, target, has_ctrl) in run:
+        p = _host_floats(operands[offs[idx]])
+        if kind == "cphase":
+            if has_ctrl:
+                clo = int(operands[offs[idx] + 1])
+                chi = int(operands[offs[idx] + 2])
+            else:
+                comb = 1 << target
+                clo, chi = comb & lbits, comb >> L
+            page_ok = (pid & chi) == chi
+            fre, fim = (p[0], p[1]) if page_ok else (1.0, 0.0)
+            if target < L:
+                fv += [fre, fim]
+                cm = clo & (~(1 << target) & lbits)
+            else:
+                fv += [fre, fim, fre, fim]
+                cm = clo
+            iv += [cm, cm]
+            continue
+        if has_ctrl:
+            lm, lv, gm, gv = (int(x) for x in
+                              operands[offs[idx] + 1:offs[idx] + 5])
+        else:
+            lm = lv = gm = gv = 0
+        page_ok = (pid & gm) == gv
+        if kind == "diag":
+            if target < L:
+                fv += p if page_ok else [1.0, 0.0, 1.0, 0.0]
+            else:
+                tb = (pid & ((1 << target) >> L)) != 0
+                d = p[2:4] if tb else p[0:2]
+                d = d if page_ok else [1.0, 0.0]
+                fv += d + d
+        else:  # gen, target < L (paged targets were split out)
+            fv += p if page_ok else _IDENT_GEN
+        iv += [lm, lv]
+    return fv, iv
+
+
+def sharded_kernel_sweeps(structure: Tuple, L: int,
+                          block_pow: int = None) -> int:
+    """Sweeps over a page the kernel lowering pays: one per planned
+    kernel segment inside each in-page run, one per paged-target 2x2
+    (the window kernel launches this many times less the paged-target
+    count on every page)."""
+    from . import window_kernel as wk
+
+    bp = min(wk.DEFAULT_BLOCK_POW, L) if block_pow is None else block_pow
+    total = 0
+    for seg in _sharded_segments(structure, L):
+        if seg[0] == "global":
+            total += 1
+        else:
+            total += wk.plan_sweeps(_sharded_run_structure(seg[1], L), bp)
+    return total
+
+
+def sharded_kernel_lowering(L: int, structure: Tuple, device="cuda"):
+    """Pager twin of :func:`kernel_lowering`: the same mode and device
+    gates, sweeps counted through the run/exchange split.  A page of one
+    amplitude (L = 0) has no tile and takes the window chain."""
+    from . import window_kernel as wk
+
+    mode = kernel_mode()
+    if mode == "off":
+        return None, "mode_off"
+    if L < 1:
+        return None, "page_too_small"
+    bp = min(wk.DEFAULT_BLOCK_POW, L)
+    sweeps = sharded_kernel_sweeps(structure, L, bp)
+    plan = {"block_pow": bp, "sweeps": sweeps}
+    if mode == "on":
+        return plan, None
+    if not kernel_backend(device):
+        return None, "cpu_backend"
+    if len(structure) <= 1:
+        return None, "single_op"
+    if sweeps >= len(structure):
+        return None, "no_sweep_gain"
+    return plan, None
+
+
+def sharded_kernel_window_body(L: int, npg: int, structure: Tuple,
+                               block_pow: int = None, remap=(),
+                               batched: bool = True):
+    """The window kernel per page (``fusion.py:787`` of the JAX
+    package): fn(pages, *operands) with the SAME operand layout as
+    :func:`sharded_window_body`.  Each in-page run launches the window
+    kernel (ops/window_kernel.py: K1/K2) on every page, with one op
+    table and int vector for the run and only the float payloads per
+    page; each paged-target 2x2 runs as sharded.apply_global_2x2.  The
+    optional remap prologue comes first."""
+    from . import sharded as shb
+    from . import window_kernel as wk
+
+    bp = min(wk.DEFAULT_BLOCK_POW, L) if block_pow is None else block_pow
+    segments = _sharded_segments(structure, L)
+    offs = _sharded_offs(structure)
+    runs = {id(seg): _sharded_run_structure(seg[1], L)
+            for seg in segments if seg[0] == "run"}
+
+    def fn(pages, *operands):
+        if remap:
+            pages = shb.apply_remap(pages, L, remap, batched=batched)
+        for seg in segments:
+            if seg[0] == "global":
+                idx, target, has_ctrl = seg[1]
+                p = operands[offs[idx]]
+                if has_ctrl:
+                    lm, lv, gm, gv = (int(x) for x in
+                                      operands[offs[idx] + 1:offs[idx] + 5])
+                else:
+                    lm = lv = gm = gv = 0
+                pages = shb.apply_global_2x2(pages, p, target - L,
+                                             lm, lv, gm, gv)
+                continue
+            rs = runs[id(seg)]
+            packed = [_sharded_run_operands(seg[1], L, operands, offs, pid)
+                      for pid in range(len(pages))]
+            fv_host = gk.host_tensor(np.asarray([f for f, _ in packed]),
+                                     pages[0].dtype)
+            iv_host = torch.tensor(packed[0][1], dtype=torch.int32)
+            on = {}   # device -> (table, iv, fv rows)
+            for pid, page in enumerate(pages):
+                dev = page.device
+                if dev not in on:
+                    on[dev] = (wk.op_table(rs, dev), iv_host.to(dev),
+                               fv_host.to(dev))
+                table, iv, fv = on[dev]
+                wk.apply_window(page, L, rs, fv[pid], iv, table, bp)
+        return pages
+
+    fn.sweeps = sharded_kernel_sweeps(structure, L, bp)
+    fn.block_pow = bp
+    return fn
+
+
+# ---------------------------------------------------------------------------
 # the pending window
 # ---------------------------------------------------------------------------
 
@@ -332,22 +767,50 @@ class GateStreamFuser:
     ``_fuse_flush(gates) -> int`` (lower + dispatch).  On a flush
     failure the window is kept and the error propagates."""
 
-    __slots__ = ("engine", "window", "gates", "_flushing")
+    __slots__ = ("engine", "window", "gates", "_flushing", "lookahead",
+                 "lookahead_pos")
 
     def __init__(self, engine, window: int):
         self.engine = engine
         self.window = window
         self.gates: List = []   # merged QCircuitGate window
         self._flushing = False
+        # lookahead for the pager's remap planner: (kind, target) LOGICAL
+        # tuples of the gates a circuit runner is about to stream,
+        # consumed one entry per queued gate.  A heuristic: a gate merged
+        # away drifts the cursor, which costs planning accuracy only.
+        self.lookahead = None
+        self.lookahead_pos = 0
 
     @property
     def pending(self) -> bool:
         return bool(self.gates)
 
+    def set_lookahead(self, entries) -> None:
+        self.lookahead = tuple(entries)
+        self.lookahead_pos = 0
+
+    def clear_lookahead(self) -> None:
+        self.lookahead = None
+        self.lookahead_pos = 0
+
+    def lookahead_rest(self):
+        """Entries beyond the pending window (the window itself is
+        scored from its lowered ops)."""
+        la = self.lookahead
+        if not la:
+            return None
+        return la[self.lookahead_pos:] or None
+
     def queue(self, controls, m, target: int, perm: int) -> bool:
         """Admit one gate into the window.  Returns False (after flushing
         any pending window, to preserve order) when the op cannot join —
         the caller then dispatches it eagerly."""
+        if (self.lookahead is not None
+                and self.lookahead_pos < len(self.lookahead)):
+            # the gate is consumed from the runner's stream either way
+            # (fused or eager), so the cursor advances unconditionally
+            self.lookahead_pos += 1
         eng = self.engine
         if not eng._fuse_admit(m, target, controls):
             self.flush()

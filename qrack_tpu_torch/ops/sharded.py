@@ -1,8 +1,56 @@
-"""Split-mask helper of the JAX package's ops/sharded.py (the rest of
-that module, the pager's exchange and remap programs, waits for the
-pager slice)."""
+"""Page algebra of the pager (counterpart of the JAX package's
+ops/sharded.py).
+
+The JAX package runs these bodies inside a ``shard_map`` over a mesh
+axis ``pages``, one page a device, with ``ppermute`` for every move
+between pages.  Here a ket of ``G = 2^g`` pages is a Python list of
+``(2, 2^L)`` plane tensors, ``pages[p]`` the page whose id is ``p``
+(its amplitudes are ``[p * 2^L, (p + 1) * 2^L)``), each on a device of
+its own or several on one.  Every function takes that list and reads a
+page's id from its position: there is no traced ``page_id()``.  Masks
+arrive split into (local, page) halves, so no index past the page is
+ever built and every local index fits int32 (L <= 30).
+
+Memory: at L = 30 a float32 page is 8 GiB, so nothing here builds a
+page-sized temporary.  The gate bodies, the exchanges and the collapse
+run in place on the page tensors, a block of at most :data:`CHUNK`
+amplitudes at a time (the JAX package's bound is half a page of extra
+memory, ``apply_global_2x2``).  Pages that sit on one device exchange by
+relabeling the list or by an in-place swap of their halves; pages on
+different devices copy the block that moves (reference MetaSwap,
+src/qpager.cpp:1314-1350: a page-pointer permutation).
+
+``compose_ring`` and ``gather_ring`` build new pages (the result of a
+Compose or a basis permutation cannot overwrite its input), one block of
+a page at a time.
+"""
 
 from __future__ import annotations
+
+import itertools
+from typing import List, NamedTuple, Sequence
+
+import torch
+
+from . import gatekernels as gk
+
+#: amplitudes a block of the in-place page passes touches at a time
+CHUNK = 1 << 26
+
+#: exchanges run, by kind, and the bytes they must read and write on the
+#: card: each element a pass mixes or moves read once and written once
+#: (a relabeling of pages on one device moves none).  A host-side count.
+EXCHANGES = {"global_2x2": 0, "mixed_swap": 0, "batched_swap": 0,
+             "local_swap": 0, "page_relabel": 0, "bytes": 0}
+
+
+def reset_exchanges() -> None:
+    for k in EXCHANGES:
+        EXCHANGES[k] = 0
+
+
+def _page_bytes(page) -> int:
+    return page.numel() * page.element_size()
 
 
 def split_masks(mask: int, val: int, local_bits: int):
@@ -12,3 +60,706 @@ def split_masks(mask: int, val: int, local_bits: int):
     lmask = mask & ((1 << local_bits) - 1)
     lval = val & ((1 << local_bits) - 1)
     return lmask, lval, mask >> local_bits, val >> local_bits
+
+
+# ---------------------------------------------------------------------------
+# blocks and in-place primitives
+# ---------------------------------------------------------------------------
+
+def _blocks(dims: Sequence[int], chunk: int = None):
+    """Index tuples (an int or a slice per dim) that tile an array of
+    shape ``dims`` (powers of two) in blocks of at most ``chunk``
+    elements, the trailing dims whole."""
+    chunk = CHUNK if chunk is None else chunk
+    inner, j = 1, len(dims)
+    while j > 0 and inner * dims[j - 1] <= chunk:
+        j -= 1
+        inner *= dims[j]
+    whole = tuple(slice(None) for _ in dims[j:])
+    if j == 0:
+        yield whole
+        return
+    step = max(1, chunk // inner)
+    for lead in itertools.product(*(range(d) for d in dims[:j - 1])):
+        for s in range(0, dims[j - 1], step):
+            yield lead + (slice(s, s + step),) + whole
+
+
+def _block_index(dims: Sequence[int], strides: Sequence[int], blk, device):
+    """The in-page index of every element of block ``blk`` of a view of
+    shape ``dims`` whose dim i steps the page index by ``strides[i]``."""
+    offset, parts = 0, []
+    for d, st, b in zip(dims, strides, blk):
+        if isinstance(b, int):      # the view drops this dim
+            offset += b * st
+        else:
+            parts.append(torch.arange(*b.indices(d), dtype=gk.IDX_DTYPE,
+                                      device=device) * st)
+    idx = None
+    for k, part in enumerate(parts):
+        shape = [1] * len(parts)
+        shape[k] = -1
+        part = part.view(shape)
+        idx = part if idx is None else idx + part
+    return idx + offset
+
+
+def _swap_(x, y) -> None:
+    """Exchange two plane views in place (they may lie on two devices)."""
+    tmp = x.clone()
+    x.copy_(y)
+    y.copy_(tmp)
+
+
+def _mix_(a, b, m, sel_a=None, sel_b=None, write_a=True,
+          write_b=True) -> None:
+    """In place on plane views a, b (2, ...): a <- m00 a + m01 b and
+    b <- m10 a + m11 b, complex, in the planes' compute type.  Where a
+    select is given, only its true elements take the new value."""
+    ct = gk.compute_dtype(a.dtype)
+    ar, ai = a[0].to(ct), a[1].to(ct)
+    br, bi = b[0].to(ct), b[1].to(ct)
+    outs = []
+    for row, write, sel, keep_r, keep_i in ((0, write_a, sel_a, ar, ai),
+                                            (1, write_b, sel_b, br, bi)):
+        if not write:
+            continue
+        m0, m1 = complex(m[row, 0]), complex(m[row, 1])
+        re = ar * m0.real
+        re.add_(ai, alpha=-m0.imag).add_(br, alpha=m1.real)
+        re.add_(bi, alpha=-m1.imag)
+        im = ai * m0.real
+        im.add_(ar, alpha=m0.imag).add_(bi, alpha=m1.real)
+        im.add_(br, alpha=m1.imag)
+        if sel is not None:
+            re = torch.where(sel, re, keep_r)
+            im = torch.where(sel, im, keep_i)
+        outs.append((a if row == 0 else b, re, im))
+    for dst, re, im in outs:
+        dst[0].copy_(re)
+        dst[1].copy_(im)
+
+
+def _cmul_(v, fre, fim) -> None:
+    """v (2, ...) *= fre + i fim in place; scalars or tensors."""
+    ct = gk.compute_dtype(v.dtype)
+    vr, vi = v[0].to(ct), v[1].to(ct)
+    nr = vr * fre - vi * fim
+    ni = vr * fim + vi * fre
+    v[0].copy_(nr)
+    v[1].copy_(ni)
+
+
+# ---------------------------------------------------------------------------
+# gates
+# ---------------------------------------------------------------------------
+
+def _matrix(mp, dtype):
+    """(2, 2) complex of (2, 2, 2) matrix planes, each entry rounded to
+    the planes' dtype (the JAX package's payloads are in that dtype)."""
+    h = gk.host_tensor(gk._host_planes(mp), dtype).to(torch.float64).numpy()
+    return h[0] + 1j * h[1]
+
+
+def _local_pair_(page, L: int, target: int, m, lmask: int, lval: int):
+    """2x2 on an in-page target, in place, block by block."""
+    low, high = 1 << target, 1 << (L - 1 - target)
+    v = page.view(2, high, 2, low)
+    for blk in _blocks((high, low)):
+        a = v[(slice(None), blk[0], 0, blk[1])]
+        b = v[(slice(None), blk[0], 1, blk[1])]
+        sel = None
+        if lmask:
+            idx = _block_index((high, low), (2 * low, 1), blk, page.device)
+            sel = (idx & lmask) == lval
+        _mix_(a, b, m, sel, sel)
+
+
+def apply_local_2x2(pages: List, mp, L: int, target: int, lmask, lval,
+                    gmask, gval) -> List:
+    """Non-diagonal gate on an in-page target, on the pages the page
+    mask selects (``ops/sharded.py:30``)."""
+    if not pages:
+        return pages
+    m = _matrix(mp, pages[0].dtype)
+    for p, page in enumerate(pages):
+        if (p & gmask) == gval:
+            _local_pair_(page, L, target, m, int(lmask), int(lval))
+    return pages
+
+
+def apply_global_2x2(pages: List, mp, gpos: int, lmask, lval, gmask,
+                     gval) -> List:
+    """Non-diagonal gate on a page bit (``ops/sharded.py:37``): each page
+    pair (p0, p1 = p0 | 2^gpos) mixes block by block, in place.  Page
+    p0's amplitudes are the |0> halves of the pairs, p1's the |1>
+    halves; a block of p1 travels to p0's device and back when the two
+    lie apart.  A 1-amplitude page is one block like any other."""
+    if not pages:
+        return pages
+    m = _matrix(mp, pages[0].dtype)
+    bit = 1 << gpos
+    lmask, lval = int(lmask), int(lval)
+    EXCHANGES["global_2x2"] += 1
+    for p0 in range(len(pages)):
+        if p0 & bit:
+            continue
+        p1 = p0 | bit
+        ok0, ok1 = (p0 & gmask) == gval, (p1 & gmask) == gval
+        if not (ok0 or ok1):
+            continue
+        EXCHANGES["bytes"] += (2 + ok0 + ok1) * _page_bytes(pages[p0])
+        A, B = pages[p0], pages[p1]
+        size = A.shape[-1]
+        for blk in _blocks((size,)):
+            a = A[:, blk[0]]
+            b = B[:, blk[0]]
+            apart = b.device != a.device
+            if apart:
+                b_home, b = b, b.to(a.device)
+            sel = None
+            if lmask:
+                idx = _block_index((size,), (1,), blk, A.device)
+                sel = (idx & lmask) == lval
+            _mix_(a, b, m, sel, sel, write_a=ok0, write_b=ok1)
+            if apart and ok1:
+                b_home.copy_(b)
+    return pages
+
+
+def apply_diag(pages: List, d0re, d0im, d1re, d1im, tlo, thi, clo, cvlo,
+               chi, cvhi) -> List:
+    """Diagonal gate with split target and control masks, in place
+    (``ops/sharded.py:91``): no page moves."""
+    tlo, clo, cvlo = int(tlo), int(clo), int(cvlo)
+    for p, page in enumerate(pages):
+        if (p & chi) != cvhi:
+            continue
+        hbit = (p & thi) != 0
+        if not tlo and not clo:   # one factor for the whole page
+            fre, fim = (d1re, d1im) if hbit else (d0re, d0im)
+            if fre == 1.0 and fim == 0.0:
+                continue
+            for blk in _blocks((page.shape[-1],)):
+                _cmul_(page[:, blk[0]], float(fre), float(fim))
+            continue
+        ct = gk.compute_dtype(page.dtype)
+        d0r, d0i, d1r, d1i, one, zero = (
+            torch.tensor(float(x), dtype=ct, device=page.device)
+            for x in (d0re, d0im, d1re, d1im, 1.0, 0.0))
+        size = page.shape[-1]
+        for blk in _blocks((size,)):
+            idx = _block_index((size,), (1,), blk, page.device)
+            if hbit:
+                fre, fim = d1r, d1i
+            else:
+                bit = (idx & tlo) != 0
+                fre = torch.where(bit, d1r, d0r)
+                fim = torch.where(bit, d1i, d0i)
+            if clo:
+                ok = (idx & clo) == cvlo
+                fre = torch.where(ok, fre, one)
+                fim = torch.where(ok, fim, zero)
+            _cmul_(page[:, blk[0]], fre, fim)
+    return pages
+
+
+def apply_factor(pages: List, L: int, fn, index_dtype=gk.IDX_DTYPE) -> List:
+    """Multiply every amplitude by the complex factor ``fn(idx)`` of its
+    global basis index, in place, block by block (the pager's phase
+    functions, <= 31 qubits: the global index as ``index_dtype``)."""
+    for p, page in enumerate(pages):
+        size = page.shape[-1]
+        for blk in _blocks((size,)):
+            s, e, _ = blk[0].indices(size)
+            idx = torch.arange(s, e, dtype=index_dtype, device=page.device)
+            idx = idx + (p << L)
+            fre, fim = fn(page, idx)
+            _cmul_(page[:, blk[0]], fre, fim)
+    return pages
+
+
+def collapse(pages: List, lmask, lval, gmask, gval, scale: float) -> List:
+    """Projective collapse: the selected amplitudes times ``scale``, the
+    rest zero, in place."""
+    lmask, lval = int(lmask), int(lval)
+    for p, page in enumerate(pages):
+        if (p & gmask) != gval:
+            page.zero_()
+            continue
+        size = page.shape[-1]
+        for blk in _blocks((size,)):
+            v = page[:, blk[0]]
+            if not lmask:
+                v.mul_(scale)
+                continue
+            idx = _block_index((size,), (1,), blk, page.device)
+            keep = (idx & lmask) == lval
+            v.copy_(torch.where(keep, v * scale, torch.zeros((), dtype=v.dtype,
+                                                           device=v.device)))
+    return pages
+
+
+def prob_mask(pages: List, lmask, lval, gmask, gval) -> float:
+    """Sum of |amp|^2 over the selected amplitudes; each block sums in
+    the planes' dtype, the blocks and pages in float64 on the host."""
+    lmask, lval = int(lmask), int(lval)
+    total = 0.0
+    for p, page in enumerate(pages):
+        if (p & gmask) != gval:
+            continue
+        size = page.shape[-1]
+        for blk in _blocks((size,)):
+            v = page[:, blk[0]]
+            pr = v[0] ** 2 + v[1] ** 2
+            if lmask:
+                idx = _block_index((size,), (1,), blk, page.device)
+                pr = torch.where((idx & lmask) == lval, pr, 0.0)
+            total += float(pr.sum())
+    return total
+
+
+def page_probs(pages: List) -> List[float]:
+    """Each page's total probability (the marginals of the page bits)."""
+    return [prob_mask([page], 0, 0, 0, 0) for page in pages]
+
+
+# ---------------------------------------------------------------------------
+# exchanges
+# ---------------------------------------------------------------------------
+
+def _relabel(pages: List, src_of) -> List:
+    """new[j] = pages[src_of(j)], moved to slot j's device when it lies
+    elsewhere (a pure pointer move on one device)."""
+    EXCHANGES["page_relabel"] += 1
+    for j in range(len(pages)):
+        if pages[src_of(j)].device != pages[j].device:
+            EXCHANGES["bytes"] += 2 * _page_bytes(pages[j])
+    return [pages[src_of(j)].to(pages[j].device) for j in range(len(pages))]
+
+
+def page_swap(pages: List, g1: int, g2: int) -> List:
+    """Swap two page bits: the pages whose g1 and g2 bits differ trade
+    places (reference MetaSwap, src/qpager.cpp:1314)."""
+    both = (1 << g1) | (1 << g2)
+
+    def src(j):
+        return j if ((j >> g1) & 1) == ((j >> g2) & 1) else j ^ both
+
+    return _relabel(pages, src)
+
+
+def swap_bits_(page, L: int, q1: int, q2: int):
+    """Swap two in-page bits in place, block by block."""
+    lo, hi = (q1, q2) if q1 < q2 else (q2, q1)
+    h, m, l = 1 << (L - 1 - hi), 1 << (hi - lo - 1), 1 << lo
+    v = page.view(2, h, 2, m, 2, l)
+    EXCHANGES["local_swap"] += 1
+    EXCHANGES["bytes"] += _page_bytes(page)   # half of it, read and written
+    for blk in _blocks((h, m, l)):
+        x = v[(slice(None), blk[0], 1, blk[1], 0, blk[2])]
+        y = v[(slice(None), blk[0], 0, blk[1], 1, blk[2])]
+        _swap_(x, y)
+    return page
+
+
+def mixed_swap(pages: List, L: int, lpos: int, gpos: int) -> List:
+    """Swap an in-page bit with a page bit (``ops/sharded.py:207``): page
+    p0 (g-bit 0) keeps its l-bit-0 half and page p1 = p0 | 2^gpos its
+    l-bit-1 half; p0's l-bit-1 half and p1's l-bit-0 half trade places,
+    in place."""
+    lo, hi = 1 << lpos, 1 << (L - 1 - lpos)
+    bit = 1 << gpos
+    EXCHANGES["mixed_swap"] += 1
+    for p0 in range(len(pages)):
+        if p0 & bit:
+            continue
+        EXCHANGES["bytes"] += 2 * _page_bytes(pages[p0])
+        v0 = pages[p0].view(2, hi, 2, lo)
+        v1 = pages[p0 | bit].view(2, hi, 2, lo)
+        for blk in _blocks((hi, lo)):
+            _swap_(v0[(slice(None), blk[0], 1, blk[1])],
+                   v1[(slice(None), blk[0], 0, blk[1])])
+    return pages
+
+
+# ---------------------------------------------------------------------------
+# batched exchange: ANY sequence of physical bit-position transpositions
+# composes into one permutation, which lowers as
+#   L_post . page_perm . mixed_batch . L_pre
+# (the JAX package's ops/sharded.py, mpiQulacs' fused multi-qubit
+# exchange, arXiv:2203.16044).  The planning below is host code, copied.
+# ---------------------------------------------------------------------------
+
+class ExchangePlan(NamedTuple):
+    """Static decomposition of a composed bit permutation (host-side)."""
+    pre: tuple        # local transpositions before the exchange (free)
+    k: int            # boundary-crossing pair count
+    gpos: tuple       # page bit paired with carrier local bit (L-k+j)
+    page_dest: tuple  # page-bit position map i -> page_dest[i], or None
+    post: tuple       # local transpositions after the exchange (free)
+
+
+def compose_swaps(n: int, swaps):
+    """``src[p]`` = original position of the content that a sequential
+    application of ``swaps`` leaves at position p."""
+    src = list(range(n))
+    for p1, p2 in swaps:
+        src[p1], src[p2] = src[p2], src[p1]
+    return src
+
+
+def _perm_swaps(f):
+    """Transpositions realizing position map f (content at x ends at
+    f[x]) when applied in order — selection-sort cycle decomposition,
+    <= len(f)-1 pairs."""
+    n = len(f)
+    cur = list(range(n))   # cur[p] = content at position p
+    pos = list(range(n))   # pos[c] = position of content c
+    g = [0] * n
+    for x in range(n):
+        g[f[x]] = x
+    out = []
+    for p in range(n):
+        c = g[p]
+        q = pos[c]
+        if q != p:
+            out.append((p, q))
+            c2 = cur[p]
+            cur[p], cur[q] = c, c2
+            pos[c], pos[c2] = p, q
+    return tuple(out)
+
+
+def plan_exchange(L: int, g: int, swaps):
+    """Decompose a transposition sequence over L local + g page bits into
+    an :class:`ExchangePlan`.  None when the composition is identity."""
+    n = L + g
+    src = compose_swaps(n, swaps)
+    dest = [0] * n
+    for p in range(n):
+        dest[src[p]] = p
+    if all(dest[c] == c for c in range(n)):
+        return None
+    cross_in = [c for c in range(L) if dest[c] >= L]   # local -> page
+    crossers = [t for t in range(L, n) if dest[t] < L]  # page -> local
+    k = len(cross_in)
+    carriers = list(range(L - k, L))
+    # pair each crossing content with the carrier of the page slot it is
+    # DESTINED for whenever that slot is itself vacating, so disjoint
+    # local<->global batches leave an identity residual page permutation
+    by_dest = {dest[c]: c for c in cross_in}
+    ordered = [by_dest.pop(t, None) for t in crossers]
+    leftovers = iter(c for c in cross_in if c in by_dest.values())
+    cross_in = [c if c is not None else next(leftovers) for c in ordered]
+    # pre-shuffle: crossing local contents onto the carrier (top-k) bits,
+    # everything else staying put where possible
+    A = {c: carriers[j] for j, c in enumerate(cross_in)}
+    freeset = {p for p in range(L) if p not in set(A.values())}
+    later = []
+    for c in range(L):
+        if c in A:
+            continue
+        if c in freeset:
+            A[c] = c
+            freeset.discard(c)
+        else:
+            later.append(c)
+    for c, p in zip(later, sorted(freeset)):
+        A[c] = p
+    pre = _perm_swaps([A[c] for c in range(L)])
+    gpos = tuple(t - L for t in crossers)
+    # residual page permutation after the mixed batch
+    content_at_page = {t: cross_in[j] for j, t in enumerate(crossers)}
+    page_dest = tuple(dest[content_at_page.get(L + i, L + i)] - L
+                      for i in range(g))
+    if all(page_dest[i] == i for i in range(g)):
+        page_dest = None
+    # post-shuffle: carriers now hold the crossed-in page contents; send
+    # every local content to its final slot
+    content_at = {carriers[j]: t for j, t in enumerate(crossers)}
+    content_at.update({A[c]: c for c in range(L) if c not in cross_in})
+    post = _perm_swaps([dest[content_at[x]] for x in range(L)])
+    return ExchangePlan(pre, k, gpos, page_dest, post)
+
+
+def page_perm_of(page_dest, g: int):
+    """[(src_page, dst_page)] total map for a page-bit position map."""
+    npg = 1 << g
+    perm = []
+    for j in range(npg):
+        r = 0
+        for i in range(g):
+            if (j >> i) & 1:
+                r |= 1 << page_dest[i]
+        perm.append((j, r))
+    return perm
+
+
+def batched_mixed_swap(pages: List, L: int, k: int, gpos,
+                       carriers=None) -> List:
+    """k disjoint mixed transpositions — carrier local bits (default the
+    top k, [L-k, L)) against page bits ``gpos`` — as one batched exchange
+    (``ops/sharded.py:352``).  A page's carrier bits split it into 2^k
+    sub-blocks (sub-block s: carrier bit j = bit j of s); within each
+    group of 2^k pages that differ only in their ``gpos`` bits (group
+    index b: bit j = page bit gpos[j]), the page of index b ends with
+    sub-block s of the page of index s, sub-block b — a block transpose,
+    done as in-place swaps of the off-diagonal sub-blocks, (1 - 2^-k) of
+    the state moved."""
+    nsub = 1 << k
+    if carriers is None:
+        carriers = list(range(L - k, L))
+    shape, axis_of, rest = gk._bit_view(L, carriers)
+    rest_dims = [shape[a] for a in rest]
+    mask = 0
+    for gp in gpos:
+        mask |= 1 << gp
+
+    def member(base, b):
+        p = base
+        for j, gp in enumerate(gpos):
+            if (b >> j) & 1:
+                p |= 1 << gp
+        return p
+
+    def sub_view(v, s, blk):
+        idx = [slice(None)] * len(shape)
+        for j, c in enumerate(carriers):
+            idx[axis_of[c]] = (s >> j) & 1
+        for a, b in zip(rest, blk):
+            idx[a] = b
+        return v[tuple(idx)]
+
+    EXCHANGES["batched_swap"] += 1
+    for base in range(len(pages)):
+        if base & mask:
+            continue
+        EXCHANGES["bytes"] += (2 * nsub * (nsub - 1)
+                               * _page_bytes(pages[base]) // nsub)
+        views = [pages[member(base, b)].view(shape) for b in range(nsub)]
+        for b in range(nsub):
+            for s in range(b + 1, nsub):
+                for blk in _blocks(rest_dims):
+                    _swap_(sub_view(views[b], s, blk),
+                           sub_view(views[s], b, blk))
+    return pages
+
+
+def _direct_exchange(L: int, g: int, swaps):
+    """(carriers, gpos, page_dest) of a composed permutation that moves
+    no in-page content but the ones leaving the page, so the batched
+    exchange can run on the carriers where they are, with no in-page
+    bit swaps before or after (each page content that enters lands where
+    a leaving one was); None otherwise or for the identity."""
+    n = L + g
+    src = compose_swaps(n, swaps)
+    dest = [0] * n
+    for p in range(n):
+        dest[src[p]] = p
+    if all(dest[c] == c for c in range(n)):
+        return None
+    if any(dest[c] < L and dest[c] != c for c in range(L)):
+        return None
+    crossers = [t for t in range(L, n) if dest[t] < L]
+    carriers = [dest[t] for t in crossers]
+    landed = {t: c for t, c in zip(crossers, carriers)}
+    page_dest = tuple(dest[landed.get(L + i, L + i)] - L for i in range(g))
+    if all(page_dest[i] == i for i in range(g)):
+        page_dest = None
+    return carriers, tuple(t - L for t in crossers), page_dest
+
+
+def apply_remap(pages: List, L: int, swaps, batched: bool = True) -> List:
+    """Apply a sequence of PHYSICAL bit-position transpositions (p1, p2)
+    (``ops/sharded.py:380``): the planner's prologue of a window.
+
+    ``batched`` (default) composes the sequence into one permutation and
+    lowers it through :func:`plan_exchange` — in-place local bit swaps,
+    one (1 - 2^-k)-volume batched exchange and one page relabeling.
+    Where the permutation leaves every other in-page content in place
+    (the planner's prologues: disjoint in-page/page pairs), the batched
+    exchange runs on the carrier bits where they are and the in-page
+    swaps, an HBM pass each on one card, are skipped.
+    ``batched=False`` is the pair-at-a-time lowering (one half-page
+    exchange for each pair that touches a page bit)."""
+    if not batched:
+        for p1, p2 in swaps:
+            if p1 > p2:
+                p1, p2 = p2, p1
+            if p2 < L:
+                for page in pages:
+                    swap_bits_(page, L, p1, p2)
+            elif p1 >= L:
+                pages = page_swap(pages, p1 - L, p2 - L)
+            else:
+                pages = mixed_swap(pages, L, p1, p2 - L)
+        return pages
+    g = len(pages).bit_length() - 1
+    direct = _direct_exchange(L, g, swaps)
+    if direct is not None:
+        carriers, gpos, page_dest = direct
+        if carriers:
+            pages = batched_mixed_swap(pages, L, len(carriers), gpos,
+                                       carriers)
+        if page_dest is not None:
+            src = {r: j for j, r in page_perm_of(page_dest, g)}
+            pages = _relabel(pages, lambda r: src[r])
+        return pages
+    plan = plan_exchange(L, g, swaps)
+    if plan is None:
+        return pages
+    for p1, p2 in plan.pre:
+        for page in pages:
+            swap_bits_(page, L, p1, p2)
+    if plan.k:
+        pages = batched_mixed_swap(pages, L, plan.k, plan.gpos)
+    if plan.page_dest is not None:
+        src = {r: j for j, r in page_perm_of(plan.page_dest, g)}
+        pages = _relabel(pages, lambda r: src[r])
+    for p1, p2 in plan.post:
+        for page in pages:
+            swap_bits_(page, L, p1, p2)
+    return pages
+
+
+def exchange_cost(L: int, g: int, swaps, weights=None,
+                  batched: bool = True) -> float:
+    """Host-side accounting twin of :func:`apply_remap`: the fraction of
+    the state's bytes the lowering moves between pages.  ``weights``
+    (per page bit) turn bytes into planner cost units; None counts raw
+    bytes."""
+    def w(bits):
+        if not weights:
+            return 1.0
+        return max(weights[b] for b in bits)
+
+    if not batched:
+        tot = 0.0
+        for p1, p2 in swaps:
+            lo, hi = min(p1, p2), max(p1, p2)
+            if hi < L:
+                continue
+            tot += 0.5 * w([b - L for b in (lo, hi) if b >= L])
+        return tot
+    plan = plan_exchange(L, g, swaps)
+    if plan is None:
+        return 0.0
+    tot = 0.0
+    nsub = 1 << plan.k
+    for d in range(1, nsub):
+        tot += w([plan.gpos[j] for j in range(plan.k)
+                  if (d >> j) & 1]) / nsub
+    if plan.page_dest is not None:
+        npg = 1 << g
+        for j, r in page_perm_of(plan.page_dest, g):
+            if r != j:
+                tot += w([b for b in range(g) if ((j ^ r) >> b) & 1]) / npg
+    return tot
+
+
+# ---------------------------------------------------------------------------
+# ring forms: results that cannot overwrite their input
+# ---------------------------------------------------------------------------
+
+def gather_ring(pages: List, L: int, split_body, targs,
+                keep_default=None) -> List:
+    """Cross-page basis permutation (``ops/sharded.py:104``): new[(pid,
+    i)] = old[(sp, sl)] with (sp, sl) the page and in-page halves that
+    ``split_body(torch, pid, lidx, L, *targs)`` gives (and an optional
+    third result, a keep mask; elements outside it are zero).  Each new
+    page is built block by block from the source pages it reads."""
+    out = []
+    for pid, page in enumerate(pages):
+        new = torch.zeros_like(page)
+        size = page.shape[-1]
+        for blk in _blocks((size,)):
+            lidx = _block_index((size,), (1,), blk, page.device)
+            res = split_body(torch, pid, lidx, L, *targs)
+            sp, sl = res[0], res[1]
+            keep = res[2] if len(res) > 2 else keep_default
+            dst = new[:, blk[0]]
+            for holder, src in enumerate(pages):
+                take = sp == holder
+                if keep is not None:
+                    take = take & keep
+                if not bool(take.any()):
+                    continue
+                pos = take.nonzero().squeeze(-1)
+                got = src[:, sl[pos].to(src.device, torch.int64)]
+                dst[:, pos] = got.to(page.device)
+        out.append(new)
+    return out
+
+
+def compose_ring(pages_a: List, b, L_in: int, start: int, n1: int,
+                 n2: int) -> List:
+    """Compose on pages (``ops/sharded.py:131``): out = A (x) B with B's
+    n2 qubits inserted at ``start``, page for page (reference
+    CombineEngines, src/qpager.cpp:316-367).  ``b`` is B's (2, 2^n2)
+    planes; each output element out[(pid, i)] = A[a_src] * B[j] with
+    (a_src, j) decoded from the output's (page, local) index, without a
+    global index.  Where B lies below the page bits (start <= L_in)
+    every element reads its own page."""
+    L_out = L_in + n2
+    npg = len(pages_a)
+    aligned = start <= L_in
+    out = []
+    for pid, A in enumerate(pages_a):
+        dev = A.device
+        bd = b.to(dev, A.dtype)
+        new = torch.empty((2, 1 << L_out), dtype=A.dtype, device=dev)
+        for blk in _blocks((1 << L_out,)):
+            s, e, _ = blk[0].indices(1 << L_out)
+            i = torch.arange(s, e, dtype=torch.int64, device=dev)
+
+            def field(lo: int, width: int):
+                """Bits [lo, lo + width) of the global output index, read
+                from (i, pid)."""
+                val = torch.zeros_like(i)
+                take = 0
+                if width <= 0:
+                    return val
+                if lo < L_out:
+                    take = min(width, L_out - lo)
+                    val = (i >> lo) & ((1 << take) - 1)
+                if lo + width > L_out:
+                    plo = max(lo, L_out) - L_out
+                    pw = lo + width - max(lo, L_out)
+                    val = val | (((pid >> plo) & ((1 << pw) - 1)) << take)
+                return val
+
+            l = field(0, start)
+            j = field(start, n2)
+            h = field(start + n2, n1 - start)
+            a_src = (h << start) | l
+            sp = a_src >> L_in
+            sl = a_src & ((1 << L_in) - 1)
+            br, bi = bd[0][j], bd[1][j]
+            dst = new[:, blk[0]]
+            holders = [pid] if aligned else range(npg)
+            for holder in holders:
+                src = pages_a[holder]
+                if aligned:
+                    pos = None
+                    idx = sl
+                else:
+                    take = sp == holder
+                    if not bool(take.any()):
+                        continue
+                    pos = take.nonzero().squeeze(-1)
+                    idx = sl[pos]
+                ar = src[0][idx.to(src.device)].to(dev)
+                ai = src[1][idx.to(src.device)].to(dev)
+                bbr = br if pos is None else br[pos]
+                bbi = bi if pos is None else bi[pos]
+                vr = ar * bbr - ai * bbi
+                vi = ar * bbi + ai * bbr
+                if pos is None:
+                    dst[0].copy_(vr)
+                    dst[1].copy_(vi)
+                else:
+                    dst[0, pos] = vr
+                    dst[1, pos] = vi
+        out.append(new)
+    return out

@@ -163,13 +163,23 @@ def test_hybrid_crosses_the_threshold_both_ways_like_jax():
 
 
 def test_hybrid_past_one_device_raises_naming_the_pager():
-    port, _ = _hybrids(5, 1, threshold=4, pager=6)
-    port.Allocate(0, 1)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        port.Allocate(0, 1)
-    assert port.qubit_count == 6
-    with pytest.raises(NotImplementedError, match="item 13"):
-        QHybrid(7, tpu_threshold_qubits=4, pager_threshold_qubits=6,
+    """Past its pager threshold QHybrid holds the ket in QPager's pages,
+    as the JAX package's does; where one page would pass 2^30 amplitudes
+    (no device list to page over) the pager raises, naming itself."""
+    from qrack_tpu_torch.parallel.pager import QPager
+
+    port, ref = _hybrids(5, 1, threshold=4, pager=6)
+    for q in (port, ref):
+        q.H(0)
+        q.CNOT(0, 4)
+        q.Allocate(0, 1)
+        q.Allocate(0, 1)
+        q.CNOT(2, 6)
+    assert isinstance(port._engine, QPager) and port.qubit_count == 7
+    np.testing.assert_allclose(port.GetQuantumState(), ref.GetQuantumState(),
+                               atol=1e-6)
+    with pytest.raises(MemoryError, match="QPager page width"):
+        QHybrid(31, tpu_threshold_qubits=4, pager_threshold_qubits=30,
                 device="cpu")
 
 

@@ -136,7 +136,7 @@ def test_arranged_layers_full_matches_jax(toggles):
 
 @pytest.mark.parametrize("layers", [
     ["unit_multi", "stabilizer_hybrid", "hybrid"], "optimal_multi",
-    "pager", "lightcone", "route", "tpu", "turboquant_pager",
+    "lightcone", "route", "tpu", "turboquant_pager",
     ["unit", "lightcone"],
 ])
 def test_unported_layers_raise_with_their_roadmap_item(layers):
@@ -179,7 +179,7 @@ def test_unknown_and_misplaced_layers_raise():
     with pytest.raises(ValueError, match="must be last"):
         qt.create_quantum_interface(["cpu", "unit"], 3)
     with pytest.raises(ValueError, match="not ported yet: ROADMAP item 13"):
-        qt.create_arranged_layers_full(hy=False, qubit_count=3)
+        qt.create_arranged_layers_full(md=True, qubit_count=3)
 
 
 def _cuda_engines(q):

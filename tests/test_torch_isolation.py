@@ -52,6 +52,12 @@ for i in range(7):
     o.CNOT(i, i + 1)
 o.QFT(0, 8)
 assert 0.0 <= o.Prob(7) <= 1.0 and o.GetMaxUnitSize() == 8
+pg = qt.create_quantum_interface("pager", 7, n_pages=2, device="cpu")
+pg.H(6)
+pg.CNOT(6, 0)
+pg.QFT(0, 7)
+qft_qcircuit(7).RunFused(pg)
+assert 0.0 <= pg.Prob(0) <= 1.0 and pg.n_pages == 2
 c = qt.create_quantum_interface("unit_clifford", 40)
 c.H(0)
 for i in range(39):
@@ -114,6 +120,25 @@ def test_default_device_needs_a_gpu(monkeypatch):
         qt.QEngineCUDA(3)
     q = qt.create_quantum_interface("cuda", 3, device="cpu")
     assert q.device.type == "cpu"
+
+
+def test_pager_default_device_needs_a_gpu(monkeypatch):
+    """The "pager" terminal and QHybrid past its pager threshold build on
+    cuda, and raise where there is none; the CPU only when asked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        qt.create_quantum_interface("pager", 3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        qt.QPager(3, n_pages=2, devices=["cuda"] * 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        qt.create_quantum_interface("hybrid", 5, tpu_threshold_qubits=2,
+                                    pager_threshold_qubits=3)
+    q = qt.create_quantum_interface("pager", 3, n_pages=2, device="cpu")
+    assert q.devices == [torch.device("cpu")] * 2
+    h = qt.create_quantum_interface("hybrid", 5, tpu_threshold_qubits=2,
+                                    pager_threshold_qubits=3, device="cpu",
+                                    devices=["cpu"] * 4)
+    assert isinstance(h._engine, qt.QPager) and h._engine.n_pages == 4
 
 
 def test_turboquant_default_device_needs_a_gpu(monkeypatch):
