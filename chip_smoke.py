@@ -149,13 +149,14 @@ the uniformly controlled gate past 10 controls:
     bfloat16 and float16 engine QFTs, their fidelity to the float64 ket
     held to HALF_QFT_BAR (predicted in PERF.md before the first run);
     each dtype's K1/K2 launches counted.  Then the engine QFT of each
-    dtype again, every fourth launch (FPPOW_PROBE_EVERY) beside its
+    dtype again, every eighth launch (FPPOW_PROBE_EVERY) beside its
     plain version;
-15. drift, w24: Grover (grover_amplify, 3216 iterations) on float32
+15. drift, w24: Grover (grover_amplify, 804 of the search's 3216
+    iterations, DRIFT_ITERS) on float32
     planes with QRACK_TPU_AUTO_F64_DRIFT = 1e-5 checked every 64 gates.
     The engine must escalate (float64 planes afterwards, one warning),
     and its raw ProbAll(target), without NormalizeState, must be within
-    1e-4 of make_grover_fn's;
+    1e-4 of make_grover_fn's at as many iterations;
 16. circuit_forms: QCircuit.compile_fn_pallas of qft_qcircuit(30)
     against RunFused (fidelity >= 1 - 1e-5), its K1/K2 launches counted;
     make_qft_fn(30) in the unrolled and the carried-fraction form against
@@ -302,18 +303,75 @@ in place (ops/sharded.py):
     pager mode: a GHZ state (H and 30 CNOTs) read across the page bit,
     Prob of the top qubit and ProbAll of both ends within 1e-5 of 0.5.
 
+Then the rest of the pager: the split-index forms that run every
+gate-set and ALU op past 31 qubits, the whole-circuit programs over
+pages, the TurboQuant pager and QUnitMulti (no new kernel: the split
+bodies, page programs and chunk programs are plain torch, as the JAX
+package left them to XLA):
+
+33. wide_ops, w32 on 4 pages of 2^30: H on bits 1, 2, 5, 29, 30 and 31,
+    T, RZ and a CNOT, then one seeded sequence (wide_sequence) of XMask,
+    ZMask, PhaseParity, UniformParityRZ, CUniformParityRZ,
+    PhaseFlipIfLess, INC, CINC with a page-bit control, INCBCD, ROL,
+    Hash, MUL and DIV, POWModNOut, IndexedLDA and ForceMParity, every
+    register across the page boundary, on the pager and on the port's
+    "sparse" engine (numpy int64 indices on the host).  The engine runs
+    three of them only through a dense 2^n ket, so it takes each in
+    another form: INCBCD as the same digit permutation through Hash
+    (bcd_table), IndexedLDA as the controlled X gates that load the zero
+    value register (lda_as_gates), and the last op, ForceMParity, is
+    held to its closed form (forced_parity).
+    After every op the pager's amplitudes at the oracle's support are
+    within 1e-6 and its norm within 1e-5 of 1; each op is timed by CUDA
+    events beside the bytes it must move (a diagonal reads and writes
+    the ket once, 2·2·2^32·4 B at 3.35 TB/s; a gather twice), and the
+    device memory above the planes stays within 4 GiB for a diagonal and
+    32 + 4 GiB for a gather (gather_ring builds the new pages while the
+    old ones live).  Then w33 on 8 pages (64 GiB): after a GHZ-like
+    preparation, flushed before the first op is timed, ZMask,
+    UniformParityRZ and ForceMParity from (|0> + |x>)/sqrt(2) against
+    their closed form (1e-6), within 4 GiB; then a w32 int8 "turboquant"
+    engine: H on bits 0, 20 and 31, ZMask and UniformParityRZ through
+    the split phase program, H again, Prob against the closed form
+    (1, sin^2(0.6), sin^2(0.6)) within 2e-2;
+34. page_programs: make_sharded_qft_fn at w32 on 4 pages of 2^30 from
+    |x> against the closed form of phase 30 (every amplitude, 2^26 at a
+    time); QCircuit.compile_sharded_fn of qft_qcircuit(30) on 4 pages of
+    2^28 against the "cuda" engine's RunFused (fidelity >= 1 - 1e-5);
+    make_sharded_rcs_fn at w30, depth 6 (RCS_PAGE_DEPTH), against
+    make_rcs_fn on one plane pair (fidelity >= 1 - 1e-5);
+    make_sharded_grover_fn at w32 with 3 iterations against
+    sin^2(7 asin(2^-16)) within 1e-4 of it.  Each timed, each within
+    4 GiB above its pages;
+35. tq_pager: create_quantum_interface("turboquant_pager", 32, bits=8,
+    devices=[card] * 4): a GHZ state (H, 31 CNOTs: targets in the chunk,
+    in the local chunk bits and in the page bits), every Prob(q) and
+    ProbAll of both ends within 2e-2 of 0.5; a seeded pager_circuit at
+    w26 against the "cuda" engine, fidelity >= 0.99 (the bar of phase 6);
+    the resident bytes a page; no TurboQuant kernel launches (the pager
+    runs the plain chunk programs, as the JAX package's does);
+36. unit_multi: create_quantum_interface("optimal_multi", 48,
+    device_ids=[0, 0]) with two separable seeded 24-qubit registers
+    (random_layers, depth 6): each register's unit becomes a w24
+    QEngineCUDA on the card (K1/K2 must launch); every Prob(q) within
+    1e-5 of two w24 "cuda" engines on the same gates, and 1024 seeded
+    GetAmplitude reads of the stack against the product of theirs at
+    |<a|b>|^2 / (<a|a><b|b>) >= 1 - 1e-5; the device table after
+    RedistributeQEngines, one unit on each row of the one card.
+
 The kernels line counts K1/K2 launches by dtype form over every dense
 path (phases 3, 8-12, 14-17, 19-22 and 24-28); their times and errors
 are those of the launches held to plain (float32: phase 4 and the Shor
 IQFT of phase 10; the other forms: phase 14).  The per-page form of K1
 and K2 has entries of its own: launches over phases 29-32, times and
 errors over the launches held in phase 29, and the w32 engine path's
-launches at pages of 2^30 (l30_*).
+launches at pages of 2^30 (l30_*).  Phase 33's launches count with the
+per-page form, phase 36's with the dense one.
 
 ``--tq-only`` runs the build and phases 5-7 alone; ``--algo-only`` the
 build and phases 8-12; ``--fppow-only`` the build and phases 13-17;
 ``--layers-only`` the build and phases 18-28; ``--pager-only`` the build
-and phases 29-32.
+and phases 29-32; ``--wide-only`` the build and phases 33-36.
 
 The line before the last is the "kernels" summary, the last line
 {"ok": true, "device": {...}}.  Any failed check raises, so the script
@@ -378,14 +436,19 @@ F64_QFT_BAR = 1e-9    # the float64 w30 QFT: |amp|^2 rel. error, 1 - ProbAll
 # the 16-bit w30 QFTs against the float64 ket: 1 - fidelity, predicted
 # in PERF.md from the plain version on the CPU (w10-w22, grown to w30)
 HALF_QFT_BAR = {torch.bfloat16: 1e-3, torch.float16: 2e-5}
-# phase 14 holds every fourth launch of each dtype's w30 QFT to plain
+# phase 14 holds every eighth launch of each dtype's w30 QFT to plain
 # (holding all of them took 105 s of an 822.7 s run on the H100, every
-# second 264.6 s for phases 13-17 against 322)
-FPPOW_PROBE_EVERY = 4
+# second 264.6 s for phases 13-17 against 322; every fourth until the
+# pager's second slice needed the room)
+FPPOW_PROBE_EVERY = 8
 # phase 4 holds every second launch of the w30 main path to plain
 DENSE_PROBE_EVERY = 2
 DRIFT_THRESH = "1e-5"  # QRACK_TPU_AUTO_F64_DRIFT of the drift phase
 DRIFT_EVERY = "64"     # QRACK_TPU_DRIFT_CHECK_GATES
+# the drift phase's Grover runs a quarter of the search's 3216 iterations
+# (the whole search took 131 s of an 822.3 s run; the escalation fires
+# within the first dozen)
+DRIFT_ITERS = 804
 BATCH_WIDTH = 28      # compile_batched_fn: 4 kets of 28 qubits
 BATCH = 4
 BATCH_GATES = 48
@@ -452,6 +515,16 @@ PAGER_PERM33 = 0x1A5C3F1E7
 PAGER_FACTORY_WIDTH = 31  # 2 pages of 2^30
 PAGE_MEM_BAR = 4 << 30    # half a page of 2^30 float32 amplitudes
 PAGE_L30 = {}             # the w32 engine path's launches, timed
+# the rest of the pager (phases 33-36)
+WIDE_WIDTH = 32           # 4 pages of 2^30: every ALU op split-index
+WIDE_SEED = 33
+RCS_PAGE_DEPTH = 6        # make_sharded_rcs_fn at w30
+GROVER_PAGE_ITERS = 3     # make_sharded_grover_fn at w32
+TQ_PAGER_SMALL = 26       # the TurboQuant pager against QEngineCUDA
+UNIT_MULTI_HALF = 24      # two separable 24-qubit registers
+UNIT_MULTI_DEPTH = 6
+UNIT_MULTI_SEED = 36
+UNIT_MULTI_AMPS = 1024    # seeded GetAmplitude reads compared
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2019,7 +2092,7 @@ def drift_phase(card: str, dev) -> dict:
 
     n = GROVER_WIDTH
     target = int(np.random.default_rng(n).integers(1, 1 << n))
-    fn, iters = grover.make_grover_fn(n, target)
+    fn, iters = grover.make_grover_fn(n, target, iters=DRIFT_ITERS)
     p_fused = grover.success_probability(fn(basis_planes(n, 0, device=dev)),
                                          target)
     env = {"QRACK_TPU_AUTO_F64_DRIFT": DRIFT_THRESH,
@@ -2040,7 +2113,7 @@ def drift_phase(card: str, dev) -> dict:
     t0 = time.time()
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
-        al.grover_amplify(q, target)
+        al.grover_amplify(q, target, iters=DRIFT_ITERS)
         p_raw = q.ProbAll(target)
     amplify_s = time.time() - t0
     launches = dtype_launches(wk)
@@ -3280,12 +3353,17 @@ def pager_closed_form(q, x: int) -> tuple:
     2^(-n/2) exp(2 pi i x rev(k) / 2^n), amplitude by amplitude on the
     card, 2^26 at a time (the table is restored to identity first)."""
     q._unmap()
-    n, L = q.qubit_count, q.local_bits
+    return pages_closed_form(q.page_planes, q.qubit_count, x)
+
+
+def pages_closed_form(pages, n: int, x: int) -> tuple:
+    """pager_closed_form over a list of pages in logical order."""
+    L = n - (len(pages).bit_length() - 1)
     nb = (n + 7) // 8
     amp = 2.0 ** (-n / 2)
     step = min(1 << 26, 1 << L)
     worst = re = im = na = 0.0
-    for p, page in enumerate(q.page_planes):
+    for p, page in enumerate(pages):
         dev = page.device
         rev8 = torch.tensor([int(f"{v:08b}"[::-1], 2) for v in range(256)],
                             dtype=torch.int64, device=dev)
@@ -3545,6 +3623,472 @@ def pager_factory(card: str, dev) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# the rest of the pager: split-index ops past 31 qubits, the whole-circuit
+# programs over pages, the TurboQuant pager, QUnitMulti
+# ---------------------------------------------------------------------------
+
+def bcd_table(to_add: int) -> list:
+    """INCBCD on one decimal digit as the permutation of its 16 values:
+    a valid digit d goes to (d + to_add) mod 10, an invalid one stays."""
+    return [(v + to_add) % 10 if v < 10 else v for v in range(16)]
+
+
+def lda_as_gates(o, index_start: int, index_length: int, value_start: int,
+                 value_length: int, values) -> None:
+    """IndexedLDA into a zero value register as the gates that load it:
+    for each index k, an X on each set bit of values[k] under the index
+    register's controls at k (the sparse engine's own IndexedLDA returns
+    the register's expectation, which builds the dense 2^n distribution)."""
+    from qrack_tpu_torch import matrices as mat
+
+    ctrls = tuple(range(index_start, index_start + index_length))
+    for k, v in enumerate(values):
+        for b in range(value_length):
+            if (v >> b) & 1:
+                o.MCMtrxPerm(ctrls, mat.X2, value_start + b, k)
+
+
+def forced_parity(o, mask: int, result: bool) -> dict:
+    """The closed form of ForceMParity over the oracle's nonzero list:
+    the amplitudes of the forced parity, renormalized (0 elsewhere)."""
+    par = np.array([bin(int(i) & mask).count("1") & 1 for i in o._idx])
+    keep = par == int(bool(result))
+    norm = np.sqrt(float(np.sum(np.abs(o._amp[keep]) ** 2)))
+    return {int(i): (a / norm if k else 0.0)
+            for i, a, k in zip(o._idx, o._amp, keep)}
+
+
+def wide_sequence(n: int, rng) -> list:
+    """The seeded op sequence of phase 33: (method, args, kind) with kind
+    "diag" (a split factor pass) or "gather" (a ring gather); every
+    register spans the page boundary at bit n - 2 (4 pages)."""
+    t = n - 4           # the top nibble, bits n-4 .. n-1
+    ang = lambda: float(rng.uniform(0.1, 3.0))   # noqa: E731
+    perm16 = [int(v) for v in rng.permutation(16)]
+    lda = [int(v) for v in rng.integers(0, 16, 8)]
+    return [
+        ("XMask", ((1 << (n - 1)) | (1 << (n - 3)) | (1 << 3),), "gather"),
+        ("ZMask", ((1 << (n - 2)) | (1 << 2) | (1 << (n - 3)),), "diag"),
+        ("PhaseParity", (ang(), (1 << (n - 1)) | (1 << 1) | (1 << 5)),
+         "diag"),
+        ("UniformParityRZ", ((1 << (n - 2)) | (1 << (n - 3)), ang()), "diag"),
+        ("CUniformParityRZ", ((n - 1,), (1 << 2) | (1 << (n - 2)), ang()),
+         "diag"),
+        ("PhaseFlipIfLess", (int(rng.integers(3, 14)), t, 4), "diag"),
+        ("INC", (int(rng.integers(1, 32)), t - 1, 5), "gather"),
+        ("CINC", (int(rng.integers(1, 16)), 0, 4, (n - 1,)), "gather"),
+        ("INCBCD", (int(rng.integers(1, 10)), t, 4), "gather"),
+        ("ROL", (int(rng.integers(1, 6)), t - 2, 6), "gather"),
+        ("Hash", (t, 4, perm16), "gather"),
+        ("MUL", (3, t, 8, 3), "gather"),          # carry bits 8-10 at |0>
+        ("DIV", (3, t, 8, 3), "gather"),
+        ("POWModNOut", (2, 15, n - 3, 12, 3), "gather"),   # out 12-15
+        ("IndexedLDA", (n - 3, 3, 16, 4, lda), "gather"),  # value 16-19
+        ("ForceMParity", ((1 << (n - 1)) | (1 << 1), True), "diag"),
+    ]
+
+
+def pager_norm(q) -> float:
+    from qrack_tpu_torch.ops import sharded as shb
+
+    return float(sum(shb.page_probs(q.page_planes)))
+
+
+def support_diff(q, o) -> float:
+    """Largest |pager amplitude - oracle amplitude| over the oracle's
+    support (the pager's norm bounds what lies elsewhere)."""
+    worst = 0.0
+    for i, a in zip(o._idx.tolist(), o._amp.tolist()):
+        worst = max(worst, abs(q.GetAmplitude(int(i)) - a))
+    return worst
+
+
+def wide_ops(card: str, dev) -> dict:
+    """Phase 33 (module docstring); returns the window kernel's per-page
+    launches of the phase."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.engines.sparse import QEngineSparse
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    n, G = WIDE_WIDTH, PAGER_PAGES
+    rng = np.random.default_rng(WIDE_SEED)
+    release()
+    wk.reset_launches()
+    q = qt.create_quantum_interface("pager", n, devices=[dev] * G,
+                                    rng=QrackRandom(WIDE_SEED),
+                                    rand_global_phase=False)
+    check(q._wide_alu, f"w{n} pager not on the split-index path")
+    o = QEngineSparse(n, rng=QrackRandom(WIDE_SEED), rand_global_phase=False)
+    planes_bytes = torch.cuda.memory_allocated()
+    for e in (q, o):
+        for b in (1, 2, 5, n - 3, n - 2, n - 1):
+            e.H(b)
+        e.T(1)
+        e.RZ(0.7, n - 1)
+        e.CNOT(n - 2, 6)
+    q.Finish()
+    prep = page_launches(wk)
+    ops = []
+    for name, args, kind in wide_sequence(n, rng):
+        torch.cuda.reset_peak_memory_stats()
+        ms = timed(lambda: getattr(q, name)(*args))
+        peak = torch.cuda.max_memory_allocated() - planes_bytes
+        if name == "ForceMParity":       # the last op: its closed form
+            want = forced_parity(o, *args)
+            diff = max(abs(q.GetAmplitude(i) - a) for i, a in want.items())
+        else:
+            if name == "INCBCD":
+                o.Hash(args[1], args[2], bcd_table(args[0]))
+            elif name == "IndexedLDA":
+                lda_as_gates(o, *args)
+            else:
+                getattr(o, name)(*args)
+            diff = support_diff(q, o)
+        norm = pager_norm(q)
+        bar = PAGE_MEM_BAR + (planes_bytes if kind == "gather" else 0)
+        check(diff <= 1e-6 and abs(norm - 1) <= 1e-5,
+              f"w{n} {name}: max diff {diff} over {o.nnz()} amplitudes, "
+              f"norm {norm}")
+        check(peak <= bar, f"w{n} {name}: {peak / 2 ** 30:.3f} GiB above "
+                           f"the planes (bar {bar / 2 ** 30} GiB)")
+        moved = (2 if kind == "diag" else 4) * 2 * (1 << n) * 4
+        ops.append({"op": name, "kind": kind, "ms": ms,
+                    "bound_ms": moved / PEAK_BYTES_S * 1e3,
+                    "peak_above_planes_gib": peak / 2 ** 30,
+                    "max_abs_diff": diff, "norm": norm, "support": o.nnz()})
+    launches = page_launches(wk)
+    check(sum(launches.values()) > 0, f"w{n} prep launched no kernel")
+    out = {"phase": "wide_ops", "card": card, "width": n, "pages": G,
+           "planes_gib": planes_bytes / 2 ** 30, "ops": ops,
+           "launches": launches, "prep_launches": prep}
+    del q, o
+    release()
+
+    # w33 on 8 pages: in-place ops against a GHZ-like closed form
+    n33, G33 = PAGER_W33, PAGER_W33_PAGES
+    q = qt.create_quantum_interface("pager", n33, devices=[dev] * G33,
+                                    rng=QrackRandom(WIDE_SEED),
+                                    rand_global_phase=False)
+    planes_bytes = torch.cuda.memory_allocated()
+    x = 1 | (1 << 15) | (1 << (n33 - 2)) | (1 << (n33 - 1))
+    wk.reset_launches()
+    q.H(0)
+    for b in (15, n33 - 2, n33 - 1):
+        q.CNOT(0, b)
+    q.Finish()          # the prep's windows and page passes, untimed
+    launches33 = page_launches(wk)
+    check(sum(launches33.values()) > 0, f"w{n33} prep launched no kernel")
+    z_mask = (1 << (n33 - 1)) | (1 << 7)          # odd on |x>
+    r_mask, theta = (1 << 15) | (1 << (n33 - 2)) | (1 << 2), 0.45  # even
+    f_mask = (1 << (n33 - 2)) | (1 << 3)          # odd on |x>: keeps |x>
+    s = 2 ** -0.5
+    want = [("ZMask", (z_mask,), {0: s, x: -s}),
+            ("UniformParityRZ", (r_mask, theta),
+             {0: s * np.exp(-1j * theta), x: -s * np.exp(-1j * theta)}),
+            ("ForceMParity", (f_mask, True),
+             {0: 0.0, x: -np.exp(-1j * theta)})]
+    w33 = []
+    for name, args, amps in want:
+        torch.cuda.reset_peak_memory_stats()
+        ms = timed(lambda: getattr(q, name)(*args))
+        peak = torch.cuda.max_memory_allocated() - planes_bytes
+        diff = max(abs(q.GetAmplitude(i) - a) for i, a in amps.items())
+        norm = pager_norm(q)
+        check(diff <= 1e-6 and abs(norm - 1) <= 1e-5,
+              f"w{n33} {name}: diff {diff}, norm {norm}")
+        check(peak <= PAGE_MEM_BAR,
+              f"w{n33} {name}: {peak / 2 ** 30:.3f} GiB above the planes")
+        w33.append({"op": name, "ms": ms,
+                    "bound_ms": 2 * 2 * (1 << n33) * 4 / PEAK_BYTES_S * 1e3,
+                    "peak_above_planes_gib": peak / 2 ** 30,
+                    "max_abs_diff": diff, "norm": norm})
+    launches33 = page_launches(wk)
+    out["w33"] = {"width": n33, "pages": G33,
+                  "planes_gib": planes_bytes / 2 ** 30, "ops": w33,
+                  "launches": launches33}
+    launches = {k: launches[k] + launches33[k] for k in launches}
+    del q
+    release()
+
+    # the compressed engine's split phase program at w32, int8
+    t = qt.create_quantum_interface("turboquant", n, bits=8,
+                                    rng=QrackRandom(WIDE_SEED),
+                                    rand_global_phase=False)
+    a, b, c = 0, 20, n - 1
+    for k in (a, b, c):
+        t.H(k)
+    tq_ms = {}
+    tq_ms["ZMask"] = timed(lambda: t.ZMask(1 << a))            # |+> -> |->
+    tq_ms["UniformParityRZ"] = timed(
+        lambda: t.UniformParityRZ((1 << b) | (1 << c), 0.6))
+    for k in (a, b, c):
+        t.H(k)
+    probs = {k: t.Prob(k) for k in (a, b, c, 7)}
+    closed = {a: 1.0, b: np.sin(0.6) ** 2, c: np.sin(0.6) ** 2, 7: 0.0}
+    worst = max(abs(probs[k] - closed[k]) for k in closed)
+    check(worst <= 2e-2, f"w{n} turboquant split phases: Prob {probs} "
+                         f"against {closed}")
+    out["turboquant_w32"] = {"bits": 8, "ms": tq_ms, "prob": probs,
+                             "closed_form": closed, "max_prob_diff": worst,
+                             "resident_gib": t.resident_bytes() / 2 ** 30}
+    del t
+    release()
+    emit(out)
+    return launches
+
+
+def page_programs(card: str, dev) -> dict:
+    """Phase 34 (module docstring).  The programs are plain torch page
+    passes (no kernel); the dense engine they are held to launches K1/K2,
+    which the phase does not count for the pager."""
+    import math
+
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.models import grover as grm
+    from qrack_tpu_torch.models import rcs as rcsm
+    from qrack_tpu_torch.models.qft import (basis_pages, basis_planes,
+                                            make_sharded_qft_fn, qft_qcircuit)
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    out = {"phase": "page_programs", "card": card}
+
+    def run(fn, pages):
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = timed(lambda: fn(pages))
+        peak = torch.cuda.max_memory_allocated() - base
+        check(peak <= PAGE_MEM_BAR,
+              f"{peak / 2 ** 30:.3f} GiB above the pages")
+        return ms, peak / 2 ** 30
+
+    release()
+    n = PAGER_WIDTH
+    fn, devs = make_sharded_qft_fn([dev] * PAGER_PAGES, n)
+    pages = basis_pages(n, PAGER_PERM, devs)
+    ms, peak = run(fn, pages)
+    worst, f = pages_closed_form(pages, n, PAGER_PERM)
+    bar = 1e-4 * 2.0 ** (-n / 2)
+    check(worst <= bar and f >= 1 - 1e-5,
+          f"w{n} sharded QFT: max diff {worst} (bar {bar}), fidelity {f}")
+    out["qft"] = {"width": n, "pages": PAGER_PAGES, "ms": ms,
+                  "peak_above_planes_gib": peak, "max_abs_diff": worst,
+                  "fidelity": f, "pager_runfused_ms_pr10": 957.0}
+    del pages
+    release()
+
+    n = WIDTH
+    circ = qft_qcircuit(n)
+    fn, devs = circ.compile_sharded_fn([dev] * PAGER_PAGES, n)
+    pages = basis_pages(n, PERM, devs)
+    ms, peak = run(fn, pages)
+    d = qt.create_quantum_interface("cuda", n, rng=QrackRandom(3),
+                                    rand_global_phase=False)
+    d.SetPermutation(PERM)
+    dense_ms = timed(lambda: (circ.RunFused(d), d.device_planes))
+    f = pages_fidelity(pages, d.device_planes)
+    check(f >= 1 - 1e-5, f"compile_sharded_fn QFT w{n}: fidelity {f}")
+    out["compile_sharded_qft"] = {"width": n, "pages": PAGER_PAGES,
+                                  "ms": ms, "peak_above_planes_gib": peak,
+                                  "fidelity_to_dense_runfused": f,
+                                  "dense_runfused_ms": dense_ms}
+    del pages, d
+    release()
+
+    fn, devs = rcsm.make_sharded_rcs_fn([dev] * PAGER_PAGES, n,
+                                        RCS_PAGE_DEPTH, RCS_SEED)
+    pages = basis_pages(n, 0, devs)
+    ms, peak = run(fn, pages)
+    ref = rcsm.make_rcs_fn(n, RCS_PAGE_DEPTH, RCS_SEED)(
+        basis_planes(n, 0, device=dev))
+    f = pages_fidelity(pages, ref)
+    check(f >= 1 - 1e-5, f"sharded RCS w{n}: fidelity {f}")
+    out["rcs"] = {"width": n, "pages": PAGER_PAGES, "depth": RCS_PAGE_DEPTH,
+                  "ms": ms, "peak_above_planes_gib": peak,
+                  "fidelity_to_make_rcs_fn": f}
+    del pages, ref
+    release()
+
+    n = PAGER_WIDTH
+    target = int(np.random.default_rng(n).integers(1, 1 << n))
+    fn, devs, iters = grm.make_sharded_grover_fn([dev] * PAGER_PAGES, n,
+                                                 target, iters=GROVER_PAGE_ITERS)
+    pages = basis_pages(n, 0, devs)
+    ms, peak = run(fn, pages)
+    L = n - (PAGER_PAGES.bit_length() - 1)
+    amp = pages[target >> L][:, target & ((1 << L) - 1)].double()
+    p = float(amp[0] ** 2 + amp[1] ** 2)
+    closed = math.sin((2 * iters + 1) * math.asin(2.0 ** (-n / 2))) ** 2
+    check(abs(p - closed) <= 1e-4 * closed,
+          f"sharded Grover w{n}: success {p} against {closed}")
+    out["grover"] = {"width": n, "pages": PAGER_PAGES, "iters": iters,
+                     "ms": ms, "peak_above_planes_gib": peak,
+                     "success": p, "closed_form": closed}
+    del pages
+    release()
+    emit(out)
+    return out
+
+
+def tq_pager(card: str, dev) -> dict:
+    """Phase 35 (module docstring).  The TurboQuant pager runs the plain
+    chunk programs, as the JAX package's: no kernel launches (checked)."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.ops import turboquant_kernel as tqk
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    n = TQ_WIDTH
+    release()
+    tqk.reset_launches()
+    q = qt.create_quantum_interface("turboquant_pager", n, bits=8,
+                                    devices=[dev] * PAGER_PAGES,
+                                    rng=QrackRandom(35),
+                                    rand_global_phase=False)
+    check(q.n_pages == PAGER_PAGES and q._codes[0].device.type == "cuda",
+          "the TurboQuant pager is not on the card")
+    t0 = time.time()
+    ghz_ms = timed(lambda: (q.H(0), [q.CNOT(i, i + 1) for i in range(n - 1)],
+                            q._codes))
+    probs = [q.Prob(k) for k in range(n)]
+    ends = [q.ProbAll(0), q.ProbAll((1 << n) - 1)]
+    wall = time.time() - t0
+    worst = max(abs(p - 0.5) for p in probs + ends)
+    check(worst <= 2e-2, f"w{n} TurboQuant pager GHZ: Prob {probs}, "
+                         f"ends {ends}")
+    out = {"phase": "tq_pager", "card": card, "width": n, "bits": 8,
+           "pages": PAGER_PAGES, "ghz_ms": ghz_ms, "host_wall_s": wall,
+           "max_prob_diff": worst, "prob_ends": ends,
+           "resident_bytes_per_page": q.resident_bytes_per_device(),
+           "local_chunk_bits": q._local_chunk_bits()}
+    del q
+    release()
+
+    n = TQ_PAGER_SMALL
+    q = qt.create_quantum_interface("turboquant_pager", n, bits=8,
+                                    devices=[dev] * PAGER_PAGES,
+                                    rng=QrackRandom(36),
+                                    rand_global_phase=False)
+    d = qt.create_quantum_interface("cuda", n, rng=QrackRandom(36),
+                                    rand_global_phase=False)
+    L = n - (PAGER_PAGES.bit_length() - 1)
+    ops = pager_circuit(n, L, 2, PAGER_SEED)
+    for e in (q, d):
+        for name, args in ops:
+            getattr(e, name)(*args)
+    f = fidelity(q._state, d.device_planes)
+    check(f >= 0.99, f"w{n} TurboQuant pager against QEngineCUDA: {f}")
+    launches = dict(tqk.LAUNCHES)
+    check(sum(launches.values()) == 0,
+          f"the TurboQuant pager launched a kernel: {launches}")
+    out["w26"] = {"width": n, "ops": len(ops), "fidelity_to_dense": f,
+                  "resident_bytes_per_page": q.resident_bytes_per_device()}
+    out["kernel_launches"] = launches
+    del q, d
+    release()
+    emit(out)
+    return out
+
+
+def unit_multi(card: str, dev) -> dict:
+    """Phase 36 (module docstring); returns the window kernel's launches
+    of the stack's units."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    h = UNIT_MULTI_HALF
+    n = 2 * h
+    release()
+    # the same seed over either qubit list draws the same angles
+    layers = [list(zip(random_layers(range(r * h, (r + 1) * h),
+                                     UNIT_MULTI_DEPTH, UNIT_MULTI_SEED + r),
+                       random_layers(range(h), UNIT_MULTI_DEPTH,
+                                     UNIT_MULTI_SEED + r)))
+              for r in range(2)]
+    # the reference engines first, flushed, so that the count below is
+    # the stack's alone
+    dense = [qt.create_quantum_interface("cuda", h, rng=QrackRandom(36),
+                                         rand_global_phase=False)
+             for _ in range(2)]
+    for r in range(2):
+        for _, (_, name, args) in layers[r]:
+            getattr(dense[r], name)(*args)
+        dense[r].Finish()
+    q = qt.create_quantum_interface("optimal_multi", n, device_ids=[0, 0],
+                                    rng=QrackRandom(36),
+                                    rand_global_phase=False)
+    wk.reset_launches()
+    t0 = time.time()
+    for r in range(2):
+        for (_, name, args), _ in layers[r]:
+            getattr(q, name)(*args)
+    q._flush_all()      # QUnit defers gates to the reads: push them now
+    q.RedistributeQEngines()
+    q.Finish()
+    stack_s = time.time() - t0
+    launches = page_launches(wk)
+    engines = cuda_engines(q)
+    check(len(engines) == 2 and all(e.qubit_count == h and
+                                    e.device.type == "cuda" for e in engines),
+          f"optimal_multi units are not two w{h} engines on the card: "
+          f"{[(e.qubit_count, e.device) for e in engines]}")
+    check(sum(launches.values()) > 0, "QUnitMulti's units launched no kernel")
+    worst = 0.0
+    for r in range(2):
+        for k in range(h):
+            worst = max(worst, abs(q.Prob(k + r * h) - dense[r].Prob(k)))
+    idx = np.random.default_rng(n).integers(0, 1 << h, (UNIT_MULTI_AMPS, 2))
+    got = np.array([q.GetAmplitude(int(a) | (int(b) << h)) for a, b in idx])
+    want = np.array([dense[0].GetAmplitude(int(a))
+                     * dense[1].GetAmplitude(int(b)) for a, b in idx])
+    overlap = (abs(np.vdot(got, want)) ** 2
+               / (np.vdot(got, got).real * np.vdot(want, want).real))
+    check(worst <= 1e-5 and overlap >= 1 - 1e-5,
+          f"optimal_multi registers against w{h} QEngineCUDA: Prob diff "
+          f"{worst}, amplitude overlap {overlap}")
+    table = [{"device_id": d.device_id, "capacity_bytes": d.capacity_bytes,
+              "weight": d.weight, "used_bytes": d.used_bytes}
+             for d in q.devices]
+    check(sorted(d["used_bytes"] for d in table)[0] > 0,
+          f"the two units share one row of the table: {table}")
+    emit({"phase": "unit_multi", "card": card, "width": n,
+          "register_width": h, "depth": UNIT_MULTI_DEPTH,
+          "stack_host_wall_s": stack_s, "max_prob_diff": worst,
+          "amplitude_overlap": overlap, "amplitudes": UNIT_MULTI_AMPS,
+          "device_table": table,
+          "placement": [{"qubits": e.qubit_count, "device": str(e.device)}
+                        for e in engines],
+          "launches": launches})
+    del q, dense, engines
+    release()
+    return launches
+
+
+def cuda_engines(q) -> list:
+    """Every QEngineCUDA reachable from a stack (its units' engines)."""
+    from qrack_tpu_torch.engines.cuda import QEngineCUDA
+    from qrack_tpu_torch.engines.hybrid import QHybrid
+
+    seen, out, todo = set(), [], [q]
+    while todo:
+        o = todo.pop()
+        if o is None or id(o) in seen:
+            continue
+        seen.add(id(o))
+        if isinstance(o, QEngineCUDA):
+            out.append(o)
+            continue
+        if isinstance(o, QHybrid):
+            todo.append(o._engine)
+        for attr in ("engine", "stab"):
+            todo.append(getattr(o, attr, None))
+        for s in getattr(o, "shards", None) or []:
+            todo.append(getattr(s, "unit", None))
+    return out
+
+
+
 def page_entries(probe, launches: dict) -> list:
     """The kernels-line entries of K1 and K2 in their per-page form:
     launches over the pager phases; times, plain times and errors over
@@ -3624,6 +4168,7 @@ def main() -> int:
     fppow_only = "--fppow-only" in sys.argv[1:]
     layers_only = "--layers-only" in sys.argv[1:]
     pager_only = "--pager-only" in sys.argv[1:]
+    wide_only = "--wide-only" in sys.argv[1:]
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -3651,7 +4196,8 @@ def main() -> int:
         check(not (r["spill_stores"] or r["spill_loads"]),
               f"{name} spills: {r}")
 
-    only = tq_only or algo_only or fppow_only or layers_only or pager_only
+    only = (tq_only or algo_only or fppow_only or layers_only or pager_only
+            or wide_only)
     tableau = stack_native(card) if layers_only or not only else None
     probe = SweepProbe(wk)
     paths = {}   # path -> launches by dtype name
@@ -3696,6 +4242,7 @@ def main() -> int:
         emit({"phase": "slice8_phases", "card": card,
               "seconds": time.time() - t0})
     page_kernels = []
+    page_probe = None
     if pager_only or not only:
         t0 = time.time()
         page_probe = PageProbe(wk, PAGER_SEED, PAGER_HELD)
@@ -3704,6 +4251,17 @@ def main() -> int:
             page_paths[f"pager_qft_{path}"] = got
         page_paths["pager_w33"] = pager_w33(card, dev)
         page_paths["pager_factory"] = pager_factory(card, dev)
+    if wide_only or not only:
+        t1 = time.time()
+        if wide_only:
+            page_paths, page_probe = {}, None
+        page_paths["wide_ops"] = wide_ops(card, dev)
+        page_programs(card, dev)
+        tq_pager(card, dev)
+        paths["unit_multi"] = {"float32": unit_multi(card, dev)}
+        emit({"phase": "pager_rest", "card": card,
+              "seconds": time.time() - t1})
+    if page_probe is not None:
         page_total = {k: sum(p[k] for p in page_paths.values())
                       for k in ("in_tile", "pair")}
         emit({"phase": "pager_launches", "card": card, "paths": page_paths,

@@ -92,6 +92,24 @@ def bdt_from_numpy(meta: Mapping, arrays: Mapping[str, np.ndarray],
     return QBdt._from_capture(meta, arrays, device=device, **kwargs)
 
 
+def turboquant_pager_from_numpy(codes, scales, n: int, bits: int,
+                                block_pow: int, seed: int, n_pages: int,
+                                device=None, devices=None, **kwargs):
+    """The port's QPagerTurboQuant holding a JAX ``QPagerTurboQuant``'s
+    compressed ket: its whole (codes, scales) numpy arrays (chunk order),
+    width, bits, block pow, rotation seed and page count, split into
+    ``n_pages`` pages on ``devices``, or on ``device`` repeated, ``cuda``
+    by default (a copy).  Other keywords go to the pager (chunk_qb, rng,
+    ...)."""
+    from .parallel.turboquant_pager import QPagerTurboQuant
+
+    eng = QPagerTurboQuant(int(n), bits=int(bits), block_pow=int(block_pow),
+                           seed_rot=int(seed), n_pages=int(n_pages),
+                           devices=devices, device=device, **kwargs)
+    eng.place_codes(codes, scales)
+    return eng
+
+
 def pager_from_numpy(planes, qmap=None, device=None, devices=None, **kwargs):
     """The port's QPager holding a JAX pager's ket: its physical planes
     (``QPager._state_raw`` as a (2, 2^n) numpy array, in any plane dtype)

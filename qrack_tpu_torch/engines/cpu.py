@@ -101,7 +101,7 @@ class QEngineCPU(QEngine):
                     acc = acc + m[r_i, c_i] * amps[c_i]
             self._state[row] = acc
 
-    def _k_gather(self, src_fn) -> None:
+    def _k_gather(self, src_fn, split=None) -> None:
         self._state = self._state[src_fn(self._idx)]
 
     def _k_out_of_place(self, src_idx, dst_idx, passthrough_cmask) -> None:
@@ -112,7 +112,7 @@ class QEngineCPU(QEngine):
         new[dst_idx] = self._state[src_idx]
         self._state = new
 
-    def _k_phase_fn(self, fn) -> None:
+    def _k_phase_fn(self, fn, split=None) -> None:
         fre, fim = fn(np, self._idx)
         if np.isscalar(fim) and fim == 0.0:
             # pure-real factor (Z/phase flips): skip the complex promote

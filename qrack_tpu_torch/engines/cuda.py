@@ -248,7 +248,7 @@ class QEngineCUDA(QEngine):
                                 self.qubit_count, target, tuple(controls))
         self._drift_tick()
 
-    def _k_gather(self, src_fn) -> None:
+    def _k_gather(self, src_fn, split=None) -> None:
         st = self._state
         self._state = gk.gather(st, src_fn(gk.iota_for(st)))
 
@@ -263,7 +263,7 @@ class QEngineCUDA(QEngine):
         return torch.as_tensor(np.asarray(values, dtype=np.int32)).to(
             self._device)
 
-    def _k_phase_fn(self, fn) -> None:
+    def _k_phase_fn(self, fn, split=None) -> None:
         st = self._state
         fre, fim = fn(gk.plane_where(st), gk.iota_for(st))
         self._state = gk.phase_factor_apply(st, fre, fim)
@@ -403,6 +403,17 @@ class QEngineCUDA(QEngine):
         st = self._state
         if st is not None and st.device.type == "cuda":
             torch.cuda.synchronize(st.device)
+
+    def SetDevice(self, device_id: int) -> None:
+        """Move the ket to CUDA ordinal `device_id` (reference: SetDevice,
+        opencl.cpp:535).  An engine on the CPU ignores placement."""
+        if self._device.type != "cuda":
+            return
+        dev = torch.device("cuda", device_id)
+        if dev == self._device:
+            return
+        self._device = dev
+        self._state = self._state.to(dev)
 
     def GetDevice(self) -> int:
         return self._device.index if self._device.type == "cuda" else -1

@@ -8,16 +8,20 @@ common measurement logic src/qengine/qengine.cpp). A concrete engine
 contract below; everything else — the whole QInterface surface, the
 ALU, parity, sampling — is provided here once, shared by all dense
 backends.  The ALU overrides run each op as one index gather, one
-out-of-place scatter or one phase pass (ops/alu_kernels.py).
+out-of-place scatter or one phase pass (ops/alu_kernels.py).  Each
+gather and phase op also hands over its split-index form (``split=``,
+ops/alu_kernels.py ``*_split``), which the pager runs past 31 qubits
+and the compressed engine over its chunks (the JAX package's forms
+also carry a program-cache key, which eager torch has no use for).
 
 Kernel contract (the analogue of the reference's OCLAPI enum,
 include/common/oclapi.hpp:19-99):
 
   _k_apply_2x2(m2, target, controls, perm)     generic 2x2 (apply2x2*)
   _k_apply_diag(d0, d1, target, controls, perm) phase fast path (phase/z)
-  _k_gather(src_fn)                             basis permutation (ALU, xmask, rol)
+  _k_gather(src_fn, split)                      basis permutation (ALU, xmask, rol)
   _k_out_of_place(src, dst, passthrough)        mul/div/*modnout scatter
-  _k_phase_fn(fn)                               diagonal complex factor:
+  _k_phase_fn(fn, split)                        diagonal complex factor:
                                                 fn(xp, idx) -> (re, im)
   _k_probs()                                    |amp|^2 vector (host numpy)
   _k_prob_mask(mask, perm)                      masked-probability reduce
@@ -43,6 +47,16 @@ from ..interface import QInterface
 from ..ops import alu_kernels as alu
 from .. import matrices as mat
 from ..utils.bits import bit_reg_mask, is_pow2, log2
+
+
+def _parity_rz_split(mask):
+    """Shared split-index body of the parity-phase family: factor
+    cc + i*(+-ss) chosen by the parity of (index & mask); PhaseParity
+    and UniformParityRZ differ only in their host-side angles."""
+    def body(xp, pid, lidx, L, cc, ss):
+        par = alu.split_parity(xp, pid, lidx, L, mask)
+        return cc, xp.where(par == 1, ss, -ss)
+    return body
 
 
 class QEngine(QInterface):
@@ -90,7 +104,10 @@ class QEngine(QInterface):
     def XMask(self, mask: int) -> None:
         if not mask:
             return
-        self._k_gather(lambda idx: idx ^ mask)
+        self._k_gather(
+            lambda idx: idx ^ mask,
+            split=(lambda xp, pid, lidx, L: alu.xor_split(
+                xp, pid, lidx, L, mask & ((1 << L) - 1), mask >> L), ()))
 
     def ZMask(self, mask: int) -> None:
         if not mask:
@@ -100,7 +117,11 @@ class QEngine(QInterface):
             par = self._parity_of(xp, idx, mask)
             return xp.where(par == 1, -1.0, 1.0), 0.0
 
-        self._k_phase_fn(fn)
+        self._k_phase_fn(fn, split=(
+            lambda xp, pid, lidx, L: (
+                xp.where(alu.split_parity(xp, pid, lidx, L, mask) == 1,
+                         -1.0, 1.0), 0.0),
+            ()))
 
     @staticmethod
     def _parity_of(xp, idx, mask):
@@ -121,7 +142,7 @@ class QEngine(QInterface):
             par = self._parity_of(xp, idx, mask)
             return c, xp.where(par == 1, s_, -s_)
 
-        self._k_phase_fn(fn)
+        self._k_phase_fn(fn, split=(_parity_rz_split(mask), (c, s_)))
 
     def Swap(self, q1: int, q2: int) -> None:
         if q1 == q2:
@@ -191,7 +212,11 @@ class QEngine(QInterface):
             par = self._parity_of(xp, idx, mask)
             return xp.where(par == want, scale, 0.0), 0.0
 
-        self._k_phase_fn(fn)
+        self._k_phase_fn(fn, split=(
+            lambda xp, pid, lidx, L, sc: (
+                xp.where(alu.split_parity(xp, pid, lidx, L, mask) == want,
+                         sc, 0.0), 0.0),
+            (scale,)))
         return bool(result)
 
     def MAll(self) -> int:
@@ -230,7 +255,9 @@ class QEngine(QInterface):
         if not to_add:
             return
         self._k_gather(
-            lambda idx: alu.inc_src(self._xp, idx, to_add, start, length))
+            lambda idx: alu.inc_src(self._xp, idx, to_add, start, length),
+            split=(lambda xp, pid, lidx, L, ta: alu.inc_src_split(
+                xp, pid, lidx, L, ta, start, length), (to_add,)))
 
     def CINC(self, to_add: int, start: int, length: int, controls) -> None:
         controls = tuple(controls)
@@ -244,7 +271,10 @@ class QEngine(QInterface):
         perm = (1 << len(controls)) - 1
         self._k_gather(
             lambda idx: alu.inc_src(self._xp, idx, to_add, start, length,
-                                    controls, perm))
+                                    controls, perm),
+            split=(lambda xp, pid, lidx, L, ta: alu.inc_src_split(
+                xp, pid, lidx, L, ta, start, length, controls, perm),
+                (to_add,)))
 
     def INCDECC(self, to_add: int, start: int, length: int, carry_index: int) -> None:
         if not length:
@@ -254,7 +284,10 @@ class QEngine(QInterface):
             return
         self._k_gather(
             lambda idx: alu.incdecc_src(self._xp, idx, to_add, start, length,
-                                        carry_index))
+                                        carry_index),
+            split=(lambda xp, pid, lidx, L, ta: alu.incdecc_src_split(
+                xp, pid, lidx, L, ta, start, length, carry_index),
+                (to_add,)))
 
     def INCBCD(self, to_add: int, start: int, length: int) -> None:
         """Packed-BCD add of decimal `to_add` (reference kernel incbcd,
@@ -270,7 +303,10 @@ class QEngine(QInterface):
         if not to_add:
             return
         self._k_gather(
-            lambda idx: alu.incbcd_src(self._xp, idx, to_add, start, length))
+            lambda idx: alu.incbcd_src(self._xp, idx, to_add, start, length),
+            split=(lambda xp, pid, lidx, L, digits: alu.incbcd_src_split(
+                xp, pid, lidx, L, digits, start, length),
+                (alu.bcd_digits(to_add, length // 4),)))
 
     def INCDECBCDC(self, to_add: int, start: int, length: int, carry_index: int) -> None:
         """Packed-BCD add with carry-out XOR (reference kernel
@@ -283,14 +319,20 @@ class QEngine(QInterface):
         to_add %= 10 ** (length // 4)
         self._k_gather(
             lambda idx: alu.incdecbcdc_src(self._xp, idx, to_add, start,
-                                           length, carry_index))
+                                           length, carry_index),
+            split=(lambda xp, pid, lidx, L, digits: alu.incdecbcdc_src_split(
+                xp, pid, lidx, L, digits, start, length, carry_index),
+                (alu.bcd_digits(to_add, length // 4),)))
 
     def INCS(self, to_add: int, start: int, length: int, overflow_index: int) -> None:
         if not length:
             return
         self._k_gather(
             lambda idx: alu.incs_src(self._xp, idx, to_add, start, length,
-                                     overflow_index))
+                                     overflow_index),
+            split=(lambda xp, pid, lidx, L, ta: alu.incs_src_split(
+                xp, pid, lidx, L, ta, start, length, overflow_index),
+                (to_add & ((1 << length) - 1),)))
 
     def INCDECSC(self, to_add: int, start: int, length: int, *flags) -> None:
         if not length:
@@ -301,26 +343,43 @@ class QEngine(QInterface):
             overflow_index, carry_index = None, flags[0]
         self._k_gather(
             lambda idx: alu.incdecsc_src(self._xp, idx, to_add, start, length,
-                                         carry_index, overflow_index))
+                                         carry_index, overflow_index),
+            split=(lambda xp, pid, lidx, L, ta: alu.incdecsc_src_split(
+                xp, pid, lidx, L, ta, start, length, carry_index,
+                overflow_index),
+                (to_add & ((1 << (length + 1)) - 1),)))
 
     def ROL(self, shift: int, start: int, length: int) -> None:
         if length < 2 or not (shift % length):
             return
         sh = shift % length
-        self._k_gather(lambda idx: alu.rol_src(self._xp, idx, sh, start, length))
+        self._k_gather(
+            lambda idx: alu.rol_src(self._xp, idx, sh, start, length),
+            split=(lambda xp, pid, lidx, L: alu.rol_src_split(
+                xp, pid, lidx, L, sh, start, length), ()))
 
     def ROR(self, shift: int, start: int, length: int) -> None:
         self.ROL(length - (shift % length) if length else 0, start, length)
 
+    # engines whose ket index passes int32 (the pager past 31 qubits, or
+    # a pager with force_wide_alu) run MUL/DIV and the *ModNOut family as
+    # split-index gathers: the pair-scatter forms build full-width host
+    # index arrays
+    _wide_alu = False
+
     def MUL(self, to_mul: int, in_out_start: int, carry_start: int, length: int) -> None:
         if to_mul == 1 or not length:
             return
+        if self._wide_alu:
+            return self._muldiv_wide(to_mul, in_out_start, carry_start, length, False)
         src, dst = alu.mul_pair(self._xp, self.qubit_count, to_mul, in_out_start, carry_start, length)
         self._k_out_of_place(src, dst, None)
 
     def DIV(self, to_div: int, in_out_start: int, carry_start: int, length: int) -> None:
         if to_div == 1 or not length:
             return
+        if self._wide_alu:
+            return self._muldiv_wide(to_div, in_out_start, carry_start, length, True)
         src, dst = alu.mul_pair(self._xp, self.qubit_count, to_div, in_out_start, carry_start, length)
         self._k_out_of_place(dst, src, None)
 
@@ -330,6 +389,9 @@ class QEngine(QInterface):
             return self.MUL(to_mul, in_out_start, carry_start, length)
         if to_mul == 1 or not length:
             return
+        if self._wide_alu:
+            return self._muldiv_wide(to_mul, in_out_start, carry_start, length,
+                                     False, controls)
         src, dst = alu.mul_pair(self._xp, self.qubit_count, to_mul, in_out_start, carry_start, length)
         self._ctrl_out_of_place(src, dst, controls)
 
@@ -339,8 +401,75 @@ class QEngine(QInterface):
             return self.DIV(to_div, in_out_start, carry_start, length)
         if to_div == 1 or not length:
             return
+        if self._wide_alu:
+            return self._muldiv_wide(to_div, in_out_start, carry_start, length,
+                                     True, controls)
         src, dst = alu.mul_pair(self._xp, self.qubit_count, to_div, in_out_start, carry_start, length)
         self._ctrl_out_of_place(dst, src, controls)
+
+    @staticmethod
+    def _split_ctrl(body, controls):
+        """A split gather body restricted to the control-matching
+        subspace: everything else passes through (reference kernels
+        cmul/cdiv)."""
+        if not controls:
+            return body
+        perm_all = (1 << len(controls)) - 1
+
+        def ctrl_body(xp, pid, lidx, L, *targs):
+            sp, sl, keep = body(xp, pid, lidx, L, *targs)
+            ok = alu.split_ctrl_match(xp, pid, lidx, L, controls, perm_all)
+            sp = xp.where(ok, alu._lane(sp, lidx), alu._lane(pid, lidx))
+            return sp, xp.where(ok, sl, lidx), keep | ~ok
+
+        return ctrl_body
+
+    def _muldiv_wide(self, to_mul, in_out_start, carry_start, length,
+                     inverse, controls=()) -> None:
+        """Width-generic MUL/DIV: the pair-scatter path builds full-width
+        host index arrays, so past int32 widths the same map runs as a
+        split-index gather, with host-built product tables below the
+        table cap (QRACK_WIDE_MUL_TABLE_QB, 24 bits) and products
+        recomputed per lane in 16-bit limbs above it or with
+        QRACK_WIDE_MUL_TABLE_FREE=1.  The register itself stays <= 31 bits
+        (reference width-generic mul/div kernels, qheader_alu.cl:~260)."""
+        import os
+
+        cap = min(int(os.environ.get("QRACK_WIDE_MUL_TABLE_QB", "24")), 31)
+        if os.environ.get("QRACK_WIDE_MUL_TABLE_FREE") == "1" or length > cap:
+            k, consts = alu.mul_consts(to_mul, length)
+            src_split = alu.div_src_split_tf if inverse else alu.mul_src_split_tf
+
+            def body(xp, pid, lidx, L, consts_op):
+                return src_split(xp, pid, lidx, L, consts_op, k,
+                                 in_out_start, carry_start, length)
+
+            targs = (consts,)
+        else:
+            lo, hi, inv, k = alu.mul_tables(to_mul, length)
+            src_split = alu.div_src_split if inverse else alu.mul_src_split
+
+            def body(xp, pid, lidx, L, lo_t, hi_t, inv_t):
+                return src_split(xp, pid, lidx, L, lo_t, hi_t, inv_t, k,
+                                 in_out_start, carry_start, length)
+
+            targs = (lo, hi, inv)
+        self._k_gather(None, split=(self._split_ctrl(body, controls), targs))
+
+    def _modnout_wide(self, res_fn, in_start, length, out_start, ol,
+                      inverse, controls=()) -> None:
+        """Width-generic (I)MULModNOut / POWModNOut: a split-index gather
+        with the residues of every input value in one host table (exact
+        Python ints; each residue < 2^ol fits int32)."""
+        table = np.asarray([res_fn(v) for v in range(1 << length)],
+                           dtype=np.int32)
+
+        def body(xp, pid, lidx, L, tbl):
+            return alu.modnout_gather_split(xp, pid, lidx, L, tbl, in_start,
+                                            length, out_start, ol,
+                                            inverse=inverse)
+
+        self._k_gather(None, split=(self._split_ctrl(body, controls), (table,)))
 
     def _ctrl_out_of_place(self, src, dst, controls) -> None:
         """Restrict an out-of-place map to the control-matching subspace;
@@ -356,6 +485,9 @@ class QEngine(QInterface):
 
     def MULModNOut(self, to_mul, mod_n, in_start, out_start, length) -> None:
         ol = self._mod_out_len(mod_n)
+        if self._wide_alu:
+            return self._modnout_wide(
+                lambda v: (v * to_mul) % mod_n, in_start, length, out_start, ol, False)
         src, dst = alu.mulmodnout_pair(
             self._xp, self.qubit_count, to_mul, mod_n, in_start, out_start, length, ol
         )
@@ -363,6 +495,9 @@ class QEngine(QInterface):
 
     def IMULModNOut(self, to_mul, mod_n, in_start, out_start, length) -> None:
         ol = self._mod_out_len(mod_n)
+        if self._wide_alu:
+            return self._modnout_wide(
+                lambda v: (v * to_mul) % mod_n, in_start, length, out_start, ol, True)
         src, dst = alu.mulmodnout_pair(
             self._xp, self.qubit_count, to_mul, mod_n, in_start, out_start, length, ol
         )
@@ -373,6 +508,9 @@ class QEngine(QInterface):
         if not controls:
             return self.MULModNOut(to_mul, mod_n, in_start, out_start, length)
         ol = self._mod_out_len(mod_n)
+        if self._wide_alu:
+            return self._modnout_wide(
+                lambda v: (v * to_mul) % mod_n, in_start, length, out_start, ol, False, controls)
         src, dst = alu.mulmodnout_pair(
             self._xp, self.qubit_count, to_mul, mod_n, in_start, out_start, length, ol
         )
@@ -383,6 +521,9 @@ class QEngine(QInterface):
         if not controls:
             return self.IMULModNOut(to_mul, mod_n, in_start, out_start, length)
         ol = self._mod_out_len(mod_n)
+        if self._wide_alu:
+            return self._modnout_wide(
+                lambda v: (v * to_mul) % mod_n, in_start, length, out_start, ol, True, controls)
         src, dst = alu.mulmodnout_pair(
             self._xp, self.qubit_count, to_mul, mod_n, in_start, out_start, length, ol
         )
@@ -390,6 +531,9 @@ class QEngine(QInterface):
 
     def POWModNOut(self, base: int, mod_n: int, in_start, out_start, length) -> None:
         ol = self._mod_out_len(mod_n)
+        if self._wide_alu:
+            return self._modnout_wide(
+                lambda v: pow(base, v, mod_n), in_start, length, out_start, ol, False)
         src, dst = alu.powmodnout_pair(
             self._xp, self.qubit_count, base, mod_n, in_start, out_start, length, ol
         )
@@ -400,6 +544,9 @@ class QEngine(QInterface):
         if not controls:
             return self.POWModNOut(base, mod_n, in_start, out_start, length)
         ol = self._mod_out_len(mod_n)
+        if self._wide_alu:
+            return self._modnout_wide(
+                lambda v: pow(base, v, mod_n), in_start, length, out_start, ol, False, controls)
         src, dst = alu.powmodnout_pair(
             self._xp, self.qubit_count, base, mod_n, in_start, out_start, length, ol
         )
@@ -415,7 +562,10 @@ class QEngine(QInterface):
         self._k_gather(
             lambda idx: alu.indexed_lda_src(
                 self._xp, idx, index_start, index_length, value_start,
-                value_length, tbl))
+                value_length, tbl),
+            split=(lambda xp, pid, lidx, L, t: alu.indexed_lda_src_split(
+                xp, pid, lidx, L, t, index_start, index_length, value_start,
+                value_length), (np.asarray(values, dtype=np.int32),)))
         return int(round(self.ExpectationBitsAll(
             list(range(value_start, value_start + value_length)))))
 
@@ -424,7 +574,11 @@ class QEngine(QInterface):
         self._k_gather(
             lambda idx: alu.indexed_adc_src(
                 self._xp, idx, index_start, index_length, value_start,
-                value_length, carry_index, tbl, sign=1))
+                value_length, carry_index, tbl, sign=1),
+            split=(lambda xp, pid, lidx, L, t: alu.indexed_adc_src_split(
+                xp, pid, lidx, L, t, index_start, index_length, value_start,
+                value_length, carry_index, sign=1),
+                (np.asarray(values, dtype=np.int32),)))
         return int(round(self.ExpectationBitsAll(
             list(range(value_start, value_start + value_length)))))
 
@@ -433,7 +587,11 @@ class QEngine(QInterface):
         self._k_gather(
             lambda idx: alu.indexed_adc_src(
                 self._xp, idx, index_start, index_length, value_start,
-                value_length, carry_index, tbl, sign=-1))
+                value_length, carry_index, tbl, sign=-1),
+            split=(lambda xp, pid, lidx, L, t: alu.indexed_adc_src_split(
+                xp, pid, lidx, L, t, index_start, index_length, value_start,
+                value_length, carry_index, sign=-1),
+                (np.asarray(values, dtype=np.int32),)))
         return int(round(self.ExpectationBitsAll(
             list(range(value_start, value_start + value_length)))))
 
@@ -443,20 +601,31 @@ class QEngine(QInterface):
         inv[tbl] = np.arange(tbl.shape[0], dtype=np.int64)
         inv_dev = self._index_table(inv)
         self._k_gather(
-            lambda idx: alu.hash_src(self._xp, idx, start, length, inv_dev))
+            lambda idx: alu.hash_src(self._xp, idx, start, length, inv_dev),
+            split=(lambda xp, pid, lidx, L, t: alu.hash_src_split(
+                xp, pid, lidx, L, t, start, length), (inv.astype(np.int32),)))
 
     def PhaseFlipIfLess(self, greater_perm: int, start: int, length: int) -> None:
         self._k_phase_fn(
             lambda xp, idx: (alu.phase_flip_less_factor(
-                xp, idx, greater_perm, start, length), 0.0))
+                xp, idx, greater_perm, start, length), 0.0),
+            split=(lambda xp, pid, lidx, L, gp: (
+                alu.phase_flip_less_factor_split(
+                    xp, pid, lidx, L, gp, start, length), 0.0),
+                (greater_perm,)))
 
     def CPhaseFlipIfLess(self, greater_perm: int, start: int, length: int, flag_index: int) -> None:
         self._k_phase_fn(
             lambda xp, idx: (alu.phase_flip_less_factor(
-                xp, idx, greater_perm, start, length, flag_index), 0.0))
+                xp, idx, greater_perm, start, length, flag_index), 0.0),
+            split=(lambda xp, pid, lidx, L, gp: (
+                alu.phase_flip_less_factor_split(
+                    xp, pid, lidx, L, gp, start, length, flag_index), 0.0),
+                (greater_perm,)))
 
     def PhaseFlip(self) -> None:
-        self._k_phase_fn(lambda xp, idx: (-1.0, 0.0))
+        self._k_phase_fn(lambda xp, idx: (-1.0, 0.0),
+                         split=(lambda xp, pid, lidx, L: (-1.0, 0.0), ()))
 
     def UniformParityRZ(self, mask: int, angle: float) -> None:
         c, s_ = math.cos(angle), math.sin(angle)
@@ -465,7 +634,7 @@ class QEngine(QInterface):
             par = self._parity_of(xp, idx, mask)
             return c, xp.where(par == 1, s_, -s_)
 
-        self._k_phase_fn(fn)
+        self._k_phase_fn(fn, split=(_parity_rz_split(mask), (c, s_)))
 
     def CUniformParityRZ(self, controls, mask: int, angle: float) -> None:
         controls = tuple(controls)
@@ -483,7 +652,16 @@ class QEngine(QInterface):
             fim = xp.where(active, xp.where(par == 1, s_, -s_), 0.0)
             return fre, fim
 
-        self._k_phase_fn(fn)
+        perm_all = (1 << len(controls)) - 1
+
+        def body(xp, pid, lidx, L, cc, ss):
+            par = alu.split_parity(xp, pid, lidx, L, mask)
+            active = alu.split_ctrl_match(xp, pid, lidx, L, controls, perm_all)
+            fre = xp.where(active, cc, 1.0)
+            fim = xp.where(active, xp.where(par == 1, ss, -ss), 0.0)
+            return fre, fim
+
+        self._k_phase_fn(fn, split=(body, (c, s_)))
 
     # ------------------------------------------------------------------
     # structure ops
@@ -552,7 +730,11 @@ class QEngine(QInterface):
     def _k_apply_diag(self, d0, d1, target, controls, perm) -> None:
         raise NotImplementedError
 
-    def _k_gather(self, src_fn) -> None:
+    def _k_gather(self, src_fn, split=None) -> None:
+        """Basis permutation new[i] = old[src_fn(i)].  ``split`` is the
+        op's split-index form (body, targs): body(xp, pid, lidx, L,
+        *targs) -> (src page, src local[, keep]); engines whose index
+        fits int32 ignore it."""
         raise NotImplementedError
 
     def _k_out_of_place(self, src_idx, dst_idx, passthrough_cmask) -> None:
@@ -565,8 +747,10 @@ class QEngine(QInterface):
         engine's index vector."""
         return np.asarray(values, dtype=np.int64)
 
-    def _k_phase_fn(self, fn) -> None:
-        """Apply a per-index complex factor: fn(xp, idx) -> (re, im)."""
+    def _k_phase_fn(self, fn, split=None) -> None:
+        """Apply a per-index complex factor: fn(xp, idx) -> (re, im).
+        ``split`` is the split-index form (body, targs): body(xp, pid,
+        lidx, L, *targs) -> (re, im)."""
         raise NotImplementedError
 
     def _k_probs(self) -> np.ndarray:

@@ -19,7 +19,13 @@ QEngineTurboQuant, engines/turboquant.py there).
   plain torch over chunks of 2^chunk_qb amplitudes
   (QRACK_TURBOQUANT_CHUNK_QB), batched into groups of chunks so that a
   step decodes about 2^27 amplitudes (1 GiB of float32 planes) at once.
-  Index math stays split as (chunk id, in-chunk index) int32 pairs.
+  Index math stays split as (chunk id, in-chunk index) int32 pairs: a
+  diagonal op with a split-index form (engines/qengine.py ``split=``)
+  runs it over the chunks at every width, exact past 31 qubits, as the
+  JAX engine's _mk_phase_split does.  With ``_pallas_capable`` False
+  (the TurboQuant pager, parallel/turboquant_pager.py) gates, diagonals
+  and windows also take the JAX engine's chunk programs (_mk_gate_low,
+  _mk_diag, _mk_fuse_window), as plain torch, and no kernel runs.
 * Normalization never touches codes: dequantization is linear in the
   scales.  Chunks and tiles that no gate acts on keep their exact codes.
 * Codes and scales update in place; Clone copies them.
@@ -104,6 +110,11 @@ class QEngineCUDATurboQuant(QEngineCUDA):
                                           str(tqk.DEFAULT_TILE_POW)))
     # float32 amplitudes one plain chunk step decodes at once (1 GiB)
     _GROUP_AMPS = 1 << 27
+    # gates, diagonals and windows through the kernels (K3-K5); with
+    # False they run as the JAX engine's XLA chunk programs do without
+    # QRACK_USE_PALLAS (_mk_gate_low, _mk_diag, _mk_fuse_window: plain
+    # torch over the chunks), as the TurboQuant pager always does
+    _pallas_capable = True
 
     def __init__(self, qubit_count: int, init_state: int = 0,
                  bits: int = None, block_pow: int = None,
@@ -115,11 +126,12 @@ class QEngineCUDATurboQuant(QEngineCUDA):
         bp = int(block_pow if block_pow is not None
                  else os.environ.get("QRACK_TURBO_BLOCK_POW",
                                      tq.DEFAULT_BLOCK_POW))
-        self._tq_block_pow = min(bp, qubit_count)
+        self._tq_block_pow = min(bp, self._max_chunk_pow(qubit_count))
         cq = int(chunk_qb if chunk_qb is not None
                  else os.environ.get("QRACK_TURBOQUANT_CHUNK_QB",
                                      DEFAULT_CHUNK_QB))
-        self._tq_chunk_pow = max(self._tq_block_pow, min(cq, qubit_count))
+        self._tq_chunk_pow = max(self._tq_block_pow,
+                                 min(cq, self._max_chunk_pow(qubit_count)))
         self._tq_seed = seed_rot
         self._qmax = float(tq.qmax(self._tq_bits))
         self._code_dt = torch.int8 if self._tq_bits <= 8 else torch.int16
@@ -136,6 +148,7 @@ class QEngineCUDATurboQuant(QEngineCUDA):
                          dtype=torch.float32, device=device, **kwargs)
 
     def _set_rotation(self, device) -> None:
+        self._rot_cache = {}   # the rotation on the pages' other devices
         d = 1 << self._tq_block_pow
         self._rot_host = tq.rotation_matrix(2 * d, self._tq_seed)
         self._rot = torch.from_numpy(self._rot_host).to(device)
@@ -144,6 +157,11 @@ class QEngineCUDATurboQuant(QEngineCUDA):
     # ------------------------------------------------------------------
     # capacity and layout
     # ------------------------------------------------------------------
+
+    def _max_chunk_pow(self, qubit_count: int) -> int:
+        """The widest chunk at this width (the pager subtracts its page
+        bits, so every page holds at least one chunk)."""
+        return qubit_count
 
     def _compressed_cap(self) -> int:
         """Width ceiling on one device: codes hold 4x (int8) or 2x
@@ -291,22 +309,32 @@ class QEngineCUDATurboQuant(QEngineCUDA):
             raise MemoryError(
                 f"dense fallback write at width {n_new} is unsound past "
                 f"{MAX_DENSE_QB} qubits on the compressed engine")
-        if self._tq_block_pow > n_new:
-            self._tq_block_pow = n_new
+        max_cp = self._max_chunk_pow(n_new)
+        if self._tq_block_pow > max_cp:
+            self._tq_block_pow = max_cp
             self._set_rotation(self._device)
         self._tq_chunk_pow = max(self._tq_block_pow,
-                                 min(self._tq_chunk_pow, n_new))
+                                 min(self._tq_chunk_pow, max_cp))
         self._compress_planes(planes)
 
     # ------------------------------------------------------------------
     # chunk groups: the JAX engine's lax.map chunk axis, batched
     # ------------------------------------------------------------------
 
-    def _chunk3(self):
-        """Chunk-major views of the resident arrays: (C, cb, 2D), (C, cb)."""
+    def _parts(self):
+        """[(codes (C, cb, 2D), scales (C, cb), global id of chunk 0)]:
+        the resident arrays as chunk-major views, one part here, one a
+        page on the pager."""
         C, cb = self._n_chunks(), self._chunk_blocks
-        return (self._codes.view(C, cb, 2 * self._block),
-                self._scales.view(C, cb))
+        return [(self._codes.view(C, cb, 2 * self._block),
+                 self._scales.view(C, cb), 0)]
+
+    def _chunk_rows(self, c: int):
+        """(codes, scales) of global chunk c."""
+        for c3, s2, cid0 in self._parts():
+            if cid0 <= c < cid0 + c3.shape[0]:
+                return c3[c - cid0], s2[c - cid0]
+        raise IndexError(f"chunk {c} out of range")
 
     def _group_size(self, n_live: int) -> int:
         """Units of n_live chunks (one chunk, or a pair) that one step
@@ -319,47 +347,58 @@ class QEngineCUDATurboQuant(QEngineCUDA):
                                        n_live * g * self._chunk_amps)
         return g
 
-    def _groups(self):
-        """[c0, c1) chunk ranges, one step each."""
-        C = self._n_chunks()
+    def _groups(self, C: int):
+        """[c0, c1) ranges over C chunks, one step each."""
         g = self._group_size(1)
         for c0 in range(0, C, g):
             yield c0, min(C, c0 + g)
 
-    def _cids(self, c0: int, c1: int):
+    def _cids(self, c0: int, c1: int, device=None):
         return torch.arange(c0, c1, dtype=gk.IDX_DTYPE,
-                            device=self._device).view(-1, 1)
+                            device=device or self._device).view(-1, 1)
 
-    def _lidx(self):
-        return gk._iota(self._chunk_amps, self._device)
+    def _lidx(self, device=None):
+        return gk._iota(self._chunk_amps, device or self._device)
+
+    def _rot_on(self, device):
+        """(rot, rot_t) on `device` (the pager's pages may lie apart)."""
+        if device == self._rot.device:
+            return self._rot, self._rot_t
+        if device not in self._rot_cache:
+            self._rot_cache[device] = (self._rot.to(device),
+                                       self._rot_t.to(device))
+        return self._rot_cache[device]
 
     def _dec_group(self, cc, ss):
-        return _rows_to_planes(_dec_rows(cc, ss, self._rot_t, self._qmax),
-                               self._block)
+        return _rows_to_planes(_dec_rows(cc, ss, self._rot_on(cc.device)[1],
+                                         self._qmax), self._block)
 
     def _comp_group(self, planes):
-        return _comp_rows(_planes_to_rows(planes, self._block), self._rot,
-                          self._qmax, self._code_dt)
+        return _comp_rows(_planes_to_rows(planes, self._block),
+                          self._rot_on(planes.device)[0], self._qmax,
+                          self._code_dt)
 
     def _map_chunks(self, body, select: bool = False) -> None:
         """Run body(planes (2, g, cs), cids (g, 1), lidx) over every chunk
         group and requantize in place.  With `select`, body returns
         (planes, keep) and chunks where keep is False keep their codes."""
-        c3, s2 = self._chunk3()
-        lidx = self._lidx()
-        for c0, c1 in self._groups():
-            cc, ss = c3[c0:c1], s2[c0:c1]
-            out = body(self._dec_group(cc, ss), self._cids(c0, c1), lidx)
-            keep = None
-            if select:
-                out, keep = out
-            nc, ns = self._comp_group(out)
-            if keep is None:
-                cc.copy_(nc)
-                ss.copy_(ns)
-            else:
-                cc.copy_(torch.where(keep.unsqueeze(-1), nc, cc))
-                ss.copy_(torch.where(keep, ns, ss))
+        for c3, s2, cid0 in self._parts():
+            dev = c3.device
+            lidx = self._lidx(dev)
+            for c0, c1 in self._groups(c3.shape[0]):
+                cc, ss = c3[c0:c1], s2[c0:c1]
+                out = body(self._dec_group(cc, ss),
+                           self._cids(cid0 + c0, cid0 + c1, dev), lidx)
+                keep = None
+                if select:
+                    out, keep = out
+                nc, ns = self._comp_group(out)
+                if keep is None:
+                    cc.copy_(nc)
+                    ss.copy_(ns)
+                else:
+                    cc.copy_(torch.where(keep.unsqueeze(-1), nc, cc))
+                    ss.copy_(torch.where(keep, ns, ss))
 
     # ------------------------------------------------------------------
     # gates: the kernels, routed as the JAX engine routes its Pallas ones
@@ -374,7 +413,7 @@ class QEngineCUDATurboQuant(QEngineCUDA):
         m2 = np.asarray(m2, dtype=np.complex128)
         mp = np.stack([m2.real, m2.imag]).astype(np.float32)
         tp = self._pallas_tile_pow()
-        if target < tp:
+        if self._pallas_capable and target < tp:
             T = 1 << tp
             tqk.tq_gate_low(*self._kernel_args(), mp, target, cmask >> tp,
                             cval >> tp, cmask & (T - 1), cval & (T - 1))
@@ -391,37 +430,56 @@ class QEngineCUDATurboQuant(QEngineCUDA):
 
     def _gate_pair(self, m, tb_pos: int, hm, hv, lm, lv) -> None:
         """2x2 whose target is a chunk-id bit: chunk a (bit clear) and its
-        partner a + 2^tb_pos mix (the cross-chunk pair path)."""
-        C, cb, twoD = self._n_chunks(), self._chunk_blocks, 2 * self._block
+        partner a + 2^tb_pos mix (the cross-chunk pair path), within each
+        part."""
+        cb, twoD = self._chunk_blocks, 2 * self._block
         lo_n = 1 << tb_pos
-        hi_n = C // (2 * lo_n)
-        c5 = self._codes.view(hi_n, 2, lo_n, cb, twoD)
-        s4 = self._scales.view(hi_n, 2, lo_n, cb)
-        lidx = self._lidx()
+        for c3, s2, cid0 in self._parts():
+            C, dev = c3.shape[0], c3.device
+            hi_n = C // (2 * lo_n)
+            self._pair_part(m, c3.view(hi_n, 2, lo_n, cb, twoD),
+                            s2.view(hi_n, 2, lo_n, cb), cid0, lo_n, hm, hv,
+                            lm, lv, dev)
+
+    def _pair_part(self, m, c5, s4, cid0, lo_n, hm, hv, lm, lv, dev) -> None:
+        hi_n, cb, twoD = c5.shape[0], c5.shape[3], c5.shape[4]
+        lidx = self._lidx(dev)
         for h0, h1, l0, l1 in _pair_spans(hi_n, lo_n, self._group_size(2)):
             k = (h1 - h0) * (l1 - l0)
-            ha = torch.arange(h0, h1, dtype=gk.IDX_DTYPE, device=self._device)
-            la = torch.arange(l0, l1, dtype=gk.IDX_DTYPE, device=self._device)
-            cid_a = (ha.view(-1, 1) * (2 * lo_n) + la.view(1, -1)).view(k, 1)
-            parts = []
-            for half in (0, 1):
-                cc = c5[h0:h1, half, l0:l1].reshape(k, cb, twoD)
-                ss = s4[h0:h1, half, l0:l1].reshape(k, cb)
-                parts.append((cc, ss, self._dec_group(cc, ss)))
-            na, nb = _pair_mix(parts[0][2], parts[1][2], m, lm, lv, lidx)
-            # controls never sit on the target bit: one high test per pair
-            sel = (cid_a & hm) == hv
-            for half, new in ((0, na), (1, nb)):
-                cc, ss, _pl = parts[half]
-                nc, ns = self._comp_group(new)
-                c5[h0:h1, half, l0:l1] = torch.where(
-                    sel.unsqueeze(-1), nc, cc).view(h1 - h0, l1 - l0, cb, twoD)
-                s4[h0:h1, half, l0:l1] = torch.where(
-                    sel, ns, ss).view(h1 - h0, l1 - l0, cb)
+            ha = torch.arange(h0, h1, dtype=gk.IDX_DTYPE, device=dev)
+            la = torch.arange(l0, l1, dtype=gk.IDX_DTYPE, device=dev)
+            cid_a = (cid0 + ha.view(-1, 1) * (2 * lo_n)
+                     + la.view(1, -1)).view(k, 1)
+            halves = [(c5[h0:h1, half, l0:l1].reshape(k, cb, twoD),
+                       s4[h0:h1, half, l0:l1].reshape(k, cb))
+                      for half in (0, 1)]
+            for half, (nc, ns) in enumerate(self._mix_rows(
+                    m, halves[0], halves[1], cid_a, hm, hv, lm, lv, lidx)):
+                c5[h0:h1, half, l0:l1] = nc.view(h1 - h0, l1 - l0, cb, twoD)
+                s4[h0:h1, half, l0:l1] = ns.view(h1 - h0, l1 - l0, cb)
+
+    def _mix_rows(self, m, rows_a, rows_b, cid_a, hm, hv, lm, lv, lidx):
+        """The pair mix of chunks a (target bit clear) and b, given as
+        (codes, scales) of k chunks each: [(codes, scales) of a, of b],
+        requantized where the high control test of a's chunk id passes
+        (controls never sit on the target bit: one test a pair), the
+        input codes elsewhere."""
+        na, nb = _pair_mix(self._dec_group(*rows_a), self._dec_group(*rows_b),
+                           m, lm, lv, lidx)
+        sel = (cid_a & hm) == hv
+        out = []
+        for (cc, ss), new in ((rows_a, na), (rows_b, nb)):
+            nc, ns = self._comp_group(new)
+            out.append((torch.where(sel.unsqueeze(-1), nc, cc),
+                        torch.where(sel, ns, ss)))
+        return out
 
     def _k_apply_diag(self, d0, d1, target, controls, perm) -> None:
         cmask, cval = self._cmask_cval(controls, perm)
         d0, d1 = complex(d0), complex(d1)
+        if not self._pallas_capable:
+            self._diag_chunks(d0, d1, target, cmask, cval)
+            return
         tp = self._pallas_tile_pow()
         T = 1 << tp
         dp = np.zeros((2, 2, 2), np.float32)
@@ -432,16 +490,108 @@ class QEngineCUDATurboQuant(QEngineCUDA):
         tqk.tq_diag(*self._kernel_args(), dp, tm_lo, tb_hi, cmask & (T - 1),
                     cval & (T - 1), cmask >> tp, cval >> tp)
 
-    def _k_phase_fn(self, fn) -> None:
-        if self.qubit_count > 31:
-            raise NotImplementedError(
-                "this diagonal op has no split-index form for >31-qubit "
-                "compressed kets")
-        cs = self._chunk_amps
+    def _diag_chunks(self, d0, d1, target, cmask, cval) -> None:
+        """A diagonal as the JAX engine's chunk program (_mk_diag): the
+        factor per element, a chunk requantized only where a high-control
+        test passes and its factor is not identically 1 (a unit diagonal
+        above the chunk keeps its codes bit for bit)."""
+        ca, cs = self._tq_chunk_pow, self._chunk_amps
+        tmask_lo = (1 << target) if target < ca else 0
+        tb_hi = 0 if target < ca else (1 << (target - ca))
+        lm, lv, hm, hv = cmask & (cs - 1), cval & (cs - 1), cmask >> ca, cval >> ca
+        d0re, d0im, d1re, d1im = (np.float32(x) for x in (d0.real, d0.imag,
+                                                           d1.real, d1.imag))
 
         def body(pl, cid, lidx):
-            fre, fim = fn(torch, cid * cs + lidx)
-            return gk.cmul(fre, fim, pl)
+            hi_bit = (cid & tb_hi) != 0
+            bit = ((lidx & tmask_lo) != 0) | hi_bit
+            fre = torch.where(bit, float(d1re), float(d0re))
+            fim = torch.where(bit, float(d1im), float(d0im))
+            active = (lidx & lm) == lv
+            fre = torch.where(active, fre, 1.0)
+            fim = torch.where(active, fim, 0.0)
+            out = gk.cmul(fre, fim, pl)
+            cf_re = torch.where(hi_bit, float(d1re), float(d0re))
+            cf_im = torch.where(hi_bit, float(d1im), float(d0im))
+            ident = ((tmask_lo == 0) & (lm == 0) & (cf_re == 1.0)
+                     & (cf_im == 0.0))
+            return out, ((cid & hm) == hv) & ~ident
+
+        self._map_chunks(body, select=True)
+
+    def _window_chunks(self, structure, operands) -> None:
+        """A fused window as the JAX engine's chunk program
+        (_mk_fuse_window): one decode, every op through the shared tile
+        primitives with the chunk as the tile, one requantize of each
+        chunk an op acted on."""
+        ca = self._tq_chunk_pow
+        lbits = (1 << ca) - 1
+
+        def body(pl, cid, lidx):
+            dirty = torch.zeros_like(cid, dtype=torch.bool)
+            i = 0
+            for kind, target, has_ctrl in structure:
+                p = operands[i]
+                i += 1
+                if kind == "cphase":
+                    if has_ctrl:
+                        clo, chi = operands[i], operands[i + 1]
+                        i += 2
+                    else:
+                        comb = 1 << target
+                        clo, chi = comb & lbits, comb >> ca
+                    pl, hi_ok = wk.tile_cphase(pl, lidx, cid, clo, chi,
+                                               p[0], p[1])
+                    dirty = dirty | hi_ok
+                    continue
+                if has_ctrl:
+                    lo_cm, lo_cv, hi_cm, hi_cv = operands[i:i + 4]
+                    i += 4
+                else:
+                    lo_cm = lo_cv = hi_cm = hi_cv = 0
+                if kind == "diag":
+                    pl, hi_ok = wk.tile_diag(pl, lidx, cid, target, ca,
+                                             p[0, 0], p[0, 1], p[1, 0],
+                                             p[1, 1], lo_cm, lo_cv, hi_cm,
+                                             hi_cv)
+                    if target >= ca:
+                        # a whole-chunk factor of exactly 1 keeps the codes
+                        hi_bit = (cid & (1 << (target - ca))) != 0
+                        cf_re = torch.where(hi_bit, p[1, 0], p[0, 0])
+                        cf_im = torch.where(hi_bit, p[1, 1], p[0, 1])
+                        ident = ((lo_cm == 0) & (cf_re == 1.0)
+                                 & (cf_im == 0.0))
+                        hi_ok = hi_ok & ~ident
+                    dirty = dirty | hi_ok
+                else:  # gen: target < ca, as _fuse_admit routes it
+                    pl, hi_ok = wk.tile_local_2x2(pl, lidx, cid, target, p,
+                                                  lo_cm, lo_cv, hi_cm, hi_cv)
+                    dirty = dirty | hi_ok
+            return pl, dirty
+
+        self._map_chunks(body, select=True)
+
+    def _k_phase_fn(self, fn, split=None) -> None:
+        ca, cs = self._tq_chunk_pow, self._chunk_amps
+        if split is not None:
+            # the (chunk id, in-chunk index) form: exact past 31 qubits
+            # (the JAX engine's _mk_phase_split, taken whenever an op has
+            # one)
+            body_fn, targs = split
+
+            def body(pl, cid, lidx):
+                fre, fim = body_fn(gk.plane_where(pl), cid, lidx, ca, *targs)
+                return gk.cmul(fre, fim, pl)
+        else:
+            if self.qubit_count > 31:
+                raise NotImplementedError(
+                    "this diagonal op lacks a split-index form for "
+                    ">31-qubit compressed kets (see the `split=` forms in "
+                    "engines/qengine.py)")
+
+            def body(pl, cid, lidx):
+                fre, fim = fn(torch, cid * cs + lidx)
+                return gk.cmul(fre, fim, pl)
 
         self._map_chunks(body)
 
@@ -450,9 +600,12 @@ class QEngineCUDATurboQuant(QEngineCUDA):
     # ------------------------------------------------------------------
 
     def _fuse_admit(self, m, target, controls) -> bool:
-        # a window runs as one kernel sweep; only non-diagonal targets
-        # above the tile stay per-gate (the chunk pair path)
-        return mat.is_phase(m) or target < self._pallas_tile_pow()
+        # a window runs as one sweep (a kernel's tiles, or the chunk
+        # program's chunks); only non-diagonal targets above the tile or
+        # chunk stay per-gate (the chunk pair path)
+        if self._pallas_capable:
+            return mat.is_phase(m) or target < self._pallas_tile_pow()
+        return mat.is_phase(m) or target < self._tq_chunk_pow
 
     # No drift accounting, eager or fused: a norm check would decompress
     # the whole ket, and the codes decode to float32 whatever the norm.
@@ -482,8 +635,13 @@ class QEngineCUDATurboQuant(QEngineCUDA):
             else:
                 self._k_apply_2x2(m, op.target, controls, perm)
             return 1
+        structure = fu.sharded_structure_of(ops)
+        if not self._pallas_capable:
+            self._window_chunks(structure, fu.sharded_operands(
+                ops, self._tq_chunk_pow, torch.float32, self._device))
+            return 1
         tp = self._pallas_tile_pow()
-        tqk.tq_window(*self._kernel_args(), fu.sharded_structure_of(ops),
+        tqk.tq_window(*self._kernel_args(), structure,
                       fu.sharded_operands(ops, tp, torch.float32,
                                           self._device))
         return 1
@@ -495,15 +653,18 @@ class QEngineCUDATurboQuant(QEngineCUDA):
     def _k_prob_mask(self, mask, perm) -> float:
         ca, cs = self._tq_chunk_pow, self._chunk_amps
         ml, vl, mh, vh = mask & (cs - 1), perm & (cs - 1), mask >> ca, perm >> ca
-        c3, s2 = self._chunk3()
-        lidx = self._lidx()
-        sums = []
-        for c0, c1 in self._groups():
-            pl = self._dec_group(c3[c0:c1], s2[c0:c1])
-            ok = ((lidx & ml) == vl) & ((self._cids(c0, c1) & mh) == vh)
-            p = pl[0] ** 2 + pl[1] ** 2
-            sums.append(torch.where(ok, p, 0.0).sum(-1))
-        total = float(torch.cat(sums).sum())
+        total = 0.0
+        for c3, s2, cid0 in self._parts():
+            dev = c3.device
+            lidx = self._lidx(dev)
+            sums = []
+            for c0, c1 in self._groups(c3.shape[0]):
+                pl = self._dec_group(c3[c0:c1], s2[c0:c1])
+                ok = (((lidx & ml) == vl)
+                      & ((self._cids(cid0 + c0, cid0 + c1, dev) & mh) == vh))
+                p = pl[0] ** 2 + pl[1] ** 2
+                sums.append(torch.where(ok, p, 0.0).sum(-1))
+            total += float(torch.cat(sums).sum())
         return min(max(total, 0.0), 1.0)
 
     def _k_collapse(self, mask, val, nrm_sq) -> None:
@@ -512,10 +673,10 @@ class QEngineCUDATurboQuant(QEngineCUDA):
         if (mask & (cs - 1)) == 0:
             # chunk-aligned mask: a pure per-chunk scale update (match ->
             # *scale, else -> 0); the codes stay exact and nothing decodes
-            _c3, s2 = self._chunk3()
-            cids = self._cids(0, self._n_chunks())
-            sel = (cids & (mask >> ca)) == (val >> ca)
-            s2.copy_(torch.where(sel, s2 * scale, 0.0))
+            for c3, s2, cid0 in self._parts():
+                cids = self._cids(cid0, cid0 + c3.shape[0], c3.device)
+                sel = (cids & (mask >> ca)) == (val >> ca)
+                s2.copy_(torch.where(sel, s2 * scale, 0.0))
             return
         ml, vl, mh, vh = mask & (cs - 1), val & (cs - 1), mask >> ca, val >> ca
 
@@ -527,7 +688,8 @@ class QEngineCUDATurboQuant(QEngineCUDA):
 
     def _k_normalize(self, nrm_sq) -> None:
         # dequantization is linear in the scales: nothing decodes
-        self._scales.mul_(1.0 / math.sqrt(nrm_sq))
+        for _c3, s2, _cid0 in self._parts():
+            s2.mul_(1.0 / math.sqrt(nrm_sq))
 
     def UpdateRunningNorm(self, norm_thresh: float = -1.0) -> None:
         """The squared norm from the chunk masses, without a decode, so
@@ -538,15 +700,15 @@ class QEngineCUDATurboQuant(QEngineCUDA):
     def _chunk_masses(self) -> np.ndarray:
         """Per-chunk probability masses WITHOUT the rotation: it is
         orthogonal, so a row's norm is sum((codes * scale / qmax)^2)."""
-        c3, s2 = self._chunk3()
         out = []
-        C = self._n_chunks()
-        g = max(1, min(C, self._GROUP_AMPS // self._chunk_amps))
-        for c0 in range(0, C, g):
-            y = (c3[c0:c0 + g].to(torch.float32)
-                 * (s2[c0:c0 + g] / self._qmax).unsqueeze(-1))
-            out.append(torch.sum(y * y, dim=(1, 2)))
-        return torch.cat(out).to("cpu", torch.float64).numpy()
+        g = max(1, self._GROUP_AMPS // self._chunk_amps)
+        for c3, s2, _cid0 in self._parts():
+            for c0 in range(0, c3.shape[0], g):
+                y = (c3[c0:c0 + g].to(torch.float32)
+                     * (s2[c0:c0 + g] / self._qmax).unsqueeze(-1))
+                out.append(torch.sum(y * y, dim=(1, 2)).to("cpu",
+                                                           torch.float64))
+        return torch.cat(out).numpy()
 
     def MAll(self) -> int:
         """Two-stage sampling: a chunk by its mass (no decode), then an
@@ -563,8 +725,7 @@ class QEngineCUDATurboQuant(QEngineCUDA):
                 break
         self.peak_transient_amps = max(self.peak_transient_amps,
                                        self._chunk_amps)
-        c3, s2 = self._chunk3()
-        pl = self._dec_group(c3[chosen], s2[chosen])
+        pl = self._dec_group(*self._chunk_rows(chosen))
         local = int(gk.sample(pl, float(self.Rand())))
         result = chosen * self._chunk_amps + local
         self.SetPermutation(result)
@@ -596,6 +757,10 @@ class QEngineCUDATurboQuant(QEngineCUDA):
         self._codes = codes
         self._scales = scales
         self.running_norm = 1.0
+
+    def _block_home(self, b: int):
+        """(codes, scales, row) of block b in the resident arrays."""
+        return self._codes, self._scales, b
 
     def _fetch_blocks(self, b0: int, nb: int):
         """Host float32 (codes, scales) of blocks [b0, b0 + nb)."""
@@ -631,8 +796,9 @@ class QEngineCUDATurboQuant(QEngineCUDA):
         safe = scale if scale > 0 else 1.0
         row = np.round(y / safe * self._qmax).astype(
             tq.code_dtype(self._tq_bits))
-        self._codes[b] = torch.from_numpy(row).to(self._device)
-        self._scales[b] = scale
+        codes, scales, i = self._block_home(b)
+        codes[i] = torch.from_numpy(row).to(codes.device)
+        scales[i] = scale
 
     def GetAmplitudePage(self, offset: int, length: int) -> np.ndarray:
         """Block-aligned page read: decode only the covered blocks."""
@@ -695,8 +861,8 @@ class QEngineCUDATurboQuant(QEngineCUDA):
 
         p = path if str(path).endswith(".npz") else str(path) + ".npz"
         # the same members, meta and kind as the JAX package writes
-        save_container(p, {"codes": self._codes.to("cpu").numpy(),
-                           "scales": self._scales.to("cpu").numpy(),
+        codes, scales = self.host_codes()
+        save_container(p, {"codes": codes, "scales": scales,
                            "n": np.asarray(self.qubit_count),
                            "bits": np.asarray(self._tq_bits),
                            "block_pow": np.asarray(self._tq_block_pow),
@@ -719,6 +885,10 @@ class QEngineCUDATurboQuant(QEngineCUDA):
                   **kwargs)
         eng.place_codes(np.asarray(z["codes"]), np.asarray(z["scales"]))
         return eng
+
+    def host_codes(self):
+        """(codes, scales) of the whole ket on the host."""
+        return self._codes.to("cpu").numpy(), self._scales.to("cpu").numpy()
 
     def place_codes(self, codes: np.ndarray, scales: np.ndarray) -> None:
         """Land host (codes, scales) arrays as this engine's ket (a copy)."""

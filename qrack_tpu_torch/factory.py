@@ -12,6 +12,9 @@ ported layers, top-down:
   "tensor_network"     QTensorNetwork: circuit buffering, past-light-cone
                        reads
   "unit"               QUnit Schmidt factoring over lower-layer units
+  "unit_multi"         QUnitMulti: QUnit that places each unit on a row
+                       of a device table (``device_ids``, CUDA ordinals;
+                       a card may repeat; env QRACK_QUNITMULTI_DEVICES)
   "stabilizer_hybrid"  Clifford tableau until a non-Clifford op forces a
                        dense engine
   "bdt_hybrid"         QBdtHybrid: decision tree until it stops
@@ -39,6 +42,10 @@ and the ported terminals:
                   (options bits, block_pow, chunk_qb, seed_rot; env
                   QRACK_TURBO_BITS, QRACK_TURBO_BLOCK_POW,
                   QRACK_TURBOQUANT_CHUNK_QB, QRACK_PALLAS_TQ_TILE_QB)
+  "turboquant_pager"  QPagerTurboQuant: the compressed ket in pages over a
+                  device list that may repeat a device (``devices``,
+                  ``n_pages``; the "turboquant" options), plain chunk
+                  programs, no kernel
   "stabilizer"    QStabilizer bare CHP tableau (Clifford only; host)
   "unit_clifford" QUnitClifford: QUnit over per-subsystem tableaus
   "bdt"           QBdt decision tree (host nodes; device leaves)
@@ -48,7 +55,8 @@ and the ported terminals:
                   QRACK_QBDT_LEAF_DEVICE_QB (14) attached qubits
 
 ``"optimal"`` is OPTIMAL = ["unit", "stabilizer_hybrid", "hybrid"], the
-reference's production stack shape over the CUDA dense bottom.
+reference's production stack shape over the CUDA dense bottom;
+``"optimal_multi"`` is OPTIMAL_MULTI, the same with "unit_multi" on top.
 ``device``/``dtype`` go to the terminal, and to "bdt_hybrid" for its
 tree, so every engine a stack builds lies on ``cuda`` unless
 ``device="cpu"``.  The JAX package's other layers raise ValueError
@@ -60,9 +68,11 @@ import os
 from typing import Callable, List, Sequence, Union
 
 OPTIMAL = ("unit", "stabilizer_hybrid", "hybrid")
+OPTIMAL_MULTI = ("unit_multi", "stabilizer_hybrid", "hybrid")
 
 _TERMINAL = {"cuda", "cpu", "hybrid", "pager", "sparse", "turboquant",
-             "stabilizer", "unit_clifford", "bdt", "bdt_attached"}
+             "turboquant_pager", "stabilizer", "unit_clifford", "bdt",
+             "bdt_attached"}
 
 #: terminals that run on the host and refuse a device
 _HOST_TERMINALS = {"cpu", "sparse"}
@@ -71,9 +81,6 @@ _HOST_TERMINALS = {"cpu", "sparse"}
 #: ROADMAP item that brings each
 _NOT_PORTED = {
     "tpu": "the port's dense terminal is 'cuda'",
-    "turboquant_pager": "ROADMAP item 13 (pager)",
-    "unit_multi": "ROADMAP item 13 (pager: QUnitMulti)",
-    "optimal_multi": "ROADMAP item 13 (pager: QUnitMulti)",
     "lightcone": "ROADMAP item 16 (lightcone/engine.py, which builds its "
                  "cones through 'route')",
     "route": "ROADMAP item 16 (route/)",
@@ -110,6 +117,10 @@ def _terminal_factory(name: str, **opts) -> Callable:
         from .engines.turboquant import QEngineCUDATurboQuant
 
         return lambda n, **kw: QEngineCUDATurboQuant(n, **{**opts, **kw})
+    if name == "turboquant_pager":
+        from .parallel.turboquant_pager import QPagerTurboQuant
+
+        return lambda n, **kw: QPagerTurboQuant(n, **{**opts, **kw})
     if name == "stabilizer":
         from .layers.stabilizer import QStabilizer
 
@@ -160,6 +171,10 @@ def build_factory(layers: Sequence[str], **opts) -> Callable:
         from .layers.qunit import QUnit
 
         return lambda n, **kw: QUnit(n, unit_factory=below, **kw)
+    if head == "unit_multi":
+        from .layers.qunitmulti import QUnitMulti
+
+        return lambda n, **kw: QUnitMulti(n, unit_factory=below, **kw)
     if head == "stabilizer_hybrid":
         from .layers.stabilizerhybrid import QStabilizerHybrid
 
@@ -200,7 +215,8 @@ def create_quantum_interface(layers: Union[str, Sequence[str]], qubit_count: int
     ``create_quantum_interface(["stabilizer_hybrid", "hybrid"], 18)`` or,
     on the CPU, ``create_quantum_interface("optimal", 10, device="cpu")``."""
     if isinstance(layers, str):
-        layers = OPTIMAL if layers == "optimal" else (layers,)
+        layers = {"optimal": OPTIMAL,
+                  "optimal_multi": OPTIMAL_MULTI}.get(layers, (layers,))
     opts = {k: kwargs.pop(k) for k in ("dtype", "device", "noise", "model")
             if k in kwargs}
     factory = build_factory(tuple(layers), **opts)

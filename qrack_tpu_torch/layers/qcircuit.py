@@ -16,8 +16,9 @@ per gate.  The whole-circuit programs over planes:
   axis of kets.
 
 :meth:`QCircuit.PastLightCone` cuts the sub-circuit a set of qubits
-depends on (QTensorNetwork's reads).  The sharded program
-(compile_sharded_fn) is a later part of ROADMAP item 13.
+depends on (QTensorNetwork's reads).
+:meth:`QCircuit.compile_sharded_fn` applies the circuit to a ket in pages
+(the pager's layout, ops/sharded.py), gate by gate and in place.
 """
 
 from __future__ import annotations
@@ -366,6 +367,49 @@ class QCircuit:
             return body(planes, n)
 
         return fn
+
+    def compile_sharded_fn(self, pages, n: int, device=None):
+        """The whole circuit over a ket in pages: `pages` is a page count
+        (each on `device`, ``cuda`` by default) or a device list that may
+        repeat a device (the JAX package takes a Mesh).  In-page gates
+        run per page, paged targets as the pager's pair mix, diagonals
+        with split (local, page) masks: every pass in place, block by
+        block.  Returns (fn, devices); fn(page list) applies the circuit
+        in place, as models.qft.make_sharded_qft_fn does."""
+        from ..ops import sharded as sh
+        from ..utils.bits import control_offset
+
+        devs = sh.page_devices(pages, device)
+        L = n - (len(devs).bit_length() - 1)
+        if L < 1:
+            raise ValueError("at least one in-page qubit a page")
+        gates = [(g.target, g.controls, dict(g.payloads)) for g in self.gates]
+
+        def fn(pgs):
+            for (target, controls, payloads) in gates:
+                cmask = 0
+                for c in controls:
+                    cmask |= 1 << c
+                for perm, m in payloads.items():
+                    cval = control_offset(controls, perm)
+                    lm, lv, gm, gv = sh.split_masks(cmask, cval, L)
+                    if mat.is_phase(m):
+                        tmask = 1 << target
+                        sh.apply_diag(pgs, m[0, 0].real, m[0, 0].imag,
+                                      m[1, 1].real, m[1, 1].imag,
+                                      tmask & ((1 << L) - 1), tmask >> L,
+                                      lm, lv, gm, gv)
+                    else:
+                        mp = np.stack([m.real, m.imag])
+                        if target < L:
+                            sh.apply_local_2x2(pgs, mp, L, target, lm, lv,
+                                               gm, gv)
+                        else:
+                            sh.apply_global_2x2(pgs, mp, target - L, lm, lv,
+                                                gm, gv)
+            return pgs
+
+        return fn, devs
 
     def compile_fn_pallas(self, n: int, block_pow: Optional[int] = None):
         """fn(planes) applying the circuit through the window kernel

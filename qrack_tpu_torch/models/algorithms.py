@@ -31,13 +31,16 @@ def grover_search(qsim, target: int, n: Optional[int] = None) -> int:
     return qsim.MAll()
 
 
-def grover_amplify(qsim, target: int, n: Optional[int] = None) -> None:
+def grover_amplify(qsim, target: int, n: Optional[int] = None,
+                   iters: Optional[int] = None) -> None:
     """The body of :func:`grover_search` without its final measurement:
-    the uniform superposition, then pi/4 sqrt(N) Grover iterations."""
+    the uniform superposition, then `iters` Grover iterations (default
+    pi/4 sqrt(N))."""
     n = n if n is not None else qsim.GetQubitCount()
     for i in range(n):
         qsim.H(i)
-    iters = int(math.floor(math.pi / 4 * math.sqrt(1 << n)))
+    if iters is None:
+        iters = int(math.floor(math.pi / 4 * math.sqrt(1 << n)))
     for _ in range(iters):
         qsim.PhaseFlipIfLess(target + 1, 0, n)
         qsim.PhaseFlipIfLess(target, 0, n)

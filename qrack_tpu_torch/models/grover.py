@@ -11,8 +11,8 @@ use 2^k-wide cluster contractions (H^(x)k kron blocks), as models.rcs
 does.  No hand-written kernel: the engine path of the same search
 (algorithms.grover_search) is the one that runs the window kernel.
 
-The sharded program of the JAX package (make_sharded_grover_fn) is a
-later part of the pager's port (ROADMAP item 13).
+:func:`make_sharded_grover_fn` runs the search over a ket in pages (the
+pager's layout, ops/sharded.py), every pass in place.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 
 from .. import matrices as mat
 from ..ops import gatekernels as gk
+from ..ops import sharded as shb
 
 
 def grover_iterations(n: int) -> int:
@@ -83,3 +84,47 @@ def make_grover_fn(n: int, target: int, iters: int | None = None,
 def success_probability(planes, target: int) -> float:
     p = planes[0] ** 2 + planes[1] ** 2
     return float(p[target] / p.sum())
+
+
+def make_sharded_grover_fn(pages, n: int, target: int,
+                           iters: int | None = None, fuse_qb: int = FUSE_QB,
+                           device=None):
+    """Grover over a ket in pages: `pages` is a page count (each on
+    `device`, ``cuda`` by default) or a device list that may repeat a
+    device (the JAX package takes a Mesh).  In-page H clusters run per
+    page in place, page-bit H as the pager's pair mix; each phase flip
+    negates its one amplitude where it lies (the JAX package multiplies
+    the ket by a +-1 vector from split index reads: the same values).
+    The JAX package's fori_loop is a Python loop.  Returns (fn, devices,
+    iters); fn(page list) prepares the uniform superposition from |0>
+    and runs `iters` iterations in place."""
+    devs = shb.page_devices(pages, device)
+    L = n - (len(devs).bit_length() - 1)
+    if L < 1:
+        raise ValueError("at least one in-page qubit a page")
+    if iters is None:
+        iters = grover_iterations(n)
+    target &= (1 << n) - 1
+    t_lo, t_hi = target & ((1 << L) - 1), target >> L
+    k = max(1, min(fuse_qb, L))
+
+    def fn(pgs):
+        dt = pgs[0].dtype
+        clusters = _h_clusters(L, k, dt, "cpu")
+        hmp = gk.mtrx_planes(np.asarray(mat.H2), dt, device="cpu")
+
+        def h_all():
+            for (c0, w, mp) in clusters:
+                shb.apply_local_kxk(pgs, mp, L, c0, w)
+            for q in range(L, n):
+                shb.apply_global_2x2(pgs, hmp, q - L, 0, 0, 0, 0)
+
+        h_all()
+        for _ in range(iters):
+            pgs[t_hi][:, t_lo] *= -1     # phase oracle on |target>
+            h_all()
+            pgs[0][:, 0] *= -1           # diffusion: H . flip|0> . H
+            h_all()
+        return pgs
+
+    return fn, devs, iters

@@ -11,8 +11,8 @@ kernel: the engine path of the same circuit
 (algorithms.random_circuit_sampling) is the one that runs the window
 kernel.
 
-The sharded program of the JAX package (make_sharded_rcs_fn) is a
-later part of the pager's port (ROADMAP item 13).
+:func:`make_sharded_rcs_fn` runs the same plan over a ket in pages (the
+pager's layout, ops/sharded.py), every pass in place, block by block.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 
 from .. import matrices as mat
 from ..ops import gatekernels as gk
+from ..ops import sharded as shb
 from ..utils.rng import QrackRandom
 
 _ISWAP4 = np.array(
@@ -133,6 +134,73 @@ def make_rcs_fn(n: int, depth: int, seed: int, fuse_qb: int | None = None):
         return planes
 
     return fn
+
+
+def make_sharded_rcs_fn(pages, n: int, depth: int, seed: int,
+                        fuse_qb: int | None = None, device=None):
+    """The whole-RCS program over a ket in pages: `pages` is a page count
+    (each on `device`, ``cuda`` by default) or a device list that may
+    repeat a device (the JAX package takes a Mesh).  Returns (fn,
+    devices); fn(page list) runs the plan in place.
+
+    Per layer the roots of the in-page qubits run as clusters capped at
+    the page width (never straddling the page boundary), those of page
+    qubits as the pager's pair mix; the coupler set splits by geometry:
+      * pairs below the page boundary: an in-place swap of the two bits
+        on every page and one phase pass, i^(pairs whose bits differ);
+      * the pair straddling bits L-1 and L: the half of each page with
+        the two bits unequal trades places with its partner page's, times
+        i, pairwise and block by block (the JAX package's partner
+        exchange, flip and select);
+      * pairs of page bits: a relabeling of the page list (page_swap) and
+        i on the pages whose two bits differ."""
+    devs = shb.page_devices(pages, device)
+    g = len(devs).bit_length() - 1
+    L = n - g
+    if L < 1:
+        raise ValueError("at least one in-page qubit a page")
+    k = min(resolve_fuse_qb(n, fuse_qb), L)
+    plan = rcs_layers(n, depth, seed)
+
+    def fn(pgs):
+        dt = pgs[0].dtype
+        for (roots, pairs) in plan:
+            for (c0, w, m) in _cluster_mats(roots[:L], k):
+                shb.apply_local_kxk(pgs, gk.mtrx_planes(m, dt, device="cpu"),
+                                    L, c0, w)
+            for q in range(L, n):
+                mp = gk.mtrx_planes(_ROOTS[roots[q]], dt, device="cpu")
+                shb.apply_global_2x2(pgs, mp, q - L, 0, 0, 0, 0)
+            loc_pairs = [(a, b) for (a, b) in pairs if b < L]
+            if loc_pairs:
+                for page in pgs:
+                    for a, b in loc_pairs:
+                        shb.swap_bits_(page, L, a, b)
+
+                def phase(xp, pid, lidx, L_, prs=loc_pairs):
+                    kk = None
+                    for a, b in prs:
+                        t = ((lidx >> a) ^ (lidx >> b)) & 1
+                        kk = t if kk is None else kk + t
+                    kk = (kk & 3).to(torch.int64)
+                    re = torch.tensor(_IPOW_RE, dtype=dt, device=lidx.device)
+                    im = torch.tensor(_IPOW_IM, dtype=dt, device=lidx.device)
+                    return re[kk], im[kk]
+
+                shb.apply_split_factor(pgs, L, phase, ())
+            for (a, b) in pairs:
+                if a < L <= b:   # a == L-1, b == L by construction
+                    shb.mixed_swap(pgs, L, a, b - L, factor=1j)
+            for (a, b) in pairs:
+                if a >= L:
+                    ga, gb = a - L, b - L
+                    pgs[:] = shb.page_swap(pgs, ga, gb)
+                    for p, page in enumerate(pgs):
+                        if ((p >> ga) ^ (p >> gb)) & 1:
+                            shb.scale_page_(page, 0.0, 1.0)
+        return pgs
+
+    return fn, devs
 
 
 def reference_rcs_state(n: int, depth: int, seed: int, engine) -> np.ndarray:

@@ -30,6 +30,7 @@ from __future__ import annotations
 import itertools
 from typing import List, NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from . import gatekernels as gk
@@ -150,6 +151,23 @@ def _cmul_(v, fre, fim) -> None:
     v[1].copy_(ni)
 
 
+def page_devices(pages, device=None) -> List[torch.device]:
+    """The page list of a whole-circuit program over pages: a page count
+    (each page on `device`, ``cuda`` unless it says otherwise) or a
+    device list, which may name a device more than once (the JAX
+    package's programs take a Mesh)."""
+    from ..utils.device import resolve_device
+
+    if isinstance(pages, int):
+        devs = [resolve_device(device)] * pages
+    else:
+        devs = [resolve_device(d) for d in pages]
+    n = len(devs)
+    if n < 1 or n & (n - 1):
+        raise ValueError("page count must be a power of two")
+    return devs
+
+
 # ---------------------------------------------------------------------------
 # gates
 # ---------------------------------------------------------------------------
@@ -186,6 +204,28 @@ def apply_local_2x2(pages: List, mp, L: int, target: int, lmask, lval,
         if (p & gmask) == gval:
             _local_pair_(page, L, target, m, int(lmask), int(lval))
     return pages
+
+
+def apply_local_kxk(pages: List, mp, L: int, start: int, k: int) -> List:
+    """A gate on the k contiguous in-page qubits [start, start + k) of
+    every page, in place, block by block (gatekernels.apply_kxk's
+    contraction on each block); `mp` is (2, 2^k, 2^k) matrix planes."""
+    K, low, high = 1 << k, 1 << start, 1 << (L - start - k)
+    for page in pages:
+        mix = gk._mix(gk._dev_planes(mp, page))
+        v = page.view(2, high, K, low)
+        for blk in _blocks((high, low), max(1, CHUNK // K)):
+            h, l = (slice(b, b + 1) if isinstance(b, int) else b for b in blk)
+            idx = (slice(None), h, slice(None), l)
+            x = v[idx]
+            v[idx] = torch.einsum("PApa,phal->PhAl", mix, x)
+    return pages
+
+
+def scale_page_(page, fre: float, fim: float) -> None:
+    """A whole page times fre + i fim, in place, block by block."""
+    for blk in _blocks((page.shape[-1],)):
+        _cmul_(page[:, blk[0]], fre, fim)
 
 
 def apply_global_2x2(pages: List, mp, gpos: int, lmask, lval, gmask,
@@ -279,6 +319,93 @@ def apply_factor(pages: List, L: int, fn, index_dtype=gk.IDX_DTYPE) -> List:
     return pages
 
 
+def device_targs(targs, device, cache: dict):
+    """A split body's operands on `device`: host tables (numpy arrays)
+    become int32 tensors there, once per device (kept in `cache`);
+    scalars and digit lists pass as they are."""
+    if device not in cache:
+        cache[device] = tuple(torch.as_tensor(t).to(device, gk.IDX_DTYPE)
+                              if isinstance(t, np.ndarray) else t
+                              for t in targs)
+    return cache[device]
+
+
+def apply_split_factor(pages: List, L: int, body, targs) -> List:
+    """Multiply every amplitude by the complex factor that the split
+    body ``body(xp, pid, lidx, L, *targs) -> (re, im)`` gives for its
+    (page id, in-page index), in place, block by block: exact at any
+    width (``_phase_fn_wide`` of the JAX pager; the page id is a Python
+    int)."""
+    cache = {}
+    for p, page in enumerate(pages):
+        args = device_targs(targs, page.device, cache)
+        xp = gk.plane_where(page)
+        size = page.shape[-1]
+        for blk in _blocks((size,)):
+            lidx = _block_index((size,), (1,), blk, page.device)
+            fre, fim = body(xp, p, lidx, L, *args)
+            if (not isinstance(fre, torch.Tensor)
+                    and not isinstance(fim, torch.Tensor)
+                    and (fre, fim) == (1.0, 0.0)):
+                continue   # a block whose factor is 1 stays as it is
+            _cmul_(page[:, blk[0]], fre, fim)
+    return pages
+
+
+def prob_parity(pages: List, L: int, mask: int) -> float:
+    """Probability of odd parity of (index & mask), page by page and
+    block by block on the pages' devices, from split indices; each block
+    sums in the planes' dtype, the blocks and pages in float64 on the
+    host."""
+    lmask, gmask = mask & ((1 << L) - 1), mask >> L
+    total = 0.0
+    for p, page in enumerate(pages):
+        size = page.shape[-1]
+        for blk in _blocks((size,)):
+            v = page[:, blk[0]]
+            pr = v[0] ** 2 + v[1] ** 2
+            if lmask:
+                idx = _block_index((size,), (1,), blk, page.device)
+                w = idx & lmask
+                for sh in (16, 8, 4, 2, 1):
+                    w = w ^ (w >> sh)
+                odd = (w & 1) ^ (bin(p & gmask).count("1") & 1)
+                pr = torch.where(odd == 1, pr, 0.0)
+            elif not bin(p & gmask).count("1") & 1:
+                continue
+            total += float(pr.sum())
+    return total
+
+
+def prob_bits_all(pages: List, L: int, bits) -> np.ndarray:
+    """The distribution over the values of `bits` (bit j of a value is
+    ket bit bits[j]), page by page and block by block on the pages'
+    devices: a float64 histogram of 2^len(bits) entries, each block's
+    probabilities binned on its device."""
+    k = len(bits)
+    out = np.zeros(1 << k, dtype=np.float64)
+    for p, page in enumerate(pages):
+        base = 0
+        for j, b in enumerate(bits):
+            if b >= L:
+                base |= ((p >> (b - L)) & 1) << j
+        local = [(j, b) for j, b in enumerate(bits) if b < L]
+        size = page.shape[-1]
+        for blk in _blocks((size,)):
+            v = page[:, blk[0]]
+            pr = (v[0] ** 2 + v[1] ** 2).to(torch.float64)
+            if not local:
+                out[base] += float(pr.sum())
+                continue
+            idx = _block_index((size,), (1,), blk, page.device)
+            key = torch.full_like(idx, base)
+            for j, b in local:
+                key |= ((idx >> b) & 1) << j
+            out += torch.bincount(key, weights=pr, minlength=1 << k).to(
+                "cpu").numpy()
+    return out
+
+
 def collapse(pages: List, lmask, lval, gmask, gval, scale: float) -> List:
     """Projective collapse: the selected amplitudes times ``scale``, the
     rest zero, in place."""
@@ -363,11 +490,13 @@ def swap_bits_(page, L: int, q1: int, q2: int):
     return page
 
 
-def mixed_swap(pages: List, L: int, lpos: int, gpos: int) -> List:
+def mixed_swap(pages: List, L: int, lpos: int, gpos: int,
+               factor=None) -> List:
     """Swap an in-page bit with a page bit (``ops/sharded.py:207``): page
     p0 (g-bit 0) keeps its l-bit-0 half and page p1 = p0 | 2^gpos its
     l-bit-1 half; p0's l-bit-1 half and p1's l-bit-0 half trade places,
-    in place."""
+    in place.  With a complex `factor`, the halves that moved are
+    multiplied by it (the straddling ISwap of the RCS program: i)."""
     lo, hi = 1 << lpos, 1 << (L - 1 - lpos)
     bit = 1 << gpos
     EXCHANGES["mixed_swap"] += 1
@@ -378,8 +507,12 @@ def mixed_swap(pages: List, L: int, lpos: int, gpos: int) -> List:
         v0 = pages[p0].view(2, hi, 2, lo)
         v1 = pages[p0 | bit].view(2, hi, 2, lo)
         for blk in _blocks((hi, lo)):
-            _swap_(v0[(slice(None), blk[0], 1, blk[1])],
-                   v1[(slice(None), blk[0], 0, blk[1])])
+            x = v0[(slice(None), blk[0], 1, blk[1])]
+            y = v1[(slice(None), blk[0], 0, blk[1])]
+            _swap_(x, y)
+            if factor is not None:
+                _cmul_(x, factor.real, factor.imag)
+                _cmul_(y, factor.real, factor.imag)
     return pages
 
 
@@ -668,16 +801,24 @@ def gather_ring(pages: List, L: int, split_body, targs,
     i)] = old[(sp, sl)] with (sp, sl) the page and in-page halves that
     ``split_body(torch, pid, lidx, L, *targs)`` gives (and an optional
     third result, a keep mask; elements outside it are zero).  Each new
-    page is built block by block from the source pages it reads."""
+    page is built block by block from the source pages it reads, so the
+    old and the new ket live side by side until the last page is done.
+    Host tables among ``targs`` go to each page's device once."""
     out = []
+    cache = {}
     for pid, page in enumerate(pages):
         new = torch.zeros_like(page)
         size = page.shape[-1]
+        args = device_targs(targs, page.device, cache)
         for blk in _blocks((size,)):
             lidx = _block_index((size,), (1,), blk, page.device)
-            res = split_body(torch, pid, lidx, L, *targs)
-            sp, sl = res[0], res[1]
+            res = split_body(torch, pid, lidx, L, *args)
+            # a result read from the page id alone is a scalar
+            sp, sl = (torch.broadcast_to(torch.as_tensor(r, device=lidx.device),
+                                         lidx.shape) for r in res[:2])
             keep = res[2] if len(res) > 2 else keep_default
+            if keep is not None:
+                keep = torch.broadcast_to(keep, lidx.shape)
             dst = new[:, blk[0]]
             for holder, src in enumerate(pages):
                 take = sp == holder

@@ -37,9 +37,16 @@ over a page works in place, a block of at most ``sharded.CHUNK``
 amplitudes at a time, so the pager needs at most half a page of memory
 beside its planes on the gate path.
 
-Not here yet: the split-index ALU forms past 31 qubits (an ALU op on a
-wider pager raises), elastic re-paging and integrity quarantine,
-checkpoint capture, telemetry, and pages in several processes
+Past 31 qubits (or with ``force_wide_alu`` set) every gate-set and ALU
+op that reads the basis index runs through its split-index form
+(engines/qengine.py ``split=``): a diagonal as a factor from (page id,
+in-page index) pairs on each page, block by block and in place; a
+permutation as ``ops/sharded.gather_ring``, which builds new pages
+while the old ones live (a second ket beside the first).  Both restore
+identity placement first, since the split bodies read logical indices.
+
+Not here yet: elastic re-paging and integrity quarantine, checkpoint
+capture, telemetry, and pages in several processes
 (``torch.distributed``).
 
 The pager runs on ``cuda`` unless the caller passes ``device="cpu"`` or
@@ -466,23 +473,32 @@ class QPager(QEngine):
             self._apply_swaps(((p1, p2),))
 
     # ------------------------------------------------------------------
-    # ALU (<= 31 qubits: the global index of a page's amplitudes)
+    # ALU: the global index of a page's amplitudes to 31 qubits, the
+    # split-index forms past it (or with force_wide_alu)
     # ------------------------------------------------------------------
+
+    # set by tests and callers: take the split-index forms at any width
+    force_wide_alu = False
+
+    @property
+    def _wide_alu(self) -> bool:
+        return self.force_wide_alu or self.qubit_count > 31
 
     def _index_dtype(self):
         # int32 to 30 qubits, as the dense engine; int64 past it, so no
         # index or bound of an ALU op wraps at 2^31
         return gk.IDX_DTYPE if self.qubit_count <= 30 else torch.int64
 
-    def _check_alu_width(self) -> None:
+    def _k_phase_fn(self, fn, split=None) -> None:
+        # the factors read the LOGICAL basis index: identity placement
+        self._unmap()
+        if split is not None and self._wide_alu:
+            shb.apply_split_factor(self._pages_raw, self.local_bits, *split)
+            return
         if self.qubit_count > 31:
             raise NotImplementedError(
-                "this op lacks a split-index form for >31-qubit pagers "
-                "(the JAX package's `split=` forms are not ported yet)")
-
-    def _k_phase_fn(self, fn) -> None:
-        self._check_alu_width()
-        self._unmap()
+                "this diagonal op lacks a split-index form for >31-qubit "
+                "pagers (see the `split=` forms in engines/qengine.py)")
 
         def factor(page, idx):
             return fn(gk.plane_where(page), idx)
@@ -490,9 +506,17 @@ class QPager(QEngine):
         shb.apply_factor(self._pages_raw, self.local_bits, factor,
                          self._index_dtype())
 
-    def _k_gather(self, src_fn) -> None:
-        self._check_alu_width()
+    def _k_gather(self, src_fn, split=None) -> None:
+        # basis permutations are written against logical bit order
         self._unmap()
+        if self._wide_alu:
+            if split is None:
+                raise NotImplementedError(
+                    "this basis permutation lacks a split-index form for "
+                    ">31-qubit pagers (see ops/alu_kernels.py *_split)")
+            self._pages_raw = shb.gather_ring(self._pages_raw,
+                                              self.local_bits, *split)
+            return
         L, dt = self.local_bits, self._index_dtype()
 
         def body(xp, pid, lidx, L_):
@@ -502,7 +526,11 @@ class QPager(QEngine):
         self._pages_raw = shb.gather_ring(self._pages_raw, L, body, ())
 
     def _k_out_of_place(self, src_idx, dst_idx, passthrough_cmask) -> None:
-        self._check_alu_width()
+        if self.qubit_count > 31:
+            # every public op routes through a split-index gather form
+            # past 31 qubits (MUL/DIV and *ModNOut included); reaching
+            # this scatter wide means a new op needs its own
+            raise NotImplementedError("see the `split=` gather forms")
         self._unmap()
         L = self.local_bits
         lbits = (1 << L) - 1
@@ -549,6 +577,26 @@ class QPager(QEngine):
         return np.concatenate([
             gk.probs(page).to("cpu", torch.float64).numpy()
             for page in self._pages_raw])
+
+    def ProbParity(self, mask: int) -> float:
+        """P(odd parity) of the masked bits, page by page on the pages'
+        devices (the interface's form reads the whole ket to the host:
+        128 GiB of float64 at 33 qubits).  Parity is invariant under the
+        placement table, so the mask translates bit for bit."""
+        self._settle()
+        if self._map_nonid():
+            mask, _ = self._map_mask(mask, 0)
+        p = shb.prob_parity(self._pages_raw, self.local_bits, mask)
+        return min(max(p, 0.0), 1.0)
+
+    def ProbMaskAll(self, mask: int) -> np.ndarray:
+        """The distribution over the masked bits' values, binned page by
+        page on the pages' devices (the interface's form reads the whole
+        ket to the host; IndexedLDA/ADC/SBC return its expectation)."""
+        self._settle()
+        bits = [self._qmap[q] for q in range(self.qubit_count)
+                if (mask >> q) & 1]
+        return shb.prob_bits_all(self._pages_raw, self.local_bits, bits)
 
     def _k_prob_mask(self, mask, perm) -> float:
         self._settle()

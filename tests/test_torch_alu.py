@@ -203,9 +203,9 @@ def test_alu_overrides_run_as_one_index_pass(monkeypatch):
     for name in ("_k_gather", "_k_phase_fn", "_k_apply_2x2", "_k_apply_diag"):
         real = getattr(QEngineCUDA, name)
 
-        def spy(self, *a, _real=real, _name=name):
+        def spy(self, *a, _real=real, _name=name, **kw):
             calls.append(_name)
-            return _real(self, *a)
+            return _real(self, *a, **kw)
 
         monkeypatch.setattr(QEngineCUDA, name, spy)
     q = qt.create_quantum_interface("cuda", 8, device="cpu")

@@ -135,13 +135,44 @@ def test_arranged_layers_full_matches_jax(toggles):
 
 
 @pytest.mark.parametrize("layers", [
-    ["unit_multi", "stabilizer_hybrid", "hybrid"], "optimal_multi",
-    "lightcone", "route", "tpu", "turboquant_pager",
-    ["unit", "lightcone"],
+    "lightcone", "route", "tpu", ["unit", "lightcone"],
 ])
 def test_unported_layers_raise_with_their_roadmap_item(layers):
     with pytest.raises(ValueError, match="not ported yet"):
         qt.create_quantum_interface(layers, 3, device="cpu")
+
+
+@pytest.mark.parametrize("layers,kind", [
+    (["unit_multi", "stabilizer_hybrid", "hybrid"], "QUnitMulti"),
+    ("optimal_multi", "QUnitMulti"),
+    (["unit_multi", "cpu"], "QUnitMulti"),
+    ("turboquant_pager", "QPagerTurboQuant"),
+])
+def test_pager_slice_layers_build_like_jax(layers, kind):
+    """The layers of the pager slice build the JAX package's classes and
+    run a Bell pair to its probabilities (the TurboQuant pager over 2
+    pages, its codes at 16 bits)."""
+    kw = ({"n_pages": 2, "bits": 16, "block_pow": 1}
+          if layers == "turboquant_pager" else {"device_ids": [0, 0]})
+    port = qt.create_quantum_interface(layers, 3, rng=QrackRandom(5),
+                                       rand_global_phase=False, device="cpu",
+                                       **kw)
+    ref = jax_create(layers, 3, rng=JaxRandom(5), rand_global_phase=False,
+                     **kw)
+    assert type(port).__name__ == type(ref).__name__ == kind
+    for q in (port, ref):
+        q.H(0)
+        q.CNOT(0, 1)
+        q.CNOT(1, 2)
+    for k in range(3):
+        assert port.Prob(k) == pytest.approx(ref.Prob(k), abs=1e-4)
+
+
+def test_arranged_multi_device_builds_qunitmulti():
+    port = qt.create_arranged_layers_full(md=True, qubit_count=3,
+                                          device="cpu", device_ids=[0])
+    ref = jax_arranged(md=True, qubit_count=3, device_ids=[0])
+    assert type(port).__name__ == type(ref).__name__ == "QUnitMulti"
 
 
 @pytest.mark.parametrize("layers", ["lightcone", "route"])
@@ -178,8 +209,6 @@ def test_unknown_and_misplaced_layers_raise():
         qt.create_quantum_interface(["spam", "cpu"], 3)
     with pytest.raises(ValueError, match="must be last"):
         qt.create_quantum_interface(["cpu", "unit"], 3)
-    with pytest.raises(ValueError, match="not ported yet: ROADMAP item 13"):
-        qt.create_arranged_layers_full(md=True, qubit_count=3)
 
 
 def _cuda_engines(q):

@@ -13,7 +13,10 @@ terminals against the JAX package's complex128 oracle, QEngineCPU:
 * "unit_clifford" on the Clifford part of the vocabulary;
 * "bdt" (the decision tree, host nodes), ("bdt_hybrid", "hybrid") and
   ("tensor_network", "unit", "stabilizer_hybrid", "hybrid"), the last two
-  with QHybrid's threshold at 3 qubits.
+  with QHybrid's threshold at 3 qubits;
+* "pager" on 2 and on 8 CPU pages with window 16 (the per-page window
+  kernel's plain version), and on 4 pages with ``force_wide_alu`` set,
+  so every ALU and parity op runs its split-index form.
 
 SetBit, the one measuring op of the vocabulary, is left out: its draws
 diverge across stacks by design.  Bars: fidelity >= 1 - 1e-6 and Prob
@@ -59,7 +62,17 @@ STACKS = {
     "tensor_network": (("tensor_network", "unit", "stabilizer_hybrid",
                         "hybrid"),
                        {"device": "cpu", "tpu_threshold_qubits": 3}, {}, F32),
+    "pager2_w16": ("pager", {"device": "cpu", "n_pages": 2},
+                   {"QRACK_TPU_FUSE_WINDOW": "16",
+                    "QRACK_TPU_FUSE_KERNEL": "on"}, F32),
+    "pager8_w16": ("pager", {"device": "cpu", "n_pages": 8},
+                   {"QRACK_TPU_FUSE_WINDOW": "16",
+                    "QRACK_TPU_FUSE_KERNEL": "on"}, F32),
+    "pager_wide": ("pager", {"device": "cpu", "n_pages": 4},
+                   {"QRACK_TPU_FUSE_WINDOW": "16"}, F32),
 }
+# attributes set on a stack once it is built
+ATTRS = {"pager_wide": {"force_wide_alu": True}}
 # stacks that take only the Clifford part of the vocabulary
 CLIFFORD_ONLY = {"unit_clifford"}
 CLIFFORD_OPS = {"H", "X", "Y", "Z", "S", "CNOT", "CZ", "Swap", "ISwap",
@@ -83,6 +96,8 @@ def test_fuzz_port_stacks_match_jax_oracle(stack, trial, monkeypatch):
     o = QEngineCPU(N, rng=JaxRandom(trial), rand_global_phase=False)
     s = qt.create_quantum_interface(layer, N, rng=QrackRandom(trial),
                                     rand_global_phase=False, **kw)
+    for k, v in ATTRS.get(stack, {}).items():
+        setattr(s, k, v)
     for step in range(30):
         name, args = unmeasured_op(rng, stack in CLIFFORD_ONLY)
         getattr(o, name)(*args)

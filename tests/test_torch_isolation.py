@@ -82,6 +82,38 @@ circ.append_ctrl((0,), 3, np.array([[0, 1], [1, 0]]), 0)
 res = run_trajectories(circ, NoiseModel(default=depolarizing(0.1)), 3,
                        device="cpu")
 assert res.p1.shape == (3, 4)
+pw = qt.create_quantum_interface("pager", 7, n_pages=4, device="cpu")
+pw.force_wide_alu = True
+pw.H(6)
+pw.INC(3, 2, 5)
+pw.ZMask(0b1000011)
+pw.MUL(3, 0, 4, 3)
+assert 0.0 <= pw.Prob(6) <= 1.0
+from qrack_tpu_torch.models.qft import basis_pages, make_sharded_qft_fn
+from qrack_tpu_torch.models.rcs import make_sharded_rcs_fn
+from qrack_tpu_torch.models.grover import make_sharded_grover_fn
+qfn, devs = make_sharded_qft_fn(["cpu"] * 4, 7)
+pages = qfn(basis_pages(7, 5, devs))
+rfn, devs = make_sharded_rcs_fn(["cpu"] * 4, 7, 3, 1)
+rfn(basis_pages(7, 0, devs))
+gfn, devs, _ = make_sharded_grover_fn(["cpu"] * 2, 6, 9, iters=2)
+gfn(basis_pages(6, 0, devs))
+cfn, devs = qft_qcircuit(7).compile_sharded_fn(["cpu"] * 2, 7)
+cfn(basis_pages(7, 1, devs))
+tp = qt.create_quantum_interface("turboquant_pager", 7, n_pages=4,
+                                 device="cpu", bits=16, chunk_qb=3,
+                                 block_pow=2)
+tp.H(6)
+tp.CNOT(6, 0)
+tp.UniformParityRZ(0b1000001, 0.3)
+assert abs(tp.Prob(0) - 0.5) < 1e-3
+um = qt.create_quantum_interface("optimal_multi", 8, device="cpu",
+                                 device_ids=[0, 0])
+um.H(0)
+um.CNOT(0, 1)
+um.H(5)
+um.CNOT(5, 6)
+assert abs(um.Prob(6) - 0.5) < 1e-6
 print(sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "qrack_tpu")
              or m.startswith(("jax.", "jaxlib.", "qrack_tpu."))))
@@ -149,6 +181,34 @@ def test_turboquant_default_device_needs_a_gpu(monkeypatch):
         qt.QEngineCUDATurboQuant(3)
     q = qt.create_quantum_interface("turboquant", 3, device="cpu")
     assert q.device.type == "cpu" and q._codes.device.type == "cpu"
+
+
+def test_pager_slice_entry_points_need_a_gpu(monkeypatch):
+    """The TurboQuant pager, QUnitMulti's units over the "cuda" engine
+    and the page programs build on cuda, and raise where there is
+    none."""
+    from qrack_tpu_torch.models.grover import make_sharded_grover_fn
+    from qrack_tpu_torch.models.qft import basis_pages, make_sharded_qft_fn
+    from qrack_tpu_torch.models.rcs import make_sharded_rcs_fn
+    from qrack_tpu_torch.models.qft import qft_qcircuit
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (
+            lambda: qt.create_quantum_interface("turboquant_pager", 6,
+                                                n_pages=2),
+            lambda: qt.create_quantum_interface(
+                ["unit_multi", "cuda"], 4).FSim(0.3, 0.2, 0, 1),
+            lambda: make_sharded_qft_fn(4, 8),
+            lambda: make_sharded_rcs_fn(2, 8, 2, 1),
+            lambda: make_sharded_grover_fn(2, 8, 3),
+            lambda: qft_qcircuit(6).compile_sharded_fn(2, 6),
+            lambda: basis_pages(6, 1, 2)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    q = qt.create_quantum_interface("turboquant_pager", 6, n_pages=2,
+                                    device="cpu")
+    assert q.devices == [torch.device("cpu")] * 2
+    assert all(c.device.type == "cpu" for c in q._codes)
 
 
 def _device_leaf(**kw):
