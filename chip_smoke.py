@@ -281,7 +281,7 @@ in place (ops/sharded.py):
     the in-page sweeps of fusion.sharded_kernel_sweeps), both entry
     points must launch, and the run must take a page exchange that
     moves amplitudes between pages.  The first launch of
-    every in-page run and a seeded eighth
+    every in-page run and a seeded sixteenth
     of the rest (PAGER_HELD) run as the kernel and as its plain version
     on the same input, held to the bar of phase 2;
 30. pager_qft, w32 on 4 pages of 2^30 (32 GiB of float32 planes): the
@@ -345,8 +345,10 @@ package left them to XLA):
     4 GiB above its pages;
 35. tq_pager: create_quantum_interface("turboquant_pager", 32, bits=8,
     devices=[card] * 4): a GHZ state (H, 31 CNOTs: targets in the chunk,
-    in the local chunk bits and in the page bits), every Prob(q) and
-    ProbAll of both ends within 2e-2 of 0.5; a seeded pager_circuit at
+    in the local chunk bits and in the page bits), Prob(q) of a seeded
+    half of the qubits (TQ_PAGER_READS; every q until the run budget
+    took the cut, each a whole decode) and ProbAll of both ends within
+    2e-2 of 0.5; a seeded pager_circuit at
     w26 against the "cuda" engine, fidelity >= 0.99 (the bar of phase 6);
     the resident bytes a page; no TurboQuant kernel launches (the pager
     runs the plain chunk programs, as the JAX package's does);
@@ -359,19 +361,56 @@ package left them to XLA):
     |<a|b>|^2 / (<a|a><b|b>) >= 1 - 1e-5; the device table after
     RedistributeQEngines, one unit on each row of the one card.
 
+Then the telemetry plane (qrack_tpu_torch/telemetry; no new kernel):
+
+37. telemetry: the w30 "cuda" engine-path QFT of phase 4, three warm
+    reps with telemetry disabled (their median at most 2% above phase
+    4's warm median, TELE_DISABLED_BAR, and the signed difference
+    printed: phase 4's warm reps themselves moved by 2.5% between runs
+    on the same card model, and a faster wall is no cost; no counter
+    recorded) and three with it enabled (the overhead is printed, not
+    barred).  Over one more
+    enabled QFT, taken as a snapshot difference: fuse.kernel.sweeps
+    equals the window kernel's own launch count (K1 + K2) and the sum
+    of the plans' sweeps of the windows that went through the kernel,
+    whose number fuse.kernel.windows equals (a window may plan more than
+    one sweep); the gate.cuda.*.w30 counters sum to the gates the QFT
+    requested, 30 * 31 / 2.  The roofline: roofline.cuda.fuse.flush's
+    planned bytes (the sweeps times a read and a write of the planes)
+    over the wall of a span synced on the planes give the implied GB/s,
+    at most the device class's peak (3350 for the H100 SXM) with
+    roofline.honesty.clamped at 0; roofline.device_class reports the
+    card's name, HBM bytes and peak.  A torch.profiler bracket around
+    one QFT lists as many window_tiles kernels as the wrappers counted;
+    the trace's kernel durations, summed, are the card's busy time,
+    printed beside the enabled wall as the engine path's idle share.
+    Small stacks on the card then reach every other hook (QUnit over the
+    stabilizer hybrid, QHybrid's grow and switch, the tree's switch,
+    QUnitMulti, trajectories, a w16 TurboQuant engine, the float64
+    escalation, a checkpoint, a build).  The w32 pager QFT of phase 30
+    on 4 pages: exchange.pager.<pass> and .bytes equal sharded.EXCHANGES
+    over the same calls, the per-page launches equal 4 x
+    (fuse.kernel.sweeps - paged-target 2x2s) and the plans' count, and
+    fuse.kernel.windows the pager's kernel windows.  Every counter
+    family of TELE_REQUIRED must be reached; the JSONL snapshot and the
+    Chrome trace are written to a temporary directory and load back.
+
 The kernels line counts K1/K2 launches by dtype form over every dense
-path (phases 3, 8-12, 14-17, 19-22 and 24-28); their times and errors
+path (phases 3, 8-12, 14-17, 19-22, 24-28 and 37); their times and errors
 are those of the launches held to plain (float32: phase 4 and the Shor
 IQFT of phase 10; the other forms: phase 14).  The per-page form of K1
 and K2 has entries of its own: launches over phases 29-32, times and
 errors over the launches held in phase 29, and the w32 engine path's
 launches at pages of 2^30 (l30_*).  Phase 33's launches count with the
-per-page form, phase 36's with the dense one.
+per-page form, phase 36's with the dense one; phase 37's w32 QFT with
+the per-page form, its w16 TurboQuant engine with K3-K5.
 
 ``--tq-only`` runs the build and phases 5-7 alone; ``--algo-only`` the
 build and phases 8-12; ``--fppow-only`` the build and phases 13-17;
 ``--layers-only`` the build and phases 18-28; ``--pager-only`` the build
-and phases 29-32; ``--wide-only`` the build and phases 33-36.
+and phases 29-32; ``--wide-only`` the build and phases 33-36;
+``--telemetry-only`` the build and phase 37 (its disabled wall then
+held to two warm reps of its own in place of phase 4's).
 
 The line before the last is the "kernels" summary, the last line
 {"ok": true, "device": {...}}.  Any failed check raises, so the script
@@ -506,7 +545,9 @@ PAGER_PARITY_WIDTH = 30   # 4 pages of 2^28 beside a w30 QEngineCUDA
 PAGER_PAGES = 4
 PAGER_DEPTH = 20
 PAGER_SEED = 10
-PAGER_HELD = 1 / 8        # share of the other per-page launches held
+# share of the other per-page launches held (an eighth until phase 37
+# needed the room)
+PAGER_HELD = 1 / 16
 PAGER_WIDTH = 32          # 4 pages of 2^30 float32: 32 GiB of planes
 PAGER_PERM = 0x9A5C3F1E   # basis state of the w32 QFT (top bit set)
 PAGER_W33 = 33            # 8 pages of 2^30: 64 GiB of planes
@@ -515,16 +556,32 @@ PAGER_PERM33 = 0x1A5C3F1E7
 PAGER_FACTORY_WIDTH = 31  # 2 pages of 2^30
 PAGE_MEM_BAR = 4 << 30    # half a page of 2^30 float32 amplitudes
 PAGE_L30 = {}             # the w32 engine path's launches, timed
+PHASE4_WARM = []          # phase 4's warm engine-path w30 QFT walls (ms)
 # the rest of the pager (phases 33-36)
 WIDE_WIDTH = 32           # 4 pages of 2^30: every ALU op split-index
 WIDE_SEED = 33
 RCS_PAGE_DEPTH = 6        # make_sharded_rcs_fn at w30
 GROVER_PAGE_ITERS = 3     # make_sharded_grover_fn at w32
 TQ_PAGER_SMALL = 26       # the TurboQuant pager against QEngineCUDA
+TQ_PAGER_READS = 35       # seed of the half of the qubits phase 35 reads
 UNIT_MULTI_HALF = 24      # two separable 24-qubit registers
 UNIT_MULTI_DEPTH = 6
 UNIT_MULTI_SEED = 36
 UNIT_MULTI_AMPS = 1024    # seeded GetAmplitude reads compared
+# the telemetry plane (phase 37)
+TELE_DISABLED_BAR = 0.02  # disabled w30 QFT wall against phase 4's
+TELE_HOOK_WIDTH = 16      # the small stacks that reach every other hook
+TELE_REQUIRED = (         # counter families phase 37 must reach
+    "gate.cuda.", "fuse.cuda.", "fuse.kernel.windows", "fuse.kernel.sweeps",
+    "roofline.cuda.fuse.flush.", "gate.pager.", "fuse.pager.",
+    "remap.pager.", "exchange.pager.", "exchange.pager.host_fetch",
+    "roofline.pager.exchange.", "tq.sweeps", "fuse.tq.",
+    "roofline.tq.sweep.", "fuse.turboquant.", "qunit.",
+    "stabilizer.to_dense", "hybrid.grow.", "hybrid.switch.",
+    "qbdt.to_dense", "qunitmulti.redistribute", "noise.traj.",
+    "factory.create", "checkpoint.save", "checkpoint.restore",
+    "compile.kernel.", "engine.cuda.f64_escalation",
+    "telemetry.profiler.dump", "roofline.chip.qft.w30.")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1499,6 +1556,7 @@ def dense_phases(card: str, dev, probe) -> dict:
             os.environ["QRACK_TPU_FUSE_KERNEL"] = mode
     emit({"phase": "e2e", "card": card, "width": WIDTH, **e2e,
           "engine_qft_chain_ms": chain_ms})
+    PHASE4_WARM[:] = e2e["engine_qft_ms"][1:]
 
     probe.every, probe.seen = DENSE_PROBE_EVERY, {}
     with probe:
@@ -3950,7 +4008,9 @@ def tq_pager(card: str, dev) -> dict:
     t0 = time.time()
     ghz_ms = timed(lambda: (q.H(0), [q.CNOT(i, i + 1) for i in range(n - 1)],
                             q._codes))
-    probs = [q.Prob(k) for k in range(n)]
+    read = sorted(int(k) for k in np.random.default_rng(TQ_PAGER_READS)
+                  .choice(n, n // 2, replace=False))
+    probs = [q.Prob(k) for k in read]
     ends = [q.ProbAll(0), q.ProbAll((1 << n) - 1)]
     wall = time.time() - t0
     worst = max(abs(p - 0.5) for p in probs + ends)
@@ -3958,7 +4018,7 @@ def tq_pager(card: str, dev) -> dict:
                          f"ends {ends}")
     out = {"phase": "tq_pager", "card": card, "width": n, "bits": 8,
            "pages": PAGER_PAGES, "ghz_ms": ghz_ms, "host_wall_s": wall,
-           "max_prob_diff": worst, "prob_ends": ends,
+           "max_prob_diff": worst, "prob_ends": ends, "read_qubits": read,
            "resident_bytes_per_page": q.resident_bytes_per_device(),
            "local_chunk_bits": q._local_chunk_bits()}
     del q
@@ -4065,6 +4125,327 @@ def unit_multi(card: str, dev) -> dict:
     return launches
 
 
+def telemetry_hooks(dev, tmp: str) -> dict:
+    """The small stacks of phase 37 that reach every hook the w30 and w32
+    QFTs do not: QUnit over the stabilizer hybrid, QHybrid's grow and
+    switch, the tree's switch, QUnitMulti, trajectories, the compressed
+    engine, the float64 escalation, a checkpoint and a build.  Returns
+    the compressed engine's kernel launches."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.checkpoint import container
+    from qrack_tpu_torch.models.qft import qft_qcircuit
+    from qrack_tpu_torch.noise import NoiseModel, depolarizing
+    from qrack_tpu_torch.noise import run_trajectories
+    from qrack_tpu_torch.ops import cuda_build
+    from qrack_tpu_torch.ops import turboquant_kernel as tqk
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    n = TELE_HOOK_WIDTH
+    cuda_build.build([wk.SOURCE, tqk.SOURCE])   # both found built: hits
+    o = qt.create_quantum_interface("optimal", n, rng=QrackRandom(37))
+    for i in range(n):
+        o.H(i)
+    for i in range(n - 1):
+        o.CNOT(i, i + 1)
+    o.T(0)
+    o.H(0)
+    o.T(3)                 # off the tableau: the switch to the engine
+    o.CNOT(0, n - 1)
+    o.Prob(2)
+    o.M(3)
+    h = qt.create_quantum_interface("hybrid", 10, tpu_threshold_qubits=12)
+    h.H(0)
+    h.Allocate(10, 4)      # past the threshold: grows onto the card
+    h.T(12)
+    h.Dispose(10, 4, 0)    # back below it: switches to the host engine
+    h.Prob(0)
+    b = qt.create_quantum_interface(["bdt_hybrid", "hybrid"], 8,
+                                    tpu_threshold_qubits=3,
+                                    ratio_threshold=0.1)
+    rng = np.random.default_rng(37)
+    for i in range(8):
+        b.H(i)
+    for _ in range(3):
+        for i in range(7):
+            b.MCPhase([i], 1.0, np.exp(1j * rng.uniform(0, 3)), i + 1)
+        for i in range(8):
+            b.RY(float(rng.uniform(0, 3)), i)
+    b.Prob(3)
+    m = qt.create_quantum_interface("optimal_multi", 8, device_ids=[0, 0])
+    m.H(0)
+    m.CNOT(0, 1)
+    m.T(1)
+    m.RedistributeQEngines()
+    run_trajectories(qft_qcircuit(10), NoiseModel(default=depolarizing(0.01)),
+                     8, device=dev)
+    tqk.reset_launches()
+    t = qt.create_quantum_interface("turboquant", n, rng=QrackRandom(37))
+    t.H(0)
+    t.QFT(0, n)
+    t.Prob(n - 1)
+    tq_launches = dict(tqk.LAUNCHES)
+    f = qt.create_quantum_interface("cuda", 12)
+    f.H(0)
+    f.EscalateToF64(1.0)
+    path = os.path.join(tmp, "probe.qckpt")
+    container.save_container(path, {"amps": np.arange(8)}, kind="probe")
+    container.load_container(path, expect_kind="probe")
+    del o, h, b, m, t, f
+    release()
+    return tq_launches
+
+
+def trace_kernels(path: str, name: str) -> dict:
+    """The device kernels of a torch.profiler Chrome trace: how many have
+    `name` in their name and their summed ms, and the summed ms of all
+    of them (one stream: the time the card was busy)."""
+    with open(path) as fh:
+        kernels = [e for e in json.load(fh)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    mine = [e for e in kernels if name in e.get("name", "")]
+    return {"listed": len(mine),
+            "ms": sum(e.get("dur", 0.0) for e in mine) / 1e3,
+            "all_kernels": len(kernels),
+            "all_ms": sum(e.get("dur", 0.0) for e in kernels) / 1e3}
+
+
+def telemetry_phase(card: str, dev) -> dict:
+    """Phase 37 (module docstring); returns its kernel launches: "dense"
+    (K1/K2 of the w30 QFTs and the small stacks), "pager" (per page, the
+    w32 QFT) and "tq" (K3-K5 of the small compressed engine)."""
+    import tempfile
+
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch import telemetry as tele
+    from qrack_tpu_torch.ops import sharded as shb
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.parallel import pager as pg
+    from qrack_tpu_torch.telemetry import roofline, sentinel
+    from qrack_tpu_torch.utils.rng import QrackRandom
+    from qrack_tpu_torch.utils.timing import event_ms
+
+    tele.disable()
+    tele.reset()
+    release()
+    out = {"phase": "telemetry", "card": card, "width": WIDTH}
+    q = qt.create_quantum_interface("cuda", WIDTH)
+
+    def qft():
+        q.QFT(0, WIDTH)
+        return q.device_planes
+
+    def walls(reps: int) -> list:
+        got = []
+        for _ in range(reps + 1):      # one warm run first
+            q.SetPermutation(PERM)
+            got.append(event_ms(qft))
+        return got[1:]
+
+    # ---- no cost while disabled ---------------------------------------
+    ref = list(PHASE4_WARM) or walls(2)
+    out["phase4_warm_ms"] = ref
+    ref_ms = float(np.median(ref))
+    wk.reset_launches()
+    disabled = walls(3)
+    check(tele.snapshot()["counters"] == {},
+          "disabled telemetry recorded counters")
+    off_ms = float(np.median(disabled))
+    rel = (off_ms - ref_ms) / ref_ms
+    # a cost is a slower wall: phase 4's own warm reps vary by more than
+    # 2% from run to run, and a faster disabled wall costs nothing
+    check(rel <= TELE_DISABLED_BAR,
+          f"disabled w{WIDTH} QFT {off_ms:.2f} ms against phase 4's warm "
+          f"median {ref_ms:.2f} ms ({rel:+.2%}, bar {TELE_DISABLED_BAR:.0%})")
+    tele.enable()
+    enabled = walls(3)
+    on_ms = float(np.median(enabled))
+    out.update({"disabled_ms": disabled, "disabled_median_ms": off_ms,
+                "disabled_rel_to_phase4": rel, "enabled_ms": enabled,
+                "enabled_median_ms": on_ms,
+                "enabled_overhead_rel": (on_ms - off_ms) / off_ms})
+
+    # ---- counts on the main path: one QFT, its own snapshot difference
+    windows = []
+    real_make = wk.make_window_fn
+    requested = [0]
+    real_mc = q.MCMtrxPerm
+
+    def make(n, structure, *a, **k):
+        windows.append(wk.plan_sweeps(structure, k.get("block_pow",
+                                                       wk.DEFAULT_BLOCK_POW),
+                                      n))
+        return real_make(n, structure, *a, **k)
+
+    def mc(*a, **k):
+        requested[0] += 1
+        return real_mc(*a, **k)
+
+    q.SetPermutation(PERM)
+    planes = q.device_planes
+    before = tele.snapshot()["counters"]
+    l0 = sum(wk.launches().values())
+    wk.make_window_fn, q.MCMtrxPerm = make, mc
+    try:
+        with tele.span("chip.qft.w30", sync=planes):
+            qft()
+    finally:
+        wk.make_window_fn = real_make
+        del q.MCMtrxPerm
+    launches = sum(wk.launches().values()) - l0
+    snap = tele.snapshot()
+    after = snap["counters"]
+
+    def d(name):
+        return after.get(name, 0) - before.get(name, 0)
+
+    gates = sum(d(k) for k in after if k.startswith("gate.cuda.")
+                and k.endswith(f".w{WIDTH}"))
+    sweeps, kwin = d("fuse.kernel.sweeps"), d("fuse.kernel.windows")
+    check(launches > 0 and sweeps == launches == sum(windows),
+          f"fuse.kernel.sweeps {sweeps}, window kernel launches {launches}, "
+          f"plans' sweeps {sum(windows)}")
+    check(kwin == len(windows),
+          f"fuse.kernel.windows {kwin}, windows through the kernel "
+          f"{len(windows)}")
+    check(gates == requested[0] == WIDTH * (WIDTH + 1) // 2,
+          f"gate.cuda.*.w{WIDTH} {gates}, gates requested {requested[0]}")
+    out["main_path"] = {"windows": kwin, "sweeps": sweeps,
+                        "plans_sweeps": sum(windows), "launches": launches,
+                        "gates_counted": gates,
+                        "gates_requested": requested[0],
+                        "xla_windows": d("fuse.xla.windows")}
+
+    # ---- the roofline on the card --------------------------------------
+    planned = d("roofline.cuda.fuse.flush.planned_bytes")
+    all_sweeps = sweeps + d("fuse.xla.sweeps")
+    check(planned == all_sweeps * sentinel.plane_pass_bytes(WIDTH, 4),
+          f"planned bytes {planned} for {all_sweeps} sweeps")
+    wall_s = snap["spans"]["chip.qft.w30"]["total_s"]
+    fp = roofline.device_class(refresh=True)
+    i = torch.cuda.current_device()
+    kind = torch.cuda.get_device_name(i)
+    check(fp["kind"] == kind and fp["platform"] == "cuda"
+          and fp["hbm_bytes"] == torch.cuda.get_device_properties(i)
+          .total_memory and fp["peak_gbps"] == sentinel.peak_gbps(kind),
+          f"device class {fp} for {kind}")
+    sample = roofline.record("chip.qft.w30", planned, wall_s, width=WIDTH,
+                             stack="cuda")
+    clamped = tele.snapshot()["counters"].get("roofline.honesty.clamped", 0)
+    check(not sample["clamped"] and clamped == 0
+          and sample["implied_hbm_gbps"] <= fp["peak_gbps"],
+          f"roofline sample {sample} ({clamped} clamped)")
+    out["roofline"] = {"planned_bytes": planned, "span_wall_ms": wall_s * 1e3,
+                       "implied_gbps": sample["implied_hbm_gbps"],
+                       "peak_frac": sample["hbm_roofline_frac"],
+                       "clamped": clamped, "device_class": fp}
+
+    with tempfile.TemporaryDirectory(prefix="qtt_tele_") as tmp:
+        # ---- the torch.profiler bracket around one QFT -----------------
+        q.SetPermutation(PERM)
+        q.device_planes
+        l0 = sum(wk.launches().values())
+        with tele.profiler_bracket(os.path.join(tmp, "prof"),
+                                   name="qft_w30") as trace:
+            qft()
+            sync()
+        prof_launches = sum(wk.launches().values()) - l0
+        listed = trace_kernels(trace, "window_tiles")
+        check(prof_launches > 0 and listed["listed"] == prof_launches,
+              f"profiler trace lists {listed} window kernels, the wrappers "
+              f"counted {prof_launches}")
+        # the card's busy time against the unprofiled enabled wall: the
+        # idle share of the engine path
+        out["profiler"] = {"window_kernels_listed": listed["listed"],
+                           "launches": prof_launches,
+                           "window_kernel_ms": listed["ms"],
+                           "all_kernels": listed["all_kernels"],
+                           "busy_ms": listed["all_ms"],
+                           "idle_share": 1 - listed["all_ms"] / on_ms,
+                           "trace_bytes": os.path.getsize(trace)}
+        del q, planes
+        release()
+
+        # ---- every other hook, at small widths -------------------------
+        tq_launches = telemetry_hooks(dev, tmp)
+        dense = dict(page_launches(wk))
+
+        # ---- counts on the pager ---------------------------------------
+        n, G = PAGER_WIDTH, PAGER_PAGES
+        p = qt.create_quantum_interface("pager", n, devices=[dev] * G,
+                                        rng=QrackRandom(3),
+                                        rand_global_phase=False)
+        p.SetPermutation(PAGER_PERM)
+        p.Finish()
+        wk.reset_launches()
+        pg.reset_flushes()
+        shb.reset_exchanges()
+        before = tele.snapshot()["counters"]
+        t0 = time.time()
+        p.QFT(0, n)
+        p.Finish()
+        pager_s = time.time() - t0
+        p.GetAmplitude(PAGER_PERM)      # a host read of one amplitude
+        after = tele.snapshot()["counters"]
+        page = page_launches(wk)
+        moved = dict(shb.EXCHANGES)
+        tele_moved = {k: d(f"exchange.pager.{k}") for k in moved}
+        check(tele_moved == moved and moved["bytes"] > 0,
+              f"exchange.pager.* {tele_moved} against sharded.EXCHANGES "
+              f"{moved}")
+        check(d("roofline.pager.exchange.planned_bytes") == moved["bytes"],
+              "the pager's roofline bytes are not its exchange bytes")
+        psweeps = d("fuse.kernel.sweeps")
+        per_page = G * (psweeps - moved["global_2x2"])
+        check(sum(page.values()) == per_page
+              == pg.FLUSHES["predicted_launches"] > 0,
+              f"per-page launches {page}, {G} pages x (fuse.kernel.sweeps "
+              f"{psweeps} - paged 2x2s {moved['global_2x2']}), plans "
+              f"{pg.FLUSHES['predicted_launches']}")
+        check(d("fuse.kernel.windows") == pg.FLUSHES["kernel_windows"],
+              f"fuse.kernel.windows {d('fuse.kernel.windows')}, the pager's "
+              f"kernel windows {pg.FLUSHES['kernel_windows']}")
+        out["pager"] = {"width": n, "pages": G, "wall_s": pager_s,
+                        "launches": page, "fuse_kernel_sweeps": psweeps,
+                        "fuse_kernel_windows": d("fuse.kernel.windows"),
+                        "exchanges": moved, "telemetry_exchanges": tele_moved,
+                        "remap": {k[len("remap.pager."):]: d(k) for k in after
+                                  if k.startswith("remap.pager.")},
+                        "collective_bytes":
+                            d("exchange.pager.collective_bytes"),
+                        "host_fetch_bytes":
+                            d("exchange.pager.host_fetch_bytes")}
+        del p
+        release()
+
+        # ---- every hook reached; the exporters on the card -------------
+        snap = tele.snapshot()
+        missing = [f for f in TELE_REQUIRED
+                   if not any(k.startswith(f) and v > 0
+                              for k, v in snap["counters"].items())]
+        check(not missing, f"phase 37 reached no counter of {missing}")
+        jsonl = tele.write_jsonl(os.path.join(tmp, "telemetry.jsonl"))
+        chrome = tele.write_chrome_trace(os.path.join(tmp, "trace.json"))
+        with open(jsonl) as fh:
+            back = json.loads(fh.read().splitlines()[-1])
+        with open(chrome) as fh:
+            spans = [e for e in json.load(fh)["traceEvents"]
+                     if e["ph"] == "X" and e["name"] == "chip.qft.w30"]
+        check(back["counters"] == snap["counters"]
+              and len(spans) == 1 and spans[0]["args"]["synced"],
+              "the JSONL or Chrome trace did not load back")
+        out["exporters"] = {"jsonl_bytes": os.path.getsize(jsonl),
+                            "chrome_bytes": os.path.getsize(chrome),
+                            "counters": len(snap["counters"]),
+                            "events": len(snap["events"])}
+    tele.disable()
+    tele.reset()
+    out["tq_launches"] = tq_launches
+    out["dense_launches"] = dense
+    emit(out)
+    return {"dense": dense, "pager": page, "tq": tq_launches}
+
+
 def cuda_engines(q) -> list:
     """Every QEngineCUDA reachable from a stack (its units' engines)."""
     from qrack_tpu_torch.engines.cuda import QEngineCUDA
@@ -4169,6 +4550,7 @@ def main() -> int:
     layers_only = "--layers-only" in sys.argv[1:]
     pager_only = "--pager-only" in sys.argv[1:]
     wide_only = "--wide-only" in sys.argv[1:]
+    telemetry_only = "--telemetry-only" in sys.argv[1:]
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -4197,7 +4579,7 @@ def main() -> int:
               f"{name} spills: {r}")
 
     only = (tq_only or algo_only or fppow_only or layers_only or pager_only
-            or wide_only)
+            or wide_only or telemetry_only)
     tableau = stack_native(card) if layers_only or not only else None
     probe = SweepProbe(wk)
     paths = {}   # path -> launches by dtype name
@@ -4260,6 +4642,16 @@ def main() -> int:
         tq_pager(card, dev)
         paths["unit_multi"] = {"float32": unit_multi(card, dev)}
         emit({"phase": "pager_rest", "card": card,
+              "seconds": time.time() - t1})
+    if telemetry_only or not only:
+        t1 = time.time()
+        tele = telemetry_phase(card, dev)
+        paths["telemetry"] = {"float32": tele["dense"]}
+        if page_probe is not None:
+            page_paths["telemetry_pager"] = tele["pager"]
+        for entry in tq_kernels:
+            entry["launches"] += tele["tq"][entry["name"][len("tq_"):]]
+        emit({"phase": "telemetry_seconds", "card": card,
               "seconds": time.time() - t1})
     if page_probe is not None:
         page_total = {k: sum(p[k] for p in page_paths.values())

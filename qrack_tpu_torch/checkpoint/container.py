@@ -19,9 +19,12 @@ A checkpoint file is a VALID npz archive whose last member,
   :class:`CheckpointVersionError`; bare npz files (no manifest) load
   through ``legacy_ok=True``.
 
-The JAX package's telemetry counters and fault-injection sites on
-save/load are not ported (they wait for the telemetry and resilience
-planes).
+With telemetry on, a save counts ``checkpoint.save`` and
+``checkpoint.save.bytes`` and observes its wall under
+``checkpoint.save``; a load likewise under ``checkpoint.restore``, as in
+the JAX package.  Its fault-injection sites on save/load come with the
+resilience plane (ROADMAP item 14b); the registry, store and warm start
+with item 15.
 """
 
 from __future__ import annotations
@@ -30,11 +33,14 @@ import hashlib
 import json
 import os
 import tempfile
+import time
 import zipfile
 import zlib
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from .. import telemetry as _tele
 
 FORMAT = "qrack-checkpoint"
 VERSION = 1
@@ -69,6 +75,7 @@ def save_container(path: str, arrays: Dict[str, np.ndarray],
     """Atomically write `arrays` + manifest to `path`; returns the final
     file size in bytes.  Array keys must not collide with the manifest
     member."""
+    t0 = time.perf_counter()
     host: Dict[str, np.ndarray] = {}
     payload: Dict[str, dict] = {}
     for key, arr in arrays.items():
@@ -97,7 +104,12 @@ def save_container(path: str, arrays: Dict[str, np.ndarray],
         except OSError:
             pass
         raise
-    return os.path.getsize(path)
+    nbytes = os.path.getsize(path)
+    if _tele._ENABLED:
+        _tele.inc("checkpoint.save")
+        _tele.inc("checkpoint.save.bytes", nbytes)
+        _tele.observe("checkpoint.save", time.perf_counter() - t0)
+    return nbytes
 
 
 def peek_meta(path: str) -> Tuple[Optional[str], dict]:
@@ -134,6 +146,7 @@ def load_container(path: str, expect_kind: Optional[str] = None,
     as ``(None, {}, arrays)``.  Everything else malformed raises
     CheckpointCorrupt; a newer format version raises
     CheckpointVersionError."""
+    t0 = time.perf_counter()
     path = str(path)
     try:
         with np.load(path, allow_pickle=False) as z:
@@ -178,4 +191,8 @@ def load_container(path: str, expect_kind: Optional[str] = None,
     if expect_kind is not None and kind != expect_kind:
         raise CheckpointError(
             f"{path}: holds {kind!r}, expected {expect_kind!r}")
+    if _tele._ENABLED:
+        _tele.inc("checkpoint.restore")
+        _tele.inc("checkpoint.restore.bytes", os.path.getsize(path))
+        _tele.observe("checkpoint.restore", time.perf_counter() - t0)
     return kind, manifest.get("meta", {}), arrays

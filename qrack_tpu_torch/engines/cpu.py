@@ -26,6 +26,7 @@ from .qengine import QEngine
 
 class QEngineCPU(QEngine):
     _xp = np
+    _tele_name = "cpu"
 
     def __init__(self, qubit_count: int, init_state: int = 0, dtype=np.complex128, **kwargs):
         if kwargs.pop("device", None) is not None:

@@ -14,7 +14,12 @@ planes (the counterpart of the JAX package's QEngineTPU).
   * Gates queue into a GateStreamFuser window (ops/fusion.py) and flush
     at every read: a multi-op window goes through the single-sweep
     window kernel (ops/window_kernel.py) when the cost model picks it,
-    else through the plain gate functions (ops/gatekernels.py).
+    else through the plain gate functions (ops/gatekernels.py).  With
+    telemetry on, each flushed window counts under ``fuse.kernel.*`` or
+    ``fuse.xla.*`` with its planned bytes (``roofline.cuda.fuse.flush``),
+    and the drift escalation is the event ``engine.cuda.f64_escalation``
+    (the JAX engine's ``engine.tpu.x64_flip`` has no counterpart: the
+    escalation here casts this engine's planes and nothing else).
   * PyTorch launches asynchronously; only reads that return host values
     (Prob/M/amplitudes) wait for the device.
   * The planes update in place where the window kernel runs; every read
@@ -34,6 +39,7 @@ import warnings
 import numpy as np
 import torch
 
+from .. import telemetry as _tele
 from ..ops import fusion as fu
 from ..ops import gatekernels as gk
 from ..utils.device import resolve_device
@@ -50,6 +56,8 @@ class QEngineCUDA(QEngine):
 
     _xp = torch
     _fuse_capable = True
+    # the JAX engine's label is "tpu" (the namespace's one rename)
+    _tele_name = "cuda"
 
     def __init__(self, qubit_count: int, init_state: int = 0, dtype=None,
                  device=None, **kwargs):
@@ -160,6 +168,11 @@ class QEngineCUDA(QEngine):
         the engine's own tensor: nothing else in the process changes."""
         if self.dtype == torch.float64:
             return
+        if _tele._ENABLED:
+            _tele.event("engine.cuda.f64_escalation",
+                        observed_norm=observed_norm,
+                        drift_thresh=self._drift_thresh,
+                        width=self.qubit_count)
         warnings.warn(
             f"{self.dtype} norm drift {observed_norm!r} exceeded "
             f"QRACK_TPU_AUTO_F64_DRIFT={self._drift_thresh}: escalating "
@@ -198,7 +211,8 @@ class QEngineCUDA(QEngine):
             else:
                 self._apply_2x2(op.m, op.target, op.cmask, op.cval)
             return 1
-        self._state = fu.flush_window(self._state, self.qubit_count, ops)
+        self._state = fu.flush_window(self._state, self.qubit_count, ops,
+                                      counted=True)
         return 1
 
     # ------------------------------------------------------------------

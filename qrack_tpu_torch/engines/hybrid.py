@@ -15,6 +15,12 @@ Switching by width is the design, not a fallback: no path catches a
 device error and carries on on the CPU.  ``device=`` and ``dtype=`` go
 to the CUDA engine and the pager; QEngineCPU takes neither.
 
+Each switch and each grow across a mode is a telemetry event,
+``hybrid.switch.<from>_to_<to>`` and ``hybrid.grow.<mode>``, with the
+modes ``cpu``, ``cuda`` (the JAX package's ``tpu``) and ``pager``.  The
+JAX QHybrid's failover and un-pin events come with its failover (ROADMAP
+item 14b).
+
 ``HOST_STAGINGS`` counts the kets that pass through the host, and their
 amplitudes: a whole ket when the width crosses the threshold
 (``"switch"``), and the other operand of a Compose onto a CUDA engine
@@ -28,6 +34,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import telemetry as _tele
 from ..config import get_config
 from ..utils.rng import QrackRandom
 from ..utils.states import compose_states
@@ -92,8 +99,11 @@ class QHybrid:
         """Re-materialize the ket when the width crosses a threshold
         (reference: SwitchGpuMode)."""
         n = self._engine.qubit_count
-        if self._mode_for(n) == self._mode_of(self._engine):
+        want, have = self._mode_for(n), self._mode_of(self._engine)
+        if want == have:
             return
+        if _tele._ENABLED:
+            _tele.event(f"hybrid.switch.{have}_to_{want}", width=n)
         HOST_STAGINGS["switch"] += 1
         HOST_STAGINGS["switch_amps"] += 1 << n
         state = self._engine.GetQuantumState()
@@ -114,6 +124,8 @@ class QHybrid:
 
     def _grow_to(self, n_new: int, mode: str, full_state) -> None:
         """Host-stage into a target-mode engine at the grown width."""
+        if _tele._ENABLED:
+            _tele.event(f"hybrid.grow.{mode}", width=n_new)
         HOST_STAGINGS["switch"] += 1
         HOST_STAGINGS["switch_amps"] += 1 << n_new
         rng = self._engine.rng

@@ -42,6 +42,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from .. import telemetry as _tele
 from ..config import FP_NORM_EPSILON
 from ..interface import QInterface
 from ..ops import alu_kernels as alu
@@ -66,6 +67,9 @@ class QEngine(QInterface):
     # engine)
     _xp = np
 
+    # engine label in telemetry counter names (gate.<label>.<kind>.w<n>)
+    _tele_name = "engine"
+
     # lazy gate-stream fusion (ops/fusion.py): engines that can lower a
     # pending gate window into one parametric window set _fuse_capable
     # and install a GateStreamFuser in __init__
@@ -87,12 +91,18 @@ class QEngine(QInterface):
         m = np.asarray(mtrx, dtype=np.complex128).reshape(2, 2)
         if mat.is_identity(m) and abs(m[0, 0] - 1.0) <= 1e-14:
             return
+        # gate.* counters record logical gates REQUESTED; the fused path
+        # accounts its (fewer) physical sweeps under fuse.*
         if mat.is_phase(m):
+            if _tele._ENABLED:
+                _tele.inc(f"gate.{self._tele_name}.diag.w{self.qubit_count}")
             fuser = self._fuser
             if fuser is not None and fuser.queue(tuple(controls), m, target, perm):
                 return
             self._k_apply_diag(m[0, 0], m[1, 1], target, tuple(controls), perm)
         else:
+            if _tele._ENABLED:
+                _tele.inc(f"gate.{self._tele_name}.2x2.w{self.qubit_count}")
             fuser = self._fuser
             if fuser is not None and fuser.queue(tuple(controls), m, target, perm):
                 return
@@ -104,6 +114,8 @@ class QEngine(QInterface):
     def XMask(self, mask: int) -> None:
         if not mask:
             return
+        if _tele._ENABLED:
+            _tele.inc(f"gate.{self._tele_name}.permute.w{self.qubit_count}")
         self._k_gather(
             lambda idx: idx ^ mask,
             split=(lambda xp, pid, lidx, L: alu.xor_split(
@@ -112,6 +124,8 @@ class QEngine(QInterface):
     def ZMask(self, mask: int) -> None:
         if not mask:
             return
+        if _tele._ENABLED:
+            _tele.inc(f"gate.{self._tele_name}.phase_mask.w{self.qubit_count}")
 
         def fn(xp, idx):
             par = self._parity_of(xp, idx, mask)
@@ -147,9 +161,13 @@ class QEngine(QInterface):
     def Swap(self, q1: int, q2: int) -> None:
         if q1 == q2:
             return
+        if _tele._ENABLED:
+            _tele.inc(f"gate.{self._tele_name}.swap.w{self.qubit_count}")
         self._k_swap_bits(q1, q2)
 
     def Apply4x4(self, m: np.ndarray, q1: int, q2: int) -> None:
+        if _tele._ENABLED:
+            _tele.inc(f"gate.{self._tele_name}.4x4.w{self.qubit_count}")
         self._k_apply_4x4(np.asarray(m, dtype=np.complex128), q1, q2)
 
     def _k_apply_4x4(self, m4, q1, q2) -> None:

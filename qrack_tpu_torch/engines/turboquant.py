@@ -32,6 +32,10 @@ QEngineTurboQuant, engines/turboquant.py there).
 * Operations without a chunked form decode the whole ket into float32
   planes through the ``_state`` property (refused past 30 qubits).
   ``peak_transient_amps`` records the largest float32 decode.
+* Telemetry (the JAX engine's names): ``tq.sweeps`` (a decode and a
+  requantize of the resident codes per gate, diagonal, phase pass or
+  window) with its planned bytes (``roofline.tq.sweep``), the
+  ``tq.resident.*`` gauges, and ``fuse.tq.*`` for the windows.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``
 (the tests do); there every kernel wrapper runs its plain version.
@@ -46,11 +50,13 @@ import numpy as np
 import torch
 
 from .. import matrices as mat
+from .. import telemetry as _tele
 from ..ops import fusion as fu
 from ..ops import gatekernels as gk
 from ..ops import turboquant_kernel as tqk
 from ..ops import window_kernel as wk
 from ..storage import turboquant as tq
+from ..telemetry import roofline as _roofline
 from ..utils.device import resolve_device
 from .cuda import MAX_DENSE_QB, QEngineCUDA
 
@@ -102,6 +108,8 @@ def _pair_mix(a, b, m, lm, lv, lidx):
 
 class QEngineCUDATurboQuant(QEngineCUDA):
     """Dense ket resident as rotated b-bit block codes (lossy)."""
+
+    _tele_name = "turboquant"
 
     # the kernels' tile: 2^12 amplitudes by default (the Pallas kernels'
     # 2^18 is a TPU VMEM size; a CUDA block holds the tile twice and both
@@ -267,6 +275,37 @@ class QEngineCUDATurboQuant(QEngineCUDA):
                                                      self._qmax, self._code_dt)
         self._codes = codes
         self._scales = scales
+        self._note_resident()
+
+    def _note_resident(self) -> None:
+        """Resident-footprint gauges: codes + scales bytes against what
+        the same ket takes as two float32 planes.  Reads the raw arrays
+        (the properties would flush the fuser)."""
+        if _tele._ENABLED and self._codes_raw is not None:
+            _tele.gauge("tq.resident.bytes", float(self.resident_bytes()))
+            _tele.gauge("tq.resident.dense_equiv_bytes",
+                        float(8 * (1 << self.qubit_count)))
+
+    def _note_sweeps(self, n: int = 2) -> None:
+        """Count the decode and requantize passes over the resident codes
+        (one of each per gate, diagonal, phase pass or window); each
+        moves the whole compressed residency, whose bytes also enter the
+        roofline ledger (``roofline.tq.sweep``)."""
+        if _tele._ENABLED:
+            _tele.inc("tq.sweeps", n)
+            if self._codes_raw is not None:
+                _roofline.note_bytes("tq.sweep",
+                                     float(n) * self.resident_bytes())
+                self._note_resident()
+
+    def _note_window(self, n_ops: int) -> None:
+        """A window of `n_ops` in one decode and one requantize, where
+        the per-gate path pays a pair an op (``fuse.tq.sweeps_saved``)."""
+        self._note_sweeps()
+        if _tele._ENABLED:
+            _tele.inc("fuse.tq.windows")
+            _tele.inc("fuse.tq.ops", n_ops)
+            _tele.inc("fuse.tq.sweeps_saved", 2 * (n_ops - 1))
 
     def _decompress_planes(self):
         D = self._block
@@ -409,6 +448,7 @@ class QEngineCUDATurboQuant(QEngineCUDA):
                 self._tq_bits, self._pallas_tile_pow())
 
     def _k_apply_2x2(self, m2, target, controls, perm) -> None:
+        self._note_sweeps()
         cmask, cval = self._cmask_cval(controls, perm)
         m2 = np.asarray(m2, dtype=np.complex128)
         mp = np.stack([m2.real, m2.imag]).astype(np.float32)
@@ -475,6 +515,7 @@ class QEngineCUDATurboQuant(QEngineCUDA):
         return out
 
     def _k_apply_diag(self, d0, d1, target, controls, perm) -> None:
+        self._note_sweeps()
         cmask, cval = self._cmask_cval(controls, perm)
         d0, d1 = complex(d0), complex(d1)
         if not self._pallas_capable:
@@ -572,6 +613,7 @@ class QEngineCUDATurboQuant(QEngineCUDA):
         self._map_chunks(body, select=True)
 
     def _k_phase_fn(self, fn, split=None) -> None:
+        self._note_sweeps()
         ca, cs = self._tq_chunk_pow, self._chunk_amps
         if split is not None:
             # the (chunk id, in-chunk index) form: exact past 31 qubits
@@ -636,6 +678,7 @@ class QEngineCUDATurboQuant(QEngineCUDA):
                 self._k_apply_2x2(m, op.target, controls, perm)
             return 1
         structure = fu.sharded_structure_of(ops)
+        self._note_window(len(ops))
         if not self._pallas_capable:
             self._window_chunks(structure, fu.sharded_operands(
                 ops, self._tq_chunk_pow, torch.float32, self._device))

@@ -67,6 +67,8 @@ from __future__ import annotations
 import os
 from typing import Callable, List, Sequence, Union
 
+from . import telemetry as _tele
+
 OPTIMAL = ("unit", "stabilizer_hybrid", "hybrid")
 OPTIMAL_MULTI = ("unit_multi", "stabilizer_hybrid", "hybrid")
 
@@ -90,6 +92,16 @@ _NOT_PORTED = {
 def _not_ported(name: str) -> ValueError:
     return ValueError(f"layer {name!r} is not ported yet: "
                       f"{_NOT_PORTED[name]}")
+
+
+def _counted(name: str, fn: Callable) -> Callable:
+    """Count stack constructions per layer (telemetry:
+    ``factory.create.<name>``); runs at construction only."""
+    def make(n, **kw):
+        if _tele._ENABLED:
+            _tele.inc(f"factory.create.{name}")
+        return fn(n, **kw)
+    return make
 
 
 def _terminal_factory(name: str, **opts) -> Callable:
@@ -159,7 +171,7 @@ def build_factory(layers: Sequence[str], **opts) -> Callable:
     if head in _TERMINAL:
         if rest:
             raise ValueError(f"terminal layer {head!r} must be last")
-        return _terminal_factory(head, **dev)
+        return _counted(head, _terminal_factory(head, **dev))
     below = None
     if rest:
         # a host terminal ("cpu", "sparse") under a layer takes no device
@@ -170,25 +182,28 @@ def build_factory(layers: Sequence[str], **opts) -> Callable:
     if head == "unit":
         from .layers.qunit import QUnit
 
-        return lambda n, **kw: QUnit(n, unit_factory=below, **kw)
+        return _counted(head, lambda n, **kw: QUnit(n, unit_factory=below,
+                                                    **kw))
     if head == "unit_multi":
         from .layers.qunitmulti import QUnitMulti
 
-        return lambda n, **kw: QUnitMulti(n, unit_factory=below, **kw)
+        return _counted(head, lambda n, **kw: QUnitMulti(
+            n, unit_factory=below, **kw))
     if head == "stabilizer_hybrid":
         from .layers.stabilizerhybrid import QStabilizerHybrid
 
-        return lambda n, **kw: QStabilizerHybrid(n, engine_factory=below,
-                                                 **kw)
+        return _counted(head, lambda n, **kw: QStabilizerHybrid(
+            n, engine_factory=below, **kw))
     if head == "tensor_network":
         from .layers.qtensornetwork import QTensorNetwork
 
-        return lambda n, **kw: QTensorNetwork(n, stack_factory=below, **kw)
+        return _counted(head, lambda n, **kw: QTensorNetwork(
+            n, stack_factory=below, **kw))
     if head == "bdt_hybrid":
         from .layers.qbdthybrid import QBdtHybrid
 
-        return lambda n, **kw: QBdtHybrid(n, engine_factory=below,
-                                          **{**dev, **kw})
+        return _counted(head, lambda n, **kw: QBdtHybrid(
+            n, engine_factory=below, **{**dev, **kw}))
     if head == "noisy":
         noise = opts.get("noise")
         if below is None:
@@ -199,12 +214,12 @@ def build_factory(layers: Sequence[str], **opts) -> Callable:
             from .noise.channels import QNoisy
 
             model = opts.get("model")
-            return lambda n, **kw: QNoisy(n, model=model, noise=noise,
-                                          **{**dev, **kw})
+            return _counted(head, lambda n, **kw: QNoisy(
+                n, model=model, noise=noise, **{**dev, **kw}))
         from .layers.noisy import QInterfaceNoisy
 
-        return lambda n, **kw: QInterfaceNoisy(n, inner_factory=below,
-                                               noise=noise, **kw)
+        return _counted(head, lambda n, **kw: QInterfaceNoisy(
+            n, inner_factory=below, noise=noise, **kw))
     raise ValueError(f"unknown layer {head!r}")
 
 
@@ -219,6 +234,8 @@ def create_quantum_interface(layers: Union[str, Sequence[str]], qubit_count: int
                   "optimal_multi": OPTIMAL_MULTI}.get(layers, (layers,))
     opts = {k: kwargs.pop(k) for k in ("dtype", "device", "noise", "model")
             if k in kwargs}
+    if _tele._ENABLED:
+        _tele.inc("factory.create_interface")
     factory = build_factory(tuple(layers), **opts)
     return factory(qubit_count, init_state=init_state, **kwargs)
 

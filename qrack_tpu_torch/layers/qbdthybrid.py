@@ -11,9 +11,9 @@ Port note: a copy of the JAX package's layers/qbdthybrid.py whose
 default engine is the port's QHybrid, so a switched register of 13
 qubits or more lands on the card (QEngineCUDA, the window kernel).
 ``device``/``dtype`` reach the tree (its device leaves) and the default
-engine; an engine factory from the factory carries its own.  Not ported
-yet: the ``qbdt.to_dense`` telemetry event (ROADMAP item 14) and the
-checkpoint hooks (item 15)."""
+engine; an engine factory from the factory carries its own.  The switch
+is the telemetry event ``qbdt.to_dense``.  Not ported yet: the
+checkpoint hooks (ROADMAP item 15)."""
 
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from .. import telemetry as _tele
 from ..interface import QInterface
 from .qbdt import QBdt
 
@@ -70,6 +71,8 @@ class QBdtHybrid(QInterface):
             return
         if state is None:
             state = self.bdt.GetQuantumState()
+        if _tele._ENABLED:
+            _tele.event("qbdt.to_dense", width=self.qubit_count)
         self.engine = self._factory(self.qubit_count, rng=self.rng.spawn(), **self._kw)
         self.engine.SetQuantumState(state)
         self.bdt = None

@@ -54,8 +54,10 @@ one device's dense width (QRACK_MAX_PAGE_QB, 30) takes QHybrid's pager
 mode: over a ``devices`` list (a keyword the units take) the ket goes
 into pages; without one, one page on one card is too narrow and the
 pager raises MemoryError, which ACE catches, as in the JAX package.
-Not ported yet:
-the telemetry counters (item 14) and the checkpoint hooks (item 15).
+Telemetry: the JAX package's ``qunit.gate.dispatch``,
+``qunit.fidelity_guard.trip``, ``qunit.unit_fresh``, ``qunit.compose``
+and ``qunit.separate``.  Not ported yet: the checkpoint hooks (ROADMAP
+item 15).
 """
 
 from __future__ import annotations
@@ -66,6 +68,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import telemetry as _tele
 from ..config import FP_NORM_EPSILON, TRYDECOMPOSE_EPSILON
 from ..interface import QInterface
 from .. import matrices as mat
@@ -294,6 +297,8 @@ class QUnit(QInterface):
     def _dispatch(self, n: int = 1) -> None:
         """One (or n) engine gate dispatches escaped the fusion buffers."""
         self.dispatch_count += n
+        if _tele._ENABLED:
+            _tele.inc("qunit.gate.dispatch", n)
 
     def _check_fidelity(self) -> None:
         # NOTE: matches the reference exactly — the SAME env toggle gates
@@ -304,6 +309,9 @@ class QUnit(QInterface):
         # mid-run.
         if (not self.is_ace
                 and self.log_fidelity <= math.log(FP_NORM_EPSILON)):
+            if _tele._ENABLED:
+                _tele.event("qunit.fidelity_guard.trip",
+                            log_fidelity=self.log_fidelity)
             raise RuntimeError(
                 "QUnit fidelity estimate is effectively 0! (This does NOT "
                 "necessarily mean the true fidelity is near 0 — consider "
@@ -385,6 +393,8 @@ class QUnit(QInterface):
         eng.SetQuantumState(np.array([s.amp0, s.amp1], dtype=np.complex128))
         s.unit = eng
         s.mapped = 0
+        if _tele._ENABLED:
+            _tele.inc("qunit.unit_fresh")
         return eng
 
     _ACE_ADVISORY = ("QUnit needed to engage automatic circuit elision (ACE) "
@@ -405,6 +415,8 @@ class QUnit(QInterface):
             offset = base.qubit_count
             base.Compose(u)
             self.compose_count += 1
+            if _tele._ENABLED:
+                _tele.inc("qunit.compose")
             for s in self.shards:
                 if s.unit is u:
                     s.unit = base
@@ -1171,6 +1183,8 @@ class QUnit(QInterface):
         unit = s.unit
         mapped = s.mapped
         if unit is not None:
+            if _tele._ENABLED:
+                _tele.inc("qunit.separate")
             if unit.qubit_count > 1:
                 unit.Dispose(mapped, 1, 1 if collapsed_val else 0)
                 for other in self.shards:

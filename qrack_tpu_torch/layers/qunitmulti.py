@@ -22,8 +22,8 @@ remaining weighted capacity, so two large subsystems land on different
 rows, and a subsystem no row can hold raises MemoryError up front
 instead of letting the card run out of memory mid-gate.
 
-The telemetry counter of the JAX package (``qunitmulti.redistribute``)
-is a deferred hook of ROADMAP item 14; the checkpoint kind of item 15.
+Each redistribution counts ``qunitmulti.redistribute`` in telemetry, as
+in the JAX package; the checkpoint kind waits for ROADMAP item 15.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from .. import telemetry as _tele
 from .qunit import QUnit
 
 # The reference caps one ket at device memory / 3 (OclMemDenom,
@@ -265,6 +266,8 @@ class QUnitMulti(QUnit):
                 seen.add(id(s.unit))
                 units.append(s.unit)
         units.sort(key=lambda u: -u.qubit_count)
+        if _tele._ENABLED:
+            _tele.inc("qunitmulti.redistribute")
         order = self._capability_order()
         for d in self.devices:
             d.used_bytes = 0

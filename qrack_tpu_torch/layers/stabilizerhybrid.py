@@ -26,9 +26,9 @@ loss tracked in log_fidelity (reference: README.md:112).
 Port note: a copy of the JAX package's layers/stabilizerhybrid.py whose
 default engine is the port's QHybrid.  Every engine this layer builds
 takes the constructor's keyword arguments (``device``, ``dtype``) with
-a fresh ``rng`` spawn.  Not ported yet: the ``stabilizer.to_dense``
-telemetry event (ROADMAP item 14), the checkpoint hooks (item 15) and
-the router's ``can_run_cheaply`` probe (item 16).
+a fresh ``rng`` spawn.  The switch to the engine is the telemetry event
+``stabilizer.to_dense``.  Not ported yet: the checkpoint hooks (ROADMAP
+item 15) and the router's ``can_run_cheaply`` probe (item 16).
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
+from .. import telemetry as _tele
 from ..interface import QInterface
 from .. import matrices as mat
 from .stabilizer import QStabilizer, CliffordError, clifford_sequence
@@ -116,6 +117,9 @@ class QStabilizerHybrid(QInterface):
         if self.engine is not None:
             return
         width = self.qubit_count + self._anc
+        if _tele._ENABLED:
+            _tele.event("stabilizer.to_dense", width=width,
+                        ancillae=self._anc)
         ket = self.stab.GetQuantumState()
         self.engine = self._factory(width, rng=self.rng.spawn(),
                                     **self._eng_kwargs)

@@ -16,10 +16,17 @@ of an XLA window (no Pallas kernel).  Here the body is plain torch over
 the batch axis: the batched gate functions below (:func:`apply_2x2`,
 :func:`apply_diag`, :func:`apply_invert`, :func:`apply_cphase`, the
 "kraus" renormalise-and-weight step) take per-trajectory operands,
-where ops/gatekernels.py takes one host matrix and one ket.  Not ported
-yet: the program cache (torch has no trace to cache), the dispatch
-instrumentation and the ``noise.sample`` fault site (ROADMAP item 14),
-and the telemetry and roofline notes (item 14).
+where ops/gatekernels.py takes one host matrix and one ket.  Telemetry,
+as in the JAX package: ``noise.traj.windows`` a window and its planned
+bytes (``roofline.cuda.fuse.flush``, one sweep of the chunk an op), and
+per :func:`run_trajectories` call ``noise.traj.batches``,
+``.trajectories``, ``.chunks``, ``.chunked``, ``.slots``, the
+``noise.traj.chunk_size`` and ``.rate`` gauges and the
+``noise.traj.wall_s`` histogram (the wall ends with the readout's copy
+to the host, which waits for the device).  The program cache has no
+counterpart (torch has no trace to cache); the dispatch instrumentation
+and the ``noise.sample`` fault site come with resilience (ROADMAP item
+14b).
 
 Memory: a chunk of C trajectories of width w holds C · 2^w amplitudes
 of planes, and the body allocates its results and temporaries beside
@@ -41,14 +48,17 @@ weight threaded between windows.
 from __future__ import annotations
 
 import os
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import telemetry as _tele
 from ..config import get_config
 from ..ops import fusion as fu
 from ..ops import gatekernels as gk
+from ..telemetry import roofline as _roofline
 from ..utils.device import resolve_device
 from .channels import MEASURE_DOMAIN, KrausChannel, NoiseModel, traj_uniform
 
@@ -544,6 +554,7 @@ class TrajectoryJob:
         tids = self._chunk_tids(self._next)
         C = len(tids)
         n = self.width
+        esize = torch.empty((), dtype=self.dtype).element_size()
         # the planes ride a one-slot list that each window empties
         box = [torch.zeros((C, 2, 1 << n), dtype=self.dtype,
                            device=self.device)]
@@ -565,6 +576,11 @@ class TrajectoryJob:
                                                        *operands)
                 box.append(planes)
                 del planes
+            if _tele._ENABLED:
+                _tele.inc("noise.traj.windows")
+                _roofline.note_bytes(
+                    "cuda.fuse.flush",
+                    len(ops) * C * _roofline.plane_pass_bytes(n, esize))
         self._done.append({
             "tids": tids,
             "p1": _host(p1),
@@ -653,8 +669,22 @@ def run_trajectories(circuit, model: NoiseModel, trajectories: int, *,
     B = int(trajectories)
     if B <= 0:
         raise ValueError("trajectories must be positive")
+    t0 = time.perf_counter()
     job = TrajectoryJob(circuit, model, B, width=width, key=key,
                         trajectory_ids=trajectory_ids, dtype=dtype,
                         keep_planes=keep_planes, device=device)
     job.run()
+    wall = time.perf_counter() - t0
+    if _tele._ENABLED:
+        _tele.inc("noise.traj.batches")
+        _tele.inc("noise.traj.trajectories", float(B))
+        _tele.inc("noise.traj.chunks", float(job.n_chunks))
+        if job.n_chunks > 1:
+            _tele.inc("noise.traj.chunked")
+        nslots = sum(1 for op in job._ops if isinstance(op, NoiseSlot))
+        _tele.inc("noise.traj.slots", float(nslots * B))
+        _tele.gauge("noise.traj.chunk_size", job.chunk)
+        _tele.observe("noise.traj.wall_s", wall)
+        if wall > 0:
+            _tele.gauge("noise.traj.rate", B / wall)
     return job.result()

@@ -8,7 +8,9 @@ library, all at once, and waits for them; :func:`load` loads a library
 with ctypes, building it first if needed.  nvcc's ptxas report
 (``-Xptxas -v``: registers, shared memory, spills) is kept beside each
 library; :func:`build_log` reads it back and :func:`ptxas_report` parses
-registers and spills per kernel from it.
+registers and spills per kernel from it.  With telemetry on, each
+library a build asks for counts ``compile.kernel.<library>.hit`` when it
+is found built in ``_build/`` and ``.miss`` when nvcc compiles it.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, List, Sequence
+
+from .. import telemetry as _tele
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -59,8 +63,13 @@ def build(sources: Sequence[Path]) -> None:
     """Compile every source whose library or build log is missing, one
     nvcc process each, all started together; raises if any of them
     fails."""
-    todo = [Path(s) for s in sources
-            if not (library_path(s).exists() and log_path(s).exists())]
+    todo = []
+    for s in map(Path, sources):
+        built = library_path(s).exists() and log_path(s).exists()
+        if _tele._ENABLED:
+            _tele.inc(f"compile.kernel.{s.stem}.{'hit' if built else 'miss'}")
+        if not built:
+            todo.append(s)
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -39,6 +39,8 @@ import numpy as np
 import torch
 
 from .. import matrices as mat
+from .. import telemetry as _tele
+from ..telemetry import roofline as _roofline
 from ..utils.bits import control_offset
 from . import gatekernels as gk
 
@@ -303,19 +305,68 @@ def kernel_lowering(n: int, structure: Tuple, device="cuda"):
     return plan, None
 
 
-def flush_window(planes, n: int, ops: Sequence[FusedOp]):
+def flush_window(planes, n: int, ops: Sequence[FusedOp],
+                 counted: bool = False):
     """Apply a multi-op window to `planes` through the lowering the cost
     model picks; returns the resulting planes (the kernel lowering
-    updates `planes` in place and returns it)."""
+    updates `planes` in place and returns it).  An engine's flush is
+    `counted` in telemetry under ``fuse.kernel.*`` or ``fuse.xla.*``;
+    RunFused's whole-circuit window counts nothing, as in the JAX
+    package."""
     from . import window_kernel as wk
 
     structure = structure_of(ops)
     operands = dense_operands(ops, planes.dtype)
-    plan, _why = kernel_lowering(n, structure, planes.device)
+    plan, why = kernel_lowering(n, structure, planes.device)
+    esize = planes.element_size()
     if plan is not None:
         fn = wk.make_window_fn(n, structure, block_pow=plan["block_pow"])
-        return fn(planes, *operands)
-    return window_fn(n, structure)(planes, *operands)
+        out = fn(planes, *operands)
+        if counted:
+            record_kernel_flush(len(ops), plan["sweeps"], width=n,
+                                esize=esize)
+        return out
+    out = window_fn(n, structure)(planes, *operands)
+    if counted:
+        record_kernel_fallback(why)
+        record_xla_flush(len(ops), width=n, esize=esize)
+    return out
+
+
+def record_kernel_flush(nops: int, sweeps: int, width=None,
+                        esize: int = 4) -> None:
+    """A window flushed through the window kernel: count it and the
+    sweeps it paid.  Callers that supply the plane width also feed the
+    sweeps' planned bytes into the roofline ledger
+    (``roofline.cuda.fuse.flush.*``)."""
+    if _tele._ENABLED:
+        _tele.inc("fuse.kernel.windows")
+        _tele.inc("fuse.kernel.ops", nops)
+        _tele.inc("fuse.kernel.sweeps", sweeps)
+        if width is not None:
+            _roofline.note_bytes(
+                "cuda.fuse.flush",
+                sweeps * _roofline.plane_pass_bytes(width, esize))
+
+
+def record_xla_flush(nops: int, width=None, esize: int = 4) -> None:
+    """A multi-op window flushed through the window chain (one sweep an
+    op; the JAX package's XLA chain, whose counter names it keeps)."""
+    if _tele._ENABLED:
+        _tele.inc("fuse.xla.windows")
+        _tele.inc("fuse.xla.ops", nops)
+        _tele.inc("fuse.xla.sweeps", nops)
+        if width is not None:
+            _roofline.note_bytes(
+                "cuda.fuse.flush",
+                nops * _roofline.plane_pass_bytes(width, esize))
+
+
+def record_kernel_fallback(reason: str) -> None:
+    """A window the cost model kept off the kernel, by kernel_lowering's
+    reason."""
+    if _tele._ENABLED:
+        _tele.inc(f"fuse.kernel.fallback.{reason}")
 
 
 # ---------------------------------------------------------------------------
@@ -767,13 +818,14 @@ class GateStreamFuser:
     ``_fuse_flush(gates) -> int`` (lower + dispatch).  On a flush
     failure the window is kept and the error propagates."""
 
-    __slots__ = ("engine", "window", "gates", "_flushing", "lookahead",
-                 "lookahead_pos")
+    __slots__ = ("engine", "window", "gates", "_raw", "_flushing",
+                 "lookahead", "lookahead_pos")
 
     def __init__(self, engine, window: int):
         self.engine = engine
         self.window = window
         self.gates: List = []   # merged QCircuitGate window
+        self._raw = 0           # gates queued into it, before merging
         self._flushing = False
         # lookahead for the pager's remap planner: (kind, target) LOGICAL
         # tuples of the gates a circuit runner is about to stream,
@@ -813,7 +865,7 @@ class GateStreamFuser:
             self.lookahead_pos += 1
         eng = self.engine
         if not eng._fuse_admit(m, target, controls):
-            self.flush()
+            self.flush("ineligible")
             return False
         from ..layers.qcircuit import QCircuitGate
 
@@ -824,8 +876,13 @@ class GateStreamFuser:
         # a full window flushes BEFORE the new gate joins, so a window
         # never holds more than `window` gates
         if len(self.gates) >= self.window:
-            self.flush()
+            self.flush("window_full")
         self._append_merge(gate)
+        self._raw += 1
+        if _tele._ENABLED:
+            _tele.inc(f"fuse.{eng._tele_name}.queued")
+            _tele.gauge(f"fuse.{eng._tele_name}.queue_depth",
+                        float(len(self.gates)))
         eng._fuse_tick()
         return True
 
@@ -846,24 +903,42 @@ class GateStreamFuser:
             i -= 1
         self.gates.append(gate.clone())
 
-    def flush(self) -> None:
+    def flush(self, reason: str = "read") -> None:
         """Lower + dispatch the pending window.  No-op when empty or
         re-entered (the engine's state getter fires during the flush's
-        own dispatch)."""
+        own dispatch).  `reason` names the flush in telemetry."""
         if not self.gates or self._flushing:
             return
+        eng = self.engine
         self._flushing = True
         try:
-            self.engine._fuse_flush(self.gates)
+            dispatched = eng._fuse_flush(self.gates)
         finally:
             self._flushing = False
+        raw = self._raw
         self.gates = []
+        self._raw = 0
+        if _tele._ENABLED:
+            name = eng._tele_name
+            _tele.inc(f"fuse.{name}.flush.{reason}")
+            _tele.inc(f"fuse.{name}.gates", raw)
+            _tele.inc(f"fuse.{name}.sweeps_saved",
+                      max(0, raw - int(dispatched)))
+            _tele.observe(f"fuse.{name}.window_len", float(raw))
+            _tele.gauge(f"fuse.{name}.queue_depth", 0.0)
 
-    def drop(self) -> None:
+    def drop(self, reason: str = "overwritten") -> None:
         """Discard the pending window — correct only when the caller is
         about to blind-overwrite the state the gates would have acted on
         (SetPermutation/SetQuantumState)."""
+        if not self.gates:
+            return
+        n = len(self.gates)
         self.gates = []
+        self._raw = 0
+        if _tele._ENABLED:
+            _tele.inc(f"fuse.{self.engine._tele_name}.dropped.{reason}", n)
+            _tele.gauge(f"fuse.{self.engine._tele_name}.queue_depth", 0.0)
 
 
 def make_fuser(engine):

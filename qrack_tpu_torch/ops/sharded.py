@@ -33,6 +33,8 @@ from typing import List, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from .. import telemetry as _tele
+from ..telemetry import roofline as _roofline
 from . import gatekernels as gk
 
 #: amplitudes a block of the in-place page passes touches at a time
@@ -48,6 +50,21 @@ EXCHANGES = {"global_2x2": 0, "mixed_swap": 0, "batched_swap": 0,
 def reset_exchanges() -> None:
     for k in EXCHANGES:
         EXCHANGES[k] = 0
+
+
+def _exchanged(kind: str, nbytes: int) -> None:
+    """Count one exchange pass of `kind` and the bytes it read and
+    wrote: in EXCHANGES and, with telemetry on, as
+    ``exchange.pager.<kind>``, ``exchange.pager.bytes`` and the
+    roofline's ``pager.exchange`` bytes (the JAX pager's names; its
+    kinds are the collectives it dispatches, these the in-place passes
+    that run here)."""
+    EXCHANGES[kind] += 1
+    EXCHANGES["bytes"] += nbytes
+    if _tele._ENABLED:
+        _tele.inc(f"exchange.pager.{kind}")
+        _tele.inc("exchange.pager.bytes", nbytes)
+        _roofline.note_bytes("pager.exchange", nbytes)
 
 
 def _page_bytes(page) -> int:
@@ -240,7 +257,7 @@ def apply_global_2x2(pages: List, mp, gpos: int, lmask, lval, gmask,
     m = _matrix(mp, pages[0].dtype)
     bit = 1 << gpos
     lmask, lval = int(lmask), int(lval)
-    EXCHANGES["global_2x2"] += 1
+    moved = 0
     for p0 in range(len(pages)):
         if p0 & bit:
             continue
@@ -248,7 +265,7 @@ def apply_global_2x2(pages: List, mp, gpos: int, lmask, lval, gmask,
         ok0, ok1 = (p0 & gmask) == gval, (p1 & gmask) == gval
         if not (ok0 or ok1):
             continue
-        EXCHANGES["bytes"] += (2 + ok0 + ok1) * _page_bytes(pages[p0])
+        moved += (2 + ok0 + ok1) * _page_bytes(pages[p0])
         A, B = pages[p0], pages[p1]
         size = A.shape[-1]
         for blk in _blocks((size,)):
@@ -264,6 +281,7 @@ def apply_global_2x2(pages: List, mp, gpos: int, lmask, lval, gmask,
             _mix_(a, b, m, sel, sel, write_a=ok0, write_b=ok1)
             if apart and ok1:
                 b_home.copy_(b)
+    _exchanged("global_2x2", moved)
     return pages
 
 
@@ -458,10 +476,9 @@ def page_probs(pages: List) -> List[float]:
 def _relabel(pages: List, src_of) -> List:
     """new[j] = pages[src_of(j)], moved to slot j's device when it lies
     elsewhere (a pure pointer move on one device)."""
-    EXCHANGES["page_relabel"] += 1
-    for j in range(len(pages)):
-        if pages[src_of(j)].device != pages[j].device:
-            EXCHANGES["bytes"] += 2 * _page_bytes(pages[j])
+    _exchanged("page_relabel", sum(
+        2 * _page_bytes(pages[j]) for j in range(len(pages))
+        if pages[src_of(j)].device != pages[j].device))
     return [pages[src_of(j)].to(pages[j].device) for j in range(len(pages))]
 
 
@@ -481,8 +498,7 @@ def swap_bits_(page, L: int, q1: int, q2: int):
     lo, hi = (q1, q2) if q1 < q2 else (q2, q1)
     h, m, l = 1 << (L - 1 - hi), 1 << (hi - lo - 1), 1 << lo
     v = page.view(2, h, 2, m, 2, l)
-    EXCHANGES["local_swap"] += 1
-    EXCHANGES["bytes"] += _page_bytes(page)   # half of it, read and written
+    _exchanged("local_swap", _page_bytes(page))  # half, read and written
     for blk in _blocks((h, m, l)):
         x = v[(slice(None), blk[0], 1, blk[1], 0, blk[2])]
         y = v[(slice(None), blk[0], 0, blk[1], 1, blk[2])]
@@ -499,11 +515,9 @@ def mixed_swap(pages: List, L: int, lpos: int, gpos: int,
     multiplied by it (the straddling ISwap of the RCS program: i)."""
     lo, hi = 1 << lpos, 1 << (L - 1 - lpos)
     bit = 1 << gpos
-    EXCHANGES["mixed_swap"] += 1
     for p0 in range(len(pages)):
         if p0 & bit:
             continue
-        EXCHANGES["bytes"] += 2 * _page_bytes(pages[p0])
         v0 = pages[p0].view(2, hi, 2, lo)
         v1 = pages[p0 | bit].view(2, hi, 2, lo)
         for blk in _blocks((hi, lo)):
@@ -513,6 +527,9 @@ def mixed_swap(pages: List, L: int, lpos: int, gpos: int,
             if factor is not None:
                 _cmul_(x, factor.real, factor.imag)
                 _cmul_(y, factor.real, factor.imag)
+    _exchanged("mixed_swap", sum(2 * _page_bytes(pages[p0])
+                                 for p0 in range(len(pages))
+                                 if not p0 & bit))
     return pages
 
 
@@ -664,18 +681,18 @@ def batched_mixed_swap(pages: List, L: int, k: int, gpos,
             idx[a] = b
         return v[tuple(idx)]
 
-    EXCHANGES["batched_swap"] += 1
+    moved = 0
     for base in range(len(pages)):
         if base & mask:
             continue
-        EXCHANGES["bytes"] += (2 * nsub * (nsub - 1)
-                               * _page_bytes(pages[base]) // nsub)
+        moved += 2 * nsub * (nsub - 1) * _page_bytes(pages[base]) // nsub
         views = [pages[member(base, b)].view(shape) for b in range(nsub)]
         for b in range(nsub):
             for s in range(b + 1, nsub):
                 for blk in _blocks(rest_dims):
                     _swap_(sub_view(views[b], s, blk),
                            sub_view(views[s], b, blk))
+    _exchanged("batched_swap", moved)
     return pages
 
 

@@ -45,9 +45,14 @@ permutation as ``ops/sharded.gather_ring``, which builds new pages
 while the old ones live (a second ket beside the first).  Both restore
 identity placement first, since the split bodies read logical indices.
 
-Not here yet: elastic re-paging and integrity quarantine, checkpoint
-capture, telemetry, and pages in several processes
-(``torch.distributed``).
+Telemetry (the JAX pager's names): ``remap.pager.*``,
+``exchange.pager.collective_bytes`` and ``exchange.pager.host_fetch*``
+here; ``exchange.pager.<pass>`` and ``exchange.pager.bytes`` where the
+passes run (ops/sharded.py, beside ``sharded.EXCHANGES``); the flushed
+windows under ``fuse.kernel.*``/``fuse.xla.*``.  Not here yet: elastic
+re-paging and integrity quarantine and their events (ROADMAP item 14b),
+checkpoint capture (item 15), and pages in several processes
+(``torch.distributed``, item 13.4).
 
 The pager runs on ``cuda`` unless the caller passes ``device="cpu"`` or
 CPU devices (the tests do); without a GPU it raises.
@@ -61,6 +66,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import telemetry as _tele
 from ..config import get_config
 from ..engines.qengine import QEngine
 from ..ops import fusion as fu
@@ -134,6 +140,7 @@ class QPager(QEngine):
     """Paged dense engine over a list of devices."""
 
     _xp = torch
+    _tele_name = "pager"
     _fuse_capable = True  # the gate stream fuses into page windows
 
     def __init__(self, qubit_count: int, init_state: Optional[int] = 0,
@@ -315,6 +322,26 @@ class QPager(QEngine):
                 else fu.collective_mode())
         return mode != "off"
 
+    def _tele_remap(self, swaps, batched: bool = True) -> None:
+        """Count placement transpositions as the JAX pager does:
+        ``remap.pager.pairs``, ``remap.pager.batched`` (a batched
+        exchange of two or more mixed pairs) and
+        ``exchange.pager.collective_bytes``, the state's bytes times the
+        fraction ``sharded.exchange_cost`` plans to move (the JAX
+        collective model).  The passes that run are counted where they
+        run (ops/sharded.py: ``exchange.pager.<pass>`` and ``.bytes``)."""
+        if not (_tele._ENABLED and swaps):
+            return
+        L = self.local_bits
+        _tele.inc("remap.pager.pairs", len(swaps))
+        frac = shb.exchange_cost(L, self.g_bits, swaps, batched=batched)
+        if frac <= 0 or not batched:
+            return
+        if sum(1 for p1, p2 in swaps if max(p1, p2) >= L) >= 2:
+            _tele.inc("remap.pager.batched")
+        nb = sum(p.numel() * p.element_size() for p in self._pages_raw)
+        _tele.inc("exchange.pager.collective_bytes", frac * nb)
+
     def _apply_swaps(self, swaps) -> None:
         """Physical transpositions through one remap (in place)."""
         self._pages_raw = shb.apply_remap(self._pages_raw, self.local_bits,
@@ -339,6 +366,9 @@ class QPager(QEngine):
             swaps.append((l, p))
             qmap[l], qmap[o] = l, p
             qinv[l], qinv[p] = l, o
+        if _tele._ENABLED:
+            _tele.inc("remap.pager.unmap")
+        self._tele_remap(tuple(swaps), batched=self._collective_batched())
         self._apply_swaps(swaps)
         self._map_reset()
 
@@ -439,7 +469,11 @@ class QPager(QEngine):
         structure = fu.sharded_structure_of(tops)
         operands = fu.sharded_operands(tops, L, self.dtype, device="cpu")
         npg = self.n_pages
-        plan, _why = fu.sharded_kernel_lowering(L, structure, self.device)
+        if _tele._ENABLED:
+            if swaps:
+                _tele.inc("remap.pager.windows")
+            self._tele_remap(swaps, batched=batched)
+        plan, why = fu.sharded_kernel_lowering(L, structure, self.device)
         if plan is not None:
             body = fu.sharded_kernel_window_body(
                 L, npg, structure, block_pow=plan["block_pow"], remap=swaps,
@@ -454,6 +488,14 @@ class QPager(QEngine):
             FLUSHES["chain_windows"] += 1
         self._pages_raw = body(self._pages_raw, *operands)
         self._map_assign(new_qmap)
+        esize = self._pages_raw[0].element_size()
+        if plan is not None:
+            fu.record_kernel_flush(len(ops), plan["sweeps"],
+                                   width=self.qubit_count, esize=esize)
+        else:
+            fu.record_kernel_fallback(why)
+            fu.record_xla_flush(len(ops), width=self.qubit_count,
+                                esize=esize)
         return 1
 
     def _k_swap_bits(self, q1, q2) -> None:
@@ -470,6 +512,8 @@ class QPager(QEngine):
         elif p1 >= L:
             self._pages_raw = shb.page_swap(self._pages_raw, p1 - L, p2 - L)
         else:
+            if _tele._ENABLED:
+                _tele.inc("remap.pager.swap")
             self._apply_swaps(((p1, p2),))
 
     # ------------------------------------------------------------------
@@ -1007,6 +1051,10 @@ class QPager(QEngine):
             if length == 1:
                 return self._fetch(self._map_index(offset), 1, raw=True)
             self._unmap()
+        if _tele._ENABLED:
+            _tele.inc("exchange.pager.host_fetch")
+            _tele.inc("exchange.pager.host_fetch_bytes",
+                      2 * length * self._pages_raw[0].element_size())
         L = self.local_bits
         out = np.empty((2, length), dtype=np.float64)
         pos = offset

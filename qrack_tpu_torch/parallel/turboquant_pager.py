@@ -53,6 +53,7 @@ class QPagerTurboQuant(tqe.QEngineCUDATurboQuant):
     _pallas_capable = False
     # gate-window fusion likewise: every gate is one chunk pass
     _fuse_capable = False
+    _tele_name = "turboquant_pager"
 
     def __init__(self, qubit_count: int, init_state: int = 0, devices=None,
                  n_pages=None, device=None, **kwargs):
@@ -155,6 +156,7 @@ class QPagerTurboQuant(tqe.QEngineCUDATurboQuant):
             scales.append(s)
         self._codes = codes
         self._scales = scales
+        self._note_resident()
 
     def _decompress_planes(self):
         D = self._block
@@ -180,6 +182,11 @@ class QPagerTurboQuant(tqe.QEngineCUDATurboQuant):
         visits p0's device and comes back when the two lie apart
         (``_p_gate_pair_cross`` of the JAX package, its ppermute of the
         partner page's codes)."""
+        if tqe._tele._ENABLED:
+            # every page's codes and scales meet their partner's
+            tqe._tele.inc("exchange.turboquant_pager.cross_gate")
+            tqe._tele.inc("exchange.turboquant_pager.bytes",
+                          self.resident_bytes())
         parts = self._parts()
         bit = 1 << page_bit
         g = self._group_size(2)
