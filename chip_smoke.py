@@ -41,8 +41,9 @@ them; then each phase prints JSON lines:
    and read just after: both entry points must have launched;
 4. times, by CUDA events: the w30 QFT end to end on the engine path and
    through RunFused (and through the plain gate-function chain, kernel
-   off), then the main path again, every second launch (DENSE_PROBE_EVERY:
-   every launch took 81 s of an 850 s run) with the kernel and its plain
+   off), then the main path again, every fourth launch (DENSE_PROBE_EVERY:
+   every launch took 81 s of an 850 s run; every second until the run
+   budget took the cut) with the kernel and its plain
    version timed and compared on the same input, beside the bound; each
    path's largest held launch (most ops) with its time and bound.
 
@@ -80,8 +81,9 @@ csrc/turboquant_kernel.cu):
    run was cut for the run budget), the two float32 products of one sweep through torch.matmul (context only,
    beside the mean time of K3's fully dirty sweep), and every launch of
    the main path again, timed, beside the bound; K3's and K4's launches
-   and K5's first launch and a seeded twelfth of the rest (TQ_WINDOW_HELD:
-   replaying all 79 took 179 s, a sixth about 30 s) also run as the plain version on the
+   and K5's first launch and a seeded twenty-fourth of the rest
+   (TQ_WINDOW_HELD: replaying all 79 took 179 s, a sixth about 30 s; a
+   twelfth, then a sixteenth, until the run budget took the cuts) also run as the plain version on the
    same input, timed and compared.  The bound: the bytes of the tiles
    it requantizes, or their products as the TF32 tensor-core passes the
    kernel runs (2 + 3 at int8, 40 * D flops per amplitude; 3 + 3 at
@@ -151,8 +153,8 @@ the uniformly controlled gate past 10 controls:
     each dtype's K1/K2 launches counted.  Then the engine QFT of each
     dtype again, every eighth launch (FPPOW_PROBE_EVERY) beside its
     plain version;
-15. drift, w24: Grover (grover_amplify, 804 of the search's 3216
-    iterations, DRIFT_ITERS) on float32
+15. drift, w24: Grover (grover_amplify, 402 of the search's 3216
+    iterations, DRIFT_ITERS; 804 until the run budget's cut) on float32
     planes with QRACK_TPU_AUTO_F64_DRIFT = 1e-5 checked every 64 gates.
     The engine must escalate (float64 planes afterwards, one warning),
     and its raw ProbAll(target), without NormalizeState, must be within
@@ -244,8 +246,9 @@ rand_global_phase=False) on the card, each phase with its walls:
     (gate, distinct qubit) pairs the phase counts at the wrapper's funnel
     points (MCMtrxPerm, Apply4x4, Swap).  K1/K2 must launch.  Printed:
     the overlap with the ideal ket and the Paulis the channel applied;
-28. trajectories: run_trajectories at n = 24 over a seeded depth-10
-    circuit, B = 64 (8 GiB of float32 planes on the card).  With a
+28. trajectories: run_trajectories at n = 24 over a seeded depth-6
+    circuit (TRAJ_DEPTH; depth 10 until the run budget's cut), B = 64
+    (8 GiB of float32 planes on the card).  With a
     noise-free model every trajectory's p1 is the bare engine's Prob(q)
     within 1e-5, weights 1; with NoiseModel(default=depolarizing(1e-3))
     the same key twice gives identical samples, and
@@ -334,10 +337,14 @@ package left them to XLA):
     engine: H on bits 0, 20 and 31, ZMask and UniformParityRZ through
     the split phase program, H again, Prob against the closed form
     (1, sin^2(0.6), sin^2(0.6)) within 2e-2;
-34. page_programs: make_sharded_qft_fn at w32 on 4 pages of 2^30 from
-    |x> against the closed form of phase 30 (every amplitude, 2^26 at a
-    time); QCircuit.compile_sharded_fn of qft_qcircuit(30) on 4 pages of
-    2^28 against the "cuda" engine's RunFused (fidelity >= 1 - 1e-5);
+34. page_programs: make_sharded_qft_fn at w30 on 4 pages of 2^28
+    (SHARDED_QFT_FN_WIDTH; w32 on pages of 2^30, 21.1 s, until the run
+    budget's cut) from |x> against the closed form of phase 30 (every
+    amplitude, 2^26 at a
+    time); QCircuit.compile_sharded_fn of qft_qcircuit(28) on 4 pages of
+    2^26 (SHARDED_QFT_WIDTH; w30 on pages of 2^28, 29.9 s, until the run
+    budget took the cut) against the "cuda" engine's RunFused (fidelity
+    >= 1 - 1e-5);
     make_sharded_rcs_fn at w30, depth 6 (RCS_PAGE_DEPTH), against
     make_rcs_fn on one plane pair (fidelity >= 1 - 1e-5);
     make_sharded_grover_fn at w32 with 3 iterations against
@@ -395,22 +402,72 @@ Then the telemetry plane (qrack_tpu_torch/telemetry; no new kernel):
     family of TELE_REQUIRED must be reached; the JSONL snapshot and the
     Chrome trace are written to a temporary directory and load back.
 
+Then the resilience plane (qrack_tpu_torch/resilience; no new kernel).
+Every drill holds the plane's telemetry events against a count that does
+not come from them: the window kernel's wrappers' launches per window
+dispatch (CallLog), the fault specs' own fire counts, sharded.EXCHANGES,
+the engine's type and page count, QEngineCPU constructions counted at
+the class, and the planes themselves:
+
+38. resilience: the w30 "cuda" engine-path QFT of phase 4 with the
+    plane off, three warm reps at most 2% above phase 4's warm median
+    (RES_DISABLED_BAR, one-sided as phase 37's), and once more as the
+    clean reference (its planes and each window's K1/K2 launches).
+    Armed (create_quantum_interface after resilience.enable(): a
+    ResilientEngine), no fault: two warm reps (overhead printed, no bar)
+    and a run whose planes equal the clean ones bit for bit with the
+    same launches a window.  One amp-corrupt at cuda.fuse.flush: the
+    integrity envelope's snapshot (on the card) restores the window and
+    replays it: integrity.violation >= 1, integrity.replay.repaired = 1,
+    the planes bit for bit, the launches the clean run's with one window
+    run twice; the memory above the planes printed.  A transient raise
+    there, fired twice: two retries, no window run twice, the planes bit
+    for bit.  The loud end: a persistent device-loss there without
+    failover_cpu raises DispatchGiveUp, the planes unchanged.  The w32
+    pager on 4 pages of 2^30: the same replay against a clean pager's
+    QFT (32 GiB of snapshot on the card; pages and table bit for bit,
+    launches as planned), then its loud end (no shrink fits a page past
+    2^30, no dense rung past 30 qubits): DispatchGiveUp, the pages'
+    digest and table unchanged.  The staircase: w30 on 4 pages of 2^28
+    (RES_STAIR_*) under a persistent pager.dispatch device-loss, an INC
+    moves it 4 -> 2 -> 1 pages -> QEngineCUDA (those events, in order),
+    K1/K2 launch on the dense engine after the move, and the ket is
+    within fidelity 1 - 1e-5 of a clean engine's.  A pager.exchange raise
+    fired three times on a remap-off page-bit H shrinks the pager to 2
+    pages, one exchange runs, and the next call grows it back to 4.  A
+    w20 engine with failover_cpu=True lands on QEngineCPU (the one CPU
+    construction of the phase before the oracle's,
+    resilience.failover.cuda_to_cpu) and matches the oracle.  A
+    persistent turboquant.dispatch raise on the w24 int8 engine (K3, K4
+    and K5 launched first) moves it to QEngineCUDA, where a QFT launches
+    K1/K2; fidelity >= 0.99 to the dense engine's run.  A hang at
+    cuda.device_get with a 2 s watchdog raises DispatchTimeout within
+    RES_HANG_S + RES_HANG_SLACK_S; a breaker of threshold 3 opens,
+    refuses without calling, half-opens after 0.5 s and closes; and
+    resilience.run_probe() on the card returns ok (its seconds printed).
+    No QEngineCPU is built but for the named rung and the oracle.  The
+    phase's seconds are printed beside its budget of 35 s (RES_PHASE_S),
+    as the run's are beside its 880 s: a budget, not a bar (one machine
+    ran the same phase 27-33 s).
+
 The kernels line counts K1/K2 launches by dtype form over every dense
-path (phases 3, 8-12, 14-17, 19-22, 24-28 and 37); their times and errors
+path (phases 3, 8-12, 14-17, 19-22, 24-28, 37 and 38); their times and errors
 are those of the launches held to plain (float32: phase 4 and the Shor
 IQFT of phase 10; the other forms: phase 14).  The per-page form of K1
 and K2 has entries of its own: launches over phases 29-32, times and
 errors over the launches held in phase 29, and the w32 engine path's
 launches at pages of 2^30 (l30_*).  Phase 33's launches count with the
 per-page form, phase 36's with the dense one; phase 37's w32 QFT with
-the per-page form, its w16 TurboQuant engine with K3-K5.
+the per-page form, its w16 TurboQuant engine with K3-K5; phase 38's
+pagers' with the per-page form, its w24 TurboQuant engine with K3-K5.
 
 ``--tq-only`` runs the build and phases 5-7 alone; ``--algo-only`` the
 build and phases 8-12; ``--fppow-only`` the build and phases 13-17;
 ``--layers-only`` the build and phases 18-28; ``--pager-only`` the build
 and phases 29-32; ``--wide-only`` the build and phases 33-36;
 ``--telemetry-only`` the build and phase 37 (its disabled wall then
-held to two warm reps of its own in place of phase 4's).
+held to two warm reps of its own in place of phase 4's);
+``--resilience-only`` the build and phase 38 (likewise).
 
 The line before the last is the "kernels" summary, the last line
 {"ok": true, "device": {...}}.  Any failed check raises, so the script
@@ -423,6 +480,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 # the w30 plain comparisons allocate and free many 4-8 GiB temporaries
@@ -461,7 +519,7 @@ TQ_CODE_FRAC = {8: 1e-3, 16: 1e-2}
 TQ_SCALE_REL = 1e-5
 # flops per amplitude an op acts on (complex product, or a 2x2 row)
 TQ_OP_FLOPS = {0: 6, 1: 6, 3: 14}
-TQ_WINDOW_HELD = 1 / 12  # share of tq_window's launches held to plain
+TQ_WINDOW_HELD = 1 / 24  # share of tq_window's launches held to plain
 TQ_WINDOW_SEED = 79
 
 ALU_WIDTH = 22        # the CUDA engine against the complex128 oracle
@@ -480,14 +538,15 @@ HALF_QFT_BAR = {torch.bfloat16: 1e-3, torch.float16: 2e-5}
 # second 264.6 s for phases 13-17 against 322; every fourth until the
 # pager's second slice needed the room)
 FPPOW_PROBE_EVERY = 8
-# phase 4 holds every second launch of the w30 main path to plain
-DENSE_PROBE_EVERY = 2
+# phase 4 holds every fourth launch of the w30 main path to plain
+# (every second until the run budget's cut)
+DENSE_PROBE_EVERY = 4
 DRIFT_THRESH = "1e-5"  # QRACK_TPU_AUTO_F64_DRIFT of the drift phase
 DRIFT_EVERY = "64"     # QRACK_TPU_DRIFT_CHECK_GATES
-# the drift phase's Grover runs a quarter of the search's 3216 iterations
-# (the whole search took 131 s of an 822.3 s run; the escalation fires
-# within the first dozen)
-DRIFT_ITERS = 804
+# the drift phase's Grover runs an eighth of the search's 3216 iterations
+# (the whole search took 131 s of an 822.3 s run, a quarter 33 s in PR
+# 14's; the escalation fires within the first dozen)
+DRIFT_ITERS = 402
 BATCH_WIDTH = 28      # compile_batched_fn: 4 kets of 28 qubits
 BATCH = 4
 BATCH_GATES = 48
@@ -536,7 +595,7 @@ NOISY_WIDTH = 24
 NOISY_DEPTH = 12
 NOISY_LAMBDA = 1e-3
 TRAJ_WIDTH = 24
-TRAJ_DEPTH = 10
+TRAJ_DEPTH = 6           # 10 until the run budget's cut
 TRAJ_B = 64           # 8 GiB of float32 planes
 TRAJ_CHUNK = "16"
 TRAJ_ROOM = 20.5      # trajectories' peak bytes left free for the budget run
@@ -561,6 +620,8 @@ PHASE4_WARM = []          # phase 4's warm engine-path w30 QFT walls (ms)
 WIDE_WIDTH = 32           # 4 pages of 2^30: every ALU op split-index
 WIDE_SEED = 33
 RCS_PAGE_DEPTH = 6        # make_sharded_rcs_fn at w30
+SHARDED_QFT_WIDTH = 28    # compile_sharded_fn's QFT: 4 pages of 2^26
+SHARDED_QFT_FN_WIDTH = 30  # make_sharded_qft_fn: 4 pages of 2^28
 GROVER_PAGE_ITERS = 3     # make_sharded_grover_fn at w32
 TQ_PAGER_SMALL = 26       # the TurboQuant pager against QEngineCUDA
 TQ_PAGER_READS = 35       # seed of the half of the qubits phase 35 reads
@@ -569,6 +630,15 @@ UNIT_MULTI_DEPTH = 6
 UNIT_MULTI_SEED = 36
 UNIT_MULTI_AMPS = 1024    # seeded GetAmplitude reads compared
 # the telemetry plane (phase 37)
+RES_DISABLED_BAR = 0.02   # phase 38: w30 QFT, plane off, against phase 4
+RES_STAIR_WIDTH = 30      # the staircase and the shrink drill ...
+RES_STAIR_PAGES = 4       # ... on 4 pages of 2^28
+RES_CPU_WIDTH = 20        # the named CPU rung; the hang drill
+RES_TQ_WIDTH = 24         # the TurboQuant drill, int8
+RES_SEED = 38
+RES_HANG_S = 2.0          # the watchdog's timeout in the hang drill
+RES_HANG_SLACK_S = 1.0
+RES_PHASE_S = 35.0        # phase 38's budget (printed, as the run's 880 s)
 TELE_DISABLED_BAR = 0.02  # disabled w30 QFT wall against phase 4's
 TELE_HOOK_WIDTH = 16      # the small stacks that reach every other hook
 TELE_REQUIRED = (         # counter families phase 37 must reach
@@ -3922,21 +3992,21 @@ def page_programs(card: str, dev) -> dict:
         return ms, peak / 2 ** 30
 
     release()
-    n = PAGER_WIDTH
+    n = SHARDED_QFT_FN_WIDTH
     fn, devs = make_sharded_qft_fn([dev] * PAGER_PAGES, n)
-    pages = basis_pages(n, PAGER_PERM, devs)
+    pages = basis_pages(n, PERM, devs)
     ms, peak = run(fn, pages)
-    worst, f = pages_closed_form(pages, n, PAGER_PERM)
+    worst, f = pages_closed_form(pages, n, PERM)
     bar = 1e-4 * 2.0 ** (-n / 2)
     check(worst <= bar and f >= 1 - 1e-5,
           f"w{n} sharded QFT: max diff {worst} (bar {bar}), fidelity {f}")
     out["qft"] = {"width": n, "pages": PAGER_PAGES, "ms": ms,
                   "peak_above_planes_gib": peak, "max_abs_diff": worst,
-                  "fidelity": f, "pager_runfused_ms_pr10": 957.0}
+                  "fidelity": f}
     del pages
     release()
 
-    n = WIDTH
+    n = SHARDED_QFT_WIDTH
     circ = qft_qcircuit(n)
     fn, devs = circ.compile_sharded_fn([dev] * PAGER_PAGES, n)
     pages = basis_pages(n, PERM, devs)
@@ -3954,6 +4024,7 @@ def page_programs(card: str, dev) -> dict:
     del pages, d
     release()
 
+    n = WIDTH
     fn, devs = rcsm.make_sharded_rcs_fn([dev] * PAGER_PAGES, n,
                                         RCS_PAGE_DEPTH, RCS_SEED)
     pages = basis_pages(n, 0, devs)
@@ -4446,6 +4517,623 @@ def telemetry_phase(card: str, dev) -> dict:
     return {"dense": dense, "pager": page, "tq": tq_launches}
 
 
+
+# ---------------------------------------------------------------------------
+# phase 38: the resilience plane
+# ---------------------------------------------------------------------------
+
+class CallLog:
+    """The window kernel's launches of every call of ``owner.name`` (the
+    dense engine's window dispatch ``fusion.flush_window``, or
+    ``QPager._dispatch_ops``), in order, from the wrappers' own counts:
+    a replayed window shows as one call repeated."""
+
+    def __init__(self, owner, name: str, wk):
+        self.owner, self.name, self.wk = owner, name, wk
+        self.calls = []
+
+    def __enter__(self):
+        real = self.real = getattr(self.owner, self.name)
+        wk, calls = self.wk, self.calls
+
+        def rec(*a, **k):
+            l0 = sum(wk.launches().values())
+            out = real(*a, **k)
+            calls.append(sum(wk.launches().values()) - l0)
+            return out
+
+        setattr(self.owner, self.name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.real)
+        return False
+
+
+def replayed_once(got: list, clean: list):
+    """The index i when `got` is `clean` with call i run twice (and
+    nothing else changed), else None."""
+    for i in range(len(clean)):
+        if got == clean[:i + 1] + clean[i:]:
+            return i
+    return None
+
+
+def plane_digest(tensors) -> tuple:
+    """Two sums over the raw bits of float32 tensors read as int64 words
+    (plain and position-weighted, wrapping), on their devices 2^26 words
+    at a time: a read-only stand-in for keeping a copy of 32 GiB of
+    pages to compare."""
+    step = 1 << 26
+    out = []
+    for t in tensors:
+        flat = t.reshape(-1).view(torch.int64)
+        w = torch.arange(step, dtype=torch.int64, device=t.device) \
+            * 2654435761 + 1
+        s1 = torch.zeros((), dtype=torch.int64, device=t.device)
+        s2 = torch.zeros_like(s1)
+        for s in range(0, flat.numel(), step):
+            x = flat[s:s + step]
+            s1 += x.sum()
+            s2 += (x * w[:x.numel()]).sum()
+        out += [s1, s2]
+    return tuple(int(v) for v in out)
+
+
+def resilience_phase(card: str, dev) -> dict:
+    """Phase 38 (module docstring); returns its kernel launches: "dense"
+    (K1/K2 of the w30 QFTs, the loud end and the engines the chain moved
+    onto), "pager" (K1/K2 per page: the w32 replay and its clean twin,
+    the staircase and the shrink drill while paged) and "tq" (K3-K5 of
+    the w24 compressed engine before its move)."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch import resilience as res
+    from qrack_tpu_torch import telemetry as tele
+    from qrack_tpu_torch.engines import cpu as cpu_mod
+    from qrack_tpu_torch.ops import fusion as fu
+    from qrack_tpu_torch.ops import sharded as shb
+    from qrack_tpu_torch.ops import turboquant_kernel as tqk
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.parallel import pager as pg
+    from qrack_tpu_torch.resilience import faults
+    from qrack_tpu_torch.resilience import integrity as integ
+    from qrack_tpu_torch.utils.rng import QrackRandom
+    from qrack_tpu_torch.utils.timing import event_ms
+
+    t_phase = time.time()
+    out = {"phase": "resilience", "card": card, "width": WIDTH,
+           "sections_s": {}}
+    t_lap = [t_phase]
+
+    def lap(name: str) -> None:
+        now = time.time()
+        out["sections_s"][name] = now - t_lap[0]
+        t_lap[0] = now
+    counts = {"dense": {"in_tile": 0, "pair": 0},
+              "pager": {"in_tile": 0, "pair": 0},
+              "tq": {k: 0 for k in tqk.LAUNCHES}}
+
+    def launched(kind: str, fn):
+        """fn() with its K1/K2 launches added to counts[kind] ("dense" for
+        kind "tq") and its K3-K5 launches to counts["tq"]; returns
+        (result, the delta of `kind`'s kernels)."""
+        w0, t0_ = dict(wk.launches()), dict(tqk.LAUNCHES)
+        r = fn()
+        sync()
+        dw = {k: v - w0[k] for k, v in wk.launches().items()}
+        dt = {k: v - t0_[k] for k, v in tqk.LAUNCHES.items()}
+        for k, v in dw.items():
+            counts["dense" if kind == "tq" else kind][k] += v
+        for k, v in dt.items():
+            counts["tq"][k] += v
+        return r, (dt if kind == "tq" else dw)
+
+    def events(prefix: str) -> list:
+        return [e["name"] for e in tele.snapshot()["events"]
+                if e["name"].startswith(prefix)]
+
+    def plane_reset() -> None:
+        faults.clear()
+        res.reset_breaker()
+        res.configure(max_retries=2, backoff_s=0.0, timeout_s=0.0,
+                      validate=False)
+        integ.reset()
+        tele.disable()
+        tele.reset()
+
+    # QEngineCPU constructions, counted at the class: none may happen
+    # unless a caller names the CPU rung
+    cpu_built = [0]
+    real_init = cpu_mod.QEngineCPU.__init__
+
+    def counting_init(self, *a, **k):
+        cpu_built[0] += 1
+        real_init(self, *a, **k)
+
+    res.disable()
+    plane_reset()
+    cpu_mod.QEngineCPU.__init__ = counting_init
+    release()
+    try:
+        # ---- off: the w30 engine QFT costs nothing more ----------------
+        q = qt.create_quantum_interface("cuda", WIDTH, rng=QrackRandom(3),
+                                        rand_global_phase=False)
+
+        def qft():
+            q.QFT(0, WIDTH)
+            return q.device_planes
+
+        def walls(reps: int) -> list:
+            got = []
+            for _ in range(reps + 1):      # one warm run first
+                q.SetPermutation(PERM)
+                got.append(event_ms(qft))
+            return got[1:]
+
+        ref = list(PHASE4_WARM) or walls(2)
+        ref_ms = float(np.median(ref))
+        off, _ = launched("dense", lambda: walls(3))
+        off_ms = float(np.median(off))
+        rel = (off_ms - ref_ms) / ref_ms
+        check(rel <= RES_DISABLED_BAR,
+              f"w{WIDTH} QFT with the plane off {off_ms:.2f} ms against "
+              f"phase 4's warm median {ref_ms:.2f} ms ({rel:+.2%}, bar "
+              f"{RES_DISABLED_BAR:.0%})")
+        q.SetPermutation(PERM)
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with CallLog(fu, "flush_window", wk) as clean_log:
+            launched("dense", qft)
+        off_peak = torch.cuda.max_memory_allocated() - base
+        clean = q.device_planes.clone()
+        out["off"] = {"phase4_warm_ms": ref, "off_ms": off,
+                      "off_rel_to_phase4": rel,
+                      "peak_above_planes_gib": off_peak / 2 ** 30,
+                      "window_launches": clean_log.calls}
+        del q
+        release()
+
+        # ---- armed, no fault: bit for bit, the same launches -----------
+        res.enable()
+        q = qt.create_quantum_interface("cuda", WIDTH, rng=QrackRandom(3),
+                                        rand_global_phase=False)
+        check(type(q).__name__ == "ResilientEngine",
+              f"the armed factory built {type(q).__name__}")
+        armed, _ = launched("dense", lambda: walls(1))
+        # the second rep, its windows' launches logged
+        q.SetPermutation(PERM)
+        with CallLog(fu, "flush_window", wk) as log:
+            armed += launched("dense", lambda: [event_ms(qft)])[0]
+        armed_ms = float(np.median(armed))
+        check(log.calls == clean_log.calls,
+              f"armed windows launched {log.calls}, unarmed "
+              f"{clean_log.calls}")
+        check(torch.equal(q.device_planes, clean),
+              "the armed w30 QFT differs from the unarmed one")
+        lap("off_and_armed")
+        out["armed"] = {"armed_ms": armed, "overhead_rel":
+                        (armed_ms - off_ms) / off_ms,
+                        "snapshot": integ.snapshot_placement(q.engine)}
+
+        # ---- one amp-corrupt at cuda.fuse.flush: replayed, bit exact ---
+        tele.enable()
+        spec = faults.inject("cuda.fuse.flush", "amp-corrupt", after_n=0,
+                             times=1)
+        q.SetPermutation(PERM)
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with CallLog(fu, "flush_window", wk) as log:
+            (wall, _) = launched("dense", lambda: event_ms(qft))
+        peak = torch.cuda.max_memory_allocated() - base
+        c = tele.snapshot()["counters"]
+        i = replayed_once(log.calls, clean_log.calls)
+        check(spec.fired == 1 and c.get("integrity.violation", 0) >= 1
+              and c.get("integrity.replay.repaired", 0) == 1,
+              f"w{WIDTH} replay: fired {spec.fired}, counters "
+              f"{ {k: v for k, v in c.items() if k.startswith('integrity')} }")
+        check(i is not None and sum(log.calls) == sum(clean_log.calls)
+              + clean_log.calls[i],
+              f"w{WIDTH} replay launched {log.calls} against {clean_log.calls}")
+        check(torch.equal(q.device_planes, clean),
+              f"the replayed w{WIDTH} QFT differs from the unarmed one")
+        out["replay_w30"] = {"wall_ms": wall, "replayed_window": i,
+                             "replayed_launches": clean_log.calls[i],
+                             "peak_above_planes_gib": peak / 2 ** 30,
+                             "violations": c.get("integrity.violation")}
+        plane_reset()
+
+        # ---- a transient raise at cuda.fuse.flush, fired twice ---------
+        tele.enable()
+        spec = faults.inject("cuda.fuse.flush", "raise", after_n=0, times=2)
+        q.SetPermutation(PERM)
+        with CallLog(fu, "flush_window", wk) as log:
+            launched("dense", qft)
+        retries = events("resilience.retry.cuda.fuse.flush")
+        check(spec.fired == 2 and len(retries) == 2
+              and log.calls == clean_log.calls,
+              f"transient: fired {spec.fired}, retries {len(retries)}, "
+              f"launches {log.calls}")
+        check(torch.equal(q.device_planes, clean),
+              "the retried w30 QFT differs from the unarmed one")
+        out["transient"] = {"fired": spec.fired, "retries": len(retries)}
+        plane_reset()
+
+        # ---- the loud end at w30: no CPU rung named --------------------
+        res.enable()
+        q.Finish()
+        before = q.engine._state_raw.clone()
+        faults.inject("cuda.fuse.flush", "device-loss", after_n=0,
+                      times=None)
+        q.H(WIDTH - 1)
+        q.H(0)
+        raised = None
+        try:
+            q.Prob(0)
+        except res.DispatchGiveUp as e:
+            raised = type(e.cause).__name__
+        check(raised is not None and type(q.engine).__name__ == "QEngineCUDA"
+              and torch.equal(q.engine._state_raw, before)
+              and cpu_built[0] == 0,
+              f"w{WIDTH} loud end: raised {raised}, engine "
+              f"{type(q.engine).__name__}")
+        out["loud_w30"] = {"raised": f"DispatchGiveUp({raised})"}
+        lap("replay_transient_loud_w30")
+        del q, clean, before
+        release()
+        plane_reset()
+
+        # ---- the probe: a fresh process on the card, in the background
+        # from here on (the walls above are taken without it) -----------
+        probe_box = {}
+        probe_thread = threading.Thread(
+            target=lambda: probe_box.update(r=res.run_probe(timeout_s=120.0)),
+            daemon=True)
+        probe_thread.start()
+
+        # ---- the w32 pager: replay from a 32 GiB snapshot on the card --
+        n, G = PAGER_WIDTH, PAGER_PAGES
+        res.enable()
+        A = qt.create_quantum_interface("pager", n, devices=[dev] * G,
+                                        rng=QrackRandom(3),
+                                        rand_global_phase=False)
+        A.SetPermutation(PAGER_PERM)
+        A.Finish()
+        placement = integ.snapshot_placement(A.engine)
+        tele.enable()
+        spec = faults.inject("cuda.fuse.flush", "amp-corrupt", after_n=0,
+                             times=1)
+        pg.reset_flushes()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with CallLog(pg.QPager, "_dispatch_ops", wk) as alog:
+            (wall_a, da) = launched("pager", lambda: event_ms(
+                lambda: (A.QFT(0, n), A.page_planes)))
+        peak = torch.cuda.max_memory_allocated() - base
+        predicted = pg.FLUSHES["predicted_launches"]
+        c = tele.snapshot()["counters"]
+        check(spec.fired == 1 and c.get("integrity.violation", 0) >= 1
+              and c.get("integrity.replay.repaired", 0) == 1
+              and sum(da.values()) == predicted,
+              f"w{n} pager replay: fired {spec.fired}, launches {da} "
+              f"against the plans' {predicted}")
+        plane_reset()
+        res.disable()
+        B = qt.create_quantum_interface("pager", n, devices=[dev] * G,
+                                        rng=QrackRandom(3),
+                                        rand_global_phase=False)
+        B.SetPermutation(PAGER_PERM)
+        with CallLog(pg.QPager, "_dispatch_ops", wk) as blog:
+            (wall_b, _) = launched("pager", lambda: event_ms(
+                lambda: (B.QFT(0, n), B.page_planes)))
+        i = replayed_once(alog.calls, blog.calls)
+        check(i is not None, f"w{n} pager replay launched {alog.calls} "
+                             f"against {blog.calls}")
+        same = (A.engine._qmap == B._qmap and all(
+            torch.equal(a, b) for a, b in zip(A.engine._pages_raw,
+                                              B._pages_raw)))
+        check(same, f"the replayed w{n} pager QFT differs from the clean one")
+        out["replay_w32_pager"] = {
+            "pages": G, "snapshot": placement, "wall_ms": wall_a,
+            "clean_wall_ms": wall_b, "replayed_window": i,
+            "replayed_launches": blog.calls[i], "launches": da,
+            "peak_above_planes_gib": peak / 2 ** 30}
+        del B
+        release()
+
+        # ---- the loud end at w32: no shrink fits, no dense rung --------
+        res.enable()
+        A.Finish()
+        dig = plane_digest(A.engine._pages_raw)
+        qmap = list(A.engine._qmap)
+        faults.inject("cuda.fuse.flush", "device-loss", after_n=0,
+                      times=None)
+        A.H(n - 1)
+        A.H(0)
+        raised = None
+        try:
+            A.Prob(0)
+        except res.DispatchGiveUp as e:
+            raised = type(e.cause).__name__
+        check(raised is not None and type(A.engine).__name__ == "QPager"
+              and A.engine.n_pages == G and A.engine._qmap == qmap
+              and plane_digest(A.engine._pages_raw) == dig
+              and cpu_built[0] == 0,
+              f"w{n} loud end: raised {raised}, engine "
+              f"{type(A.engine).__name__}")
+        out["loud_w32_pager"] = {"raised": f"DispatchGiveUp({raised})",
+                                 "digest_equal": True}
+        lap("w32_pager")
+        del A
+        release()
+        plane_reset()
+
+        # ---- the staircase on the card: 4 -> 2 -> 1 pages -> cuda -----
+        sn, sg = RES_STAIR_WIDTH, RES_STAIR_PAGES
+
+        def stair_prefix(e):
+            for t in (0, sn // 4, sn // 2, 3 * sn // 4, sn - 2, sn - 1):
+                e.H(t)
+                e.RZ(0.3 * (t + 1), t)
+            e.CNOT(sn - 1, 3)
+
+        res.enable()
+        P = qt.create_quantum_interface("pager", sn, devices=[dev] * sg,
+                                        rng=QrackRandom(3),
+                                        rand_global_phase=False)
+        stair_prefix(P)
+        launched("pager", P.Finish)
+        tele.enable()
+        spec = faults.inject("pager.dispatch", "device-loss", after_n=0,
+                             times=None)
+        t0 = time.time()
+        launched("pager", lambda: (P.INC(5, sn // 4, sn // 2), P.Finish()))
+        stair_s = time.time() - t0
+        moves = events("resilience.failover.")
+        check(moves == ["resilience.failover.pager_to_pager_shrunk"] * 2
+              + ["resilience.failover.pager_to_cuda"]
+              and type(P.engine).__name__ == "QEngineCUDA"
+              and spec.fired == 3,
+              f"staircase: moves {moves}, engine {type(P.engine).__name__}, "
+              f"fired {spec.fired}")
+        _, dd = launched("dense", lambda: (P.QFT(0, sn), P.Finish()))
+        check(dd["in_tile"] + dd["pair"] > 0,
+              f"no K1/K2 launch on the QEngineCUDA after the move: {dd}")
+        plane_reset()
+        res.disable()
+        R = qt.create_quantum_interface("cuda", sn, rng=QrackRandom(3),
+                                        rand_global_phase=False)
+        stair_prefix(R)
+        R.INC(5, sn // 4, sn // 2)
+        launched("dense", lambda: (R.QFT(0, sn), R.Finish()))
+        f = fidelity(P.engine.device_planes, R.device_planes)
+        check(f >= 1 - 1e-5, f"staircase against a clean engine: {f}")
+        check(cpu_built[0] == 0,
+              f"the staircase built {cpu_built[0]} CPU engines")
+        out["staircase"] = {"width": sn, "pages": sg, "moves": moves,
+                            "seconds": stair_s, "fidelity": f,
+                            "launches_after_move": dd,
+                            "cpu_engines_built": cpu_built[0]}
+        lap("staircase")
+        del P, R
+        release()
+
+        # ---- shrink on an exchange fault, grow back at the boundary ----
+        res.enable()
+        tele.enable()
+
+        def shrink_prefix(e):
+            for t in (0, sn // 6, sn // 3, sn // 2, 3 * sn // 4):
+                e.H(t)
+            e.CNOT(0, 1)
+
+        S = qt.create_quantum_interface("pager", sn, devices=[dev] * sg,
+                                        remap="off", rng=QrackRandom(3),
+                                        rand_global_phase=False)
+        shrink_prefix(S)
+        launched("pager", S.Finish)
+        shb.reset_exchanges()
+        spec = faults.inject("pager.exchange", "raise", after_n=0, times=3)
+        S.H(sn - 1)                      # a page-bit target, remap off
+        launched("pager", lambda: S.Prob(0))
+        shrunk_to = S.engine.n_pages
+        p_top = S.Prob(sn - 1)           # the next call boundary
+        grown_to = S.engine.n_pages
+        exchanges = dict(shb.EXCHANGES)
+        c = tele.snapshot()["counters"]
+        check(spec.fired == 3 and shrunk_to == sg // 2 and grown_to == sg
+              and c.get("elastic.repage.shrink") == 1
+              and c.get("elastic.repage.expand") == 1
+              and exchanges["global_2x2"] == 1
+              and abs(p_top - 0.5) < 1e-5,
+              f"shrink/grow: fired {spec.fired}, pages {shrunk_to} then "
+              f"{grown_to}, exchanges {exchanges}, Prob {p_top}")
+        plane_reset()
+        res.disable()
+        T = qt.create_quantum_interface("pager", sn, devices=[dev] * sg,
+                                        remap="off", rng=QrackRandom(3),
+                                        rand_global_phase=False)
+        shrink_prefix(T)
+        T.H(sn - 1)
+        T.Finish()
+        f = fidelity(torch.cat(S.engine.page_planes, dim=1),
+                     torch.cat(T.page_planes, dim=1))
+        check(f >= 1 - 1e-6, f"shrink/grow against a clean pager: {f}")
+        out["shrink_grow"] = {"pages": [sg, shrunk_to, grown_to],
+                              "exchanges": exchanges,
+                              "fidelity": f}
+        lap("shrink_grow")
+        del S, T
+        release()
+
+        # ---- a named CPU rung at w20 -----------------------------------
+        res.enable()
+        tele.enable()
+        ops = random_layers(range(RES_CPU_WIDTH), 2, RES_SEED)
+        W = qt.create_quantum_interface("cuda", RES_CPU_WIDTH,
+                                        rng=QrackRandom(7),
+                                        rand_global_phase=False,
+                                        failover_cpu=True)
+        half = len(ops) // 2
+        for _l, name, args in ops[:half]:
+            getattr(W, name)(*args)
+        launched("dense", W.Finish)
+        built0 = cpu_built[0]
+        faults.inject("cuda.fuse.flush", "raise", after_n=0, times=None)
+        for _l, name, args in ops[half:]:
+            getattr(W, name)(*args)
+        launched("dense", lambda: W.Prob(0))
+        moves = events("resilience.failover.")
+        check(type(W.engine).__name__ == "QEngineCPU"
+              and moves == ["resilience.failover.cuda_to_cpu"]
+              and cpu_built[0] - built0 == 1,
+              f"the named CPU rung: engine {type(W.engine).__name__}, "
+              f"moves {moves}, CPU engines {cpu_built[0] - built0}")
+        with faults.suspended():
+            got = W.GetQuantumState()
+        plane_reset()
+        res.disable()
+        o = qt.QEngineCPU(RES_CPU_WIDTH, rng=QrackRandom(7),
+                          rand_global_phase=False)
+        for _l, name, args in ops:
+            getattr(o, name)(*args)
+        want = o.GetQuantumState()
+        f = float(abs(np.vdot(want, got)) ** 2)
+        check(f >= 1 - 1e-5, f"the CPU rung against the oracle: {f}")
+        out["cpu_rung"] = {"width": RES_CPU_WIDTH, "moves": moves,
+                           "fidelity": f}
+        lap("cpu_rung")
+        del W, o
+        release()
+
+        # ---- TurboQuant: the precision ladder onto the dense engine ----
+        res.enable()
+        tele.enable()
+        Q = qt.create_quantum_interface("turboquant", RES_TQ_WIDTH, bits=8,
+                                        rng=QrackRandom(5),
+                                        rand_global_phase=False)
+
+        def tq_ops(e):
+            e.H(0)
+            e.Prob(0)              # a one-gate window: tq_gate_low (K3)
+            e.T(RES_TQ_WIDTH - 4)
+            e.Prob(0)              # a lone diagonal: tq_diag (K4)
+            for t in range(RES_TQ_WIDTH):
+                if t < 12:
+                    e.H(t)
+                e.RZ(0.1 * (t + 1), t)
+            e.Prob(0)              # multi-op windows: tq_window (K5)
+
+        built0 = cpu_built[0]
+        _, dq = launched("tq", lambda: tq_ops(Q))
+        check(all(v > 0 for v in dq.values()),
+              f"K3-K5 before the move: {dq}")
+        faults.inject("turboquant.dispatch", "raise", after_n=0, times=None)
+        Q.H(3)
+        Q.CNOT(2, 7)
+        _, dmove = launched("dense", lambda: Q.Prob(3))
+        moves = events("resilience.failover.")
+        _, dd = launched("dense", lambda: (Q.QFT(0, RES_TQ_WIDTH), Q.Finish()))
+        check(type(Q.engine).__name__ == "QEngineCUDA"
+              and moves == ["resilience.failover.turboquant_to_cuda"]
+              and dd["in_tile"] + dd["pair"] > 0
+              and cpu_built[0] == built0,
+              f"TurboQuant: engine {type(Q.engine).__name__}, moves {moves}, "
+              f"K1/K2 after {dd}")
+        plane_reset()
+        res.disable()
+        R = qt.create_quantum_interface("cuda", RES_TQ_WIDTH,
+                                        rng=QrackRandom(5),
+                                        rand_global_phase=False)
+        tq_ops(R)
+        R.H(3)
+        R.CNOT(2, 7)
+        R.QFT(0, RES_TQ_WIDTH)
+        R.Finish()
+        f = fidelity(Q.engine.device_planes, R.device_planes)
+        check(f >= 0.99, f"TurboQuant's move against the dense run: {f}")
+        out["turboquant"] = {"width": RES_TQ_WIDTH, "tq_launches": dq,
+                             "moves": moves, "dense_after": dd,
+                             "fidelity": f}
+        lap("turboquant")
+        del Q, R
+        release()
+
+        # ---- watchdog, breaker, probe ---------------------------------
+        res.enable()
+        res.configure(timeout_s=RES_HANG_S, max_retries=0)
+        Hq = qt.create_quantum_interface("cuda", RES_CPU_WIDTH)
+        Hq.H(0)
+        Hq.Finish()
+        faults.inject("cuda.device_get", "hang", after_n=0, times=None)
+        t0 = time.time()
+        cause = None
+        try:
+            Hq.GetAmplitude(0)
+        except res.DispatchGiveUp as e:
+            cause = e.cause
+        hang_s = time.time() - t0
+        check(isinstance(cause, res.DispatchTimeout)
+              and hang_s <= RES_HANG_S + RES_HANG_SLACK_S,
+              f"hang: {cause!r} after {hang_s:.2f} s")
+        del Hq
+        plane_reset()
+        tele.enable()
+        br = res.reset_breaker(res.CircuitBreaker(threshold=3,
+                                                  cooldown_s=0.5))
+        res.configure(max_retries=0)
+        x = torch.ones(1 << 20, device=dev)
+        calls = [0]
+
+        def op():
+            calls[0] += 1
+            return x * 2.0
+
+        faults.inject("cuda.compile", "raise", after_n=0, times=3)
+        for _ in range(3):
+            try:
+                res.call_guarded("cuda.compile", op)
+            except res.DispatchGiveUp:
+                pass
+        opened = br.state
+        refused = False
+        try:
+            res.call_guarded("cuda.compile", op)
+        except res.BreakerOpen:
+            refused = True
+        time.sleep(0.55)
+        y = res.call_guarded("cuda.compile", op)
+        names = events("resilience.breaker.")
+        check(opened == "open" and refused and br.state == "closed"
+              and calls[0] == 1 and float(y[0]) == 2.0
+              and names == ["resilience.breaker.trip",
+                            "resilience.breaker.half_open",
+                            "resilience.breaker.close"],
+              f"breaker: {opened}, refused {refused}, calls {calls[0]}, "
+              f"events {names}")
+        plane_reset()
+        lap("hang_breaker")
+        probe_thread.join(150.0)
+        probe = probe_box.get("r")
+        check(probe is not None and probe.ok,
+              f"probe: {probe.output[-400:] if probe else 'no result'}")
+        out.update({"hang_s": hang_s, "breaker_events": names,
+                    "probe_s": probe.duration_s,
+                    "cpu_engines_built": cpu_built[0],
+                    "launches": counts})
+    finally:
+        cpu_mod.QEngineCPU.__init__ = real_init
+        res.disable()
+        plane_reset()
+        res.configure()
+        release()
+    out["seconds"] = time.time() - t_phase
+    out["budget_s"] = RES_PHASE_S
+    emit(out)
+    return counts
+
+
 def cuda_engines(q) -> list:
     """Every QEngineCUDA reachable from a stack (its units' engines)."""
     from qrack_tpu_torch.engines.cuda import QEngineCUDA
@@ -4551,6 +5239,7 @@ def main() -> int:
     pager_only = "--pager-only" in sys.argv[1:]
     wide_only = "--wide-only" in sys.argv[1:]
     telemetry_only = "--telemetry-only" in sys.argv[1:]
+    resilience_only = "--resilience-only" in sys.argv[1:]
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -4579,7 +5268,7 @@ def main() -> int:
               f"{name} spills: {r}")
 
     only = (tq_only or algo_only or fppow_only or layers_only or pager_only
-            or wide_only or telemetry_only)
+            or wide_only or telemetry_only or resilience_only)
     tableau = stack_native(card) if layers_only or not only else None
     probe = SweepProbe(wk)
     paths = {}   # path -> launches by dtype name
@@ -4653,6 +5342,13 @@ def main() -> int:
             entry["launches"] += tele["tq"][entry["name"][len("tq_"):]]
         emit({"phase": "telemetry_seconds", "card": card,
               "seconds": time.time() - t1})
+    if resilience_only or not only:
+        got = resilience_phase(card, dev)
+        paths["resilience"] = {"float32": got["dense"]}
+        if page_probe is not None:
+            page_paths["resilience_pager"] = got["pager"]
+        for entry in tq_kernels:
+            entry["launches"] += got["tq"][entry["name"][len("tq_"):]]
     if page_probe is not None:
         page_total = {k: sum(p[k] for p in page_paths.values())
                       for k in ("in_tile", "pair")}

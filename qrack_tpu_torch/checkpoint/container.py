@@ -22,9 +22,12 @@ A checkpoint file is a VALID npz archive whose last member,
 With telemetry on, a save counts ``checkpoint.save`` and
 ``checkpoint.save.bytes`` and observes its wall under
 ``checkpoint.save``; a load likewise under ``checkpoint.restore``, as in
-the JAX package.  Its fault-injection sites on save/load come with the
-resilience plane (ROADMAP item 14b); the registry, store and warm start
-with item 15.
+the JAX package.  With the resilience plane armed, a save consults the
+fault site ``checkpoint.save`` and a load ``checkpoint.restore``
+(resilience/faults.py): raise-type kinds propagate, and ``torn-write``
+truncates the archive mid-payload before it lands, so the load-side
+checks must reject it.  The registry, store, warm start and the
+failover snapshot file come with ROADMAP item 15.
 """
 
 from __future__ import annotations
@@ -70,12 +73,28 @@ def _sha256(arr: np.ndarray) -> str:
     return h.hexdigest()
 
 
+def _fault_directive(site: str) -> Optional[str]:
+    """Consult the resilience fault injector at `site` — only when the
+    resilience layer is imported and active, so the default save/load
+    path never imports it.  Raise-type kinds propagate; directive
+    strings other than "torn-write" are meaningless here."""
+    import sys
+
+    res = sys.modules.get("qrack_tpu_torch.resilience")
+    if res is None or not getattr(res, "_ACTIVE", False):
+        return None
+    from ..resilience import faults as _faults
+
+    return _faults.check(site)
+
+
 def save_container(path: str, arrays: Dict[str, np.ndarray],
                    meta: Optional[dict] = None, kind: str = "raw") -> int:
     """Atomically write `arrays` + manifest to `path`; returns the final
     file size in bytes.  Array keys must not collide with the manifest
     member."""
     t0 = time.perf_counter()
+    directive = _fault_directive("checkpoint.save")
     host: Dict[str, np.ndarray] = {}
     payload: Dict[str, dict] = {}
     for key, arr in arrays.items():
@@ -97,6 +116,12 @@ def save_container(path: str, arrays: Dict[str, np.ndarray],
             np.savez_compressed(f, **host, **{MANIFEST_KEY: mbytes})
             f.flush()
             os.fsync(f.fileno())
+        if directive == "torn-write":
+            # a power cut that committed the rename but lost trailing
+            # data blocks: truncate mid-payload, then land it
+            size = os.path.getsize(tmp)
+            with open(tmp, "r+b") as f:
+                f.truncate(max(1, (size * 3) // 5))
         os.replace(tmp, path)
     except BaseException:
         try:
@@ -147,6 +172,8 @@ def load_container(path: str, expect_kind: Optional[str] = None,
     CheckpointCorrupt; a newer format version raises
     CheckpointVersionError."""
     t0 = time.perf_counter()
+    # only raise-type kinds are meaningful on the read path
+    _fault_directive("checkpoint.restore")
     path = str(path)
     try:
         with np.load(path, allow_pickle=False) as z:

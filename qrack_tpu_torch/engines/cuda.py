@@ -24,6 +24,13 @@ planes (the counterpart of the JAX package's QEngineTPU).
     (Prob/M/amplitudes) wait for the device.
   * The planes update in place where the window kernel runs; every read
     that hands planes out (Clone, GetQuantumState) copies.
+  * With the resilience plane armed (resilience/): each gate-function
+    dispatch is the guarded site ``cuda.compile``, each multi-op window
+    ``cuda.fuse.flush`` (its in-place writes watched, so a retry runs it
+    exactly once), the reads that return host values (GetQuantumState,
+    GetAmplitude, GetAmplitudePage, Prob, MAll, Finish)
+    ``cuda.device_get`` with the integrity check of the value read, and
+    construction ``discover``.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``
 (the tests do); without a GPU and without that argument, construction
@@ -34,15 +41,18 @@ from __future__ import annotations
 
 import math
 import os
+import types
 import warnings
 
 import numpy as np
 import torch
 
+from .. import resilience as _res
 from .. import telemetry as _tele
 from ..ops import fusion as fu
 from ..ops import gatekernels as gk
-from ..utils.device import resolve_device
+from ..resilience import dispatch as _rdispatch
+from ..utils.device import discover
 from .qengine import QEngine
 from .. import matrices as mat
 
@@ -50,6 +60,36 @@ from .. import matrices as mat
 # window kernel's int32 tile ids (for every plane dtype: float64 planes
 # at w30 are 16 GiB)
 MAX_DENSE_QB = 30
+
+
+# the gate functions of ops/gatekernels.py this engine dispatches, each
+# call one guarded dispatch at site ``cuda.compile`` while the resilience
+# plane is armed (the JAX engine's jitted programs), a plain call after
+# one attribute test while it is off.  They return new planes, so a
+# retry after any failure runs a gate exactly once.
+_gk = types.SimpleNamespace(**{
+    name: _rdispatch.instrument_dispatch("cuda.compile", getattr(gk, name))
+    for name in ("apply_2x2", "apply_invert", "apply_diag", "apply_4x4",
+                 "uc_2x2", "gather", "out_of_place", "phase_factor_apply",
+                 "probs", "prob_mask_sum", "collapse", "sample",
+                 "multishot_mask_keys", "compose", "split_matrix",
+                 "allocate", "normalize", "sum_sqr_diff", "swap_bits",
+                 "expectation_bits")})
+
+
+def _device_get(fn, *args):
+    """Host-read boundary (site ``cuda.device_get``): the sync that
+    proves completion, and therefore where a hang shows.  With the
+    integrity plane on, the value read is checked in place
+    (integrity.check_host), with no extra sweep of the planes."""
+    if _res._ACTIVE:
+        out = _rdispatch.call_guarded("cuda.device_get", fn, args)
+        from ..resilience import integrity as _integ
+
+        if _integ.enabled():
+            _integ.check_host("cuda.device_get", out)
+        return out
+    return fn(*args)
 
 class QEngineCUDA(QEngine):
     """Dense ket on one CUDA device (or the CPU, when asked)."""
@@ -63,7 +103,7 @@ class QEngineCUDA(QEngine):
                  device=None, **kwargs):
         super().__init__(qubit_count, init_state=init_state, **kwargs)
         self._check_capacity(qubit_count)
-        self._device = resolve_device(device)
+        self._device = discover(device)
         if dtype is None:
             from ..config import get_config
 
@@ -158,7 +198,7 @@ class QEngineCUDA(QEngine):
         if (before // self._drift_check_every) == (
                 self._gate_count // self._drift_check_every):
             return
-        nrm = float(gk.prob_mask_sum(self._state, 0, 0))  # total probability
+        nrm = float(_gk.prob_mask_sum(self._state, 0, 0))  # total probability
         if abs(1.0 - nrm) > self._drift_thresh:
             self.EscalateToF64(nrm)
 
@@ -211,8 +251,18 @@ class QEngineCUDA(QEngine):
             else:
                 self._apply_2x2(op.m, op.target, op.cmask, op.cval)
             return 1
-        self._state = fu.flush_window(self._state, self.qubit_count, ops,
-                                      counted=True)
+        planes = self._state
+        if _res._ACTIVE:
+            # one guarded dispatch at cuda.fuse.flush; the window kernel
+            # writes the planes in place, so the guard watches its writes
+            planes = _rdispatch.call_guarded(
+                "cuda.fuse.flush", fu.flush_window,
+                (planes, self.qubit_count, ops), {"counted": True},
+                writes=lambda: _rdispatch.write_token(planes))
+        else:
+            planes = fu.flush_window(planes, self.qubit_count, ops,
+                                     counted=True)
+        self._state = planes
         return 1
 
     # ------------------------------------------------------------------
@@ -223,16 +273,16 @@ class QEngineCUDA(QEngine):
         n = self.qubit_count
         if mat.is_invert(m2):
             tr, bl = complex(m2[0, 1]), complex(m2[1, 0])
-            self._state = gk.apply_invert(self._state, tr.real, tr.imag,
+            self._state = _gk.apply_invert(self._state, tr.real, tr.imag,
                                           bl.real, bl.imag, n, target,
                                           cmask, cval)
         else:
             mp = gk.mtrx_planes(m2, self.dtype, "cpu")
-            self._state = gk.apply_2x2(self._state, mp, n, target, cmask, cval)
+            self._state = _gk.apply_2x2(self._state, mp, n, target, cmask, cval)
 
     def _apply_diag(self, d0, d1, target, cmask, cval) -> None:
         d0, d1 = complex(d0), complex(d1)
-        self._state = gk.apply_diag(self._state, d0.real, d0.imag, d1.real,
+        self._state = _gk.apply_diag(self._state, d0.real, d0.imag, d1.real,
                                     d1.imag, self.qubit_count, 1 << target,
                                     cmask, cval)
 
@@ -248,7 +298,7 @@ class QEngineCUDA(QEngine):
 
     def _k_apply_4x4(self, m4, q1, q2) -> None:
         m4 = np.asarray(m4, dtype=np.complex128)
-        self._state = gk.apply_4x4(self._state, np.stack([m4.real, m4.imag]),
+        self._state = _gk.apply_4x4(self._state, np.stack([m4.real, m4.imag]),
                                    self.qubit_count, q1, q2)
         self._drift_tick()
 
@@ -258,20 +308,20 @@ class QEngineCUDA(QEngine):
         if mtrx_skip_powers:
             return super().UCMtrx(controls, mtrxs, target, mtrx_skip_powers, mtrx_skip_value_mask)
         stack = np.stack([np.asarray(m, dtype=np.complex128).reshape(2, 2) for m in mtrxs])
-        self._state = gk.uc_2x2(self._state, np.stack([stack.real, stack.imag]),
+        self._state = _gk.uc_2x2(self._state, np.stack([stack.real, stack.imag]),
                                 self.qubit_count, target, tuple(controls))
         self._drift_tick()
 
     def _k_gather(self, src_fn, split=None) -> None:
         st = self._state
-        self._state = gk.gather(st, src_fn(gk.iota_for(st)))
+        self._state = _gk.gather(st, src_fn(gk.iota_for(st)))
 
     def _k_out_of_place(self, src_idx, dst_idx, passthrough_cmask) -> None:
         # the index pairs come from the host: int32 on the planes' device
         st = self._state
         src = torch.as_tensor(src_idx).to(gk.IDX_DTYPE).to(st.device)
         dst = torch.as_tensor(dst_idx).to(gk.IDX_DTYPE).to(st.device)
-        self._state = gk.out_of_place(st, src, dst, passthrough_cmask)
+        self._state = _gk.out_of_place(st, src, dst, passthrough_cmask)
 
     def _index_table(self, values):
         return torch.as_tensor(np.asarray(values, dtype=np.int32)).to(
@@ -280,22 +330,23 @@ class QEngineCUDA(QEngine):
     def _k_phase_fn(self, fn, split=None) -> None:
         st = self._state
         fre, fim = fn(gk.plane_where(st), gk.iota_for(st))
-        self._state = gk.phase_factor_apply(st, fre, fim)
+        self._state = _gk.phase_factor_apply(st, fre, fim)
 
     def _k_probs(self) -> np.ndarray:
-        return gk.probs(self._state).to("cpu", torch.float64).numpy()
+        return _gk.probs(self._state).to("cpu", torch.float64).numpy()
 
     def _k_prob_mask(self, mask, perm) -> float:
-        p = float(gk.prob_mask_sum(self._state, mask, perm))
+        p = _device_get(lambda st: float(_gk.prob_mask_sum(st, mask, perm)),
+                        self._state)
         return min(max(p, 0.0), 1.0)
 
     def _k_collapse(self, mask, val, nrm_sq) -> None:
-        self._state = gk.collapse(self._state, mask, val, nrm_sq)
+        self._state = _gk.collapse(self._state, mask, val, nrm_sq)
 
     def MAll(self) -> int:
         """Device-side categorical sample; no 2^n host transfer."""
         r = float(self.Rand())
-        result = int(gk.sample(self._state, r))
+        result = _device_get(lambda st: int(_gk.sample(st, r)), self._state)
         self.SetPermutation(result)
         return result
 
@@ -308,17 +359,17 @@ class QEngineCUDA(QEngine):
         u = torch.as_tensor(self.rng.uniform(shots), dtype=self.dtype).to(st.device)
         bits = torch.tensor([log2(int(pw)) for pw in q_powers],
                             dtype=torch.int64).to(st.device)
-        keys = gk.multishot_mask_keys(st, u, bits).cpu().numpy()
+        keys = _gk.multishot_mask_keys(st, u, bits).cpu().numpy()
         vals, counts = np.unique(keys, return_counts=True)
         return {int(v): int(c) for v, c in zip(vals, counts)}
 
     def _k_compose(self, other, start) -> None:
         other_planes = self._put(other.GetQuantumState())
-        self._state = gk.compose(self._state, other_planes, self.qubit_count,
+        self._state = _gk.compose(self._state, other_planes, self.qubit_count,
                                  other.qubit_count, start)
 
     def _k_decompose(self, start, length) -> np.ndarray:
-        m = gk.split_matrix(self._state, self.qubit_count, start, length)
+        m = _gk.split_matrix(self._state, self.qubit_count, start, length)
         row_norms = torch.sum(m[0] ** 2 + m[1] ** 2, dim=1)
         r0 = int(torch.argmax(row_norms))
         dest = m[:, r0, :] / torch.sqrt(row_norms[r0])  # (2, 2^L)
@@ -329,7 +380,7 @@ class QEngineCUDA(QEngine):
         return gk.from_planes(dest)
 
     def _k_dispose(self, start, length, perm) -> None:
-        m = gk.split_matrix(self._state, self.qubit_count, start, length)
+        m = _gk.split_matrix(self._state, self.qubit_count, start, length)
         if perm is not None:
             rem = m[:, :, perm]
         else:
@@ -347,24 +398,24 @@ class QEngineCUDA(QEngine):
         return torch.where(rn > 0, rem / rn, rem).contiguous()
 
     def _k_allocate(self, start, length) -> None:
-        self._state = gk.allocate(self._state, self.qubit_count, start, length)
+        self._state = _gk.allocate(self._state, self.qubit_count, start, length)
 
     def _k_normalize(self, nrm_sq) -> None:
-        self._state = gk.normalize(self._state, nrm_sq)
+        self._state = _gk.normalize(self._state, nrm_sq)
 
     def _k_sum_sqr_diff(self, other) -> float:
         if isinstance(other, QEngineCUDA):
             b = other._state.to(self._device, self.dtype)
         else:
             b = self._put(other.GetQuantumState())
-        return float(gk.sum_sqr_diff(self._state, b))
+        return float(_gk.sum_sqr_diff(self._state, b))
 
     def _k_swap_bits(self, q1, q2) -> None:
-        self._state = gk.swap_bits(self._state, self.qubit_count, q1, q2)
+        self._state = _gk.swap_bits(self._state, self.qubit_count, q1, q2)
 
     def ExpectationBitsAll(self, bits, offset: int = 0) -> float:
         """One device reduction; the distribution never reaches the host."""
-        return float(gk.expectation_bits(self._state, tuple(bits), offset))
+        return float(_gk.expectation_bits(self._state, tuple(bits), offset))
 
     # ------------------------------------------------------------------
     # state access (host boundary: complex <-> planes)
@@ -374,7 +425,7 @@ class QEngineCUDA(QEngine):
         return gk.to_planes(state_complex, self.dtype, self._device)
 
     def GetQuantumState(self) -> np.ndarray:
-        return gk.from_planes(self._state)
+        return _device_get(gk.from_planes, self._state)
 
     def SetQuantumState(self, state) -> None:
         st = np.asarray(state).reshape(-1)
@@ -383,7 +434,9 @@ class QEngineCUDA(QEngine):
         self._state = self._put(st)
 
     def GetAmplitude(self, perm: int) -> complex:
-        amp = self._state[:, perm].to("cpu", torch.float64).numpy()
+        amp = _device_get(
+            lambda st: st[:, perm].to("cpu", torch.float64).numpy(),
+            self._state)
         return complex(amp[0], amp[1])
 
     def SetAmplitude(self, perm: int, amp: complex) -> None:
@@ -416,7 +469,7 @@ class QEngineCUDA(QEngine):
     def Finish(self) -> None:
         st = self._state
         if st is not None and st.device.type == "cuda":
-            torch.cuda.synchronize(st.device)
+            _device_get(torch.cuda.synchronize, st.device)
 
     def SetDevice(self, device_id: int) -> None:
         """Move the ket to CUDA ordinal `device_id` (reference: SetDevice,
@@ -426,7 +479,7 @@ class QEngineCUDA(QEngine):
         dev = torch.device("cuda", device_id)
         if dev == self._device:
             return
-        self._device = dev
+        self._device = discover(dev)
         self._state = self._state.to(dev)
 
     def GetDevice(self) -> int:
@@ -439,7 +492,9 @@ class QEngineCUDA(QEngine):
         return not bool(torch.any(self._state != 0))
 
     def GetAmplitudePage(self, offset: int, length: int) -> np.ndarray:
-        return gk.from_planes(self._state[:, offset:offset + length])
+        return _device_get(
+            lambda st: gk.from_planes(st[:, offset:offset + length]),
+            self._state)
 
     def SetAmplitudePage(self, page, offset: int) -> None:
         self._state[:, offset:offset + len(page)] = self._put(page)

@@ -11,15 +11,31 @@ and re-materializes the ket across representations on width changes
 (the reference's CopyStateVec hand-off), staged through a host
 complex128 vector.
 
-Switching by width is the design, not a fallback: no path catches a
-device error and carries on on the CPU.  ``device=`` and ``dtype=`` go
-to the CUDA engine and the pager; QEngineCPU takes neither.
+Switching by width is the design, not a fallback.  ``device=`` and
+``dtype=`` go to the CUDA engine and the pager; QEngineCPU takes
+neither.
+
+With the resilience plane armed (resilience/), a call that escalates
+with a FAILOVER_ERRORS exception moves the ket down the failover chain
+in place (:meth:`QHybrid._fail_over`): a pager shrinks on the card,
+then becomes a QEngineCUDA (width at most 30, breaker closed); the CPU
+is a rung only when the caller passed ``failover_cpu=True``, and
+without it the cause re-raises with the planes as they were.  A landing
+on ``cuda`` or ``cpu`` pins that mode as the ceiling; at a later call
+boundary, once the health probe passes, :meth:`QHybrid._maybe_recover`
+lifts the pin and carries the ket back up.  A construction that fails
+on a guarded site degrades the mode (pager -> cuda; cuda -> cpu only
+with ``failover_cpu``) and raises otherwise.
 
 Each switch and each grow across a mode is a telemetry event,
 ``hybrid.switch.<from>_to_<to>`` and ``hybrid.grow.<mode>``, with the
-modes ``cpu``, ``cuda`` (the JAX package's ``tpu``) and ``pager``.  The
-JAX QHybrid's failover and un-pin events come with its failover (ROADMAP
-item 14b).
+modes ``cpu``, ``cuda`` (the JAX package's ``tpu``) and ``pager``; the
+failover moves are ``resilience.failover.*`` (construction:
+``resilience.failover.init_<mode>_to_<mode>``) and the un-pin
+``hybrid.unpin.<from>_to_<to>`` with the counter
+``elastic.hybrid.unpinned``.  Still to come: the checkpoint capture of
+the hybrid and the failover snapshot file (ROADMAP item 15), and the
+serving plane, which reads the breaker and wraps its stacks (item 16).
 
 ``HOST_STAGINGS`` counts the kets that pass through the host, and their
 amplitudes: a whole ket when the width crosses the threshold
@@ -34,6 +50,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import resilience as _res
 from .. import telemetry as _tele
 from ..config import get_config
 from ..utils.rng import QrackRandom
@@ -50,7 +67,8 @@ class QHybrid:
                  rng: Optional[QrackRandom] = None,
                  tpu_threshold_qubits: Optional[int] = None,
                  pager_threshold_qubits: Optional[int] = None,
-                 devices=None, device=None, dtype=None, **kwargs):
+                 devices=None, device=None, dtype=None,
+                 failover_cpu: bool = False, **kwargs):
         cfg = get_config()
         self._tpu_threshold = (
             tpu_threshold_qubits if tpu_threshold_qubits is not None
@@ -64,14 +82,19 @@ class QHybrid:
         self._devices = devices
         self._kwargs = dict(kwargs)
         self._kwargs["rng"] = rng if rng is not None else QrackRandom()
+        self._failover_cpu = bool(failover_cpu)
+        # failover ceiling: None = healthy; "cuda" = the pager failed,
+        # never re-promote past one dense engine; "cpu" = the device is
+        # unusable, pin to the host (only with failover_cpu)
+        self._failed_over: Optional[str] = None
         self._engine = self._make_engine(qubit_count, init_state)
 
     # ------------------------------------------------------------------
 
     def _mode_for(self, qubit_count: int) -> str:
-        if qubit_count < self._tpu_threshold:
+        if self._failed_over == "cpu" or qubit_count < self._tpu_threshold:
             return "cpu"
-        if qubit_count <= self._pager_threshold:
+        if qubit_count <= self._pager_threshold or self._failed_over == "cuda":
             return "cuda"
         return "pager"
 
@@ -79,16 +102,35 @@ class QHybrid:
                      mode: Optional[str] = None):
         if mode is None:
             mode = self._mode_for(qubit_count)
-        if mode == "cpu":
-            return QEngineCPU(qubit_count, init_state=init_state, **self._kwargs)
-        if mode == "cuda":
-            return QEngineCUDA(qubit_count, init_state=init_state,
-                               **self._cuda_kwargs, **self._kwargs)
-        from ..parallel.pager import QPager
+        try:
+            if mode == "cpu":
+                return QEngineCPU(qubit_count, init_state=init_state,
+                                  **self._kwargs)
+            if mode == "cuda":
+                return QEngineCUDA(qubit_count, init_state=init_state,
+                                   **self._cuda_kwargs, **self._kwargs)
+            from ..parallel.pager import QPager
 
-        return QPager(qubit_count, init_state=init_state,
-                      devices=self._devices, **self._cuda_kwargs,
-                      **self._kwargs)
+            return QPager(qubit_count, init_state=init_state,
+                          devices=self._devices, **self._cuda_kwargs,
+                          **self._kwargs)
+        except _res.FAILOVER_ERRORS as e:
+            # construction-time failover (discover died): degrade the
+            # mode and rebuild — onto the CPU only when the caller named it
+            from .cuda import MAX_DENSE_QB
+
+            if mode == "pager" and qubit_count <= MAX_DENSE_QB:
+                fallback = "cuda"
+            elif mode != "cpu" and self._failover_cpu:
+                fallback = "cpu"
+            else:
+                raise
+            self._failed_over = fallback
+            if _tele._ENABLED:
+                _tele.event(f"resilience.failover.init_{mode}_to_{fallback}",
+                            width=qubit_count, cause=type(e).__name__)
+                _tele.inc("resilience.failovers")
+            return self._make_engine(qubit_count, init_state, mode=fallback)
 
     def _mode_of(self, engine) -> str:
         if isinstance(engine, QEngineCPU):
@@ -117,10 +159,85 @@ class QHybrid:
     # full-surface forwarding with structural hooks
     # ------------------------------------------------------------------
 
+    def _fail_over(self, cause) -> None:
+        """In-place degradation: move the ket off the failing engine to
+        the next engine down the chain (elastic pager shrink → cuda →
+        cpu when named).  A cuda/cpu landing pins the ceiling; the un-pin
+        probe (:meth:`_maybe_recover`) lifts it at a later call boundary
+        once the device looks healthy again."""
+        from ..resilience.failover import fail_over_engine
+
+        self._commit_fallback(fail_over_engine(self._engine, cause,
+                                               self._failover_cpu))
+
+    def _commit_fallback(self, engine) -> None:
+        from ..resilience.failover import _engine_kind
+
+        self._engine = engine
+        kind = _engine_kind(engine)
+        if kind in ("cuda", "cpu"):
+            # a shrunk pager is NOT a ceiling — it re-expands on its own
+            # through the elastic probe; only terminal hops pin the mode
+            self._failed_over = kind
+
+    def _maybe_recover(self) -> None:
+        """Breaker-gated un-pin probe — the inverse of :meth:`_fail_over`.
+        At a call boundary: re-expand a degraded pager in place, and when
+        a cuda/cpu ceiling is pinned but the health probe passes, rebuild
+        the width-appropriate engine and carry state and rng onto it."""
+        from ..resilience import elastic as _elastic
+
+        eng = self._engine
+        if getattr(eng, "_elastic_target_g", None) is not None:
+            _elastic.maybe_reexpand(eng)
+        if self._failed_over is None:
+            return
+        if not _elastic.health_probe():
+            return
+        prev = self._failed_over
+        self._failed_over = None
+        n = self._engine.qubit_count
+        want, have = self._mode_for(n), self._mode_of(self._engine)
+        if want == have:
+            return  # ceiling lifted; the current engine already fits
+        try:
+            state = self._engine.GetQuantumState()
+            rng = self._engine.rng
+            new = self._make_engine(n)  # re-pins the ceiling on failure
+            new.rng = rng
+            new.SetQuantumState(state)
+            self._engine = new
+            if _tele._ENABLED:
+                _tele.event(f"hybrid.unpin.{prev}_to_{want}", width=n)
+                _tele.inc("elastic.hybrid.unpinned")
+        except _res.FAILOVER_ERRORS:
+            self._failed_over = prev
+
     def __getattr__(self, name):
         if name == "_engine":  # not built yet: no forwarding loop
             raise AttributeError(name)
-        return getattr(self._engine, name)
+        val = getattr(self._engine, name)
+        if not _res._ACTIVE or not callable(val):
+            return val
+
+        def call(*args, **kwargs):
+            if (self._failed_over is not None
+                    or getattr(self._engine, "_elastic_target_g", None)
+                    is not None):
+                self._maybe_recover()
+            try:
+                return getattr(self._engine, name)(*args, **kwargs)
+            except _res.FAILOVER_ERRORS as e:
+                from ..resilience.failover import replay_with_failover
+
+                _, out = replay_with_failover(
+                    self._engine, e,
+                    lambda fb: getattr(fb, name)(*args, **kwargs),
+                    commit=self._commit_fallback,
+                    failover_cpu=self._failover_cpu)
+                return out
+
+        return call
 
     def _grow_to(self, n_new: int, mode: str, full_state) -> None:
         """Host-stage into a target-mode engine at the grown width."""
@@ -182,6 +299,8 @@ class QHybrid:
         c._cuda_kwargs = dict(self._cuda_kwargs)
         c._devices = self._devices
         c._kwargs = dict(self._kwargs)
+        c._failover_cpu = self._failover_cpu
+        c._failed_over = self._failed_over
         # fresh stream: the clone must not consume the original's RNG
         c._kwargs["rng"] = self._kwargs["rng"].spawn()
         c._engine = self._engine.Clone()

@@ -32,6 +32,13 @@ QEngineTurboQuant, engines/turboquant.py there).
 * Operations without a chunked form decode the whole ket into float32
   planes through the ``_state`` property (refused past 30 qubits).
   ``peak_transient_amps`` records the largest float32 decode.
+* With the resilience plane armed (resilience/), each kernel launch and
+  chunk pass (gates, diagonals, windows, phase passes, probabilities,
+  collapse) is one guarded dispatch at site ``turboquant.dispatch``,
+  whose in-place writes to the codes and scales are watched; the
+  failover chain's rung for this engine is QEngineCUDA up to 30 qubits
+  (resilience/failover.py), and the integrity envelope fingerprints the
+  per-chunk masses off the codes.
 * Telemetry (the JAX engine's names): ``tq.sweeps`` (a decode and a
   requantize of the resident codes per gate, diagonal, phase pass or
   window) with its planned bytes (``roofline.tq.sweep``), the
@@ -50,11 +57,13 @@ import numpy as np
 import torch
 
 from .. import matrices as mat
+from .. import resilience as _res
 from .. import telemetry as _tele
 from ..ops import fusion as fu
 from ..ops import gatekernels as gk
 from ..ops import turboquant_kernel as tqk
 from ..ops import window_kernel as wk
+from ..resilience import dispatch as _rdispatch
 from ..storage import turboquant as tq
 from ..telemetry import roofline as _roofline
 from ..utils.device import resolve_device
@@ -447,6 +456,27 @@ class QEngineCUDATurboQuant(QEngineCUDA):
         return (self._codes, self._scales, self._rot, self._rot_t,
                 self._tq_bits, self._pallas_tile_pow())
 
+    def _tq_call(self, fn, *args, site: str = "turboquant.dispatch"):
+        """fn(*args), a kernel launch or a chunk pass, as one guarded
+        dispatch at `site` while the resilience plane is armed (a plain
+        call while it is off).  The codes and scales update in place, so
+        the guard watches their writes; a pass that returns nothing
+        hands them back as its output (an amp-corrupt strike lands on
+        the scales, as in the JAX package, whose programs return
+        (codes, scales))."""
+        if not _res._ACTIVE:
+            return fn(*args)
+        codes, scales = self._codes_raw, self._scales_raw
+        held = (list(codes) if isinstance(codes, list) else [codes]) + (
+            list(scales) if isinstance(scales, list) else [scales])
+
+        def run():
+            out = fn(*args)
+            return (codes, scales) if out is None else out
+
+        return _rdispatch.call_guarded(
+            site, run, writes=lambda: _rdispatch.write_token(held))
+
     def _k_apply_2x2(self, m2, target, controls, perm) -> None:
         self._note_sweeps()
         cmask, cval = self._cmask_cval(controls, perm)
@@ -455,23 +485,27 @@ class QEngineCUDATurboQuant(QEngineCUDA):
         tp = self._pallas_tile_pow()
         if self._pallas_capable and target < tp:
             T = 1 << tp
-            tqk.tq_gate_low(*self._kernel_args(), mp, target, cmask >> tp,
-                            cval >> tp, cmask & (T - 1), cval & (T - 1))
+            self._tq_call(tqk.tq_gate_low, *self._kernel_args(), mp, target,
+                          cmask >> tp, cval >> tp, cmask & (T - 1),
+                          cval & (T - 1))
             return
         ca, cs = self._tq_chunk_pow, self._chunk_amps
         hm, hv, lm, lv = cmask >> ca, cval >> ca, cmask & (cs - 1), cval & (cs - 1)
         m = mp.tolist()
         if target < ca:
-            self._map_chunks(
-                lambda pl, cid, lidx: wk.tile_local_2x2(
-                    pl, lidx, cid, target, m, lm, lv, hm, hv), select=True)
+            self._tq_call(self._map_chunks,
+                          lambda pl, cid, lidx: wk.tile_local_2x2(
+                              pl, lidx, cid, target, m, lm, lv, hm, hv), True)
         else:
             self._gate_pair(m, target - ca, hm, hv, lm, lv)
 
     def _gate_pair(self, m, tb_pos: int, hm, hv, lm, lv) -> None:
         """2x2 whose target is a chunk-id bit: chunk a (bit clear) and its
         partner a + 2^tb_pos mix (the cross-chunk pair path), within each
-        part."""
+        part: one guarded dispatch."""
+        self._tq_call(self._gate_pair_parts, m, tb_pos, hm, hv, lm, lv)
+
+    def _gate_pair_parts(self, m, tb_pos: int, hm, hv, lm, lv) -> None:
         cb, twoD = self._chunk_blocks, 2 * self._block
         lo_n = 1 << tb_pos
         for c3, s2, cid0 in self._parts():
@@ -519,7 +553,7 @@ class QEngineCUDATurboQuant(QEngineCUDA):
         cmask, cval = self._cmask_cval(controls, perm)
         d0, d1 = complex(d0), complex(d1)
         if not self._pallas_capable:
-            self._diag_chunks(d0, d1, target, cmask, cval)
+            self._tq_call(self._diag_chunks, d0, d1, target, cmask, cval)
             return
         tp = self._pallas_tile_pow()
         T = 1 << tp
@@ -528,8 +562,9 @@ class QEngineCUDATurboQuant(QEngineCUDA):
         dp[1, 0, 0], dp[1, 0, 1] = d0.imag, d1.imag
         tm_lo = (1 << target) if target < tp else 0
         tb_hi = 0 if target < tp else (1 << (target - tp))
-        tqk.tq_diag(*self._kernel_args(), dp, tm_lo, tb_hi, cmask & (T - 1),
-                    cval & (T - 1), cmask >> tp, cval >> tp)
+        self._tq_call(tqk.tq_diag, *self._kernel_args(), dp, tm_lo, tb_hi,
+                      cmask & (T - 1), cval & (T - 1), cmask >> tp,
+                      cval >> tp)
 
     def _diag_chunks(self, d0, d1, target, cmask, cval) -> None:
         """A diagonal as the JAX engine's chunk program (_mk_diag): the
@@ -635,7 +670,7 @@ class QEngineCUDATurboQuant(QEngineCUDA):
                 fre, fim = fn(torch, cid * cs + lidx)
                 return gk.cmul(fre, fim, pl)
 
-        self._map_chunks(body)
+        self._tq_call(self._map_chunks, body)
 
     # ------------------------------------------------------------------
     # gate-stream fusion hooks (ops/fusion.py GateStreamFuser)
@@ -680,11 +715,12 @@ class QEngineCUDATurboQuant(QEngineCUDA):
         structure = fu.sharded_structure_of(ops)
         self._note_window(len(ops))
         if not self._pallas_capable:
-            self._window_chunks(structure, fu.sharded_operands(
-                ops, self._tq_chunk_pow, torch.float32, self._device))
+            self._tq_call(self._window_chunks, structure,
+                          fu.sharded_operands(ops, self._tq_chunk_pow,
+                                              torch.float32, self._device))
             return 1
         tp = self._pallas_tile_pow()
-        tqk.tq_window(*self._kernel_args(), structure,
+        self._tq_call(tqk.tq_window, *self._kernel_args(), structure,
                       fu.sharded_operands(ops, tp, torch.float32,
                                           self._device))
         return 1
@@ -694,6 +730,9 @@ class QEngineCUDATurboQuant(QEngineCUDA):
     # ------------------------------------------------------------------
 
     def _k_prob_mask(self, mask, perm) -> float:
+        return self._tq_call(self._prob_mask, mask, perm)
+
+    def _prob_mask(self, mask, perm) -> float:
         ca, cs = self._tq_chunk_pow, self._chunk_amps
         ml, vl, mh, vh = mask & (cs - 1), perm & (cs - 1), mask >> ca, perm >> ca
         total = 0.0
@@ -711,6 +750,9 @@ class QEngineCUDATurboQuant(QEngineCUDA):
         return min(max(total, 0.0), 1.0)
 
     def _k_collapse(self, mask, val, nrm_sq) -> None:
+        self._tq_call(self._collapse, mask, val, nrm_sq)
+
+    def _collapse(self, mask, val, nrm_sq) -> None:
         ca, cs = self._tq_chunk_pow, self._chunk_amps
         scale = 1.0 / math.sqrt(nrm_sq)
         if (mask & (cs - 1)) == 0:

@@ -60,13 +60,20 @@ reference's production stack shape over the CUDA dense bottom;
 ``device``/``dtype`` go to the terminal, and to "bdt_hybrid" for its
 tree, so every engine a stack builds lies on ``cuda`` unless
 ``device="cpu"``.  The JAX package's other layers raise ValueError
-naming their ROADMAP item."""
+naming their ROADMAP item.
+
+With the resilience plane armed (resilience/), the accelerator
+terminals "cuda", "pager", "turboquant" and "turboquant_pager" are
+wrapped in ResilientEngine, whose failover chain stays on the card;
+``failover_cpu=True`` names the CPU as its last rung (and QHybrid's),
+which it never is otherwise."""
 
 from __future__ import annotations
 
 import os
 from typing import Callable, List, Sequence, Union
 
+from . import resilience as _res
 from . import telemetry as _tele
 
 OPTIMAL = ("unit", "stabilizer_hybrid", "hybrid")
@@ -78,6 +85,10 @@ _TERMINAL = {"cuda", "cpu", "hybrid", "pager", "sparse", "turboquant",
 
 #: terminals that run on the host and refuse a device
 _HOST_TERMINALS = {"cpu", "sparse"}
+
+#: terminals that ResilientEngine wraps while the resilience plane is
+#: armed (the JAX package's accelerator terminals, "tpu" renamed)
+_ACCEL_TERMINALS = {"cuda", "pager", "turboquant", "turboquant_pager"}
 
 #: layers of the JAX package's factory that the port lacks, with the
 #: ROADMAP item that brings each
@@ -101,6 +112,26 @@ def _counted(name: str, fn: Callable) -> Callable:
         if _tele._ENABLED:
             _tele.inc(f"factory.create.{name}")
         return fn(n, **kw)
+    return make
+
+
+def _maybe_resilient(name: str, fn: Callable,
+                     failover_cpu: bool = False) -> Callable:
+    """Wrap a bare accelerator terminal in ResilientEngine when the
+    resilience layer is active, so a factory-built stack gets the
+    failover chain QHybrid has (construction-time failures included).
+    _ACTIVE is re-read per construction: enabling resilience after
+    import still takes effect."""
+    if name not in _ACCEL_TERMINALS:
+        return fn
+
+    def make(n, **kw):
+        if not _res._ACTIVE:
+            return fn(n, **kw)
+        from .resilience.failover import ResilientEngine
+
+        return ResilientEngine.build(fn, n, failover_cpu=failover_cpu, **kw)
+
     return make
 
 
@@ -171,7 +202,12 @@ def build_factory(layers: Sequence[str], **opts) -> Callable:
     if head in _TERMINAL:
         if rest:
             raise ValueError(f"terminal layer {head!r} must be last")
-        return _counted(head, _terminal_factory(head, **dev))
+        fo = bool(opts.get("failover_cpu", False))
+        if head == "hybrid":
+            return _counted(head, _terminal_factory(
+                head, **dev, **({"failover_cpu": True} if fo else {})))
+        return _counted(head, _maybe_resilient(
+            head, _terminal_factory(head, **dev), fo))
     below = None
     if rest:
         # a host terminal ("cpu", "sparse") under a layer takes no device
@@ -228,12 +264,14 @@ def create_quantum_interface(layers: Union[str, Sequence[str]], qubit_count: int
     """Build a simulator stack, e.g. ``create_quantum_interface("optimal",
     40)``, ``create_quantum_interface("cuda", 30)``,
     ``create_quantum_interface(["stabilizer_hybrid", "hybrid"], 18)`` or,
-    on the CPU, ``create_quantum_interface("optimal", 10, device="cpu")``."""
+    on the CPU, ``create_quantum_interface("optimal", 10, device="cpu")``.
+    ``failover_cpu=True`` lets the resilience plane's failover chain end
+    on the CPU (resilience/__init__.py)."""
     if isinstance(layers, str):
         layers = {"optimal": OPTIMAL,
                   "optimal_multi": OPTIMAL_MULTI}.get(layers, (layers,))
-    opts = {k: kwargs.pop(k) for k in ("dtype", "device", "noise", "model")
-            if k in kwargs}
+    opts = {k: kwargs.pop(k) for k in ("dtype", "device", "noise", "model",
+                                       "failover_cpu") if k in kwargs}
     if _tele._ENABLED:
         _tele.inc("factory.create_interface")
     factory = build_factory(tuple(layers), **opts)

@@ -24,9 +24,12 @@ per :func:`run_trajectories` call ``noise.traj.batches``,
 ``noise.traj.chunk_size`` and ``.rate`` gauges and the
 ``noise.traj.wall_s`` histogram (the wall ends with the readout's copy
 to the host, which waits for the device).  The program cache has no
-counterpart (torch has no trace to cache); the dispatch instrumentation
-and the ``noise.sample`` fault site come with resilience (ROADMAP item
-14b).
+counterpart (torch has no trace to cache).  With the resilience plane
+armed (resilience/), each batched window is one guarded dispatch at the
+gate fuser's site ``cuda.fuse.flush`` (its in-place writes to the
+batch watched), and the host-side branch sampling checks the fault site
+``noise.sample``.  Still to come: the serving entry
+(``submit_trajectories``) and its write-ahead replay (ROADMAP item 16).
 
 Memory: a chunk of C trajectories of width w holds C · 2^w amplitudes
 of planes, and the body allocates its results and temporaries beside
@@ -54,6 +57,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import resilience as _res
 from .. import telemetry as _tele
 from ..config import get_config
 from ..ops import fusion as fu
@@ -396,6 +400,10 @@ def _sample_operands(ops: Sequence[object], key: int,
     (depolarizing's "I", most draws at a weak rate) gets None: the body
     skips it, which leaves the planes as that matrix, rounded to the
     planes' dtype, would."""
+    if _res._ACTIVE:
+        directive = _res.faults.check("noise.sample")
+        if directive:
+            raise RuntimeError(f"noise.sample injected fault: {directive}")
     B = len(tids)
     out: List = []
     for op in ops:
@@ -487,6 +495,22 @@ def _host(t, dtype=torch.float64) -> np.ndarray:
     return t.detach().to("cpu", dtype).numpy()
 
 
+def _window(fn, box, *args):
+    """One batched window, fn(box, *args): one guarded dispatch at
+    ``cuda.fuse.flush`` while the resilience plane is armed.  The body
+    takes the planes out of the one-slot `box` and writes them in place,
+    so the guard watches both (a retry runs only a window that touched
+    nothing)."""
+    if not _res._ACTIVE:
+        return fn(box, *args)
+    from ..resilience import dispatch as _rdispatch
+
+    held = list(box)
+    return _rdispatch.call_guarded(
+        "cuda.fuse.flush", fn, (box,) + args,
+        writes=lambda: (len(box), _rdispatch.write_token(held)))
+
+
 class TrajectoryJob:
     """Chunked execution of a trajectory batch with mid-batch
     checkpointing.
@@ -569,11 +593,11 @@ class TrajectoryJob:
             operands = _sample_operands(ops, self.key, tids, self.dtype,
                                         self.device)
             if wi == len(windows) - 1:
-                planes, weight, p1, samp = _traj_final(n, struct)(
-                    box, weight, u, *operands)
+                planes, weight, p1, samp = _window(
+                    _traj_final(n, struct), box, weight, u, *operands)
             else:
-                planes, weight = _traj_body(n, struct)(box, weight,
-                                                       *operands)
+                planes, weight = _window(_traj_body(n, struct), box, weight,
+                                         *operands)
                 box.append(planes)
                 del planes
             if _tele._ENABLED:

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import matrices as mat
+from .. import resilience as _res
 from .. import telemetry as _tele
 from ..telemetry import roofline as _roofline
 from ..utils.bits import control_offset
@@ -906,13 +907,46 @@ class GateStreamFuser:
     def flush(self, reason: str = "read") -> None:
         """Lower + dispatch the pending window.  No-op when empty or
         re-entered (the engine's state getter fires during the flush's
-        own dispatch).  `reason` names the flush in telemetry."""
+        own dispatch).  `reason` names the flush in telemetry.
+
+        With the resilience plane armed and its integrity gate on, the
+        dispatch runs inside the integrity envelope (snapshot → dispatch
+        → verify → replay of the SAME kept window;
+        resilience/integrity.py), which relaunches K1/K2 (and K1/K2 per
+        page) on a repaired window.  Elastic recovery happens HERE, not
+        at the wrapper's failover replay: when the dispatch escalates and
+        the engine can shrink (QPager), re-page in place on the card and
+        re-dispatch the same kept window.  The re-entry guard keeps the
+        shrink's re-page raw (no recursive flush), so the window applies
+        exactly once.  A dispatch that failed after writing the planes in
+        place without a snapshot (``torn``) is not re-paged: it
+        propagates."""
         if not self.gates or self._flushing:
             return
         eng = self.engine
+        guard = None
+        if _res._ACTIVE:
+            from ..resilience import integrity as _integ
+
+            if _integ.enabled():
+                guard = _integ
         self._flushing = True
         try:
-            dispatched = eng._fuse_flush(self.gates)
+            while True:
+                try:
+                    if guard is not None:
+                        dispatched = guard.guarded_flush(
+                            eng, lambda: eng._fuse_flush(self.gates))
+                    else:
+                        dispatched = eng._fuse_flush(self.gates)
+                    break
+                except _res.FAILOVER_ERRORS as e:
+                    if getattr(e, "torn", False):
+                        raise
+                    can_shrink = getattr(eng, "can_shrink", None)
+                    if can_shrink is None or not can_shrink():
+                        raise  # wrapper-level failover takes over
+                    eng.shrink_pages()
         finally:
             self._flushing = False
         raw = self._raw
@@ -943,10 +977,18 @@ class GateStreamFuser:
 
 def make_fuser(engine):
     """Install-time factory: None when fusion is off (window <= 1) or the
-    engine opted out (``_fuse_capable``)."""
+    engine opted out (``_fuse_capable``).  With the integrity plane armed
+    a window-1 fuser is forced even when fusion is off — the flush
+    envelope is where snapshot/verify/replay lives, so per-gate dispatch
+    still gets corruption repair."""
     if not getattr(engine, "_fuse_capable", False):
         return None
     w = window_len()
     if w <= 1:
+        if _res._ACTIVE:
+            from ..resilience import integrity as _integ
+
+            if _integ.enabled():
+                return GateStreamFuser(engine, 1)
         return None
     return GateStreamFuser(engine, w)

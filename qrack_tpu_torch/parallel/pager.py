@@ -49,10 +49,21 @@ Telemetry (the JAX pager's names): ``remap.pager.*``,
 ``exchange.pager.collective_bytes`` and ``exchange.pager.host_fetch*``
 here; ``exchange.pager.<pass>`` and ``exchange.pager.bytes`` where the
 passes run (ops/sharded.py, beside ``sharded.EXCHANGES``); the flushed
-windows under ``fuse.kernel.*``/``fuse.xla.*``.  Not here yet: elastic
-re-paging and integrity quarantine and their events (ROADMAP item 14b),
-checkpoint capture (item 15), and pages in several processes
-(``torch.distributed``, item 13.4).
+windows under ``fuse.kernel.*``/``fuse.xla.*``.
+
+Resilience (resilience/, off unless armed): every page pass is a
+guarded dispatch at the JAX pager's site of the same program
+(``pager.dispatch``, ``pager.exchange``, ``cuda.fuse.flush`` for a
+window) and the host reads run at ``pager.device_get``; elastic
+re-paging (``can_shrink``, ``shrink_pages``, ``expand_pages``,
+``maybe_reexpand``: ``elastic.repage.*``) and the integrity quarantine
+(``_device_pool``, ``_quarantine_repage``: ``integrity.quarantine.*``)
+re-page on the card, keyed by page slot (``page_slots``: the page's
+index in the construction device list, whose entries past ``n_pages``
+are spares).  Not here yet: checkpoint capture and the failover
+snapshot file (ROADMAP item 15), the serving executor's call-boundary
+probe (item 16), and pages in several processes (``torch.distributed``,
+item 13.4).
 
 The pager runs on ``cuda`` unless the caller passes ``device="cpu"`` or
 CPU devices (the tests do); without a GPU it raises.
@@ -66,6 +77,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import resilience as _res
 from .. import telemetry as _tele
 from ..config import get_config
 from ..engines.qengine import QEngine
@@ -73,6 +85,7 @@ from ..ops import fusion as fu
 from ..ops import gatekernels as gk
 from ..ops import sharded as shb
 from ..ops.sharded import split_masks as _split_masks
+from ..resilience import dispatch as _rdispatch
 from ..utils.bits import is_pow2, log2
 from ..utils.device import resolve_device
 
@@ -165,7 +178,17 @@ class QPager(QEngine):
         self.n_pages = n_pages
         self.g_bits = log2(n_pages)
         self._max_g = self.g_bits
-        self._all_devices = list(devs[:n_pages])
+        # the construction list: its first n_pages slots hold the pages,
+        # the rest are spares that a re-page off a quarantined slot adopts
+        self._slot_devices = list(devs)
+        self._slots = list(range(n_pages))
+        # last integrity-quarantine epoch acted on (the call-boundary
+        # probe's healthy-path cost: one module read + int compare)
+        self._quarantine_epoch = 0
+        # elastic degradation marker: the construction page exponent to
+        # grow back to, set by shrink_pages, cleared by expand_pages
+        # (None = healthy)
+        self._elastic_target_g: Optional[int] = None
         self._check_capacity(qubit_count)
         self._fuser = fu.make_fuser(self)
         self._pages_raw: Optional[List[torch.Tensor]] = None
@@ -204,12 +227,57 @@ class QPager(QEngine):
 
     @property
     def devices(self) -> List[torch.device]:
-        """The device of each page slot."""
-        return list(self._all_devices[:self.n_pages])
+        """The device of each page."""
+        return [self._slot_devices[s] for s in self._slots]
 
     @property
     def device(self) -> torch.device:
-        return self._all_devices[0]
+        return self._slot_devices[self._slots[0]]
+
+    @property
+    def page_slots(self) -> List[int]:
+        """Each page's slot: its index in the construction device list
+        (spares after the first n_pages).  Integrity strikes and
+        quarantine are keyed by slot (resilience/integrity.py)."""
+        return list(self._slots)
+
+    # ------------------------------------------------------------------
+    # guarded dispatch (resilience/): while the plane is armed every page
+    # pass is one guarded call at the JAX pager's site of the same
+    # program — ``pager.dispatch`` for page-local passes,
+    # ``pager.exchange`` for those that move amplitudes between pages,
+    # ``cuda.fuse.flush`` for a window — and the reads that return host
+    # values run at ``pager.device_get`` with the integrity check of the
+    # value read.  While it is off, one attribute test.
+    # ------------------------------------------------------------------
+
+    def _pass(self, site: str, fn, *args):
+        """fn(*args) as one guarded dispatch at `site`.  The passes write
+        the pages in place, so the guard watches their writes (a retry
+        runs only a pass that wrote nothing); an in-place pass hands the
+        pages back as its output, where an amp-corrupt strike lands."""
+        if not _res._ACTIVE:
+            return fn(*args)
+        pages = self._pages_raw
+
+        def run():
+            out = fn(*args)
+            return pages if out is None else out
+
+        return _rdispatch.call_guarded(
+            site, run, writes=lambda: _rdispatch.write_token(pages))
+
+    def _host_read(self, fn, *args):
+        """A host read at ``pager.device_get`` (the sync that proves
+        completion), its value checked in place by the integrity plane."""
+        if not _res._ACTIVE:
+            return fn(*args)
+        out = _rdispatch.call_guarded("pager.device_get", fn, args)
+        from ..resilience import integrity as _integ
+
+        if _integ.enabled():
+            _integ.check_host("pager.device_get", out)
+        return out
 
     @property
     def local_bits(self) -> int:
@@ -344,9 +412,9 @@ class QPager(QEngine):
 
     def _apply_swaps(self, swaps) -> None:
         """Physical transpositions through one remap (in place)."""
-        self._pages_raw = shb.apply_remap(self._pages_raw, self.local_bits,
-                                          tuple(swaps),
-                                          batched=self._collective_batched())
+        self._pages_raw = self._pass(
+            "pager.exchange", shb.apply_remap, self._pages_raw,
+            self.local_bits, tuple(swaps), self._collective_batched())
 
     def _unmap(self) -> None:
         """Physically restore logical bit order (identity table) in one
@@ -395,19 +463,21 @@ class QPager(QEngine):
         mp = self._mp(m2)
         pages = self._pages_raw
         if target < L:
-            shb.apply_local_2x2(pages, mp, L, target, lmask, lval, gmask, gval)
+            self._pass("pager.dispatch", shb.apply_local_2x2, pages, mp, L,
+                       target, lmask, lval, gmask, gval)
         else:
-            shb.apply_global_2x2(pages, mp, target - L, lmask, lval, gmask,
-                                 gval)
+            self._pass("pager.exchange", shb.apply_global_2x2, pages, mp,
+                       target - L, lmask, lval, gmask, gval)
 
     def _apply_diag_phys(self, d0, d1, target, cmask, cval) -> None:
         L = self.local_bits
         lmask, lval, gmask, gval = _split_masks(cmask, cval, L)
         tmask = 1 << target
         d0, d1 = complex(d0), complex(d1)
-        shb.apply_diag(self._pages_raw, d0.real, d0.imag, d1.real, d1.imag,
-                       tmask & ((1 << L) - 1), tmask >> L,
-                       lmask, lval, gmask, gval)
+        self._pass("pager.dispatch", shb.apply_diag, self._pages_raw,
+                   d0.real, d0.imag, d1.real, d1.imag,
+                   tmask & ((1 << L) - 1), tmask >> L, lmask, lval, gmask,
+                   gval)
 
     def _k_apply_diag(self, d0, d1, target, controls, perm) -> None:
         self._settle()
@@ -486,7 +556,8 @@ class QPager(QEngine):
             body = fu.sharded_window_body(L, npg, structure, remap=swaps,
                                           batched=batched)
             FLUSHES["chain_windows"] += 1
-        self._pages_raw = body(self._pages_raw, *operands)
+        self._pages_raw = self._pass("cuda.fuse.flush", body,
+                                     self._pages_raw, *operands)
         self._map_assign(new_qmap)
         esize = self._pages_raw[0].element_size()
         if plan is not None:
@@ -507,10 +578,14 @@ class QPager(QEngine):
         if p1 > p2:
             p1, p2 = p2, p1
         if p2 < L:
-            for page in self._pages_raw:
-                shb.swap_bits_(page, L, p1, p2)
+            def lswap(pages):
+                for page in pages:
+                    shb.swap_bits_(page, L, p1, p2)
+
+            self._pass("pager.dispatch", lswap, self._pages_raw)
         elif p1 >= L:
-            self._pages_raw = shb.page_swap(self._pages_raw, p1 - L, p2 - L)
+            self._pages_raw = self._pass("pager.exchange", shb.page_swap,
+                                         self._pages_raw, p1 - L, p2 - L)
         else:
             if _tele._ENABLED:
                 _tele.inc("remap.pager.swap")
@@ -537,7 +612,8 @@ class QPager(QEngine):
         # the factors read the LOGICAL basis index: identity placement
         self._unmap()
         if split is not None and self._wide_alu:
-            shb.apply_split_factor(self._pages_raw, self.local_bits, *split)
+            self._pass("pager.dispatch", shb.apply_split_factor,
+                       self._pages_raw, self.local_bits, *split)
             return
         if self.qubit_count > 31:
             raise NotImplementedError(
@@ -547,8 +623,8 @@ class QPager(QEngine):
         def factor(page, idx):
             return fn(gk.plane_where(page), idx)
 
-        shb.apply_factor(self._pages_raw, self.local_bits, factor,
-                         self._index_dtype())
+        self._pass("pager.dispatch", shb.apply_factor, self._pages_raw,
+                   self.local_bits, factor, self._index_dtype())
 
     def _k_gather(self, src_fn, split=None) -> None:
         # basis permutations are written against logical bit order
@@ -558,8 +634,9 @@ class QPager(QEngine):
                 raise NotImplementedError(
                     "this basis permutation lacks a split-index form for "
                     ">31-qubit pagers (see ops/alu_kernels.py *_split)")
-            self._pages_raw = shb.gather_ring(self._pages_raw,
-                                              self.local_bits, *split)
+            self._pages_raw = self._pass("pager.exchange", shb.gather_ring,
+                                         self._pages_raw, self.local_bits,
+                                         *split)
             return
         L, dt = self.local_bits, self._index_dtype()
 
@@ -567,7 +644,10 @@ class QPager(QEngine):
             src = src_fn(lidx.to(dt) + (pid << L))
             return src >> L, src & ((1 << L) - 1)
 
-        self._pages_raw = shb.gather_ring(self._pages_raw, L, body, ())
+        # the JAX pager's one-program gather below 32 qubits is a
+        # pager.dispatch program (its split form, above, pager.exchange)
+        self._pages_raw = self._pass("pager.dispatch", shb.gather_ring,
+                                     self._pages_raw, L, body, ())
 
     def _k_out_of_place(self, src_idx, dst_idx, passthrough_cmask) -> None:
         if self.qubit_count > 31:
@@ -576,11 +656,15 @@ class QPager(QEngine):
             # this scatter wide means a new op needs its own
             raise NotImplementedError("see the `split=` gather forms")
         self._unmap()
+        self._pages_raw = self._pass("pager.dispatch", self._out_of_place,
+                                     self._pages_raw, src_idx, dst_idx,
+                                     passthrough_cmask)
+
+    def _out_of_place(self, old, src_idx, dst_idx, passthrough_cmask):
         L = self.local_bits
         lbits = (1 << L) - 1
         src = torch.as_tensor(src_idx).to("cpu", torch.int64).reshape(-1)
         dst = torch.as_tensor(dst_idx).to("cpu", torch.int64).reshape(-1)
-        old = self._pages_raw
         if passthrough_cmask is None:
             new = [torch.zeros_like(pg) for pg in old]
         else:
@@ -603,7 +687,7 @@ class QPager(QEngine):
                     continue
                 vals = old[sp][:, s[take].to(old[sp].device)]
                 new[dp][:, d_l[take].to(dev)] = vals.to(dev)
-        self._pages_raw = new
+        return new
 
     def _index_table(self, values):
         return torch.as_tensor(np.asarray(values, dtype=np.int64)).to(
@@ -618,9 +702,9 @@ class QPager(QEngine):
         if self._map_nonid():
             planes = self._fetch(0, 1 << self.qubit_count)
             return planes[0] ** 2 + planes[1] ** 2
-        return np.concatenate([
+        return self._pass("pager.dispatch", lambda pages: np.concatenate([
             gk.probs(page).to("cpu", torch.float64).numpy()
-            for page in self._pages_raw])
+            for page in pages]), self._pages_raw)
 
     def ProbParity(self, mask: int) -> float:
         """P(odd parity) of the masked bits, page by page on the pages'
@@ -630,7 +714,8 @@ class QPager(QEngine):
         self._settle()
         if self._map_nonid():
             mask, _ = self._map_mask(mask, 0)
-        p = shb.prob_parity(self._pages_raw, self.local_bits, mask)
+        p = self._pass("pager.dispatch", shb.prob_parity, self._pages_raw,
+                       self.local_bits, mask)
         return min(max(p, 0.0), 1.0)
 
     def ProbMaskAll(self, mask: int) -> np.ndarray:
@@ -640,21 +725,24 @@ class QPager(QEngine):
         self._settle()
         bits = [self._qmap[q] for q in range(self.qubit_count)
                 if (mask >> q) & 1]
-        return shb.prob_bits_all(self._pages_raw, self.local_bits, bits)
+        return self._pass("pager.dispatch", shb.prob_bits_all,
+                          self._pages_raw, self.local_bits, bits)
 
     def _k_prob_mask(self, mask, perm) -> float:
         self._settle()
         if self._map_nonid():
             mask, perm = self._map_mask(mask, perm)
-        p = shb.prob_mask(self._pages_raw, *self._split(mask, perm))
+        p = self._pass("pager.dispatch", shb.prob_mask, self._pages_raw,
+                       *self._split(mask, perm))
+        p = self._host_read(float, p)
         return min(max(p, 0.0), 1.0)
 
     def _k_collapse(self, mask, val, nrm_sq) -> None:
         self._settle()
         if self._map_nonid():
             mask, val = self._map_mask(mask, val)
-        shb.collapse(self._pages_raw, *self._split(mask, val),
-                     gk._rsqrt(nrm_sq, self.dtype))
+        self._pass("pager.dispatch", shb.collapse, self._pages_raw,
+                   *self._split(mask, val), gk._rsqrt(nrm_sq, self.dtype))
 
     def _draw_in_page(self, page) -> int:
         """One categorical draw over a page's |amp|^2 (float64), as
@@ -694,11 +782,12 @@ class QPager(QEngine):
         chosen page.  The draw runs in PHYSICAL order (the marginals are
         physical) and the result translates back through the table."""
         self._settle()
-        page_probs = np.asarray(shb.page_probs(self._pages_raw),
-                                dtype=np.float64)
+        page_probs = np.asarray(
+            self._pass("pager.dispatch", shb.page_probs, self._pages_raw),
+            dtype=np.float64)
         page = int(self.rng.choice_from_probs(page_probs, 1)[0])
         L = self.local_bits
-        sub = self._draw_in_page(self._pages_raw[page])
+        sub = self._host_read(self._draw_in_page, self._pages_raw[page])
         result = self._unmap_index((page << L) | sub)
         self.SetPermutation(result)
         return result
@@ -706,8 +795,12 @@ class QPager(QEngine):
     def _k_normalize(self, nrm_sq) -> None:
         self._settle()
         s = gk._rsqrt(nrm_sq, self.dtype)
-        for page in self._pages_raw:
-            page.mul_(s)
+
+        def scale(pages):
+            for page in pages:
+                page.mul_(s)
+
+        self._pass("pager.dispatch", scale, self._pages_raw)
 
     def _k_sum_sqr_diff(self, other) -> float:
         self._unmap()
@@ -749,6 +842,7 @@ class QPager(QEngine):
         if new_g != self.g_bits:
             self.n_pages = 1 << new_g
             self.g_bits = new_g
+            self._slots = self._device_pool()[:self.n_pages]
         if qubit_count - self.g_bits > MAX_PAGE_QB:
             raise MemoryError(
                 f"QPager page width {qubit_count - self.g_bits} exceeds a "
@@ -785,8 +879,9 @@ class QPager(QEngine):
         else:
             b = gk.to_planes(np.asarray(other.GetQuantumState()), self.dtype,
                              "cpu")
-        self._pages = shb.compose_ring(self._pages_raw, b, self.local_bits,
-                                       start, n1, n2)
+        self._pages = self._pass("pager.exchange", shb.compose_ring,
+                                 self._pages_raw, b, self.local_bits, start,
+                                 n1, n2)
         self._map_reset(n1 + n2)
 
     def _span_local(self, start: int, length: int) -> int:
@@ -901,7 +996,8 @@ class QPager(QEngine):
         n = self.qubit_count
         if self._mesh_would_change(n - length):
             return self._host_split(start, length, None)
-        rem, dest, rest = self._split_pages(start, length, None)
+        rem, dest, rest = self._pass("pager.dispatch", self._split_pages,
+                                     start, length, None)
         self._pages = rem
         self._map_assign(rest)
         d = dest.to("cpu", torch.float64).numpy()
@@ -915,7 +1011,8 @@ class QPager(QEngine):
         if self._mesh_would_change(n - length):
             self._host_split(start, length, perm)
             return
-        rem, _dest, rest = self._split_pages(start, length, perm)
+        rem, _dest, rest = self._pass("pager.dispatch", self._split_pages,
+                                      start, length, perm)
         self._pages = rem
         self._map_assign(rest)
 
@@ -952,6 +1049,174 @@ class QPager(QEngine):
             else:
                 qmap.append(q)
         self._map_assign(qmap)
+
+    # ------------------------------------------------------------------
+    # elastic re-paging: on a device failure, halve the page count and
+    # keep serving on the card; at a later call boundary (health probe),
+    # grow back.  Distinct from _pages_for's width-driven rebalance:
+    # these moves are fault-driven and move the page-count CEILING
+    # (_max_g).  Every re-page runs on the card (the JAX pager gathers
+    # the ket to the host and puts it back).
+    # ------------------------------------------------------------------
+
+    @property
+    def elastic_degraded(self) -> bool:
+        return self._elastic_target_g is not None
+
+    def _device_pool(self) -> List[int]:
+        """Slot preference order for (re-)paging: the construction slots,
+        then the spares, with integrity-quarantined slots excluded — so a
+        quarantined slot is replaced by a spare at the next re-page.  A
+        fully quarantined list still serves (the construction order)."""
+        slots = list(range(len(self._slot_devices)))
+        if not _res._ACTIVE:
+            return slots
+        from ..resilience import integrity as _integ
+
+        q = _integ.quarantined()
+        if not q:
+            return slots
+        pool = [sl for sl in slots if sl not in q]
+        return pool if pool else slots
+
+    def can_shrink(self) -> bool:
+        """True when a 2^g -> 2^(g-1) re-page is possible: more than one
+        page left and the doubled page still fits MAX_PAGE_QB."""
+        return (self.n_pages > 1
+                and (self.qubit_count - (self.g_bits - 1)) <= MAX_PAGE_QB)
+
+    def shrink_pages(self) -> "QPager":
+        """Re-page from 2^g to 2^(g-1) pages on the card, in place.  A
+        pending window stays pending when a flush is re-dispatching it,
+        and runs (raw, under the fault suspension) otherwise."""
+        if not self.can_shrink():
+            raise MemoryError(
+                f"QPager cannot shrink below {self.n_pages} page(s) at "
+                f"width {self.qubit_count}")
+        new_g = self.g_bits - 1
+        if self._elastic_target_g is None:
+            self._elastic_target_g = self._max_g
+        self._repage(new_g)
+        self._max_g = new_g
+        if _tele._ENABLED:
+            # event() bumps the same-named counter itself
+            _tele.event("elastic.repage.shrink", pages=self.n_pages,
+                        target_pages=1 << self._elastic_target_g)
+            _tele.gauge("elastic.pages", self.n_pages)
+        return self
+
+    def _repage(self, new_g: int) -> None:
+        """Re-split the ket over 2^new_g pages on the slots of
+        _device_pool, on the card: identity placement first, then each
+        new page is its old pages side by side (fewer pages) or a copy of
+        a slice of one (more pages); a page that keeps its size and
+        device moves without a copy.  The new pages are built in locals
+        and committed last, so a failed re-page leaves the current
+        topology untouched (at the cost of both layouts at once)."""
+        with _res.faults.suspended():
+            # the unmap's exchanges must not advance fault-spec counters
+            # nor be refused by an open breaker
+            self._unmap()
+        pages = self._pages_raw
+        L_old = self.local_bits
+        L_new = self.qubit_count - new_g
+        slots = self._device_pool()[:1 << new_g]
+        devs = [self._slot_devices[sl] for sl in slots]
+        new = []
+        if L_new >= L_old:
+            r = 1 << (L_new - L_old)
+            for j, dev in enumerate(devs):
+                parts = [pages[j * r + i].to(dev) for i in range(r)]
+                new.append(parts[0] if r == 1 else torch.cat(parts, dim=1))
+        else:
+            r, size = 1 << (L_old - L_new), 1 << L_new
+            for j, dev in enumerate(devs):
+                off = (j % r) * size
+                new.append(pages[j // r][:, off:off + size].to(
+                    dev, copy=True).contiguous())
+        self.n_pages = 1 << new_g
+        self.g_bits = new_g
+        self._slots = slots
+        self._pages_raw = new
+        self._map_reset()
+
+    def expand_pages(self) -> bool:
+        """Grow back toward the construction page count.  True on success
+        (or when already healthy); on failure the pager STAYS
+        degraded-but-serving at its current size and returns False."""
+        target = self._elastic_target_g
+        if target is None:
+            return True
+        if _res._ACTIVE:
+            # quarantine caps recovery: never expand onto more pages
+            # than the healthy pool (spares included) can host
+            target = min(target, log2(max(1, len(self._device_pool()))))
+        self._max_g = target
+        new_g = self._desired_g(self.qubit_count)
+        try:
+            if new_g != self.g_bits:
+                self._repage(new_g)
+        except Exception:  # noqa: BLE001 — stay degraded, keep serving
+            self._max_g = self.g_bits
+            if _tele._ENABLED:
+                _tele.inc("elastic.repage.expand_failed")
+                _tele.gauge("elastic.pages", self.n_pages)
+            return False
+        self._elastic_target_g = None
+        if _tele._ENABLED:
+            _tele.event("elastic.repage.expand", pages=self.n_pages)
+            _tele.gauge("elastic.pages", self.n_pages)
+        return True
+
+    def _quarantine_repage(self) -> bool:
+        """Move the ket OFF freshly quarantined slots at a call boundary:
+        re-page at the SAME page count when the healthy pool (spares
+        included) still covers it, else shrink a level and keep
+        serving."""
+        pool = self._device_pool()
+        if len(pool) >= self.n_pages:
+            try:
+                self._repage(self.g_bits)
+            except Exception:  # noqa: BLE001 — stay on current topology
+                if _tele._ENABLED:
+                    _tele.inc("integrity.quarantine.repage_failed")
+                return False
+            if _tele._ENABLED:
+                _tele.event("integrity.quarantine.repage",
+                            pages=self.n_pages)
+            return True
+        if self.can_shrink():
+            self.shrink_pages()
+            if _tele._ENABLED:
+                _tele.event("integrity.quarantine.shrink",
+                            pages=self.n_pages)
+            return True
+        if _tele._ENABLED:
+            _tele.inc("integrity.quarantine.repage_failed")
+        return False
+
+    def maybe_reexpand(self) -> bool:
+        """Call-boundary hook (ResilientEngine / QHybrid): expand when
+        degraded AND the health probe passes.  One attribute test when
+        healthy.  Also the integrity quarantine consumer: when the
+        quarantine epoch moved and a page sits on a quarantined slot,
+        re-page off it first (returns False for that alone)."""
+        if _res._ACTIVE:
+            from ..resilience import integrity as _integ
+
+            ep = _integ._EPOCH
+            if ep != self._quarantine_epoch:
+                self._quarantine_epoch = ep
+                q = _integ.quarantined()
+                if q and any(sl in q for sl in self._slots):
+                    self._quarantine_repage()
+        if self._elastic_target_g is None:
+            return False
+        from ..resilience import elastic as _elastic
+
+        if not _elastic.health_probe():
+            return False
+        return self.expand_pages()
 
     # ------------------------------------------------------------------
     # lossy checkpoints: per-page streams staged through the host one
@@ -1055,6 +1320,9 @@ class QPager(QEngine):
             _tele.inc("exchange.pager.host_fetch")
             _tele.inc("exchange.pager.host_fetch_bytes",
                       2 * length * self._pages_raw[0].element_size())
+        return self._host_read(self._read_window, offset, length)
+
+    def _read_window(self, offset: int, length: int) -> np.ndarray:
         L = self.local_bits
         out = np.empty((2, length), dtype=np.float64)
         pos = offset

@@ -174,7 +174,9 @@ class QPagerTurboQuant(tqe.QEngineCUDATurboQuant):
         if tb_pos < lcb:
             super()._gate_pair(m, tb_pos, hm, hv, lm, lv)
             return
-        self._gate_pair_cross(m, tb_pos - lcb, hm, hv, lm, lv)
+        # the pair exchange: one guarded dispatch at its own site
+        self._tq_call(self._gate_pair_cross, m, tb_pos - lcb, hm, hv, lm, lv,
+                      site="turboquant_pager.exchange")
 
     def _gate_pair_cross(self, m, page_bit: int, hm, hv, lm, lv) -> None:
         """Pages p0 (page bit clear) and p1 = p0 | 2^page_bit mix chunk i
