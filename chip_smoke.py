@@ -125,9 +125,10 @@ scatters, the RCS ISwap layer and the Grover passes are plain torch):
     0.5; random_circuit_sampling(12 layers, QrackRandom(7)) through the
     hybrid against rcs.make_rcs_fn(30, 12, 7) on a copy of the planes,
     fidelity >= 1 - 1e-5;
-12. grover, w24: grover.make_grover_fn gives a success_probability >=
-    0.99; on create_quantum_interface("cuda", 24) the body of
-    grover_search (grover_amplify: 3216 iterations) reaches the same
+12. grover, w22 (GROVER_ENGINE_WIDTH; w24 and 3216 iterations until the
+    run budget's cut in PR 15): grover.make_grover_fn gives a
+    success_probability >= 0.99; on create_quantum_interface("cuda", 22)
+    the body of grover_search (grover_amplify: 804 iterations) reaches the same
     ProbAll within 1e-4 after NormalizeState (each H's float32 1/sqrt(2)
     shrinks the norm by 3.4e-8, 0.5% over the run), and the search's
     MAll then returns the seeded target.
@@ -347,8 +348,10 @@ package left them to XLA):
     >= 1 - 1e-5);
     make_sharded_rcs_fn at w30, depth 6 (RCS_PAGE_DEPTH), against
     make_rcs_fn on one plane pair (fidelity >= 1 - 1e-5);
-    make_sharded_grover_fn at w32 with 3 iterations against
-    sin^2(7 asin(2^-16)) within 1e-4 of it.  Each timed, each within
+    make_sharded_grover_fn at w30 on 4 pages of 2^28
+    (SHARDED_GROVER_WIDTH; w32, 8.1 s, until the run budget's cut in PR
+    15) with 3 iterations against sin^2(7 asin(2^-15)) within 1e-4 of
+    it.  Each timed, each within
     4 GiB above its pages;
 35. tq_pager: create_quantum_interface("turboquant_pager", 32, bits=8,
     devices=[card] * 4): a GHZ state (H, 31 CNOTs: targets in the chunk,
@@ -450,8 +453,58 @@ the class, and the planes themselves:
     as the run's are beside its 880 s: a budget, not a bar (one machine
     ran the same phase 27-33 s).
 
+Then the checkpoint plane (qrack_tpu_torch/checkpoint; no new kernel).
+Its files go to one temporary directory, under QRACK_SMOKE_TMP when it
+is set, else the system's; the phase first checks that the directory has
+1.2 times the bytes it writes at once free (8 GiB: the w30 file), raises
+naming it otherwise, and deletes each file after its check:
+
+39. checkpoint: (a) the w30 float32 "cuda" engine from 0x2A5C3F1, its
+    engine-path QFT through K1/K2, then capture + save_snapshot (what
+    save_state runs), the planes' digest (plane_digest) the same after
+    the capture; a fresh create_quantum_interface("cuda", 30,
+    rng=QrackRandom(991)) loads the file (load_snapshot + restore_into,
+    what load_state(path, into=) runs, the planes written in place);
+    both continue with the IQFT and a seeded tail of 90 H/T/CNOT
+    (ckpt_tail), the first K1 and K2 launch of the loaded engine's
+    continuation held to plain at phase 2's bar: planes torch.equal and
+    MAll equal.  Printed: the capture, hash and write, the read, hash
+    and upload, each in ms with its GB/s (host clocks; the parts of the
+    container's own save and load, checkpoint/container.py LAST_SAVE/
+    LAST_LOAD; the digests run on threads beside the write and the read,
+    so the wait for them past it is printed too), the file's bytes, and
+    the device memory above the live
+    engines' planes during the save and the load (bar: 1 GiB each).
+    (b) a w28 pager on 4 pages of 2^26 on the card: its engine-path QFT
+    and H on the top four qubits leave the placement table non-identity
+    (checked); save_state writes the raw pages as complex128 (4 GiB);
+    load_state into a fresh 4-page pager (table and pages bit for bit
+    after the continuation, the first per-page K1 and K2 launch held to
+    plain, MAll equal), load_state(path) with no target (4 pages on
+    cuda, bit for bit), and into a 2-page pager (fidelity >= 1 - 1e-6
+    after the continuation, against the build's pages in logical order).
+    (c) a w28 int8 "turboquant" engine: its QFT through K3-K5, save and
+    load_state(path): codes and scales equal the saved ones bit for bit;
+    both continue (a one-gate window, a lone diagonal, the IQFT and the
+    seeded tail: K3, K4 and K5 each launch) and their codes and scales
+    equal bit for bit (no kernel of csrc/turboquant_kernel.cu uses an
+    atomic: each block writes its own tile).  (d) the "optimal" stack at
+    w24: a GHZ and a non-Clifford block whose shards meet CNOTs, which
+    puts a unit on a QEngineCUDA on the card; save, load INTO a fresh
+    "optimal" stack, continue both: every amplitude equal and MAll
+    equal.  (e) the failover snapshot file at w20, with
+    QRACK_TPU_FAILOVER_PERSIST naming a directory: a 2-page pager under
+    a persistent pager.device_get raise, with no retries (so the breaker
+    stays closed) and no CPU rung, moves 2 -> 1 pages -> QEngineCUDA;
+    exactly one file a move, each loading (load_state, on cuda) to the
+    ket before the call bit for bit; K1/K2 launch on the dense engine
+    after the moves.  Then a pager whose page holds a NaN under a
+    persistent pager.device_get nan-poison: persist_rejected is counted
+    and no file is written.  The phase's seconds are printed beside its
+    budget of 60 s (CKPT_PHASE_S), a budget, not a bar.
+
 The kernels line counts K1/K2 launches by dtype form over every dense
-path (phases 3, 8-12, 14-17, 19-22, 24-28, 37 and 38); their times and errors
+path (phases 3, 8-12, 14-17, 19-22, 24-28, 37, 38 and 39); their times and errors
 are those of the launches held to plain (float32: phase 4 and the Shor
 IQFT of phase 10; the other forms: phase 14).  The per-page form of K1
 and K2 has entries of its own: launches over phases 29-32, times and
@@ -459,7 +512,9 @@ errors over the launches held in phase 29, and the w32 engine path's
 launches at pages of 2^30 (l30_*).  Phase 33's launches count with the
 per-page form, phase 36's with the dense one; phase 37's w32 QFT with
 the per-page form, its w16 TurboQuant engine with K3-K5; phase 38's
-pagers' with the per-page form, its w24 TurboQuant engine with K3-K5.
+pagers' with the per-page form, its w24 TurboQuant engine with K3-K5;
+phase 39's pagers' with the per-page form, its w28 TurboQuant engines
+with K3-K5, the rest with the dense form.
 
 ``--tq-only`` runs the build and phases 5-7 alone; ``--algo-only`` the
 build and phases 8-12; ``--fppow-only`` the build and phases 13-17;
@@ -467,7 +522,8 @@ build and phases 8-12; ``--fppow-only`` the build and phases 13-17;
 and phases 29-32; ``--wide-only`` the build and phases 33-36;
 ``--telemetry-only`` the build and phase 37 (its disabled wall then
 held to two warm reps of its own in place of phase 4's);
-``--resilience-only`` the build and phase 38 (likewise).
+``--resilience-only`` the build and phase 38 (likewise);
+``--checkpoint-only`` the build and phase 39.
 
 The line before the last is the "kernels" summary, the last line
 {"ok": true, "device": {...}}.  Any failed check raises, so the script
@@ -561,7 +617,8 @@ HYBRID_START = 10     # below the hybrid threshold (13): QEngineCPU
 HYBRID_GROW = 14      # composed on: 24 qubits, QEngineCUDA
 RCS_DEPTH = 12
 RCS_SEED = 7
-GROVER_WIDTH = 24     # 3216 iterations
+GROVER_WIDTH = 24     # 3216 iterations (the drift phase)
+GROVER_ENGINE_WIDTH = 22  # phase 12: 804 iterations (w24 until PR 15's cut)
 # the layers above the terminals (phases 18-22)
 QV_WIDTH = WIDTH      # quantum_volume's gates through OPTIMAL and "cuda"
 QV_DEPTH = 20          # 30 until the run budget took the cut (PERF.md)
@@ -622,7 +679,8 @@ WIDE_SEED = 33
 RCS_PAGE_DEPTH = 6        # make_sharded_rcs_fn at w30
 SHARDED_QFT_WIDTH = 28    # compile_sharded_fn's QFT: 4 pages of 2^26
 SHARDED_QFT_FN_WIDTH = 30  # make_sharded_qft_fn: 4 pages of 2^28
-GROVER_PAGE_ITERS = 3     # make_sharded_grover_fn at w32
+GROVER_PAGE_ITERS = 3     # make_sharded_grover_fn ...
+SHARDED_GROVER_WIDTH = 30  # ... on 4 pages of 2^28 (w32 until PR 15's cut)
 TQ_PAGER_SMALL = 26       # the TurboQuant pager against QEngineCUDA
 TQ_PAGER_READS = 35       # seed of the half of the qubits phase 35 reads
 UNIT_MULTI_HALF = 24      # two separable 24-qubit registers
@@ -639,6 +697,18 @@ RES_SEED = 38
 RES_HANG_S = 2.0          # the watchdog's timeout in the hang drill
 RES_HANG_SLACK_S = 1.0
 RES_PHASE_S = 35.0        # phase 38's budget (printed, as the run's 880 s)
+# the checkpoint plane (phase 39)
+CKPT_SEED = 39
+CKPT_PAGER_WIDTH = 28     # 4 pages of 2^26: a 4 GiB file (complex128)
+CKPT_PAGER_PAGES = 4
+CKPT_PAGER_PERM = 0x9A5C3F1
+CKPT_TQ_WIDTH = 28        # int8 codes: 512 MiB
+CKPT_STACK_WIDTH = 24     # "optimal"
+CKPT_FAILOVER_WIDTH = 20  # the failover snapshot file's drills
+CKPT_FAILOVER_PERM = 0x5C3F1
+CKPT_MEM_BAR = 1 << 30    # device bytes above the planes, save or load
+CKPT_ROOM = 1.2           # free disk over the bytes written at once
+CKPT_PHASE_S = 60.0       # phase 39's budget (printed, as the run's 880 s)
 TELE_DISABLED_BAR = 0.02  # disabled w30 QFT wall against phase 4's
 TELE_HOOK_WIDTH = 16      # the small stacks that reach every other hook
 TELE_REQUIRED = (         # counter families phase 37 must reach
@@ -1969,7 +2039,7 @@ def grover_phase(card: str, dev) -> dict:
     from qrack_tpu_torch.ops import window_kernel as wk
     from qrack_tpu_torch.utils.rng import QrackRandom
 
-    n = GROVER_WIDTH
+    n = GROVER_ENGINE_WIDTH
     target = int(np.random.default_rng(n).integers(1, 1 << n))
     fn, iters = grover.make_grover_fn(n, target)
     out = []
@@ -4039,7 +4109,7 @@ def page_programs(card: str, dev) -> dict:
     del pages, ref
     release()
 
-    n = PAGER_WIDTH
+    n = SHARDED_GROVER_WIDTH
     target = int(np.random.default_rng(n).integers(1, 1 << n))
     fn, devs, iters = grm.make_sharded_grover_fn([dev] * PAGER_PAGES, n,
                                                  target, iters=GROVER_PAGE_ITERS)
@@ -5134,6 +5204,439 @@ def resilience_phase(card: str, dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the checkpoint plane (phase 39)
+# ---------------------------------------------------------------------------
+
+def ckpt_tail(q, n: int, seed: int) -> None:
+    """A fixed seeded tail of H, T and CNOT gates: 3n of them."""
+    rng = np.random.default_rng(seed)
+    for _ in range(3 * n):
+        k, t = int(rng.integers(0, 3)), int(rng.integers(0, n))
+        if k == 0:
+            q.H(t)
+        elif k == 1:
+            q.T(t)
+        else:
+            q.CNOT(t, (t + 1 + int(rng.integers(0, n - 1))) % n)
+
+
+def ckpt_dir(nbytes: int) -> str:
+    """A fresh directory for the phase's files under QRACK_SMOKE_TMP, else
+    the system's temporary directory; raises naming it when its free
+    space is under CKPT_ROOM times the `nbytes` written at once."""
+    import shutil
+    import tempfile
+
+    root = os.environ.get("QRACK_SMOKE_TMP") or tempfile.gettempdir()
+    free = shutil.disk_usage(root).free
+    check(free >= CKPT_ROOM * nbytes,
+          f"{root} has {free} bytes free; phase 39 writes {nbytes} at once "
+          f"and needs {CKPT_ROOM}x that (set QRACK_SMOKE_TMP to a "
+          "directory on a larger local disk)")
+    return tempfile.mkdtemp(prefix="qrack-ckpt-", dir=root)
+
+
+def gbps(nbytes: int, seconds: float) -> float:
+    return nbytes / seconds / 1e9 if seconds > 0 else float("inf")
+
+
+def checkpoint_phase(card: str, dev) -> dict:
+    """Phase 39 (module docstring); returns its kernel launches: "dense"
+    (K1/K2 of the w30 engines, the w24 stack's units and the engine the
+    failover chain moved onto), "pager" (K1/K2 per page of the w28 and
+    w20 pagers) and "tq" (K3-K5 of the w28 compressed engines)."""
+    import shutil
+
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch import resilience as res
+    from qrack_tpu_torch import telemetry as tele
+    from qrack_tpu_torch.checkpoint import container as ckc
+    from qrack_tpu_torch.checkpoint import registry as reg
+    from qrack_tpu_torch.ops import turboquant_kernel as tqk
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.resilience import faults
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    t_phase = time.time()
+    out = {"phase": "checkpoint", "card": card, "sections_s": {}}
+    t_lap = [t_phase]
+
+    def lap(name: str) -> None:
+        now = time.time()
+        out["sections_s"][name] = now - t_lap[0]
+        t_lap[0] = now
+    counts = {"dense": {"in_tile": 0, "pair": 0},
+              "pager": {"in_tile": 0, "pair": 0},
+              "tq": {k: 0 for k in tqk.LAUNCHES}}
+
+    def launched(kind: str, fn):
+        """fn() with its K1/K2 launches added to counts[kind] and its K3-K5
+        launches to counts["tq"]; returns (result, the K1/K2 delta)."""
+        w0, t0_ = dict(wk.launches()), dict(tqk.LAUNCHES)
+        r = fn()
+        sync()
+        dw = {k: v - w0[k] for k, v in wk.launches().items()}
+        for k, v in dw.items():
+            counts[kind][k] += v
+        for k, v in tqk.LAUNCHES.items():
+            counts["tq"][k] += v - t0_[k]
+        return r, dw
+
+    def held_first(label: str, fn):
+        """fn() with the first in-tile and the first pair launch of its
+        K1/K2 held to plain (SweepProbe: kernel and plain version on the
+        same input, timed, at the bar of phase 2)."""
+        p = SweepProbe(wk)
+        p.label, p.every = label, 1 << 62
+        with p:
+            r = fn()
+        sync()
+        for name in ("in_tile", "pair"):
+            s = p.stats.get(name)
+            check(s is not None and s["launches"] == 1,
+                  f"{label}: no {name} launch held to plain ({p.stats})")
+        out.setdefault("held", {})[label] = {
+            name: {k: p.stats[name][k] for k in
+                   ("ms", "plain_ms", "bound_ms", "max_abs_err",
+                    "max_rel_err")} for name in ("in_tile", "pair")}
+        return r
+
+    release()
+    tmp = ckpt_dir(2 * 4 * (1 << WIDTH) + (1 << 20))
+    out["dir"] = tmp
+    try:
+        # ---- a. w30 float32 dense: save, load into a fresh engine -------
+        n = WIDTH
+        a = qt.create_quantum_interface("cuda", n, init_state=PERM,
+                                        rng=QrackRandom(CKPT_SEED),
+                                        rand_global_phase=False)
+        launched("dense", lambda: (a.QFT(0, n), a.Finish()))
+        digest = plane_digest([a.device_planes])
+        path = os.path.join(tmp, "dense.qckpt")
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        snap = reg.capture(a)           # save_state = capture + save_snapshot
+        cap_s = time.perf_counter() - t0
+        raw = sum(x.nbytes for x in snap["arrays"].values())
+        nbytes = reg.save_snapshot(snap, path)
+        save = dict(ckc.LAST_SAVE)
+        save_peak = torch.cuda.max_memory_allocated() - base
+        del snap
+        check(plane_digest([a.device_planes]) == digest,
+              "the capture changed the w30 planes")
+        b = qt.create_quantum_interface("cuda", n, rng=QrackRandom(991),
+                                        rand_global_phase=False)
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        snap = reg.load_snapshot(path)  # load_state = load_snapshot + ...
+        load = dict(ckc.LAST_LOAD)
+        t0 = time.perf_counter()
+        reg.restore_into(b, snap)       # ... restore_into (or build)
+        sync()
+        up_s = time.perf_counter() - t0
+        load_peak = torch.cuda.max_memory_allocated() - base
+        del snap
+        os.unlink(path)
+        for peak, what in ((save_peak, "save"), (load_peak, "load")):
+            check(peak <= CKPT_MEM_BAR,
+                  f"w{n} {what} took {peak} bytes of device memory above "
+                  f"the planes (bar {CKPT_MEM_BAR})")
+        check(b.dtype == torch.float32 and b.device.type == "cuda",
+              f"the w{n} load landed as {b.dtype} on {b.device}")
+
+        def cont(q):
+            q.IQFT(0, n)
+            ckpt_tail(q, n, CKPT_SEED)
+            q.Finish()
+        launched("dense", lambda: cont(a))
+        _, dw = launched("dense", lambda: held_first(
+            f"w{n} continuation", lambda: cont(b)))
+        check(dw["in_tile"] > 0 and dw["pair"] > 0,
+              f"the w{n} continuation skipped a kernel entry point: {dw}")
+        check(torch.equal(a.device_planes, b.device_planes),
+              f"the w{n} continuation from the file differs from the live "
+              "engine's")
+        ma, mb = a.MAll(), b.MAll()
+        check(ma == mb, f"w{n} MAll {ma} against {mb} from the file")
+        out["dense"] = {
+            "width": n, "file_bytes": nbytes, "planes_bytes": raw,
+            "capture_ms": cap_s * 1e3, "capture_gbps": gbps(raw, cap_s),
+            # the digests run on threads beside the write and the read:
+            # their own ms, and the wait for them past the write/read
+            "hash_ms": save["hash_s"] * 1e3,
+            "hash_gbps": gbps(raw, save["hash_s"]),
+            "hash_wait_ms": save["hash_wait_s"] * 1e3,
+            "write_ms": save["write_s"] * 1e3,
+            "write_gbps": gbps(nbytes, save["write_s"]),
+            "read_ms": load["read_s"] * 1e3,
+            "read_gbps": gbps(nbytes, load["read_s"]),
+            "load_hash_ms": load["hash_s"] * 1e3,
+            "load_hash_gbps": gbps(raw, load["hash_s"]),
+            "load_hash_wait_ms": load["hash_wait_s"] * 1e3,
+            "upload_ms": up_s * 1e3, "upload_gbps": gbps(raw, up_s),
+            "save_peak_above_planes_gib": save_peak / 2 ** 30,
+            "load_peak_above_planes_gib": load_peak / 2 ** 30,
+            "mall": ma}
+        del a, b
+        release()
+        lap("dense_w30")
+
+        # ---- b. w28 pager on 4 pages: into 4, build, into 2 ------------
+        n = CKPT_PAGER_WIDTH
+
+        def pager(pages: int, seed: int):
+            return qt.create_quantum_interface(
+                "pager", n, devices=[dev] * pages, rng=QrackRandom(seed),
+                rand_global_phase=False)
+        p = pager(CKPT_PAGER_PAGES, CKPT_SEED)
+        p.SetPermutation(CKPT_PAGER_PERM)
+
+        def prefix():
+            p.QFT(0, n)
+            for t in range(n - 4, n):
+                p.H(t)
+            p.Finish()
+        launched("pager", prefix)
+        check(p._map_nonid(), "the w28 prefix left the placement table "
+                              "identity")
+        path = os.path.join(tmp, "pager.qckpt")
+        nbytes = reg.save_state(p, path)
+        psave = dict(ckc.LAST_SAVE)
+        qmap = list(p._qmap)
+
+        def pcont(q):
+            q.IQFT(0, n)
+            ckpt_tail(q, n, CKPT_SEED + 1)
+            q.Finish()
+        launched("pager", lambda: pcont(p))
+        loads = {}
+
+        def load(label: str, into=None):
+            t0 = time.perf_counter()
+            q = reg.load_state(path, into=into)
+            loads[label] = {"ms": (time.perf_counter() - t0) * 1e3,
+                            **ckc.LAST_LOAD}
+            check(q.devices == [p.devices[0]] * q.n_pages,
+                  f"the {label} pager landed on {q.devices}")
+            return q
+
+        def same(q, label: str) -> None:
+            check(q.n_pages == CKPT_PAGER_PAGES and q._qmap == p._qmap
+                  and all(torch.equal(x, y) for x, y in
+                          zip(p._pages_raw, q._pages_raw)),
+                  f"the w{n} {label} continuation differs from the live "
+                  "pager's")
+        q4 = load("into_4", pager(CKPT_PAGER_PAGES, 991))
+        check(q4._qmap == qmap, "the w28 load lost the placement table")
+        launched("pager", lambda: held_first(f"w{n} pager continuation",
+                                             lambda: pcont(q4)))
+        same(q4, "into_4")
+        qb = load("build")
+        check(qb.n_pages == CKPT_PAGER_PAGES and qb._qmap == qmap,
+              f"the w{n} build holds {qb.n_pages} pages")
+        launched("pager", lambda: pcont(qb))
+        same(qb, "build")
+        mp, m4 = p.MAll(), q4.MAll()
+        check(mp == m4, f"w{n} pager MAll {mp} against {m4} from the file")
+        loads["mall"] = mp
+        q2 = load("into_2", pager(2, 992))
+        launched("pager", lambda: pcont(q2))
+        # against the build's pages (equal to the live pager's), both in
+        # logical order
+        qb._unmap()
+        q2._unmap()
+        fid = fidelity(torch.cat(qb._pages_raw, dim=1),
+                       torch.cat(q2._pages_raw, dim=1))
+        check(fid >= 1 - 1e-6, f"w{n} 4 -> 2-page load: fidelity {fid} "
+                               "after the continuation")
+        loads["into_2"]["fidelity"] = fid
+        del q2
+        os.unlink(path)
+        out["pager"] = {"width": n, "pages": CKPT_PAGER_PAGES,
+                        "file_bytes": nbytes,
+                        "hash_ms": psave["hash_s"] * 1e3,
+                        "hash_wait_ms": psave["hash_wait_s"] * 1e3,
+                        "write_ms": psave["write_s"] * 1e3, "loads": loads}
+        del p, q4, qb
+        release()
+        lap("pager_w28")
+
+        # ---- c. w28 int8 TurboQuant: codes bit for bit ------------------
+        n = CKPT_TQ_WIDTH
+        t = qt.create_quantum_interface("turboquant", n, bits=8,
+                                        init_state=PERM,
+                                        rng=QrackRandom(CKPT_SEED),
+                                        rand_global_phase=False)
+        launched("dense", lambda: (t.QFT(0, n), t.Finish()))
+        path = os.path.join(tmp, "tq.qckpt")
+        codes, scales = t.host_codes()
+        nbytes = reg.save_state(t, path)
+        u = reg.load_state(path)
+        os.unlink(path)
+        uc, us = u.host_codes()
+        check(np.array_equal(uc, codes) and np.array_equal(us, scales),
+              f"the w{n} TurboQuant load differs from the saved codes")
+        del codes, scales, uc, us
+
+        def tcont(q):
+            q.H(3)
+            q.Prob(3)            # a one-gate window: tq_gate_low (K3)
+            q.T(2)
+            q.Prob(2)            # a lone diagonal: tq_diag (K4)
+            q.IQFT(0, n)         # multi-op windows: tq_window (K5)
+            ckpt_tail(q, n, CKPT_SEED + 2)
+            q.Finish()
+        for q in (t, u):
+            launched("dense", lambda: tcont(q))
+        tc_, ts_ = t.host_codes()
+        uc, us = u.host_codes()
+        check(np.array_equal(tc_, uc) and np.array_equal(ts_, us),
+              f"the w{n} TurboQuant continuation from the file differs "
+              "from the live engine's")
+        check(all(v > 0 for v in counts["tq"].values()),
+              f"the w{n} TurboQuant runs skipped a kernel: {counts['tq']}")
+        out["turboquant"] = {"width": n, "bits": 8, "file_bytes": nbytes}
+        del t, u, tc_, ts_, uc, us
+        release()
+        lap("turboquant_w28")
+
+        # ---- d. the "optimal" stack at w24 ------------------------------
+        n = CKPT_STACK_WIDTH
+
+        def stack(seed: int):
+            return qt.create_quantum_interface("optimal", n,
+                                               rng=QrackRandom(seed),
+                                               rand_global_phase=False)
+        s = stack(CKPT_SEED)
+
+        def sprefix():
+            s.H(0)
+            for q_ in range(n - 1):
+                s.CNOT(q_, q_ + 1)
+            for q_ in range(0, n, 5):
+                s.T(q_)
+                s.RY(0.3 + 0.1 * q_, q_)
+            # the shards of the non-Clifford gates meet a CNOT: the
+            # tableau switches to the dense engine on the card
+            s.CNOT(0, 5)
+            s.H(5)
+            s.CNOT(5, 1)
+            s.CNOT(n - 1, 0)
+            s.Finish()
+        launched("dense", sprefix)
+        units = cuda_engines(s)
+        check(units and all(e.device.type == "cuda" for e in units),
+              f"the w{n} stack put no unit on the card")
+        path = os.path.join(tmp, "stack.qckpt")
+        nbytes = reg.save_state(s, path)
+        s2 = reg.load_state(path, into=stack(991))
+        os.unlink(path)
+        check(all(e.device.type == "cuda" for e in cuda_engines(s2)),
+              f"the w{n} stack's load left a unit off the card")
+
+        def scont(q):
+            q.H(n - 1)
+            q.CNOT(n - 1, 3)
+            q.T(3)
+            q.CNOT(2, n - 2)
+            q.Finish()
+        for q in (s, s2):
+            launched("dense", lambda: scont(q))
+        check(np.array_equal(s.GetQuantumState(), s2.GetQuantumState()),
+              f"the w{n} stack's continuation from the file differs")
+        ma, mb = s.MAll(), s2.MAll()
+        check(ma == mb, f"w{n} stack MAll {ma} against {mb}")
+        out["stack"] = {"width": n, "file_bytes": nbytes,
+                        "cuda_units": len(units)}
+        del s, s2
+        release()
+        lap("stack_w24")
+
+        # ---- e. the failover snapshot file at w20 -----------------------
+        n = CKPT_FAILOVER_WIDTH
+        fdir = os.path.join(tmp, "failover")
+        os.environ["QRACK_TPU_FAILOVER_PERSIST"] = fdir
+        try:
+            res.enable()
+            res.configure(max_retries=0, backoff_s=0.0)
+            res.reset_breaker()
+            tele.enable()
+            tele.reset()
+            f = qt.create_quantum_interface("pager", n, devices=[dev] * 2,
+                                            rng=QrackRandom(CKPT_SEED),
+                                            rand_global_phase=False)
+            f.SetPermutation(CKPT_FAILOVER_PERM)
+            launched("pager", lambda: (f.QFT(0, n), f.Finish()))
+            before = f.GetQuantumState()
+            faults.inject("pager.device_get", "raise", after_n=0,
+                          times=None)
+            amp = f.GetAmplitude(5)
+            faults.clear()
+            check(type(f.engine).__name__ == "QEngineCUDA",
+                  f"the w{n} chain ended on {type(f.engine).__name__}")
+            check(amp == before[5], f"w{n} read after the moves {amp} "
+                                    f"against {before[5]}")
+            files = sorted(os.listdir(fdir))
+            c = tele.snapshot()["counters"]
+            moves = c.get("resilience.failovers", 0)
+            check(len(files) == moves == 2,
+                  f"{len(files)} snapshot files for {moves} moves: {files}")
+            for name in files:
+                back = reg.load_state(os.path.join(fdir, name))
+                check(np.array_equal(back.GetQuantumState(), before),
+                      f"{name} differs from the ket before the call")
+                del back
+            launched("dense", lambda: (f.QFT(0, n), f.Finish()))
+            # a poisoned ket: the capture is refused, no file written
+            g = qt.create_quantum_interface("pager", n, devices=[dev] * 2,
+                                            rng=QrackRandom(CKPT_SEED),
+                                            rand_global_phase=False)
+            g.H(0)
+            g.Finish()
+            g.engine._pages_raw[1][0, 7] = float("nan")
+            shutil.rmtree(fdir)
+            faults.inject("pager.device_get", "nan-poison", after_n=0,
+                          times=None)
+            try:
+                g.GetAmplitude(0)
+            except res.FAILOVER_ERRORS:
+                pass
+            faults.clear()
+            c = tele.snapshot()["counters"]
+            rejected = c.get("resilience.failover.persist_rejected", 0)
+            check(rejected >= 1, "the poisoned ket's capture was not "
+                                 "rejected")
+            check(not os.path.exists(fdir) or not os.listdir(fdir),
+                  "a poisoned ket's snapshot was written")
+            out["failover"] = {"width": n, "files": len(files),
+                               "moves": moves, "rejected": rejected,
+                               "events": [e["name"] for e in
+                                          tele.snapshot()["events"]
+                                          if e["name"].startswith(
+                                              "resilience.failover")]}
+            del f, g
+        finally:
+            os.environ.pop("QRACK_TPU_FAILOVER_PERSIST", None)
+            faults.clear()
+            res.disable()
+            res.reset_breaker()
+            res.configure()
+            tele.disable()
+            tele.reset()
+        release()
+        lap("failover_w20")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = counts
+    out["seconds"] = time.time() - t_phase
+    out["budget_s"] = CKPT_PHASE_S
+    emit(out)
+    return counts
+
 def cuda_engines(q) -> list:
     """Every QEngineCUDA reachable from a stack (its units' engines)."""
     from qrack_tpu_torch.engines.cuda import QEngineCUDA
@@ -5240,6 +5743,7 @@ def main() -> int:
     wide_only = "--wide-only" in sys.argv[1:]
     telemetry_only = "--telemetry-only" in sys.argv[1:]
     resilience_only = "--resilience-only" in sys.argv[1:]
+    checkpoint_only = "--checkpoint-only" in sys.argv[1:]
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -5268,7 +5772,8 @@ def main() -> int:
               f"{name} spills: {r}")
 
     only = (tq_only or algo_only or fppow_only or layers_only or pager_only
-            or wide_only or telemetry_only or resilience_only)
+            or wide_only or telemetry_only or resilience_only
+            or checkpoint_only)
     tableau = stack_native(card) if layers_only or not only else None
     probe = SweepProbe(wk)
     paths = {}   # path -> launches by dtype name
@@ -5347,6 +5852,13 @@ def main() -> int:
         paths["resilience"] = {"float32": got["dense"]}
         if page_probe is not None:
             page_paths["resilience_pager"] = got["pager"]
+        for entry in tq_kernels:
+            entry["launches"] += got["tq"][entry["name"][len("tq_"):]]
+    if checkpoint_only or not only:
+        got = checkpoint_phase(card, dev)
+        paths["checkpoint"] = {"float32": got["dense"]}
+        if page_probe is not None:
+            page_paths["checkpoint_pager"] = got["pager"]
         for entry in tq_kernels:
             entry["launches"] += got["tq"][entry["name"][len("tq_"):]]
     if page_probe is not None:

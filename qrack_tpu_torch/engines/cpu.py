@@ -271,3 +271,23 @@ class QEngineCPU(QEngine):
 
     def SetAmplitudePage(self, page, offset: int) -> None:
         self._state[offset:offset + len(page)] = np.asarray(page, dtype=self.dtype)
+
+    # ------------------------------------------------------------------
+    # checkpoint protocol (checkpoint/registry.py)
+    # ------------------------------------------------------------------
+
+    _ckpt_kind = "cpu"
+
+    def _ckpt_capture(self, capture_child):
+        return {"kind": "cpu",
+                "meta": {"n": self.qubit_count, "dtype": str(self.dtype),
+                         "running_norm": float(self.running_norm)},
+                "arrays": {"ket": self._state}}
+
+    def _ckpt_restore(self, arrays, meta, children, restore_child):
+        if int(meta["n"]) != self.qubit_count:
+            raise ValueError("checkpoint width mismatch")
+        self.dtype = np.dtype(meta["dtype"])
+        self._state = np.ascontiguousarray(arrays["ket"], dtype=self.dtype)
+        self.running_norm = float(meta.get("running_norm", 1.0))
+        self._idx_cache = None

@@ -498,3 +498,46 @@ class QEngineCUDA(QEngine):
 
     def SetAmplitudePage(self, page, offset: int) -> None:
         self._state[:, offset:offset + len(page)] = self._put(page)
+
+    # ------------------------------------------------------------------
+    # checkpoint protocol (checkpoint/registry.py)
+    # ------------------------------------------------------------------
+
+    # the file format's tag for the dense split-plane ket, which the JAX
+    # package's reader knows as its QEngineTPU's
+    _ckpt_kind = "tpu"
+
+    def _ckpt_capture(self, capture_child):
+        # reads through _state (the pending window flushes first) and
+        # copies to the host: nothing of the engine changes.  bf16/f16
+        # planes upcast losslessly to float32 for the archive; the dtype
+        # name restores the resident representation
+        st = self._state
+        host_dt = torch.float64 if st.dtype == torch.float64 else torch.float32
+        planes = st.to("cpu").to(host_dt).numpy()
+        return {"kind": "tpu",
+                "meta": {"n": self.qubit_count,
+                         "dtype": gk.dtype_name(self.dtype),
+                         "gate_count": int(self._gate_count),
+                         "running_norm": float(self.running_norm)},
+                "arrays": {"planes": planes}}
+
+    def _ckpt_restore(self, arrays, meta, children, restore_child):
+        if int(meta["n"]) != self.qubit_count:
+            raise ValueError("checkpoint width mismatch")
+        self.dtype = gk.plane_dtype(meta["dtype"])
+        host = torch.from_numpy(np.ascontiguousarray(arrays["planes"]))
+        if host.shape != (2, 1 << self.qubit_count):
+            raise ValueError("checkpoint planes shape mismatch")
+        old = self._state_raw
+        if (old is not None and old.dtype == self.dtype
+                and tuple(old.shape) == tuple(host.shape)):
+            # in place: a w30 load holds no second ket on the card
+            if self._fuser is not None:
+                self._fuser.drop()
+            old.copy_(host)
+        else:
+            self._state = None
+            self._state = host.to(self._device).to(self.dtype)
+        self._gate_count = int(meta.get("gate_count", 0))
+        self.running_norm = float(meta.get("running_norm", 1.0))

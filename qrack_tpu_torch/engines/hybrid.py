@@ -33,9 +33,12 @@ modes ``cpu``, ``cuda`` (the JAX package's ``tpu``) and ``pager``; the
 failover moves are ``resilience.failover.*`` (construction:
 ``resilience.failover.init_<mode>_to_<mode>``) and the un-pin
 ``hybrid.unpin.<from>_to_<to>`` with the counter
-``elastic.hybrid.unpinned``.  Still to come: the checkpoint capture of
-the hybrid and the failover snapshot file (ROADMAP item 15), and the
-serving plane, which reads the breaker and wraps its stacks (item 16).
+``elastic.hybrid.unpinned``.  Checkpoints (checkpoint/registry.py,
+kind ``"hybrid"``) carry the JAX package's meta: the thresholds as
+``tpu_threshold``/``pager_threshold``, and the failover ceiling with
+``"cuda"`` written as the JAX package's ``"tpu"`` and read back.  Still
+to come: the serving plane, which reads the breaker and wraps its stacks
+(ROADMAP item 16).
 
 ``HOST_STAGINGS`` counts the kets that pass through the host, and their
 amplitudes: a whole ket when the width crosses the threshold
@@ -309,3 +312,36 @@ class QHybrid:
     @property
     def qubit_count(self) -> int:
         return self._engine.qubit_count
+
+    # ------------------------------------------------------------------
+    # checkpoint protocol (checkpoint/registry.py): thresholds +
+    # failover ceiling + the live engine (restored INTO this stack's
+    # engine when the mode matches, else rebuilt standalone on this
+    # stack's device)
+    # ------------------------------------------------------------------
+
+    _ckpt_kind = "hybrid"
+
+    def _ckpt_capture(self, capture_child):
+        # the ceiling "cuda" is the file's "tpu": the JAX QHybrid compares
+        # it with its dense mode's name
+        fo = self._failed_over
+        return {"kind": "hybrid",
+                "meta": {"n": self.qubit_count,
+                         "tpu_threshold": int(self._tpu_threshold),
+                         "pager_threshold": int(self._pager_threshold),
+                         "failed_over": "tpu" if fo == "cuda" else fo},
+                "children": {"engine": capture_child(self._engine)}}
+
+    def _ckpt_restore(self, arrays, meta, children, restore_child):
+        if int(meta["n"]) != self.qubit_count:
+            raise ValueError("checkpoint width mismatch")
+        self._tpu_threshold = int(meta["tpu_threshold"])
+        self._pager_threshold = int(meta["pager_threshold"])
+        fo = meta.get("failed_over")
+        self._failed_over = "cuda" if fo == "tpu" else fo
+        self._engine = restore_child(children["engine"], self._engine)
+        rng = getattr(self._engine, "rng", None)
+        if rng is not None:
+            # future mode switches must carry the restored stream
+            self._kwargs["rng"] = rng

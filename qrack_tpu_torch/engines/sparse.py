@@ -15,8 +15,8 @@ reference fills for beyond-memory registers).
 A copy of the JAX package's engines/sparse.py, which is numpy only: a
 host engine like QEngineCPU, it takes no ``device=``.  Its ALU runs the
 dense engine's index maps (ops/alu_kernels.py) on numpy int64 indices,
-which keep int64 throughout.  The checkpoint hooks wait for ROADMAP item
-15."""
+which keep int64 throughout.  Its checkpoint hooks are the JAX
+package's (checkpoint/registry.py, kind ``"sparse"``)."""
 
 from __future__ import annotations
 
@@ -559,3 +559,25 @@ class QEngineSparse(QInterface):
                        phase_arg: float = 0.0) -> None:
         self.SparseRenorm()
         self.running_norm = 1.0
+
+    # ------------------------------------------------------------------
+    # checkpoint protocol (checkpoint/registry.py)
+    # ------------------------------------------------------------------
+
+    _ckpt_kind = "sparse"
+
+    def _ckpt_capture(self, capture_child):
+        return {"kind": "sparse",
+                "meta": {"n": self.qubit_count, "trunc": float(self.trunc),
+                         "max_entries": int(self.max_entries),
+                         "running_norm": float(self.running_norm)},
+                "arrays": {"idx": self._idx, "amp": self._amp}}
+
+    def _ckpt_restore(self, arrays, meta, children, restore_child):
+        if int(meta["n"]) != self.qubit_count:
+            raise ValueError("checkpoint width mismatch")
+        self.trunc = float(meta.get("trunc", self.trunc))
+        self.max_entries = int(meta.get("max_entries", self.max_entries))
+        self._idx = np.ascontiguousarray(arrays["idx"], dtype=np.int64)
+        self._amp = np.ascontiguousarray(arrays["amp"], dtype=np.complex128)
+        self.running_norm = float(meta.get("running_norm", 1.0))

@@ -986,6 +986,43 @@ class QEngineCUDATurboQuant(QEngineCUDA):
         self._scales = torch.from_numpy(
             np.asarray(scales, dtype=np.float32).copy()).to(self._device)
 
+    # ------------------------------------------------------------------
+    # checkpoint protocol (checkpoint/registry.py): the codes and scales
+    # verbatim, with the layout that decodes them (bits, block pow,
+    # rotation seed).  The codes' shape depends on the block only, so a
+    # file crosses between the packages whatever their chunk; the chunk
+    # and the kernel tile decide which tiles later gates requantize
+    # ------------------------------------------------------------------
+
+    _ckpt_kind = "turboquant"
+
+    def _ckpt_place(self, codes: np.ndarray, scales: np.ndarray) -> None:
+        """Land host (codes, scales) where this engine keeps them (the
+        pager overrides place_codes with its pages)."""
+        self.place_codes(codes, scales)
+
+    def _ckpt_capture(self, capture_child):
+        codes, scales = self.host_codes()
+        return {"kind": self._ckpt_kind,
+                "meta": {"n": self.qubit_count, "bits": self._tq_bits,
+                         "block_pow": self._tq_block_pow,
+                         "chunk_pow": self._tq_chunk_pow,
+                         "seed": self._tq_seed,
+                         "running_norm": float(self.running_norm)},
+                "arrays": {"codes": codes, "scales": scales}}
+
+    def _ckpt_restore(self, arrays, meta, children, restore_child):
+        if int(meta["n"]) != self.qubit_count:
+            raise ValueError("checkpoint width mismatch")
+        if (int(meta["bits"]) != self._tq_bits
+                or int(meta["block_pow"]) != self._tq_block_pow
+                or int(meta["seed"]) != self._tq_seed):
+            raise ValueError(
+                "turboquant layout mismatch (bits/block_pow/seed)")
+        self._ckpt_place(np.asarray(arrays["codes"]),
+                         np.asarray(arrays["scales"], dtype=np.float32))
+        self.running_norm = float(meta.get("running_norm", 1.0))
+
 
 def _pair_spans(hi_n: int, lo_n: int, pairs: int):
     """(h0, h1, l0, l1) boxes over the (hi, lo) pair grid, each at most

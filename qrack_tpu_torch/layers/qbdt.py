@@ -34,9 +34,9 @@ code and stays as it is; device leaves keep their kets as float32
 passes ``device="cpu"``) and run through ops/gatekernels.py, the plain
 torch gate functions (the JAX package runs them in XLA, not Pallas).
 ``ToEngine`` builds the port's QEngineCUDA on that device, in the
-QBdt's ``dtype``.  Not ported yet: the checkpoint hooks (ROADMAP item
-15); ``QBdt._from_capture`` (``convert.bdt_from_numpy``) reads their
-layout.
+QBdt's ``dtype``.  Checkpoints: the JAX package's exact DAG capture
+(kind ``"bdt"``); ``QBdt._from_capture`` (``convert.bdt_from_numpy``)
+restores through the same ``_ckpt_restore`` as the registry.
 """
 
 from __future__ import annotations
@@ -1251,18 +1251,84 @@ class QBdt(QInterface):
 
     @classmethod
     def _from_capture(cls, meta, arrays, device=None, **kwargs) -> "QBdt":
-        """A QBdt holding the decision diagram of a JAX QBdt's checkpoint
-        capture (the JAX package's ``QBdt._ckpt_capture`` meta/arrays;
-        this reader follows its ``_ckpt_restore``): node weights, sharing
-        and leaf payloads verbatim.  Child refs: >= 0 a node (children
-        precede parents), -1 an absent branch, -2 the shared terminal,
-        <= -3 leaf -(ref + 3).  Device leaf planes land on `device`."""
+        """A QBdt holding the decision diagram of a checkpoint capture of
+        either package (``QBdt._ckpt_capture``'s meta/arrays), restored
+        through :meth:`_ckpt_restore`, the registry's path.  Device leaf
+        planes land on `device`."""
         q = cls(int(meta["n"]),
                 attached_qubits=int(meta.get("attached_qubits", 0)),
                 device=device, **kwargs)
+        q._ckpt_restore(arrays, meta, {}, None)
+        return q
+
+    # ------------------------------------------------------------------
+    # checkpoint protocol (checkpoint/registry.py): EXACT DAG capture —
+    # node weights, sharing structure, and leaf payloads verbatim.  A
+    # dense-ket round-trip would rebuild the tree with different node
+    # normalization round-off than the incrementally-grown original,
+    # and later gates would amplify that into non-identical amplitudes.
+    # ------------------------------------------------------------------
+
+    _ckpt_kind = "bdt"
+
+    def _ckpt_capture(self, capture_child):
+        arrays = {}
+        node_w: list = []  # (w0, w1) per interior node
+        node_c: list = []  # child refs per interior node
+        ids: dict = {}
+        n_leaves = [0]
+
+        # child ref encoding: >=0 node index (children precede parents),
+        # -1 absent branch, -2 the shared terminal, <=-3 leaf -(ref+3)
+        def ref(ch):
+            if ch is None:
+                return -1
+            if ch is _Tree.LEAF:
+                return -2
+            r = ids.get(id(ch))
+            if r is not None:
+                return r
+            if isinstance(ch, _EngLeaf):
+                i = n_leaves[0]
+                n_leaves[0] += 1
+                if ch.on_device:
+                    arrays[f"leafpl_{i}"] = ch.planes.to("cpu").numpy()
+                else:
+                    arrays[f"leafvec_{i}"] = np.asarray(
+                        ch.vec, dtype=np.complex128)
+                r = -(3 + i)
+            else:
+                c0 = ref(ch[1])
+                c1 = ref(ch[3])
+                node_w.append([ch[0], ch[2]])
+                node_c.append([c0, c1])
+                r = len(node_w) - 1
+            ids[id(ch)] = r
+            return r
+
+        root = ref(self.root)
+        if node_w:
+            arrays["node_w"] = np.asarray(node_w, dtype=np.complex128)
+            arrays["node_c"] = np.asarray(node_c, dtype=np.int64)
+        return {"kind": "bdt",
+                "meta": {"n": self.qubit_count,
+                         "attached_qubits": int(self.attached_qubits),
+                         "root": int(root),
+                         "scale": [self.scale.real, self.scale.imag]},
+                "arrays": arrays}
+
+    def _ckpt_restore(self, arrays, meta, children, restore_child):
+        """Child refs: >= 0 a node (children precede parents), -1 an
+        absent branch, -2 the shared terminal, <= -3 leaf -(ref + 3);
+        nodes and host leaves are interned, so later node() calls
+        deduplicate against the restored structure."""
+        if int(meta["n"]) != self.qubit_count:
+            raise ValueError("checkpoint width mismatch")
+        self.attached_qubits = min(int(meta.get("attached_qubits", 0)),
+                                   self.qubit_count)
         sc = meta.get("scale", [1.0, 0.0])
-        q.scale = complex(sc[0], sc[1])
-        q._t = _Tree()
+        self.scale = complex(sc[0], sc[1])
+        self._t = _Tree()
         built: dict = {}
 
         def resolve(r):
@@ -1277,10 +1343,10 @@ class QBdt(QInterface):
             # only leaves land here: node refs point at built lower indices
             i = -3 - r
             if f"leafpl_{i}" in arrays:
-                leaf = _EngLeaf(planes=gk.host_tensor(
-                    arrays[f"leafpl_{i}"]).to(q.device))
+                leaf = _EngLeaf(planes=torch.from_numpy(np.ascontiguousarray(
+                    arrays[f"leafpl_{i}"])).to(self.device))
             else:
-                leaf = q._t.intern_leaf(np.ascontiguousarray(
+                leaf = self._t.intern_leaf(np.ascontiguousarray(
                     arrays[f"leafvec_{i}"], dtype=np.complex128))
             built[r] = leaf
             return leaf
@@ -1288,13 +1354,11 @@ class QBdt(QInterface):
         node_w = arrays.get("node_w")
         node_c = arrays.get("node_c")
         for i in range(0 if node_w is None else node_w.shape[0]):
-            # interned, so later node() calls deduplicate against it
-            built[i] = q._t.intern(complex(node_w[i][0]),
-                                   resolve(node_c[i][0]),
-                                   complex(node_w[i][1]),
-                                   resolve(node_c[i][1]))
-        q.root = resolve(meta["root"])
-        return q
+            built[i] = self._t.intern(complex(node_w[i][0]),
+                                      resolve(node_c[i][0]),
+                                      complex(node_w[i][1]),
+                                      resolve(node_c[i][1]))
+        self.root = resolve(meta["root"])
 
     def SumSqrDiff(self, other) -> float:
         a = self.GetQuantumState()

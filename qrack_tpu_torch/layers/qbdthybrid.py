@@ -12,8 +12,8 @@ default engine is the port's QHybrid, so a switched register of 13
 qubits or more lands on the card (QEngineCUDA, the window kernel).
 ``device``/``dtype`` reach the tree (its device leaves) and the default
 engine; an engine factory from the factory carries its own.  The switch
-is the telemetry event ``qbdt.to_dense``.  Not ported yet: the
-checkpoint hooks (ROADMAP item 15)."""
+is the telemetry event ``qbdt.to_dense``.  Checkpoints: the JAX
+package's hooks (kind ``"bdt_hybrid"``)."""
 
 from __future__ import annotations
 
@@ -214,6 +214,44 @@ class QBdtHybrid(QInterface):
     def Finish(self) -> None:
         if self.engine is not None:
             self.engine.Finish()
+
+    # ------------------------------------------------------------------
+    # checkpoint protocol (checkpoint/registry.py): mode flag + the
+    # live half (tree snapshots recurse through QBdt's protocol; the
+    # dense half through the factory-built engine)
+    # ------------------------------------------------------------------
+
+    _ckpt_kind = "bdt_hybrid"
+
+    def _ckpt_capture(self, capture_child):
+        children = {}
+        if self.engine is not None:
+            children["engine"] = capture_child(self.engine)
+        else:
+            children["bdt"] = capture_child(self.bdt)
+        return {"kind": "bdt_hybrid",
+                "meta": {"n": self.qubit_count, "ratio": float(self.ratio),
+                         "attached_qubits": int(self.attached_qubits)},
+                "children": children}
+
+    def _ckpt_restore(self, arrays, meta, children, restore_child):
+        if int(meta["n"]) != self.qubit_count:
+            raise ValueError("checkpoint width mismatch")
+        self.ratio = float(meta.get("ratio", self.ratio))
+        self.attached_qubits = int(meta.get("attached_qubits", 0))
+        if "engine" in children:
+            fresh = self._factory(self.qubit_count, rng=self.rng.spawn(),
+                                  **self._kw)
+            self.engine = restore_child(children["engine"], fresh)
+            self.bdt = None
+        else:
+            snap = children["bdt"]
+            fresh = QBdt(self.qubit_count, rng=self.rng.spawn(),
+                         attached_qubits=int(
+                             snap["meta"].get("attached_qubits", 0)),
+                         **self._tree_kw())
+            self.bdt = restore_child(snap, fresh)
+            self.engine = None
 
 
 # heavy ALU / indexed ops: the tree gains nothing from them — hand the

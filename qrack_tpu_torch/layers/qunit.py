@@ -56,8 +56,8 @@ into pages; without one, one page on one card is too narrow and the
 pager raises MemoryError, which ACE catches, as in the JAX package.
 Telemetry: the JAX package's ``qunit.gate.dispatch``,
 ``qunit.fidelity_guard.trip``, ``qunit.unit_fresh``, ``qunit.compose``
-and ``qunit.separate``.  Not ported yet: the checkpoint hooks (ROADMAP
-item 15).
+and ``qunit.separate``.  Checkpoints: the JAX package's structured
+capture (kind ``"unit"``), recursing into each unit.
 """
 
 from __future__ import annotations
@@ -1736,3 +1736,93 @@ class QUnit(QInterface):
             return all(s.cached or s.unit.isClifford() for s in self.shards)
         s = self.shards[q]
         return s.cached or s.unit.isClifford()
+
+    # ------------------------------------------------------------------
+    # checkpoint protocol (checkpoint/registry.py): structured capture —
+    # every unit via its own protocol (children), every shard's
+    # placement, and the lazy buffers (pending 1q unitaries + the
+    # phase-link bag) verbatim.  Nothing is quantized and nothing is
+    # FLUSHED: a capture must not change when units get created
+    # relative to an uninterrupted run, or the unit-spawning rng draws
+    # would land at different stream positions and measurement
+    # histories after restore would diverge.
+    # ------------------------------------------------------------------
+
+    _ckpt_kind = "unit"
+
+    def _ckpt_capture(self, capture_child):
+        arrays = {}
+        shards_meta = []
+        links_meta = []
+        children = {}
+        unit_names: Dict[int, str] = {}
+        qubit_of = {id(s): q for q, s in enumerate(self.shards)}
+        seen_links = set()
+        for q in range(self.qubit_count):
+            s = self.shards[q]
+            sm = {}
+            if s.cached:
+                sm["amp"] = [s.amp0.real, s.amp0.imag,
+                             s.amp1.real, s.amp1.imag]
+            else:
+                name = unit_names.get(id(s.unit))
+                if name is None:
+                    name = f"u{len(unit_names)}"
+                    unit_names[id(s.unit)] = name
+                    children[name] = capture_child(s.unit)
+                sm["unit"] = name
+                sm["mapped"] = int(s.mapped)
+            if s.pending is not None:
+                arrays[f"pending_{q}"] = np.asarray(s.pending,
+                                                    dtype=np.complex128)
+                sm["pending"] = True
+            shards_meta.append(sm)
+            for link in s.links.values():
+                if id(link) in seen_links:
+                    continue
+                seen_links.add(id(link))
+                i = len(links_meta)
+                arrays[f"link_{i}_d"] = np.asarray(link.d,
+                                                   dtype=np.complex128)
+                links_meta.append({
+                    "a": qubit_of[id(link.a)], "b": qubit_of[id(link.b)],
+                    "xt": (None if link.xt is None
+                           else qubit_of[id(link.xt)]),
+                    "x": [int(link.x[0]), int(link.x[1])]})
+        return {"kind": self._ckpt_kind,
+                "meta": {"n": self.qubit_count, "shards": shards_meta,
+                         "links": links_meta,
+                         "log_fidelity": float(self.log_fidelity)},
+                "arrays": arrays, "children": children}
+
+    def _ckpt_restore(self, arrays, meta, children, restore_child):
+        if int(meta["n"]) != self.qubit_count:
+            raise ValueError("checkpoint width mismatch")
+        self.shards = [_Shard() for _ in range(self.qubit_count)]
+        units = {}
+        for name, snap in children.items():
+            fresh = self._factory(int(snap["meta"]["n"]),
+                                  rng=self.rng.spawn(), **self._unit_kwargs)
+            units[name] = restore_child(snap, fresh)
+        for q, sm in enumerate(meta["shards"]):
+            s = self.shards[q]
+            if "unit" in sm:
+                s.unit = units[sm["unit"]]
+                s.mapped = int(sm["mapped"])
+            else:
+                a = sm["amp"]
+                s.amp0 = complex(a[0], a[1])
+                s.amp1 = complex(a[2], a[3])
+            if sm.get("pending"):
+                s.pending = np.ascontiguousarray(arrays[f"pending_{q}"],
+                                                 dtype=np.complex128)
+        for i, lm in enumerate(meta.get("links", [])):
+            sa, sb = self.shards[lm["a"]], self.shards[lm["b"]]
+            link = _PhaseLink(sa, sb, np.ascontiguousarray(
+                arrays[f"link_{i}_d"], dtype=np.complex128))
+            if lm.get("xt") is not None:
+                link.xt = self.shards[lm["xt"]]
+                link.x = [int(lm["x"][0]), int(lm["x"][1])]
+            sa.links[sb] = link
+            sb.links[sa] = link
+        self.log_fidelity = float(meta.get("log_fidelity", 0.0))

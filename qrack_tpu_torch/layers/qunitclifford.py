@@ -68,3 +68,7 @@ class QUnitClifford(QUnit):
 
     def isClifford(self, q: Optional[int] = None) -> bool:
         return True
+
+    # checkpoint protocol: QUnit's structured capture/restore recurses
+    # into the per-clump tableaus through QStabilizer's protocol
+    _ckpt_kind = "unit_clifford"

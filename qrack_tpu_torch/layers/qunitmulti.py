@@ -23,7 +23,9 @@ rows, and a subsystem no row can hold raises MemoryError up front
 instead of letting the card run out of memory mid-gate.
 
 Each redistribution counts ``qunitmulti.redistribute`` in telemetry, as
-in the JAX package; the checkpoint kind waits for ROADMAP item 15.
+in the JAX package.  Checkpoints take QUnit's structured capture (kind
+``"unit_multi"``); a restore places every restored unit on the row this
+layer's redistribution gives it.
 """
 
 from __future__ import annotations
@@ -282,3 +284,11 @@ class QUnitMulti(QUnit):
                     break
             else:
                 self._raise_no_fit(need)
+
+    # checkpoint protocol: QUnit's structured capture/restore, then the
+    # restored units are placed on this layer's device rows
+    _ckpt_kind = "unit_multi"
+
+    def _ckpt_restore(self, arrays, meta, children, restore_child):
+        super()._ckpt_restore(arrays, meta, children, restore_child)
+        self.RedistributeQEngines()

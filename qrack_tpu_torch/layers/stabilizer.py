@@ -28,9 +28,8 @@ Port note: a copy of the JAX package's layers/stabilizer.py.  The
 tableau stays numpy uint8 on the host and the hot loops run through the
 port's own build of native/tableau.cpp, with the same Python fallback;
 the ``qrack_tpu-stabilizer v1`` text file format is kept byte for byte,
-so a tableau saved by either package loads in the other.  The
-checkpoint hooks (``_ckpt_*``) wait for the checkpoint plane (ROADMAP
-item 15).
+so a tableau saved by either package loads in the other, as does a
+checkpoint (``_ckpt_*``, kind ``"stabilizer"``).
 """
 
 from __future__ import annotations
@@ -1282,3 +1281,26 @@ class QStabilizer(QInterface):
 
     def GetQubitCount(self) -> int:
         return self.qubit_count
+
+    # ------------------------------------------------------------------
+    # checkpoint protocol (checkpoint/registry.py): the whole tableau
+    # plus the tracked global phase
+    # ------------------------------------------------------------------
+
+    _ckpt_kind = "stabilizer"
+
+    def _ckpt_capture(self, capture_child):
+        return {"kind": "stabilizer",
+                "meta": {"n": self.qubit_count,
+                         "phase_offset": [self.phase_offset.real,
+                                          self.phase_offset.imag]},
+                "arrays": {"x": self.x, "z": self.z, "r": self.r}}
+
+    def _ckpt_restore(self, arrays, meta, children, restore_child):
+        if int(meta["n"]) != self.qubit_count:
+            raise ValueError("checkpoint width mismatch")
+        self.x = np.ascontiguousarray(arrays["x"], dtype=np.uint8)
+        self.z = np.ascontiguousarray(arrays["z"], dtype=np.uint8)
+        self.r = np.ascontiguousarray(arrays["r"], dtype=np.uint8)
+        po = meta.get("phase_offset", [1.0, 0.0])
+        self.phase_offset = complex(po[0], po[1])

@@ -27,8 +27,9 @@ Port note: a copy of the JAX package's layers/stabilizerhybrid.py whose
 default engine is the port's QHybrid.  Every engine this layer builds
 takes the constructor's keyword arguments (``device``, ``dtype``) with
 a fresh ``rng`` spawn.  The switch to the engine is the telemetry event
-``stabilizer.to_dense``.  Not ported yet: the checkpoint hooks (ROADMAP
-item 15) and the router's ``can_run_cheaply`` probe (item 16).
+``stabilizer.to_dense``.  Checkpoints: the JAX package's hooks (kind
+``"stabilizer_hybrid"``).  Not ported yet: the router's
+``can_run_cheaply`` probe (ROADMAP item 16).
 """
 
 from __future__ import annotations
@@ -569,6 +570,64 @@ class QStabilizerHybrid(QInterface):
     def Finish(self) -> None:
         if self.engine is not None:
             self.engine.Finish()
+
+
+    # ------------------------------------------------------------------
+    # checkpoint protocol (checkpoint/registry.py): mode state — the
+    # tableau (ancillae included) or the dense engine — plus the
+    # pending per-qubit 2x2 shards and the T-gadget bookkeeping
+    # ------------------------------------------------------------------
+
+    _ckpt_kind = "stabilizer_hybrid"
+
+    def _ckpt_capture(self, capture_child):
+        arrays = {}
+        shard_qubits = []
+        for q, s in enumerate(self.shards):
+            if s is not None:
+                arrays[f"shard_{q}"] = np.asarray(s, dtype=np.complex128)
+                shard_qubits.append(q)
+        children = {}
+        if self.stab is not None:
+            children["stab"] = capture_child(self.stab)
+        if self.engine is not None:
+            children["engine"] = capture_child(self.engine)
+        return {"kind": "stabilizer_hybrid",
+                "meta": {"n": self.qubit_count, "anc": int(self._anc),
+                         "shard_qubits": shard_qubits,
+                         "log_fidelity": float(self.log_fidelity),
+                         "use_t_gadget": bool(self.use_t_gadget),
+                         "max_ancilla": int(self.max_ancilla),
+                         "ncrp": float(self.ncrp)},
+                "arrays": arrays, "children": children}
+
+    def _ckpt_restore(self, arrays, meta, children, restore_child):
+        if int(meta["n"]) != self.qubit_count:
+            raise ValueError("checkpoint width mismatch")
+        self._anc = int(meta.get("anc", 0))
+        self.use_t_gadget = bool(meta.get("use_t_gadget", True))
+        self.max_ancilla = int(meta.get("max_ancilla", self.max_ancilla))
+        self.ncrp = float(meta.get("ncrp", self.ncrp))
+        self.log_fidelity = float(meta.get("log_fidelity", 0.0))
+        self.shards = [None] * self.qubit_count
+        for q in meta.get("shard_qubits", []):
+            self.shards[q] = np.ascontiguousarray(arrays[f"shard_{q}"],
+                                                  dtype=np.complex128)
+        if "stab" in children:
+            snap = children["stab"]
+            fresh = QStabilizer(int(snap["meta"]["n"]),
+                                rng=self.rng.spawn(),
+                                rand_global_phase=self.rand_global_phase)
+            self.stab = restore_child(snap, fresh)
+        else:
+            self.stab = None
+        if "engine" in children:
+            snap = children["engine"]
+            fresh = self._factory(int(snap["meta"]["n"]),
+                                  rng=self.rng.spawn(), **self._eng_kwargs)
+            self.engine = restore_child(snap, fresh)
+        else:
+            self.engine = None
 
 
 # ALU / register ops: not Clifford — materialize, then use the engine's

@@ -426,11 +426,59 @@ def expectation_bits(planes, bits, offset: int = 0):
 
 
 def sample(planes, u: float):
-    """Device-side categorical draw for MAll (no 2^n host transfer)."""
+    """Device-side categorical draw for MAll (no 2^n host transfer).  On
+    the card, the draw of draw_index (a cumsum there does not repeat
+    its rounding from call to call); on the CPU the JAX package's
+    cumsum."""
+    if planes.device.type == "cuda":
+        return draw_index(planes, u)
     p = planes[0] ** 2 + planes[1] ** 2
     cdf = torch.cumsum(p, 0)
     idx = torch.searchsorted(cdf, cdf[-1:] * u, right=True)
     return torch.clamp(idx, max=p.shape[0] - 1)[0]
+
+
+# rows of one level of draw_index, and the rows a float64 pass reads at
+# once (64 x 2^20 amplitudes: 512 MiB of float64 at w30)
+_DRAW_ROWS = 1024
+_DRAW_STEP = 64
+
+
+def draw_index(planes, u: float) -> int:
+    """The first index whose float64 cumulative |amp|^2 passes u times
+    the total, found level by level: the sums of 1024 rows (reductions,
+    which repeat bit for bit), their cumulative sum on the host, then the
+    chosen row, down to 1024 amplitudes read on the host.  The same
+    planes and u give the same index on every call (torch.cumsum on a
+    CUDA tensor does not: on an H100 the bfloat16 and float16 draws of
+    one w20 ket took two values over 30 calls)."""
+    re, im = planes[0], planes[1]
+    n = re.shape[0]
+    base = 0
+    target = None
+    while n > _DRAW_ROWS:
+        C = n // _DRAW_ROWS
+        r2, i2 = re.view(_DRAW_ROWS, C), im.view(_DRAW_ROWS, C)
+        sums = torch.cat([
+            (r2[a:a + _DRAW_STEP].double() ** 2
+             + i2[a:a + _DRAW_STEP].double() ** 2).sum(1)
+            for a in range(0, _DRAW_ROWS, _DRAW_STEP)]).cpu().numpy()
+        cum = np.cumsum(sums)
+        if target is None:
+            target = u * float(cum[-1])
+        k = min(int(np.searchsorted(cum, target, side="right")),
+                _DRAW_ROWS - 1)
+        if k:
+            target -= float(cum[k - 1])
+        base += k * C
+        re, im = r2[k], i2[k]
+        n = C
+    v = (re.double() ** 2 + im.double() ** 2).cpu().numpy()
+    cum = np.cumsum(v)
+    if target is None:
+        target = u * float(cum[-1])
+    j = min(int(np.searchsorted(cum, target, side="right")), n - 1)
+    return base + j
 
 
 def multishot_mask_keys(planes, u, bits):

@@ -60,10 +60,12 @@ re-paging (``can_shrink``, ``shrink_pages``, ``expand_pages``,
 (``_device_pool``, ``_quarantine_repage``: ``integrity.quarantine.*``)
 re-page on the card, keyed by page slot (``page_slots``: the page's
 index in the construction device list, whose entries past ``n_pages``
-are spares).  Not here yet: checkpoint capture and the failover
-snapshot file (ROADMAP item 15), the serving executor's call-boundary
-probe (item 16), and pages in several processes (``torch.distributed``,
-item 13.4).
+are spares).  Checkpoints (checkpoint/registry.py, kind ``"pager"``):
+the raw physical pages as complex128 ``page_i`` arrays, as the file
+format requires (twice the float32 planes' bytes), with the placement
+table in the meta; a file saved on one page count loads into another.
+Not here yet: the serving executor's call-boundary probe (item 16),
+and pages in several processes (``torch.distributed``, item 13.4).
 
 The pager runs on ``cuda`` unless the caller passes ``device="cpu"`` or
 CPU devices (the tests do); without a GPU it raises.
@@ -747,8 +749,13 @@ class QPager(QEngine):
     def _draw_in_page(self, page) -> int:
         """One categorical draw over a page's |amp|^2 (float64), as
         ``rng.choice_from_probs(p, 1)`` draws, block by block on the
-        page's device: no page reaches the host."""
+        page's device (on the card, gatekernels.draw_index): no page
+        reaches the host."""
         u = float(self.rng.uniform(1)[0])
+        if page.device.type == "cuda":
+            # a cumsum on the card does not repeat its rounding: the
+            # level-by-level draw of gatekernels.draw_index does
+            return gk.draw_index(page, u)
         blocks = list(shb._blocks((page.shape[-1],)))
 
         def p64(blk):
@@ -1434,3 +1441,47 @@ class QPager(QEngine):
             dst[:, i:i + take] = gk.to_planes(
                 vals[pos - offset:pos - offset + take], self.dtype, dst.device)
             pos += take
+
+    # ------------------------------------------------------------------
+    # checkpoint protocol (checkpoint/registry.py): the raw pages, host
+    # one page per complex128 array.  Offsets on restore are
+    # checkpoint-relative, so a pager with another page count loads the
+    # same ket.
+    # ------------------------------------------------------------------
+
+    _ckpt_kind = "pager"
+
+    def _ckpt_capture(self, capture_child):
+        self._settle()
+        L = self.local_bits
+        arrays = {}
+        for p in range(self.n_pages):
+            # RAW (physical-layout) pages: capture must not dispatch an
+            # unmap, and the table rides the meta instead
+            planes = self._fetch(p << L, 1 << L, raw=True)
+            arrays[f"page_{p}"] = planes[0] + 1j * planes[1]
+        return {"kind": "pager",
+                "meta": {"n": self.qubit_count,
+                         "dtype": gk.dtype_name(self.dtype),
+                         "n_pages": self.n_pages, "page_len": 1 << L,
+                         "running_norm": float(self.running_norm),
+                         "qmap": list(self._qmap)},
+                "arrays": arrays}
+
+    def _ckpt_restore(self, arrays, meta, children, restore_child):
+        if int(meta["n"]) != self.qubit_count:
+            raise ValueError("checkpoint width mismatch")
+        plen = int(meta["page_len"])
+        if int(meta["n_pages"]) * plen != (1 << self.qubit_count):
+            raise ValueError("checkpoint page layout inconsistent")
+        qm = meta.get("qmap")
+        if qm is not None and len(qm) != self.qubit_count:
+            raise ValueError("checkpoint placement table inconsistent")
+        self._settle()
+        self._map_reset()  # pages land raw; the saved table re-attaches
+        for i in range(int(meta["n_pages"])):
+            self.SetAmplitudePage(np.asarray(arrays[f"page_{i}"],
+                                             dtype=np.complex128), i * plen)
+        if qm is not None:
+            self._map_assign([int(x) for x in qm])
+        self.running_norm = float(meta.get("running_norm", 1.0))

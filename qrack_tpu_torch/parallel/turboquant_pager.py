@@ -270,6 +270,18 @@ class QPagerTurboQuant(tqe.QEngineCUDATurboQuant):
         self._scales = [torch.from_numpy(scales[p * R:(p + 1) * R].copy())
                         .to(dev) for p, dev in enumerate(self.devices)]
 
+    # checkpoint protocol: capture and restore inherit through
+    # host_codes/place_codes (the whole ket in chunk order, so a file
+    # loads into any page count); the page count rides the meta for the
+    # registry's build (the chunk, and so later requantization, depends
+    # on it)
+    _ckpt_kind = "turboquant_pager"
+
+    def _ckpt_capture(self, capture_child):
+        snap = super()._ckpt_capture(capture_child)
+        snap["meta"]["n_pages"] = self.n_pages
+        return snap
+
     def host_codes(self):
         """(codes, scales) of the whole ket on the host, in chunk order."""
         return (np.concatenate([c.to("cpu").numpy() for c in self._codes]),

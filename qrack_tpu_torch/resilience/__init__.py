@@ -59,9 +59,9 @@ Layout (import order matters — no cycles, no engine imports here):
   on-card snapshot, page-slot quarantine (loaded lazily by the flush)
 * elastic.py   — the grow half of elastic paging
 
-``QRACK_TPU_FAILOVER_PERSIST`` (the JAX package's failover snapshot
-file) needs the checkpoint registry (ROADMAP item 15): arming the plane
-with it set raises rather than ignore it.
+``QRACK_TPU_FAILOVER_PERSIST`` names a directory that receives the
+failing engine's checkpoint before every failover move (failover.py
+``_persist_snapshot``, the JAX package's failover snapshot file).
 """
 
 from __future__ import annotations
@@ -92,20 +92,10 @@ __all__ = [
 ]
 
 
-def _check_persist() -> None:
-    if _os.environ.get("QRACK_TPU_FAILOVER_PERSIST"):
-        raise RuntimeError(
-            "QRACK_TPU_FAILOVER_PERSIST is set, but the failover snapshot "
-            "file needs the checkpoint registry, which is not ported yet "
-            "(ROADMAP item 15); unset it to arm the resilience plane")
-
-
 _ACTIVE: bool = (
     _os.environ.get("QRACK_TPU_RESILIENCE", "") not in ("", "0")
     or bool(_os.environ.get("QRACK_TPU_FAULTS", "").strip())
 )
-if _ACTIVE:
-    _check_persist()
 
 
 def active() -> bool:
@@ -114,7 +104,6 @@ def active() -> bool:
 
 def enable() -> None:
     global _ACTIVE
-    _check_persist()
     _ACTIVE = True
 
 

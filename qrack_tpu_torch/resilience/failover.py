@@ -31,9 +31,13 @@ fault re-fires on the shrunk engine's replay: recovery is a LOOP
 shrinking chain.  Degraded pagers grow back at call boundaries
 (resilience/elastic.py).
 
-``QRACK_TPU_FAILOVER_PERSIST`` (the JAX package's ``_persist_snapshot``)
-needs the checkpoint registry of ROADMAP item 15; arming the plane with
-it set raises (resilience/__init__.py).
+With ``QRACK_TPU_FAILOVER_PERSIST`` set to a directory, every move
+first writes the failing engine's checkpoint there
+(:func:`_persist_snapshot`, the JAX package's file names, events and
+counters): one ``failover-<time>-<pid>-<seq>.qckpt`` a move, which
+``checkpoint.load_state`` reads back.  A snapshot with a non-finite
+plane is rejected, and a failed write is counted; neither blocks the
+move.
 
 Two consumers: :class:`ResilientEngine`, the forwarding proxy the
 factory wraps around the ``cuda``/``pager``/``turboquant``/
@@ -43,12 +47,77 @@ factory wraps around the ``cuda``/``pager``/``turboquant``/
 
 from __future__ import annotations
 
+import os
+import time
 from typing import Optional
 
 from .. import telemetry as _tele
 from . import breaker as _breaker
 from . import faults as _faults
 from .errors import FAILOVER_ERRORS
+
+_persist_seq = 0
+
+
+def _snapshot_is_finite(snap) -> bool:
+    """Walk a captured snapshot tree and reject any non-finite float
+    array.  Guards the persist path: a nan-poisoned ket written over the
+    previous good snapshot would turn recovery evidence into the thing
+    that re-poisons the recovery."""
+    import numpy as np
+
+    for arr in snap.get("arrays", {}).values():
+        a = np.asarray(arr)
+        if (np.issubdtype(a.dtype, np.floating)
+                or np.issubdtype(a.dtype, np.complexfloating)):
+            if not np.all(np.isfinite(a)):
+                return False
+    return all(_snapshot_is_finite(c)
+               for c in snap.get("children", {}).values())
+
+
+def _persist_snapshot(engine, cause) -> Optional[str]:
+    """Durable post-mortem evidence: with QRACK_TPU_FAILOVER_PERSIST set
+    to a directory, write the failing engine's full checkpoint container
+    (ket + rng stream) there before the move, so the pre-call state
+    survives even if the fallback itself dies.  Best-effort: a persist
+    failure must never block the failover it documents.
+
+    The capture is VERIFIED before it is written: a snapshot holding a
+    non-finite plane is rejected (`resilience.failover.persist_rejected`)
+    so the newest file in the persist directory stays the newest GOOD
+    state.  Write-side integrity beyond finiteness rides the checkpoint
+    container's own per-array sha256 manifest (checkpoint/container.py),
+    which load_container re-verifies."""
+    global _persist_seq
+    root = os.environ.get("QRACK_TPU_FAILOVER_PERSIST")
+    if not root:
+        return None
+    try:
+        from ..checkpoint.registry import capture, save_snapshot
+
+        snap = capture(engine)
+        if not _snapshot_is_finite(snap):
+            if _tele._ENABLED:
+                _tele.event("resilience.failover.persist_rejected",
+                            cause=type(cause).__name__ if cause else "")
+            return None
+        os.makedirs(root, exist_ok=True)
+        _persist_seq += 1
+        name = (f"failover-{int(time.time())}-{os.getpid()}"
+                f"-{_persist_seq:03d}.qckpt")
+        path = os.path.join(root, name)
+        save_snapshot(snap, path)
+    except Exception:  # noqa: BLE001
+        if _tele._ENABLED:
+            _tele.inc("resilience.failover.persist_failed")
+        return None
+    if _tele._ENABLED:
+        _tele.event("resilience.failover.persisted", path=path,
+                    cause=type(cause).__name__ if cause else "")
+        _tele.inc("resilience.failover.persisted")
+    return path
+
 
 # attributes that live on the proxy itself, never forwarded
 _SELF_ATTRS = ("_engine", "_failover_cpu")
@@ -131,6 +200,7 @@ def fail_over_engine(engine, cause: Optional[BaseException] = None,
         raise cause
     src = _engine_kind(engine)
     with _faults.suspended():
+        _persist_snapshot(engine, cause)
         rng = getattr(engine, "rng", None)
         last_err: Optional[BaseException] = cause
         for kind, build in _fallback_candidates(engine, failover_cpu):

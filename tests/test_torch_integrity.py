@@ -9,11 +9,11 @@ both packages, the final kets at fidelity > 1 - 1e-6 to each other and
 to the CPU oracle, the resilience-family counters and events name for
 name after the ``tpu`` -> ``cuda`` rename, but for BY_DESIGN.
 
-Left out, with the ROADMAP item that brings them:
+Left out, with where they are held or the ROADMAP item that brings
+them:
 
-* ``test_persist_rejects_poisoned_snapshot`` — the failover snapshot file
-  needs the checkpoint registry (item 15; arming the port's plane with
-  QRACK_TPU_FAILOVER_PERSIST set raises, tests/test_torch_resilience.py);
+* ``test_persist_rejects_poisoned_snapshot`` — held with the rest of the
+  failover snapshot file in tests/test_torch_checkpoint.py;
 * ``test_pre_dispatch_shed_of_budget_expired_jobs`` and the canary tests
   (``test_canary_off_by_default``,
   ``test_canary_samples_and_verifies_clean_jobs``,

@@ -114,6 +114,19 @@ um.CNOT(0, 1)
 um.H(5)
 um.CNOT(5, 6)
 assert abs(um.Prob(6) - 0.5) < 1e-6
+from qrack_tpu_torch.checkpoint import load_state, save_state
+from qrack_tpu_torch.checkpoint.store import CheckpointStore
+for s in (o, pg, t, um):
+    save_state(s, sys.argv[1] + ".qckpt")
+    back = load_state(sys.argv[1] + ".qckpt", device="cpu")
+    assert abs(back.Prob(0) - s.Prob(0)) < 1e-6
+store = CheckpointStore(sys.argv[1] + ".store")
+store.register("s", 7, "pager", 1)
+store.save("s", pg)
+assert np.array_equal(store.load("s", device="cpu").GetQuantumState(),
+                      pg.GetQuantumState())
+store.wal_append("s", circ)
+assert len(store.wal_entries()) == 1
 print(sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "qrack_tpu")
              or m.startswith(("jax.", "jaxlib.", "qrack_tpu."))))
