@@ -274,7 +274,7 @@ its windows run K1/K2 on every page (fusion.sharded_kernel_window_body)
 and its paged-target 2x2s, remaps and page swaps as plain torch passes
 in place (ops/sharded.py):
 
-29. pager_parity, w30 on 4 pages of 2^28: a seeded depth-20 circuit
+29. pager_parity, w30 on 4 pages of 2^28: a seeded depth-10 circuit
     (pager_circuit: H and RY on page bits, CNOTs with a page-bit target
     and with a page-bit control, CZ and controlled phases between page
     bits, T and RZ on page bits, U and H in the page, one Swap a layer,
@@ -478,11 +478,13 @@ naming it otherwise, and deletes each file after its check:
     (b) a w28 pager on 4 pages of 2^26 on the card: its engine-path QFT
     and H on the top four qubits leave the placement table non-identity
     (checked); save_state writes the raw pages as complex128 (4 GiB);
-    load_state into a fresh 4-page pager (table and pages bit for bit
-    after the continuation, the first per-page K1 and K2 launch held to
-    plain, MAll equal), load_state(path) with no target (4 pages on
-    cuda, bit for bit), and into a 2-page pager (fidelity >= 1 - 1e-6
-    after the continuation, against the build's pages in logical order).
+    one load_snapshot of the file (one read and hash) restores into a
+    fresh 4-page pager (table and pages bit for bit after the
+    continuation, the first per-page K1 and K2 launch held to plain, MAll
+    equal) and builds with no target (4 pages on cuda, bit for bit,
+    registry.build: what load_state(path) runs after the read); then
+    load_state into a 2-page pager (fidelity >= 1 - 1e-6 after the
+    continuation, against the build's pages in logical order).
     (c) a w28 int8 "turboquant" engine: its QFT through K3-K5, save and
     load_state(path): codes and scales equal the saved ones bit for bit;
     both continue (a one-gate window, a lone diagonal, the IQFT and the
@@ -503,8 +505,59 @@ naming it otherwise, and deletes each file after its check:
     and no file is written.  The phase's seconds are printed beside its
     budget of 60 s (CKPT_PHASE_S), a budget, not a bar.
 
+Then the router and the light-cone engine (qrack_tpu_torch/route and
+lightcone; no new kernel: the stacks they build launch K1-K5):
+
+40. route: (a) a "route" wrapper at w30 from 0x2A5C3F1 runs
+    RunFused(qft_qcircuit(30)) under the default knobs, with the card's
+    own memory as the budget (checked against torch.cuda.mem_get_info):
+    it must route to "turboquant" (layers ("turboquant",)), launch
+    K3-K5, and hold the closed form on 4 seeded pages of 4096
+    amplitudes (GetAmplitudePage) at fidelity >= 0.99, the TurboQuant
+    bar of phase 6; printed: its wall and launches.  (b) the same with
+    QRACK_ROUTE_DENSE_MAX_QB=30: "dense" (("cuda",)), its K1/K2 launches
+    equal to a direct "cuda" engine's on the same circuit, and its planes
+    torch.equal to that engine's (else held at phase 2's bar; which held
+    is printed); direct, routed, direct, each wall with construction,
+    the gap to the faster direct one the cost of admission; and a plan
+    alone (QRouted.plan, host only).
+    (c) four w100 GHZ through "route": "stabilizer", no K1-K5 launch,
+    each MAll all zeros or all ones.  (d) the README's w50 depth-4
+    brickwork through "route": "lightcone"; all 50 Prob(q) within 1e-6
+    of the same cones run by the port with device="cpu" and of the
+    closed form sin^2(theta_q / 2); a second pass all cache hits, no
+    launch and the same values; printed: launches, reads a second.
+    (e) a w100 brickwork on the "lightcone" terminal at the deepest of
+    8-13 brick layers whose widest cone (the middle qubit's) the router
+    still sends to "dense" (printed, with the widths tried): 100 reads,
+    every cone dense, each read within 1e-6 of the closed form, every
+    tenth cone's planes held to the circuit's plain gate path on the
+    card (QCircuit.compile_fn) at phase 2's bar; printed: reads a second
+    and the cone cache's device bytes.  (f) a w24 GHZ on the stabilizer
+    stack, then general circuits: escalated to dense exactly once
+    (telemetry route.misroute.escalated == 1), fidelity >= 1 - 1e-6 to a
+    direct "cuda" engine; a w40 general circuit after a GHZ is refused
+    with MisrouteError, the stabilizer state intact.  (g) 30 calls of
+    MultiShotMeasureMask (1024 shots over all 20 qubits) from one rng
+    position on a w20 engine in each plane dtype draw one key set;
+    printed beside it, on the same ket and uniforms, the distinct results
+    of 30 calls of the cumsum draw the card used before
+    (gatekernels.cumsum_mask_keys) and of the trajectories' terminal
+    draw (noise/trajectories.readout on 8 copies); a light-cone read's
+    MultiShotMeasureMask repeats too; a w20 pager's ProbMaskAll over 30
+    calls (distinct results, and the largest difference to a float64
+    host binning, bar 1e-6).  (h) a routed w20 QFT session and a w24
+    light-cone session (warm cones and a recorded projector) saved and
+    loaded on the card (the routed one built from the file, the
+    light-cone one into a fresh session built as the saver was): the
+    routed continuation's planes torch.equal and MAll equal; the
+    light-cone load's cones torch.equal, its warm reads equal, and the
+    continuation's reads and draws equal.  The
+    phase's seconds are printed beside its budget of 40 s
+    (ROUTE_PHASE_S), a budget, not a bar.
+
 The kernels line counts K1/K2 launches by dtype form over every dense
-path (phases 3, 8-12, 14-17, 19-22, 24-28, 37, 38 and 39); their times and errors
+path (phases 3, 8-12, 14-17, 19-22, 24-28, 37, 38, 39 and 40); their times and errors
 are those of the launches held to plain (float32: phase 4 and the Shor
 IQFT of phase 10; the other forms: phase 14).  The per-page form of K1
 and K2 has entries of its own: launches over phases 29-32, times and
@@ -514,7 +567,9 @@ per-page form, phase 36's with the dense one; phase 37's w32 QFT with
 the per-page form, its w16 TurboQuant engine with K3-K5; phase 38's
 pagers' with the per-page form, its w24 TurboQuant engine with K3-K5;
 phase 39's pagers' with the per-page form, its w28 TurboQuant engines
-with K3-K5, the rest with the dense form.
+with K3-K5, the rest with the dense form; phase 40's routed w30
+TurboQuant engine with K3-K5, its w20 pager (g) with none of them (its
+launches are not read), the rest with the dense form.
 
 ``--tq-only`` runs the build and phases 5-7 alone; ``--algo-only`` the
 build and phases 8-12; ``--fppow-only`` the build and phases 13-17;
@@ -523,7 +578,8 @@ and phases 29-32; ``--wide-only`` the build and phases 33-36;
 ``--telemetry-only`` the build and phase 37 (its disabled wall then
 held to two warm reps of its own in place of phase 4's);
 ``--resilience-only`` the build and phase 38 (likewise);
-``--checkpoint-only`` the build and phase 39.
+``--checkpoint-only`` the build and phase 39; ``--route-only`` the build
+and phase 40.
 
 The line before the last is the "kernels" summary, the last line
 {"ok": true, "device": {...}}.  Any failed check raises, so the script
@@ -659,7 +715,7 @@ TRAJ_ROOM = 20.5      # trajectories' peak bytes left free for the budget run
 TRAJ_KEY = 24
 PAGER_PARITY_WIDTH = 30   # 4 pages of 2^28 beside a w30 QEngineCUDA
 PAGER_PAGES = 4
-PAGER_DEPTH = 20
+PAGER_DEPTH = 10          # 20 until the run budget took the cut (PERF.md)
 PAGER_SEED = 10
 # share of the other per-page launches held (an eighth until phase 37
 # needed the room)
@@ -709,6 +765,23 @@ CKPT_FAILOVER_PERM = 0x5C3F1
 CKPT_MEM_BAR = 1 << 30    # device bytes above the planes, save or load
 CKPT_ROOM = 1.2           # free disk over the bytes written at once
 CKPT_PHASE_S = 60.0       # phase 39's budget (printed, as the run's 880 s)
+ROUTE_SEED = 40
+ROUTE_TQ_BAR = 0.99       # phase 40(a): the TurboQuant fidelity bar of phase 6
+ROUTE_TQ_PAGES = 4        # pages of 4096 amplitudes held to the closed form
+ROUTE_GHZ = 100           # (c) the Clifford circuit past every dense rung
+ROUTE_LC_WIDTH = 50       # (d) the README's w50 depth-4 brickwork
+ROUTE_WIDE = 100          # (e) brickwork on "lightcone" ...
+ROUTE_WIDE_LAYERS = tuple(range(8, 14))  # ... brick layers tried
+ROUTE_WIDE_READS = 100    # one Prob(q) a qubit
+ROUTE_REPLAY_EVERY = 10   # every tenth cone through the plain gate path
+ROUTE_MISROUTE_WIDTH = 24
+ROUTE_REFUSED_WIDTH = 40  # past the compressed rung (w32)
+ROUTE_REPEAT_WIDTH = 20   # (g) the draws' repeat, as phase 39's MAll check
+ROUTE_REPEATS = 30
+ROUTE_SHOTS = 1024
+ROUTE_LC_REPEAT = 24      # the light-cone sessions of (g) and (h)
+ROUTE_CKPT_WIDTH = 20
+ROUTE_PHASE_S = 40.0      # phase 40's budget (printed, as the run's 880 s)
 TELE_DISABLED_BAR = 0.02  # disabled w30 QFT wall against phase 4's
 TELE_HOOK_WIDTH = 16      # the small stacks that reach every other hook
 TELE_REQUIRED = (         # counter families phase 37 must reach
@@ -5414,12 +5487,23 @@ def checkpoint_phase(card: str, dev) -> dict:
             q.Finish()
         launched("pager", lambda: pcont(p))
         loads = {}
+        # the into-4 load and the build share one read and hash of the
+        # file (load_snapshot); the into-2 load reads it again
+        t0 = time.perf_counter()
+        shared = reg.load_snapshot(path)
+        loads["shared_read"] = {"ms": (time.perf_counter() - t0) * 1e3,
+                                **ckc.LAST_LOAD}
 
-        def load(label: str, into=None):
+        def load(label: str, into=None, snap=None):
             t0 = time.perf_counter()
-            q = reg.load_state(path, into=into)
-            loads[label] = {"ms": (time.perf_counter() - t0) * 1e3,
-                            **ckc.LAST_LOAD}
+            if snap is None:
+                q = reg.load_state(path, into=into)
+                read = dict(ckc.LAST_LOAD)
+            else:
+                q = (reg.restore_into(into, snap) if into is not None
+                     else reg.build(snap))
+                read = {"shared_read": True}
+            loads[label] = {"ms": (time.perf_counter() - t0) * 1e3, **read}
             check(q.devices == [p.devices[0]] * q.n_pages,
                   f"the {label} pager landed on {q.devices}")
             return q
@@ -5430,12 +5514,13 @@ def checkpoint_phase(card: str, dev) -> dict:
                           zip(p._pages_raw, q._pages_raw)),
                   f"the w{n} {label} continuation differs from the live "
                   "pager's")
-        q4 = load("into_4", pager(CKPT_PAGER_PAGES, 991))
+        q4 = load("into_4", pager(CKPT_PAGER_PAGES, 991), shared)
         check(q4._qmap == qmap, "the w28 load lost the placement table")
         launched("pager", lambda: held_first(f"w{n} pager continuation",
                                              lambda: pcont(q4)))
         same(q4, "into_4")
-        qb = load("build")
+        qb = load("build", snap=shared)
+        del shared
         check(qb.n_pages == CKPT_PAGER_PAGES and qb._qmap == qmap,
               f"the w{n} build holds {qb.n_pages} pages")
         launched("pager", lambda: pcont(qb))
@@ -5637,6 +5722,486 @@ def checkpoint_phase(card: str, dev) -> dict:
     emit(out)
     return counts
 
+def route_bricks(n: int, dev) -> tuple:
+    """(layers, widest cone, [(layers, widest cone width, its stack)]):
+    the deepest brickwork_qcircuit(n, layers) of ROUTE_WIDE_LAYERS whose
+    widest single-qubit cone (the middle qubit's) the router still sends
+    to the dense rung at its own width."""
+    from qrack_tpu_torch.lightcone.engine import compact_over
+    from qrack_tpu_torch.models.algorithms import brickwork_qcircuit
+    from qrack_tpu_torch.route import decide
+
+    seen, best = [], None
+    for layers in ROUTE_WIDE_LAYERS:
+        compact, _ = compact_over(brickwork_qcircuit(n, layers), (n // 2,))
+        stack = decide(compact, compact.qubit_count).stack
+        seen.append((layers, compact.qubit_count, stack))
+        if stack == "dense":
+            best = (layers, compact.qubit_count)
+    check(best is not None, f"no brickwork depth keeps a dense cone: {seen}")
+    return best[0], best[1], seen
+
+
+def draw_repeats(fn, reps: int) -> int:
+    """Distinct results of `reps` calls of fn() (each a hashable)."""
+    return len({fn() for _ in range(reps)})
+
+
+def route_phase(card: str, dev) -> dict:
+    """Phase 40 (module docstring); returns its kernel launches: "dense"
+    (K1/K2 by plane dtype: the routed and direct w30 engines, every dense
+    cone, the escalated w24 engine, the repeat checks' w20 engines and
+    the routed w20 sessions) and "tq" (K3-K5 of the routed w30 QFT)."""
+    import math
+    import shutil
+
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch import matrices as mat
+    from qrack_tpu_torch import telemetry as tele
+    from qrack_tpu_torch.checkpoint import load_state, save_state
+    from qrack_tpu_torch.layers.qcircuit import QCircuit
+    from qrack_tpu_torch.models.algorithms import (brickwork_qcircuit,
+                                                   brickwork_theta,
+                                                   ghz_qcircuit)
+    from qrack_tpu_torch.models.qft import basis_planes, qft_qcircuit
+    from qrack_tpu_torch.noise import trajectories as traj
+    from qrack_tpu_torch.ops import gatekernels as gk
+    from qrack_tpu_torch.ops import turboquant_kernel as tqk
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.route import MisrouteError
+    from qrack_tpu_torch.route import cost
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    t_phase = time.time()
+    out = {"phase": "route", "card": card, "sections_s": {}}
+    t_lap = [t_phase]
+
+    def lap(name: str) -> None:
+        now = time.time()
+        out["sections_s"][name] = now - t_lap[0]
+        t_lap[0] = now
+    counts = {"dense": {dt: {"in_tile": 0, "pair": 0}
+                        for dt in wk.DTYPE_LAUNCHES},
+              "tq": {k: 0 for k in tqk.LAUNCHES}}
+
+    def launched(fn):
+        """fn() with its K1/K2 launches (by dtype) and K3-K5 launches
+        added to counts; returns (result, K1/K2 delta, K3-K5 delta)."""
+        w0 = {dt: dict(c) for dt, c in wk.DTYPE_LAUNCHES.items()}
+        t0_ = dict(tqk.LAUNCHES)
+        r = fn()
+        sync()
+        dw = {"in_tile": 0, "pair": 0}
+        for dt, c in wk.DTYPE_LAUNCHES.items():
+            for k, v in c.items():
+                counts["dense"][dt][k] += v - w0[dt][k]
+                dw[k] += v - w0[dt][k]
+        dt_ = {k: v - t0_[k] for k, v in tqk.LAUNCHES.items()}
+        for k, v in dt_.items():
+            counts["tq"][k] += v
+        return r, dw, dt_
+
+    def fresh(layers, n, **kw):
+        return qt.create_quantum_interface(layers, n,
+                                           rng=QrackRandom(ROUTE_SEED),
+                                           rand_global_phase=False, **kw)
+
+    saved_env = {k: os.environ.pop(k, None) for k in
+                 ("QRACK_ROUTE", "QRACK_ROUTE_DENSE_MAX_QB",
+                  "QRACK_ROUTE_HBM_BYTES")}
+    release()
+    try:
+        # ---- a. the w30 QFT under the default knobs: TurboQuant -------
+        n = WIDTH
+        circ = qft_qcircuit(n)
+        _free, total = torch.cuda.mem_get_info()
+        budget = cost.hbm_budget_bytes(cost.RouteKnobs.for_device(dev))
+        check(budget == total, f"the route budget {budget} is not the "
+                               f"card's memory {total}")
+        t0 = time.perf_counter()
+        r = fresh("route", n, init_state=PERM)
+        _, dw, dtq = launched(lambda: (circ.RunFused(r), r.Finish()))
+        wall = time.perf_counter() - t0
+        check(r.current_stack() == "turboquant"
+              and r._decision.layers == ("turboquant",),
+              f"the w{n} QFT routed to {r._decision}")
+        check(sum(dtq.values()) > 0,
+              f"the routed w{n} QFT launched no TurboQuant kernel: {dtq}")
+        rng = np.random.default_rng(ROUTE_SEED)
+        ks = [int(k) for k in rng.integers(0, (1 << n) // 4096,
+                                           ROUTE_TQ_PAGES) * 4096]
+        got = np.concatenate([r.GetAmplitudePage(k, 4096) for k in ks])
+        want = np.concatenate([[qft_closed_form(PERM, k + j, n)
+                                for j in range(4096)] for k in ks])
+        f_cf = float(abs(np.vdot(want, got)) ** 2
+                     / (np.vdot(want, want).real * np.vdot(got, got).real))
+        check(f_cf >= ROUTE_TQ_BAR,
+              f"routed w{n} TurboQuant QFT against the closed form: "
+              f"fidelity {f_cf} (bar {ROUTE_TQ_BAR})")
+        out["a_turboquant"] = {
+            "width": n, "stack": r.current_stack(),
+            "layers": list(r._decision.layers),
+            "budget_bytes": budget,
+            "turboquant_bytes": cost.hbm_bytes("turboquant",
+                                               cost._WidthOnly(n)),
+            "wall_s": wall, "tq_launches": dtq, "k1k2_launches": dw,
+            "closed_form_fidelity": f_cf,
+            "closed_form_amps": 4096 * len(ks)}
+        del r
+        release()
+        lap("a_turboquant_w30")
+
+        # ---- b. QRACK_ROUTE_DENSE_MAX_QB=30: dense, as a direct engine --
+        os.environ["QRACK_ROUTE_DENSE_MAX_QB"] = str(n)
+        t0 = time.perf_counter()
+        plan = fresh("route", n, init_state=PERM).plan(circ)
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        check(plan.stack == "dense" and plan.layers == ("cuda",),
+              f"the pinned w{n} QFT planned {plan}")
+        walls, deltas, planes = [], [], []
+        # direct, routed, direct: both walls include construction
+        for layers in ("cuda", "route", "cuda"):
+            t0 = time.perf_counter()
+            q = fresh(layers, n, init_state=PERM)
+            _, dw, _t = launched(lambda: (circ.RunFused(q), q.device_planes))
+            walls.append((time.perf_counter() - t0) * 1e3)
+            deltas.append(dw)
+            planes.append(q.device_planes)
+            del q
+            if len(planes) == 3:
+                planes[2] = torch.equal(planes[0], planes[2])
+        del os.environ["QRACK_ROUTE_DENSE_MAX_QB"]
+        check(deltas[0] == deltas[1] == deltas[2]
+              and sum(deltas[1].values()) > 0 and planes[2],
+              f"routed w{n} K1/K2 launches {deltas[1]} against the "
+              f"direct engine's {deltas[0]}, {deltas[2]}")
+        same = torch.equal(planes[1], planes[0])
+        err = 0.0 if same else held_to_plain(
+            planes[1], planes[0], f"routed w{n} dense")[0]
+        out["b_dense"] = {"width": n, "launches": deltas[1],
+                          "bit_for_bit": same, "max_abs_diff": err,
+                          "routed_wall_ms": walls[1],
+                          "direct_wall_ms": [walls[0], walls[2]],
+                          "admission_ms": walls[1] - min(walls[0],
+                                                         walls[2]),
+                          "plan_ms": plan_ms}
+        del planes
+        release()
+        lap("b_dense_w30")
+
+        # ---- c. the w100 GHZ: stabilizer, no kernel --------------------
+        n = ROUTE_GHZ
+        results = []
+        for k in range(4):
+            g = qt.create_quantum_interface(
+                "route", n, rng=QrackRandom(ROUTE_SEED + k))
+            _, dw, dtq = launched(lambda: ghz_qcircuit(n).Run(g))
+            check(g.current_stack() == "stabilizer",
+                  f"the w{n} GHZ routed to {g.current_stack()}")
+            results.append(g.MAll())
+            check(sum(dw.values()) + sum(dtq.values()) == 0,
+                  f"the w{n} GHZ launched a kernel: {dw} {dtq}")
+        check(all(m in (0, (1 << n) - 1) for m in results),
+              f"w{n} GHZ MAll results disagree within: {results}")
+        out["c_ghz"] = {"width": n, "stack": "stabilizer",
+                        "mall_all_ones": [m != 0 for m in results]}
+        lap("c_ghz_w100")
+
+        # ---- d. the README's w50 brickwork through "route" -------------
+        tele.enable()
+        tele.reset()
+        n = ROUTE_LC_WIDTH
+        r = fresh("route", n)
+        brickwork_qcircuit(n).Run(r)
+        check(r.current_stack() == "lightcone",
+              f"the w{n} brickwork routed to {r.current_stack()}")
+        t0 = time.perf_counter()
+        probs, dw, _t = launched(lambda: [r.Prob(q) for q in range(n)])
+        first_s = time.perf_counter() - t0
+        c1 = dict(tele.snapshot()["counters"])
+        t0 = time.perf_counter()
+        again, dw2, _t = launched(lambda: [r.Prob(q) for q in range(n)])
+        second_s = time.perf_counter() - t0
+        c = tele.snapshot()["counters"]
+        tele.disable()
+        tele.reset()
+        hits = c.get("lightcone.cache.hit", 0) - c1.get(
+            "lightcone.cache.hit", 0)
+        check(again == probs, f"the w{n} second pass read other values")
+        check(dw2 == {"in_tile": 0, "pair": 0} and hits == n
+              and c["lightcone.cache.miss"] == c1["lightcone.cache.miss"],
+              f"the w{n} second pass rebuilt a cone: {dw2} {c1} {c}")
+        check(sum(dw.values()) > 0, f"the w{n} cones launched no kernel")
+        stacks = sorted({e.current_stack() for e in r._engine._cones.values()})
+        rc = fresh("route", n, device="cpu")
+        brickwork_qcircuit(n).Run(rc)
+        cpu = [rc.Prob(q) for q in range(n)]
+        d_cpu = max(abs(a - b) for a, b in zip(probs, cpu))
+        d_cf = max(abs(p - math.sin(brickwork_theta(q) / 2.0) ** 2)
+                   for q, p in enumerate(probs))
+        check(d_cpu <= 1e-6 and d_cf <= 1e-6,
+              f"w{n} Prob reads off the CPU cones by {d_cpu}, off the "
+              f"closed form by {d_cf}")
+        out["d_lightcone_w50"] = {
+            "width": n, "reads": n, "cone_stacks": stacks,
+            "widest_cone": max(len(k[0]) for k in r._engine._cones),
+            "launches": dw, "reads_per_s": n / first_s,
+            "cached_reads_per_s": n / second_s,
+            "cache_misses_first_pass": c1["lightcone.cache.miss"],
+            "cache_hits_second_pass": hits,
+            "max_diff_to_cpu": d_cpu, "max_diff_to_closed_form": d_cf}
+        del r, rc
+        release()
+        lap("d_lightcone_w50")
+
+        # ---- e. a w100 brickwork on "lightcone", dense cones -----------
+        n = ROUTE_WIDE
+        layers, widest, seen = route_bricks(n, dev)
+        lc = fresh("lightcone", n)
+        brickwork_qcircuit(n, layers).Run(lc)
+        sync()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        probs, dw, _t = launched(lambda: [lc.Prob(q % n)
+                                          for q in range(ROUTE_WIDE_READS)])
+        read_s = time.perf_counter() - t0
+        cache = torch.cuda.memory_allocated() - base
+        cones = lc._cones
+        by_width = {}
+        for (order, _digest), e in cones.items():
+            check(e.current_stack() == "dense",
+                  f"a w{len(order)} cone routed to {e.current_stack()}")
+            by_width[len(order)] = by_width.get(len(order), 0) + 1
+        check(max(by_width) == widest, f"widest cone {max(by_width)}, "
+                                       f"predicted {widest}")
+        d_cf = max(abs(p - math.sin(brickwork_theta(q) / 2.0) ** 2)
+                   for q, p in enumerate(probs))
+        check(d_cf <= 1e-6, f"w{n} brickwork reads off the closed form "
+                            f"by {d_cf}")
+        replays = []
+        for q in range(0, n, ROUTE_REPLAY_EVERY):
+            compact, order = lc._slice((q,))
+            eng = cones[(tuple(order), compact.structure_digest())]
+            m = compact.qubit_count
+            plain = compact.compile_fn(m)(basis_planes(m, 0, device=dev))
+            err, rel = held_to_plain(eng.device_planes, plain,
+                                     f"w{m} cone of qubit {q}")
+            replays.append({"qubit": q, "width": m, "max_abs_diff": err})
+        out["e_lightcone_w100"] = {
+            "width": n, "brick_layers": layers, "depths_tried": seen,
+            "reads": ROUTE_WIDE_READS, "cones": len(cones),
+            "cones_by_width": by_width, "launches": dw,
+            "reads_per_s": ROUTE_WIDE_READS / read_s,
+            "cache_bytes": cache, "max_diff_to_closed_form": d_cf,
+            "plain_replays": replays}
+        del lc, cones
+        release()
+        lap("e_lightcone_w100")
+
+        # ---- f. a misroute: escalated once; a refusal ------------------
+        tele.enable()
+        tele.reset()
+        n = ROUTE_MISROUTE_WIDTH
+        hard = QCircuit(n)
+        hard.append_1q(0, mat.u3_mtrx(0.3, 0.1, 0.2))
+        hard.append_ctrl((1,), 2, mat.u3_mtrx(0.7, 0.4, 0.5), 1)
+        again = QCircuit(n)
+        for q in range(0, n, 3):
+            again.append_1q(q, mat.u3_mtrx(0.9, 0.2, 0.1 * q))
+            again.append_ctrl((q,), (q + 1) % n, mat.X2, 1)
+        r = fresh("route", n)
+        d = fresh("cuda", n)
+        ghz_qcircuit(n).Run(r)
+        check(r.current_stack() == "stabilizer",
+              f"the w{n} GHZ routed to {r.current_stack()}")
+        for circ_ in (hard, again):
+            launched(lambda: circ_.Run(r))
+        check(r.current_stack() == "dense" and r._escalated,
+              f"the w{n} misroute left the stack {r.current_stack()}")
+        for circ_ in (ghz_qcircuit(n), hard, again):
+            launched(lambda: circ_.Run(d))
+        f_esc = fidelity(r.device_planes, d.device_planes)
+        c = tele.snapshot()["counters"]
+        check(c.get("route.misroute.escalated") == 1
+              and c.get("route.misroutes") == 1,
+              f"the w{n} misroute escalated "
+              f"{c.get('route.misroute.escalated')} times")
+        check(f_esc >= 1 - 1e-6, f"the escalated w{n} state against the "
+                                 f"direct engine: fidelity {f_esc}")
+        del r, d
+        w = ROUTE_REFUSED_WIDTH
+        g = fresh("route", w)
+        ghz_qcircuit(w).Run(g)
+        wide = QCircuit(w)
+        wide.append_1q(0, mat.u3_mtrx(0.3, 0.1, 0.2))
+        try:
+            wide.Run(g)
+            refused = False
+        except MisrouteError:
+            refused = True
+        amp = complex(g.GetAmplitude(0))
+        check(refused and g.current_stack() == "stabilizer"
+              and abs(abs(amp) - 2 ** -0.5) < 1e-9,
+              f"the w{w} general circuit was not refused cleanly "
+              f"({refused}, {g.current_stack()}, {amp})")
+        tele.disable()
+        tele.reset()
+        out["f_misroute"] = {"width": n, "escalated": 1,
+                             "fidelity_to_direct": f_esc,
+                             "refused_width": w}
+        del g
+        release()
+        lap("f_misroute")
+
+        # ---- g. repeatable draws: MultiShotMeasureMask and the rest ----
+        n = ROUTE_REPEAT_WIDTH
+        powers = [1 << b for b in range(n)]
+        u_host = np.random.default_rng(ROUTE_SEED).random(ROUTE_SHOTS)
+        bits = torch.arange(n, device=dev)
+        draws = {}
+        for dtype in ("float32", "float64", "bfloat16", "float16"):
+            q = fresh("cuda", n, dtype=dtype, init_state=PERM % (1 << n))
+            launched(lambda: (q.QFT(0, n), [q.T(t) for t in range(0, n, 3)],
+                              q.CNOT(n - 1, 0), q.H(n // 2), q.Finish()))
+            st = q._state
+            u = torch.as_tensor(u_host, dtype=st.dtype, device=dev)
+            old = draw_repeats(lambda: tuple(gk.cumsum_mask_keys(
+                st, u, bits).cpu().tolist()), ROUTE_REPEATS)
+
+            def new():
+                q.rng.seed(ROUTE_SEED)
+                return tuple(sorted(q.MultiShotMeasureMask(
+                    powers, ROUTE_SHOTS).items()))
+            new_n = draw_repeats(new, ROUTE_REPEATS)
+            # the trajectories' terminal draw on a batch of 8 such kets
+            batch = torch.stack([st] * 8)
+            ub = torch.as_tensor(u_host[:8], device=dev)
+            readout = draw_repeats(lambda: tuple(traj.readout(
+                batch, ub)[1].cpu().tolist()), ROUTE_REPEATS)
+            check(new_n == 1, f"{dtype} MultiShotMeasureMask drew "
+                              f"{new_n} key sets in {ROUTE_REPEATS} calls")
+            draws[dtype] = {"cumsum_distinct": old,
+                            "multishot_distinct": new_n,
+                            "traj_readout_distinct": readout}
+            del q, st, batch
+        lc = fresh("lightcone", ROUTE_LC_REPEAT)
+        brickwork_qcircuit(ROUTE_LC_REPEAT).Run(lc)
+
+        def lc_draw():
+            # the draw is the cone engine's, from its own stream
+            for cone in lc._cones.values():
+                cone.rng.seed(ROUTE_SEED)
+            return tuple(sorted(lc.MultiShotMeasureMask(
+                [1 << b for b in range(10, 14)], ROUTE_SHOTS).items()))
+        launched(lc_draw)   # builds the cone
+        _n, dw, _t = launched(lambda: draw_repeats(lc_draw, ROUTE_REPEATS))
+        check(_n == 1, f"the light-cone read drew {_n} key sets")
+        draws["lightcone_multishot_distinct"] = _n
+        # the pager's ProbMaskAll over 30 calls, and against the host
+        p = fresh("pager", n, devices=[dev] * 4, init_state=PERM % (1 << n))
+        p.QFT(0, n)
+        p.H(n - 1)
+        p.T(n - 1)
+        p.Finish()
+        mask = (1 << (n - 1)) | (1 << (n - 2)) | 0b101
+        reads = [p.ProbMaskAll(mask) for _ in range(ROUTE_REPEATS)]
+        ket = np.abs(p.GetQuantumState()) ** 2
+        idx = np.arange(1 << n)
+        key = np.zeros(1 << n, dtype=np.int64)
+        for j, b in enumerate(b for b in range(n) if (mask >> b) & 1):
+            key |= ((idx >> b) & 1) << j
+        host = np.bincount(key, weights=ket, minlength=16)
+        draws["pager_prob_mask_all"] = {
+            "distinct": len({r_.tobytes() for r_ in reads}),
+            "max_diff_between_calls": float(max(
+                np.abs(r_ - reads[0]).max() for r_ in reads)),
+            "max_diff_to_host": float(max(
+                np.abs(r_ - host).max() for r_ in reads))}
+        check(draws["pager_prob_mask_all"]["max_diff_to_host"] <= 1e-6,
+              f"pager ProbMaskAll off the host: {draws}")
+        out["g_repeats"] = {"width": n, "calls": ROUTE_REPEATS,
+                            "shots": ROUTE_SHOTS, **draws}
+        del lc, p
+        release()
+        lap("g_repeats")
+
+        # ---- h. checkpoints of a routed and a light-cone session -------
+        tmp = ckpt_dir(64 << 20)
+        try:
+            n = ROUTE_CKPT_WIDTH
+            r = fresh("route", n, init_state=PERM % (1 << n))
+            launched(lambda: qft_qcircuit(n).Run(r))
+            check(r.current_stack() == "dense", f"the w{n} session routed "
+                                                f"to {r.current_stack()}")
+            path = os.path.join(tmp, "routed.qckpt")
+            save_state(r, path)
+            r2 = load_state(path)
+            check(r2.current_stack() == "dense"
+                  and r2._decision.layers == ("cuda",)
+                  and r2.device_planes.device.type == dev.type,
+                  f"the routed load landed as {r2._decision}")
+
+            def cont(e):
+                e.H(3)
+                e.CNOT(3, n - 1)
+                e.RY(0.4, 7)
+                e.T(n - 1)
+                e.Finish()
+            for e in (r, r2):
+                launched(lambda: cont(e))
+            check(torch.equal(r.device_planes, r2.device_planes)
+                  and r.MAll() == r2.MAll(),
+                  f"the routed w{n} continuation from the file differs")
+            lc = fresh("lightcone", ROUTE_LC_REPEAT)
+            brickwork_qcircuit(ROUTE_LC_REPEAT).Run(lc)
+            launched(lambda: [lc.Prob(q) for q in range(0, 24, 4)])
+            lc.M(12)
+            warm = [lc.Prob(q) for q in (11, 12, 13)]
+            path = os.path.join(tmp, "lightcone.qckpt")
+            save_state(lc, path)
+            # restore-INTO a session built as the saver was (the
+            # recovery path: the cones' stacks take its keywords)
+            lc2 = load_state(path, into=fresh("lightcone", ROUTE_LC_REPEAT))
+            check(sorted(lc2._cones) == sorted(lc._cones)
+                  and all(torch.equal(lc._cones[k].device_planes,
+                                      lc2._cones[k].device_planes)
+                          for k in lc._cones),
+                  "the light-cone load's cones differ from the saved ones")
+            check([lc2.Prob(q) for q in (11, 12, 13)] == warm,
+                  "the light-cone load read other values")
+
+            def lcont(e):
+                e.H(12)
+                e.CNOT(12, 13)
+                e.RY(0.3, 11)
+                return ([e.Prob(q) for q in range(10, 16)],
+                        e.MultiShotMeasureMask([1 << 12, 1 << 13], 256))
+            a_, b_ = (launched(lambda: lcont(e))[0] for e in (lc, lc2))
+            check(a_ == b_, f"the light-cone continuation from the file "
+                            f"differs: {a_} against {b_}")
+            out["h_checkpoint"] = {"routed_width": n,
+                                   "lightcone_width": ROUTE_LC_REPEAT,
+                                   "lightcone_cones": len(lc._cones)}
+            del r, r2, lc, lc2
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        release()
+        lap("h_checkpoint")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tele.disable()
+        tele.reset()
+    out["launches"] = counts
+    out["seconds"] = time.time() - t_phase
+    out["budget_s"] = ROUTE_PHASE_S
+    emit(out)
+    return counts
+
+
 def cuda_engines(q) -> list:
     """Every QEngineCUDA reachable from a stack (its units' engines)."""
     from qrack_tpu_torch.engines.cuda import QEngineCUDA
@@ -5744,6 +6309,7 @@ def main() -> int:
     telemetry_only = "--telemetry-only" in sys.argv[1:]
     resilience_only = "--resilience-only" in sys.argv[1:]
     checkpoint_only = "--checkpoint-only" in sys.argv[1:]
+    route_only = "--route-only" in sys.argv[1:]
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -5773,7 +6339,7 @@ def main() -> int:
 
     only = (tq_only or algo_only or fppow_only or layers_only or pager_only
             or wide_only or telemetry_only or resilience_only
-            or checkpoint_only)
+            or checkpoint_only or route_only)
     tableau = stack_native(card) if layers_only or not only else None
     probe = SweepProbe(wk)
     paths = {}   # path -> launches by dtype name
@@ -5859,6 +6425,11 @@ def main() -> int:
         paths["checkpoint"] = {"float32": got["dense"]}
         if page_probe is not None:
             page_paths["checkpoint_pager"] = got["pager"]
+        for entry in tq_kernels:
+            entry["launches"] += got["tq"][entry["name"][len("tq_"):]]
+    if route_only or not only:
+        got = route_phase(card, dev)
+        paths["route"] = got["dense"]
         for entry in tq_kernels:
             entry["launches"] += got["tq"][entry["name"][len("tq_"):]]
     if page_probe is not None:

@@ -33,8 +33,10 @@ every node's meta and are restored LAST, after any child-spawning the
 restore itself performed — a restored stack continues bit-identically,
 measurement streams included.
 
-The kinds ``routed`` and ``lightcone`` belong to modules of ROADMAP
-item 16 and raise :class:`CheckpointError` naming it.
+The kinds ``routed`` (route/router.py) and ``lightcone``
+(lightcone/engine.py) are built empty and rebuild their own stacks in
+``_ckpt_restore``; a routed file's layer list names the dense terminal
+``"tpu"``, as the JAX package writes it, and reads back as ``"cuda"``.
 """
 
 from __future__ import annotations
@@ -49,12 +51,6 @@ from ..utils.device import resolve_device
 from .container import (CheckpointError, load_container, save_container)
 
 STATE_KIND_PREFIX = "qrack-state:"
-
-#: kinds of the JAX package whose modules the port lacks
-NOT_PORTED = {
-    "routed": "ROADMAP item 16 (route/)",
-    "lightcone": "ROADMAP item 16 (lightcone/engine.py)",
-}
 
 # the device that builds nested in a restore default to
 _ctx = threading.local()
@@ -173,17 +169,10 @@ def capture(obj) -> dict:
     return snap
 
 
-def _check_kind(kind: str) -> None:
-    if kind in NOT_PORTED:
-        raise CheckpointError(
-            f"snapshot kind {kind!r} is not ported yet: {NOT_PORTED[kind]}")
-
-
 def restore_into(obj, snap: dict):
     """Load snapshot tree `snap` into live object `obj` in place (the
     stack keeps its own factories/wiring; only state is overwritten).
     Returns `obj`."""
-    _check_kind(snap["kind"])
     if type(obj).__name__ == "ResilientEngine":
         inner = obj.engine
         if kind_of(inner) != snap["kind"]:
@@ -298,6 +287,18 @@ def _construct(kind: str, meta: dict, dev: torch.device):
         return QHybrid(n, tpu_threshold_qubits=int(meta["tpu_threshold"]),
                        pager_threshold_qubits=int(meta["pager_threshold"]),
                        device=dev)
+    if kind == "routed":
+        from ..route.router import QRouted
+
+        # the wrapper's _ckpt_restore rebuilds the recorded stack from
+        # the snapshot's layer list; a fresh QRouted carries no engine
+        return QRouted(n, device=dev)
+    if kind == "lightcone":
+        from ..lightcone.engine import QLightCone
+
+        # _ckpt_restore rebuilds the buffered circuit from the gate
+        # arrays and the cone and base stacks from the children
+        return QLightCone(n, device=dev)
     raise CheckpointError(f"unknown snapshot kind {kind!r}")
 
 
@@ -306,7 +307,6 @@ def build(snap: dict, device=None):
     constructor metadata on `device` (``cuda`` unless the caller passes
     ``device="cpu"``; children land there too), then restore the
     snapshot into it."""
-    _check_kind(snap["kind"])
     dev = resolve_device(device)
     with _on_device(dev):
         obj = _construct(snap["kind"], snap.get("meta", {}), dev)

@@ -351,12 +351,17 @@ class QEngineCUDA(QEngine):
         return result
 
     def MultiShotMeasureMask(self, q_powers, shots: int) -> dict:
-        """Batched sampling with device-side bit compaction; only (shots,)
-        small ints reach the host."""
+        """Batched sampling; only (shots,) small ints (on the CPU) or the
+        row sums of the chosen segments (on the card,
+        gatekernels.draw_indices) reach the host.  The card draws from
+        the float64 uniforms, the CPU from uniforms in the planes' dtype,
+        as the JAX engine does."""
         from ..utils.bits import log2
 
         st = self._state
-        u = torch.as_tensor(self.rng.uniform(shots), dtype=self.dtype).to(st.device)
+        u = torch.as_tensor(self.rng.uniform(shots),
+                            dtype=torch.float64 if st.device.type == "cuda"
+                            else self.dtype).to(st.device)
         bits = torch.tensor([log2(int(pw)) for pw in q_powers],
                             dtype=torch.int64).to(st.device)
         keys = _gk.multishot_mask_keys(st, u, bits).cpu().numpy()

@@ -46,6 +46,13 @@ and the ported terminals:
                   device list that may repeat a device (``devices``,
                   ``n_pages``; the "turboquant" options), plain chunk
                   programs, no kernel
+  "route"         QRouted: builds nothing until the first QCircuit (or
+                  eager gate) arrives, then the stack the cost model
+                  picks for it (route/; QRACK_ROUTE pins one), through
+                  this factory
+  "lightcone"     QLightCone: gates buffer on the host; each read runs
+                  its past light cone, relabeled onto a cone-width
+                  register, through "route" (lightcone/)
   "stabilizer"    QStabilizer bare CHP tableau (Clifford only; host)
   "unit_clifford" QUnitClifford: QUnit over per-subsystem tableaus
   "bdt"           QBdt decision tree (host nodes; device leaves)
@@ -59,8 +66,9 @@ reference's production stack shape over the CUDA dense bottom;
 ``"optimal_multi"`` is OPTIMAL_MULTI, the same with "unit_multi" on top.
 ``device``/``dtype`` go to the terminal, and to "bdt_hybrid" for its
 tree, so every engine a stack builds lies on ``cuda`` unless
-``device="cpu"``.  The JAX package's other layers raise ValueError
-naming their ROADMAP item.
+``device="cpu"``; "route" and "lightcone" hand them (and
+``failover_cpu``) to every stack they build.  The JAX package's other
+layer, "tpu", raises ValueError naming the port's "cuda".
 
 With the resilience plane armed (resilience/), the accelerator
 terminals "cuda", "pager", "turboquant" and "turboquant_pager" are
@@ -81,7 +89,7 @@ OPTIMAL_MULTI = ("unit_multi", "stabilizer_hybrid", "hybrid")
 
 _TERMINAL = {"cuda", "cpu", "hybrid", "pager", "sparse", "turboquant",
              "turboquant_pager", "stabilizer", "unit_clifford", "bdt",
-             "bdt_attached"}
+             "bdt_attached", "route", "lightcone"}
 
 #: terminals that run on the host and refuse a device
 _HOST_TERMINALS = {"cpu", "sparse"}
@@ -94,9 +102,6 @@ _ACCEL_TERMINALS = {"cuda", "pager", "turboquant", "turboquant_pager"}
 #: ROADMAP item that brings each
 _NOT_PORTED = {
     "tpu": "the port's dense terminal is 'cuda'",
-    "lightcone": "ROADMAP item 16 (lightcone/engine.py, which builds its "
-                 "cones through 'route')",
-    "route": "ROADMAP item 16 (route/)",
 }
 
 
@@ -187,6 +192,19 @@ def _terminal_factory(name: str, **opts) -> Callable:
             return QBdt(n, **kw)
 
         return mk_attached
+    if name == "route":
+        # pseudo-terminal: construction builds no stack; the chosen one
+        # is built through this factory, so resilience wrapping and the
+        # per-layer creation counters apply to it
+        from .route.router import QRouted
+
+        return lambda n, **kw: QRouted(n, **{**opts, **kw})
+    if name == "lightcone":
+        # pseudo-terminal like "route": the cone-width stacks each read
+        # builds come back through this factory (via "route")
+        from .lightcone.engine import QLightCone
+
+        return lambda n, **kw: QLightCone(n, **{**opts, **kw})
     raise ValueError(f"unknown terminal layer {name!r}")
 
 
@@ -203,7 +221,8 @@ def build_factory(layers: Sequence[str], **opts) -> Callable:
         if rest:
             raise ValueError(f"terminal layer {head!r} must be last")
         fo = bool(opts.get("failover_cpu", False))
-        if head == "hybrid":
+        if head in ("route", "lightcone", "hybrid"):
+            # their stacks come back through this factory, with these
             return _counted(head, _terminal_factory(
                 head, **dev, **({"failover_cpu": True} if fo else {})))
         return _counted(head, _maybe_resilient(

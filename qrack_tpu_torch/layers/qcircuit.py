@@ -156,6 +156,11 @@ class QCircuit:
 
     def Run(self, qsim) -> None:
         """Execute on any QInterface (reference: src/qcircuit.cpp:173)."""
+        if getattr(qsim, "_is_routed", False):
+            # routing admission on the library path: plan and realize on
+            # the calling thread, then dispatch into the chosen stack
+            # (route/router.py route_for)
+            qsim = qsim.route_for(self)
         # prime the engine fuser's lookahead with the full gate list so
         # the remap planner sees past the pending window; never clobber
         # a horizon an outer caller already installed
@@ -187,18 +192,27 @@ class QCircuit:
         the cost model picks the single-sweep window kernel (one sweep
         per planned segment) or the per-op window chain; on the pager the
         whole op list is also the remap planner's horizon
-        (QPager._run_fused_ops).  Per-gate dispatch otherwise (which on a
-        fuse-capable engine still windows through its fuser)."""
+        (QPager._run_fused_ops).  A routed wrapper first picks its stack
+        (route_for); the compressed engine takes the gates one by one
+        through its own window funnel, as in the JAX package (its full
+        float32 planes would defeat it, and past 30 qubits cannot be
+        built).  Per-gate dispatch otherwise (which on a fuse-capable
+        engine still windows through its fuser)."""
         from ..engines.cuda import QEngineCUDA
         from ..engines.hybrid import QHybrid
+        from ..engines.turboquant import QEngineCUDATurboQuant
         from ..ops import fusion as fu
         from ..parallel.pager import QPager
 
+        if getattr(qsim, "_is_routed", False):
+            return self.RunFused(qsim.route_for(self))
         if isinstance(qsim, QHybrid):
             # fuse onto whatever engine the width switch currently holds
             inner = qsim._engine
             if isinstance(inner, (QEngineCUDA, QPager)):
                 return self.RunFused(inner)
+        if isinstance(qsim, QEngineCUDATurboQuant):
+            return self.Run(qsim)
         if isinstance(qsim, QPager) and self.gates:
             self._check_fused_range(qsim.qubit_count)
             qsim._run_fused_ops(fu.lower_gates(self.gates))

@@ -28,8 +28,8 @@ default engine is the port's QHybrid.  Every engine this layer builds
 takes the constructor's keyword arguments (``device``, ``dtype``) with
 a fresh ``rng`` spawn.  The switch to the engine is the telemetry event
 ``stabilizer.to_dense``.  Checkpoints: the JAX package's hooks (kind
-``"stabilizer_hybrid"``).  Not ported yet: the router's
-``can_run_cheaply`` probe (ROADMAP item 16).
+``"stabilizer_hybrid"``).  The router's probes: ``on_tableau`` and
+``can_run_cheaply``.
 """
 
 from __future__ import annotations
@@ -108,6 +108,21 @@ class QStabilizerHybrid(QInterface):
         """True while the state is still tableau-resident (no internal
         dense materialization)."""
         return self.engine is None
+
+    def can_run_cheaply(self, circuit) -> bool:
+        """Feasibility probe for the router: can `circuit` run without
+        forcing SwitchToEngine?  Host-side feature scan only — no gates
+        are applied.  Conservative: a general (non-monomial,
+        non-Clifford) payload or a magic count past the remaining
+        ancilla room means "no"."""
+        if self.engine is not None:
+            return False
+        from ..route.features import extract_features
+
+        f = extract_features(circuit, self.qubit_count)
+        room = max(self.max_ancilla - self._anc, 0)
+        return f.general_count == 0 and (not self.use_t_gadget
+                                         or f.magic_count <= room)
 
     def SwitchToEngine(self) -> None:
         """Materialize the tableau ket + pending shards into a dense

@@ -94,20 +94,23 @@ def traj_window_len() -> int:
 
 
 def budget_bytes(device=None) -> int:
-    """Device memory a trajectory chunk may take: ``QRACK_ROUTE_HBM_BYTES``
-    when set, else the free memory of a CUDA device, else
-    DEFAULT_BUDGET_BYTES."""
-    try:
-        env = int(os.environ.get("QRACK_ROUTE_HBM_BYTES", "0"))
-    except ValueError:
-        env = 0
-    if env > 0:
-        return env
+    """Device memory a trajectory chunk may take: the router's budget
+    for this device (route/cost.py ``hbm_budget_bytes`` over
+    ``RouteKnobs.for_device``: ``QRACK_ROUTE_HBM_BYTES`` when set, else
+    a CUDA device's total memory, else DEFAULT_BUDGET_BYTES, less any
+    reservation made through ``set_hbm_reservation``), as in the JAX
+    package; without ``QRACK_ROUTE_HBM_BYTES``, on a CUDA device no more
+    than its free memory less that reservation."""
+    from ..route import cost as _cost
+
+    if _cost.RouteKnobs.from_env().hbm_bytes > 0:
+        return _cost.hbm_budget_bytes()
     dev = torch.device("cuda" if device is None else device)
+    budget = _cost.hbm_budget_bytes(_cost.RouteKnobs.for_device(dev))
     if dev.type == "cuda" and torch.cuda.is_available():
         free, _total = torch.cuda.mem_get_info(dev)
-        return int(free)
-    return DEFAULT_BUDGET_BYTES
+        return min(budget, _cost.less_reservation(int(free)))
+    return budget
 
 
 def traj_chunk(width: int, trajectories: int, device=None,

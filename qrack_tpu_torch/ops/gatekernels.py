@@ -438,55 +438,94 @@ def sample(planes, u: float):
     return torch.clamp(idx, max=p.shape[0] - 1)[0]
 
 
-# rows of one level of draw_index, and the rows a float64 pass reads at
-# once (64 x 2^20 amplitudes: 512 MiB of float64 at w30)
+# rows of one level of draw_indices, and the rows of 2^20 amplitudes a
+# float64 pass reads at once (64 x 2^20 amplitudes: 512 MiB of float64)
 _DRAW_ROWS = 1024
 _DRAW_STEP = 64
 
 
 def draw_index(planes, u: float) -> int:
     """The first index whose float64 cumulative |amp|^2 passes u times
-    the total, found level by level: the sums of 1024 rows (reductions,
-    which repeat bit for bit), their cumulative sum on the host, then the
-    chosen row, down to 1024 amplitudes read on the host.  The same
-    planes and u give the same index on every call (torch.cumsum on a
-    CUDA tensor does not: on an H100 the bfloat16 and float16 draws of
-    one w20 ket took two values over 30 calls)."""
+    the total (:func:`draw_indices` for one uniform).  The same planes
+    and u give the same index on every call (torch.cumsum on a CUDA
+    tensor does not: on an H100 the bfloat16 and float16 draws of one
+    w20 ket took two values over 30 calls)."""
+    return int(draw_indices(planes, [u])[0])
+
+
+def _level_pick(sums, inv, target):
+    """One level of :func:`draw_indices`: `sums` (U, R) float64 row sums
+    of U segments, each shot in segment ``inv[s]`` with its remaining
+    target; returns (the row each shot picks, the target left in it).
+    The segments' cumulative sums are one float64 cumsum on the host,
+    so a shot's pick is a searchsorted offset by its segment's start."""
+    U, R = sums.shape
+    flat = np.cumsum(sums.reshape(-1))
+    base = np.concatenate([[0.0], flat[R - 1::R][:-1]])
+    pos = np.searchsorted(flat, base[inv] + target, side="right")
+    k = np.clip(pos - inv * R, 0, R - 1)
+    before = np.where(k > 0, flat[inv * R + k - 1] - base[inv], 0.0)
+    return k, target - before
+
+
+def draw_indices(planes, us) -> np.ndarray:
+    """:func:`draw_index` for every uniform of `us` (host float64), the
+    levels batched over the shots: a level sums the 1024 rows of each
+    distinct segment the shots chose one level up (float64 reductions
+    on the planes' device, which repeat bit for bit; a segment chosen by
+    many shots is read once), the picks are made on the host, and the
+    last level's rows are single amplitudes.  The same planes and
+    uniforms give the same indices on every call."""
+    us = np.asarray(us, dtype=np.float64).reshape(-1)
     re, im = planes[0], planes[1]
     n = re.shape[0]
-    base = 0
+    seg = np.zeros(us.shape[0], dtype=np.int64)
     target = None
-    while n > _DRAW_ROWS:
-        C = n // _DRAW_ROWS
-        r2, i2 = re.view(_DRAW_ROWS, C), im.view(_DRAW_ROWS, C)
+    while True:
+        R = min(n, _DRAW_ROWS)
+        C = n // R
+        rows, inv = np.unique(seg, return_inverse=True)
+        rid = (torch.as_tensor(rows, device=re.device)[:, None] * R
+               + torch.arange(R, device=re.device)).reshape(-1)
+        r2, i2 = re.reshape(-1, C), im.reshape(-1, C)
+        step = max(1, (_DRAW_STEP << 20) // C)
         sums = torch.cat([
-            (r2[a:a + _DRAW_STEP].double() ** 2
-             + i2[a:a + _DRAW_STEP].double() ** 2).sum(1)
-            for a in range(0, _DRAW_ROWS, _DRAW_STEP)]).cpu().numpy()
-        cum = np.cumsum(sums)
+            (r2[rid[a:a + step]].double() ** 2
+             + i2[rid[a:a + step]].double() ** 2).sum(1)
+            for a in range(0, rid.numel(), step)]).cpu().numpy()
+        sums = sums.reshape(rows.shape[0], R)
         if target is None:
-            target = u * float(cum[-1])
-        k = min(int(np.searchsorted(cum, target, side="right")),
-                _DRAW_ROWS - 1)
-        if k:
-            target -= float(cum[k - 1])
-        base += k * C
-        re, im = r2[k], i2[k]
+            target = us * float(np.cumsum(sums[0])[-1])
+        k, target = _level_pick(sums, inv.reshape(-1), target)
+        seg = seg * R + k
+        if C == 1:
+            return seg
         n = C
-    v = (re.double() ** 2 + im.double() ** 2).cpu().numpy()
-    cum = np.cumsum(v)
-    if target is None:
-        target = u * float(cum[-1])
-    j = min(int(np.searchsorted(cum, target, side="right")), n - 1)
-    return base + j
 
 
 def multishot_mask_keys(planes, u, bits):
-    """Batched categorical draws + masked-bit compaction, all on device
-    (reference: the bulk MultiShotMeasureMask op,
-    src/qinterface/qinterface.cpp:807).  `u` is (shots,) uniforms,
-    `bits` a (k,) int tensor of qubit indices; returns (shots,) ints
-    whose bit j is drawn-index bit bits[j]."""
+    """Batched categorical draws + masked-bit compaction (reference: the
+    bulk MultiShotMeasureMask op, src/qinterface/qinterface.cpp:807).
+    `u` is (shots,) uniforms, `bits` a (k,) int tensor of qubit indices;
+    returns (shots,) ints whose bit j is drawn-index bit bits[j].  On the
+    card the draws of :func:`draw_indices` (a cumsum there need not
+    repeat its rounding from call to call; ROADMAP §C has the reading),
+    the keys packed on the host; on the CPU the JAX package's cumsum,
+    :func:`cumsum_mask_keys`, all in the planes' dtype."""
+    if planes.device.type == "cuda":
+        draws = draw_indices(planes, u.double().cpu().numpy())
+        keys = np.zeros_like(draws)
+        for j, b in enumerate(bits.cpu().tolist()):
+            keys |= ((draws >> b) & 1) << j
+        return torch.from_numpy(keys)
+    return cumsum_mask_keys(planes, u, bits)
+
+
+def cumsum_mask_keys(planes, u, bits):
+    """The JAX package's form of :func:`multishot_mask_keys`: one cumsum
+    of |amp|^2 in the planes' dtype, a searchsorted per shot and the key
+    packing, on the planes' device (the CPU path; on a CUDA tensor it
+    runs too, which is how its rounding there is measured)."""
     p = planes[0] ** 2 + planes[1] ** 2
     cdf = torch.cumsum(p, 0)
     draws = torch.searchsorted(cdf, u * cdf[-1], right=True)

@@ -78,6 +78,9 @@ SITES = (
     # (noise/trajectories.py _sample_operands) — checked directly
     "noise.sample",
     "checkpoint.save", "checkpoint.restore",
+    # each light-cone read before it slices the buffer
+    # (lightcone/engine.py _slice) — checked directly
+    "lightcone.slice",
 )
 # bare last-segment categories that match the site family on any engine
 CATEGORIES = ("discover", "compile", "dispatch", "device_get", "exchange",
@@ -96,7 +99,6 @@ NOT_PORTED = {
     "serve.device_get": "ROADMAP item 16 (serve/)",
     "prefix.materialize": "ROADMAP item 16 (serve/executor.py's prefix "
                           "cache)",
-    "lightcone.slice": "ROADMAP item 16 (lightcone/engine.py)",
     "fleet.worker": "ROADMAP item 16 (fleet/)",
     "fleet.heartbeat": "ROADMAP item 16 (fleet/)",
     "fleet.spawn": "ROADMAP item 16 (fleet/)",

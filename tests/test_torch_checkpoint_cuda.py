@@ -128,3 +128,24 @@ def test_mall_draw_repeats_on_the_card(dtype, cuda_device):
     st = q._state
     draws = {int(gk.sample(st, 0.6180339887)) for _ in range(30)}
     assert len(draws) == 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16",
+                                   "float16"])
+def test_multishot_draw_repeats_on_the_card(dtype, cuda_device):
+    """The dense engine's MultiShotMeasureMask on the card draws the same
+    keys on 30 calls with the same planes and rng position, in every
+    plane dtype (gatekernels.draw_indices; the cumsum draw it replaced
+    on the card does not repeat its rounding)."""
+    q = qt.create_quantum_interface("cuda", 20, dtype=dtype,
+                                    rng=QrackRandom(7))
+    _prefix(q, 20)
+    _tail(q, 20)
+    powers = [1 << b for b in (0, 3, 9, 14, 19)]
+    seen = set()
+    for _ in range(30):
+        q.rng.seed(11)
+        seen.add(tuple(sorted(q.MultiShotMeasureMask(powers, 1024).items())))
+    assert len(seen) == 1
+    (counts,) = seen
+    assert sum(c for _, c in counts) == 1024

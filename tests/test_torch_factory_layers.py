@@ -135,10 +135,14 @@ def test_arranged_layers_full_matches_jax(toggles):
 
 
 @pytest.mark.parametrize("layers", [
-    "lightcone", "route", "tpu", ["unit", "lightcone"],
+    "tpu", ["unit", "tpu"], ["stabilizer_hybrid", "tpu"],
+    ["tensor_network", "unit", "tpu"],
 ])
 def test_unported_layers_raise_with_their_roadmap_item(layers):
-    with pytest.raises(ValueError, match="not ported yet"):
+    """The JAX package's "tpu" terminal, anywhere in a stack, is refused
+    naming the port's "cuda" ("route" and "lightcone" are ported since
+    ROADMAP item 16a)."""
+    with pytest.raises(ValueError, match="not ported yet.*'cuda'"):
         qt.create_quantum_interface(layers, 3, device="cpu")
 
 
@@ -177,8 +181,21 @@ def test_arranged_multi_device_builds_qunitmulti():
 
 @pytest.mark.parametrize("layers", ["lightcone", "route"])
 def test_lightcone_and_route_name_item_16(layers):
-    with pytest.raises(ValueError, match="ROADMAP item 16"):
-        qt.create_quantum_interface(layers, 3, device="cpu")
+    """The terminals of ROADMAP item 16a build the JAX package's classes,
+    lazily: no stack until the first read or circuit; a Bell pair then
+    reads as the JAX stack's."""
+    port = qt.create_quantum_interface(layers, 3, rng=QrackRandom(5),
+                                       rand_global_phase=False, device="cpu")
+    ref = jax_create(layers, 3, rng=JaxRandom(5), rand_global_phase=False)
+    assert type(port).__name__ == type(ref).__name__
+    assert type(port).__name__ in ("QRouted", "QLightCone")
+    assert (port.current_stack() is None if layers == "route"
+            else port.sim is None and not port._cones)
+    for q in (port, ref):
+        q.H(0)
+        q.CNOT(0, 1)
+    for k in range(3):
+        assert port.Prob(k) == pytest.approx(ref.Prob(k), abs=1e-6)
 
 
 @pytest.mark.parametrize("layers,kind", [

@@ -16,7 +16,9 @@ terminals against the JAX package's complex128 oracle, QEngineCPU:
   with QHybrid's threshold at 3 qubits;
 * "pager" on 2 and on 8 CPU pages with window 16 (the per-page window
   kernel's plain version), and on 4 pages with ``force_wide_alu`` set,
-  so every ALU and parity op runs its split-index form.
+  so every ALU and parity op runs its split-index form;
+* "route" (eager gates: the stabilizer hybrid, escaping to the dense
+  engine) and "lightcone" (every read a routed cone).
 
 SetBit, the one measuring op of the vocabulary, is left out: its draws
 diverge across stacks by design.  Bars: fidelity >= 1 - 1e-6 and Prob
@@ -70,6 +72,8 @@ STACKS = {
                     "QRACK_TPU_FUSE_KERNEL": "on"}, F32),
     "pager_wide": ("pager", {"device": "cpu", "n_pages": 4},
                    {"QRACK_TPU_FUSE_WINDOW": "16"}, F32),
+    "route": ("route", {"device": "cpu"}, {}, F32),
+    "lightcone": ("lightcone", {"device": "cpu"}, {}, F32),
 }
 # attributes set on a stack once it is built
 ATTRS = {"pager_wide": {"force_wide_alu": True}}

@@ -127,6 +127,14 @@ assert np.array_equal(store.load("s", device="cpu").GetQuantumState(),
                       pg.GetQuantumState())
 store.wal_append("s", circ)
 assert len(store.wal_entries()) == 1
+from qrack_tpu_torch.models.algorithms import brickwork_qcircuit
+rt = qt.create_quantum_interface("route", 50, device="cpu")
+brickwork_qcircuit(50).Run(rt)
+assert rt.current_stack() == "lightcone" and 0.0 <= rt.Prob(25) <= 1.0
+lc = qt.create_quantum_interface("lightcone", 12, device="cpu")
+lc.H(0)
+lc.CNOT(0, 11)
+assert abs(lc.Prob(11) - 0.5) < 1e-6
 print(sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "qrack_tpu")
              or m.startswith(("jax.", "jaxlib.", "qrack_tpu."))))
@@ -222,6 +230,38 @@ def test_pager_slice_entry_points_need_a_gpu(monkeypatch):
                                     device="cpu")
     assert q.devices == [torch.device("cpu")] * 2
     assert all(c.device.type == "cpu" for c in q._codes)
+
+
+def test_route_and_lightcone_need_a_gpu(monkeypatch):
+    """"route" and "lightcone" build no stack when they are constructed,
+    but resolve their device then: without a GPU and without
+    ``device="cpu"`` construction raises, not the first gate; with it
+    every stack they build lies on the CPU."""
+    from qrack_tpu_torch.lightcone import QLightCone
+    from qrack_tpu_torch.route import QRouted
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: qt.create_quantum_interface("route", 3),
+                  lambda: qt.create_quantum_interface("lightcone", 3),
+                  lambda: QRouted(3), lambda: QLightCone(3),
+                  lambda: QRouted(3, device="cuda")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    r = qt.create_quantum_interface("route", 3, device="cpu")
+    assert r.current_stack() is None and r.device.type == "cpu"
+    r.H(0)
+    r.RY(0.3, 1)
+    r.CNOT(0, 1)
+    assert 0.0 <= r.Prob(1) <= 1.0      # the read relabels the escape
+    assert r.current_stack() == "dense"
+    assert r._engine.engine.device.type == "cpu"
+    lc = qt.create_quantum_interface("lightcone", 3, device="cpu")
+    lc.H(0)
+    lc.RY(0.3, 1)
+    lc.CNOT(0, 1)
+    assert 0.0 <= lc.Prob(1) <= 1.0
+    (cone,) = lc._cones.values()
+    assert cone.device.type == "cpu"
 
 
 def _device_leaf(**kw):

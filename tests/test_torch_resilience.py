@@ -62,7 +62,7 @@ BY_DESIGN = {
                     "page's index in the construction device list), the "
                     "JAX package's by device id; equal wherever the JAX "
                     "mesh is jax.devices()[:P], as in its tests",
-    "unported_sites": "serve.*, prefix.materialize, lightcone.slice, "
+    "unported_sites": "serve.*, prefix.materialize, "
                       "fleet.* and tpu.* are refused at parse time "
                       "(faults.NOT_PORTED names the ROADMAP item)",
     "tq_chunk": "TurboQuant's plain chunk is 2^26 amplitudes "
