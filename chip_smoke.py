@@ -456,13 +456,15 @@ the class, and the planes themselves:
 Then the checkpoint plane (qrack_tpu_torch/checkpoint; no new kernel).
 Its files go to one temporary directory, under QRACK_SMOKE_TMP when it
 is set, else the system's; the phase first checks that the directory has
-1.2 times the bytes it writes at once free (8 GiB: the w30 file), raises
-naming it otherwise, and deletes each file after its check:
+1.2 times the bytes it writes at once free (2 GiB: the w28 dense file
+or the w27 pager's), raises naming it otherwise, and deletes each file
+after its check:
 
-39. checkpoint: (a) the w30 float32 "cuda" engine from 0x2A5C3F1, its
+39. checkpoint: (a) the w28 float32 "cuda" engine from 0x2A5C3F1
+    (CKPT_DENSE_WIDTH; w30 until the run budget's cut), its
     engine-path QFT through K1/K2, then capture + save_snapshot (what
     save_state runs), the planes' digest (plane_digest) the same after
-    the capture; a fresh create_quantum_interface("cuda", 30,
+    the capture; a fresh create_quantum_interface("cuda", 28,
     rng=QrackRandom(991)) loads the file (load_snapshot + restore_into,
     what load_state(path, into=) runs, the planes written in place);
     both continue with the IQFT and a seeded tail of 90 H/T/CNOT
@@ -475,9 +477,10 @@ naming it otherwise, and deletes each file after its check:
     so the wait for them past it is printed too), the file's bytes, and
     the device memory above the live
     engines' planes during the save and the load (bar: 1 GiB each).
-    (b) a w28 pager on 4 pages of 2^26 on the card: its engine-path QFT
+    (b) a w27 pager on 4 pages of 2^25 on the card (CKPT_PAGER_WIDTH;
+    w28 until the run budget's cut): its engine-path QFT
     and H on the top four qubits leave the placement table non-identity
-    (checked); save_state writes the raw pages as complex128 (4 GiB);
+    (checked); save_state writes the raw pages as complex128 (2 GiB);
     one load_snapshot of the file (one read and hash) restores into a
     fresh 4-page pager (table and pages bit for bit after the
     continuation, the first per-page K1 and K2 launch held to plain, MAll
@@ -508,8 +511,9 @@ naming it otherwise, and deletes each file after its check:
 Then the router and the light-cone engine (qrack_tpu_torch/route and
 lightcone; no new kernel: the stacks they build launch K1-K5):
 
-40. route: (a) a "route" wrapper at w30 from 0x2A5C3F1 runs
-    RunFused(qft_qcircuit(30)) under the default knobs, with the card's
+40. route: (a) a "route" wrapper at w28 (ROUTE_TQ_WIDTH; w30 until the
+    run budget's cut) from 0x2A5C3F1 runs RunFused(qft_qcircuit(28))
+    under the default knobs, with the card's
     own memory as the budget (checked against torch.cuda.mem_get_info):
     it must route to "turboquant" (layers ("turboquant",)), launch
     K3-K5, and hold the closed form on 4 seeded pages of 4096
@@ -556,6 +560,40 @@ lightcone; no new kernel: the stacks they build launch K1-K5):
     phase's seconds are printed beside its budget of 40 s
     (ROUTE_PHASE_S), a budget, not a bar.
 
+Then pages in several processes (qrack_tpu_torch/parallel/cluster.py
+and the pagers over its page homes; no new kernel: every rank launches
+K1/K2 on its own pages).  The script re-invokes itself as
+``chip_smoke.py --cluster-worker nccl|gloo`` once a rank, each rank's
+rendezvous in the QRACK_* environment; a worker that fails or passes
+CLUSTER_TIMEOUT_S fails the run, and every worker is stopped:
+
+41. cluster: (a) NCCL as a group of one on cuda:0: a w28 pager of 4
+    pages over cluster.global_page_devices runs the remap-on QFT of
+    |0x2A5C3F1> through QCircuit.Run; its pages and table torch.equal to
+    the one-process pager's in the same worker, Prob(3), GetAmplitude
+    (broadcast over NCCL) and MAll equal, the closed form at phase 30's
+    bars, the per-page K1/K2 launches equal.  (b) two ranks on gloo,
+    both on cuda:0 (the cut: NCCL refuses two ranks on one device, so
+    the one card holds both ranks' halves of the ket): the w30 QFT
+    (CLUSTER_WIDTH: 4 pages of 2^28, 2 a rank, the top page bit crosses
+    the ranks) through QCircuit.Run with remap on and batched prologues;
+    each rank holds its own pages against the closed form at phase 30's
+    bars (max diff <= 1e-4 * 2^(-n/2), fidelity >= 1 - 1e-5), its
+    per-page K1/K2 launches equal its plans' and are > 0,
+    remap.pager.batched >= 1 and bytes crossed the ranks; Prob(3) and
+    MAll equal on both ranks.  Printed: the QFT's wall, the bytes sent
+    over the wire, the bytes staged through pinned host buffers, and
+    apart the transport's seconds in its staging copies and on the wire
+    (sharded.TRANSPORT_S), each with its GB/s.  (c) make_sharded_qft_fn
+    at w28 (SHARDED_QFT_WIDTH) over the two ranks' pages against the
+    closed form.  (d) the 16-bit TurboQuant pager at w24 over the two
+    ranks: marginals within 1e-3 of 1/2, its codes equal the one-process
+    TurboQuant pager's, MAll equal on both ranks.  (e) a w24 cluster
+    pager saved on each rank and loaded into a fresh cluster pager (each
+    local page and the table torch.equal) and into a one-process pager
+    on the card.  The phase's seconds are printed beside its budget of
+    60 s (CLUSTER_PHASE_S), a budget, not a bar.
+
 The kernels line counts K1/K2 launches by dtype form over every dense
 path (phases 3, 8-12, 14-17, 19-22, 24-28, 37, 38, 39 and 40); their times and errors
 are those of the launches held to plain (float32: phase 4 and the Shor
@@ -569,7 +607,8 @@ pagers' with the per-page form, its w24 TurboQuant engine with K3-K5;
 phase 39's pagers' with the per-page form, its w28 TurboQuant engines
 with K3-K5, the rest with the dense form; phase 40's routed w30
 TurboQuant engine with K3-K5, its w20 pager (g) with none of them (its
-launches are not read), the rest with the dense form.
+launches are not read), the rest with the dense form; phase 41's
+per-page K1/K2 of every rank with the per-page form.
 
 ``--tq-only`` runs the build and phases 5-7 alone; ``--algo-only`` the
 build and phases 8-12; ``--fppow-only`` the build and phases 13-17;
@@ -579,7 +618,7 @@ and phases 29-32; ``--wide-only`` the build and phases 33-36;
 held to two warm reps of its own in place of phase 4's);
 ``--resilience-only`` the build and phase 38 (likewise);
 ``--checkpoint-only`` the build and phase 39; ``--route-only`` the build
-and phase 40.
+and phase 40; ``--cluster-only`` the build and phase 41.
 
 The line before the last is the "kernels" summary, the last line
 {"ok": true, "device": {...}}.  Any failed check raises, so the script
@@ -755,9 +794,10 @@ RES_HANG_SLACK_S = 1.0
 RES_PHASE_S = 35.0        # phase 38's budget (printed, as the run's 880 s)
 # the checkpoint plane (phase 39)
 CKPT_SEED = 39
-CKPT_PAGER_WIDTH = 28     # 4 pages of 2^26: a 4 GiB file (complex128)
-CKPT_PAGER_PAGES = 4
-CKPT_PAGER_PERM = 0x9A5C3F1
+CKPT_DENSE_WIDTH = 28     # (a) the dense file (w30, 8 GiB, until the run budget's cut)
+CKPT_PAGER_WIDTH = 27     # 4 pages of 2^25: a 2 GiB file (complex128; w28
+CKPT_PAGER_PAGES = 4      # until the run budget's cut)
+CKPT_PAGER_PERM = 0x5A5C3F1
 CKPT_TQ_WIDTH = 28        # int8 codes: 512 MiB
 CKPT_STACK_WIDTH = 24     # "optimal"
 CKPT_FAILOVER_WIDTH = 20  # the failover snapshot file's drills
@@ -766,6 +806,7 @@ CKPT_MEM_BAR = 1 << 30    # device bytes above the planes, save or load
 CKPT_ROOM = 1.2           # free disk over the bytes written at once
 CKPT_PHASE_S = 60.0       # phase 39's budget (printed, as the run's 880 s)
 ROUTE_SEED = 40
+ROUTE_TQ_WIDTH = 28       # (a) the routed TurboQuant QFT (w30 until the run budget's cut)
 ROUTE_TQ_BAR = 0.99       # phase 40(a): the TurboQuant fidelity bar of phase 6
 ROUTE_TQ_PAGES = 4        # pages of 4096 amplitudes held to the closed form
 ROUTE_GHZ = 100           # (c) the Clifford circuit past every dense rung
@@ -782,6 +823,19 @@ ROUTE_SHOTS = 1024
 ROUTE_LC_REPEAT = 24      # the light-cone sessions of (g) and (h)
 ROUTE_CKPT_WIDTH = 20
 ROUTE_PHASE_S = 40.0      # phase 40's budget (printed, as the run's 880 s)
+# pages in several processes (phase 41).  The card is one: NCCL refuses
+# two ranks on one device, so the two-rank cells take gloo, both ranks
+# on cuda:0, each holding half of the ket's pages; NCCL runs as a group
+# of one
+CLUSTER_NCCL_WIDTH = 28   # (a) 4 pages of 2^26 on a group of one
+CLUSTER_WIDTH = 30        # (b) 4 pages of 2^28, 2 a rank: the top page bit
+CLUSTER_PAGES = 4         #     crosses the ranks
+CLUSTER_RANKS = 2
+CLUSTER_SEED = 41
+CLUSTER_TQ_WIDTH = 24     # (d) the TurboQuant pager, 16-bit codes
+CLUSTER_CKPT_WIDTH = 24   # (e) the file round trip
+CLUSTER_TIMEOUT_S = 420   # a cohort's limit: past it every worker is killed
+CLUSTER_PHASE_S = 60.0    # phase 41's budget (printed, as the run's 880 s)
 TELE_DISABLED_BAR = 0.02  # disabled w30 QFT wall against phase 4's
 TELE_HOOK_WIDTH = 16      # the small stacks that reach every other hook
 TELE_REQUIRED = (         # counter families phase 37 must reach
@@ -3627,14 +3681,18 @@ def pager_closed_form(q, x: int) -> tuple:
     return pages_closed_form(q.page_planes, q.qubit_count, x)
 
 
-def pages_closed_form(pages, n: int, x: int) -> tuple:
-    """pager_closed_form over a list of pages in logical order."""
-    L = n - (len(pages).bit_length() - 1)
+def pages_closed_form(pages, n: int, x: int, pid0: int = 0,
+                      n_pages: int = None) -> tuple:
+    """pager_closed_form over a list of pages in logical order: pages
+    pid0, pid0 + 1, ... of a ket of `n_pages` pages (all of them by
+    default); the fidelity is that of those pages' amplitudes to the
+    closed form's, each normalized."""
+    L = n - ((n_pages or len(pages)).bit_length() - 1)
     nb = (n + 7) // 8
     amp = 2.0 ** (-n / 2)
     step = min(1 << 26, 1 << L)
-    worst = re = im = na = 0.0
-    for p, page in enumerate(pages):
+    worst = re = im = na = ne = 0.0
+    for p, page in enumerate(pages, start=pid0):
         dev = page.device
         rev8 = torch.tensor([int(f"{v:08b}"[::-1], 2) for v in range(256)],
                             dtype=torch.int64, device=dev)
@@ -3657,7 +3715,8 @@ def pages_closed_form(pages, n: int, x: int) -> tuple:
             re += float(er @ a[0] + ei @ a[1])
             im += float(er @ a[1] - ei @ a[0])
             na += float(a[0] @ a[0] + a[1] @ a[1])
-    return worst, (re * re + im * im) / na
+            ne += float(er @ er + ei @ ei)
+    return worst, (re * re + im * im) / (na * ne)
 
 
 def page_launches(wk) -> dict:
@@ -5376,11 +5435,14 @@ def checkpoint_phase(card: str, dev) -> dict:
         return r
 
     release()
-    tmp = ckpt_dir(2 * 4 * (1 << WIDTH) + (1 << 20))
+    # the larger file at once: the dense planes' or the pager's
+    # complex128 pages
+    tmp = ckpt_dir(max(2 * 4 * (1 << CKPT_DENSE_WIDTH),
+                       16 * (1 << CKPT_PAGER_WIDTH)) + (1 << 20))
     out["dir"] = tmp
     try:
-        # ---- a. w30 float32 dense: save, load into a fresh engine -------
-        n = WIDTH
+        # ---- a. w28 float32 dense: save, load into a fresh engine -------
+        n = CKPT_DENSE_WIDTH
         a = qt.create_quantum_interface("cuda", n, init_state=PERM,
                                         rng=QrackRandom(CKPT_SEED),
                                         rand_global_phase=False)
@@ -5399,7 +5461,7 @@ def checkpoint_phase(card: str, dev) -> dict:
         save_peak = torch.cuda.max_memory_allocated() - base
         del snap
         check(plane_digest([a.device_planes]) == digest,
-              "the capture changed the w30 planes")
+              f"the capture changed the w{n} planes")
         b = qt.create_quantum_interface("cuda", n, rng=QrackRandom(991),
                                         rand_global_phase=False)
         sync()
@@ -5456,9 +5518,9 @@ def checkpoint_phase(card: str, dev) -> dict:
             "mall": ma}
         del a, b
         release()
-        lap("dense_w30")
+        lap(f"dense_w{n}")
 
-        # ---- b. w28 pager on 4 pages: into 4, build, into 2 ------------
+        # ---- b. w27 pager on 4 pages: into 4, build, into 2 ------------
         n = CKPT_PAGER_WIDTH
 
         def pager(pages: int, seed: int):
@@ -5474,7 +5536,7 @@ def checkpoint_phase(card: str, dev) -> dict:
                 p.H(t)
             p.Finish()
         launched("pager", prefix)
-        check(p._map_nonid(), "the w28 prefix left the placement table "
+        check(p._map_nonid(), f"the w{n} prefix left the placement table "
                               "identity")
         path = os.path.join(tmp, "pager.qckpt")
         nbytes = reg.save_state(p, path)
@@ -5515,7 +5577,7 @@ def checkpoint_phase(card: str, dev) -> dict:
                   f"the w{n} {label} continuation differs from the live "
                   "pager's")
         q4 = load("into_4", pager(CKPT_PAGER_PAGES, 991), shared)
-        check(q4._qmap == qmap, "the w28 load lost the placement table")
+        check(q4._qmap == qmap, f"the w{n} load lost the placement table")
         launched("pager", lambda: held_first(f"w{n} pager continuation",
                                              lambda: pcont(q4)))
         same(q4, "into_4")
@@ -5548,7 +5610,7 @@ def checkpoint_phase(card: str, dev) -> dict:
                         "write_ms": psave["write_s"] * 1e3, "loads": loads}
         del p, q4, qb
         release()
-        lap("pager_w28")
+        lap(f"pager_w{n}")
 
         # ---- c. w28 int8 TurboQuant: codes bit for bit ------------------
         n = CKPT_TQ_WIDTH
@@ -5811,8 +5873,8 @@ def route_phase(card: str, dev) -> dict:
                   "QRACK_ROUTE_HBM_BYTES")}
     release()
     try:
-        # ---- a. the w30 QFT under the default knobs: TurboQuant -------
-        n = WIDTH
+        # ---- a. the w28 QFT under the default knobs: TurboQuant -------
+        n = ROUTE_TQ_WIDTH
         circ = qft_qcircuit(n)
         _free, total = torch.cuda.mem_get_info()
         budget = cost.hbm_budget_bytes(cost.RouteKnobs.for_device(dev))
@@ -5849,9 +5911,11 @@ def route_phase(card: str, dev) -> dict:
             "closed_form_amps": 4096 * len(ks)}
         del r
         release()
-        lap("a_turboquant_w30")
+        lap(f"a_turboquant_w{n}")
 
         # ---- b. QRACK_ROUTE_DENSE_MAX_QB=30: dense, as a direct engine --
+        n = WIDTH
+        circ = qft_qcircuit(n)
         os.environ["QRACK_ROUTE_DENSE_MAX_QB"] = str(n)
         t0 = time.perf_counter()
         plan = fresh("route", n, init_state=PERM).plan(circ)
@@ -6202,6 +6266,357 @@ def route_phase(card: str, dev) -> dict:
     return counts
 
 
+def cluster_worker(kind: str) -> dict:
+    """One rank of phase 41 (``chip_smoke.py --cluster-worker <kind>``,
+    the rank and the rendezvous in the QRACK_* environment): "nccl" runs
+    (a), "gloo" runs (b)-(e).  Returns its RESULT dict."""
+    from qrack_tpu_torch.parallel import cluster
+
+    cluster.init_cluster(local_device_ids=[0], backend=kind)
+    out = {"rank": cluster.process_index(), "ranks": cluster.process_count(),
+           "backend": cluster.backend()}
+    if kind == "nccl":
+        out["a"] = cluster_nccl()
+    else:
+        out["b"] = cluster_qft()
+        out["c"] = cluster_program()
+        out["d"] = cluster_tq()
+        out["e"] = cluster_ckpt()
+    cluster._dist().destroy_process_group()
+    return out
+
+
+def _cluster_pager(n: int, homes, **kw):
+    from qrack_tpu_torch.parallel import QPager
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    return QPager(n, devices=homes, rng=QrackRandom(CLUSTER_SEED),
+                  rand_global_phase=False, remap="on", **kw)
+
+
+def _local_closed_form(q, x: int) -> tuple:
+    """(max abs diff, fidelity) of this rank's pages of a cluster pager
+    against the QFT of |x> (the table restored first: an exchange)."""
+    from qrack_tpu_torch.ops import sharded as shb
+
+    q._unmap()
+    local = shb.local_pages(q.page_planes)
+    return pages_closed_form([pg for _p, pg in local], q.qubit_count, x,
+                             pid0=local[0][0], n_pages=q.n_pages)
+
+
+def cluster_nccl() -> dict:
+    """Phase 41 (a): a w28 pager of 4 pages on a group of one (nccl):
+    the remap-on QFT through the cluster path against the one-process
+    pager's, page by page, in the same process."""
+    from qrack_tpu_torch.models.qft import qft_qcircuit
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.parallel import cluster
+
+    n, G = CLUSTER_NCCL_WIDTH, CLUSTER_PAGES
+    homes = cluster.global_page_devices(G)
+    circ = qft_qcircuit(n)
+    res = {}
+    for name, devs in (("cluster", homes),
+                       ("one_process", [h.device for h in homes])):
+        q = _cluster_pager(n, devs)
+        q.SetPermutation(PERM)
+        w0 = dict(wk.launches())
+        t0 = time.perf_counter()
+        circ.Run(q)
+        q.Finish()
+        wall = time.perf_counter() - t0
+        res[name] = {"q": q, "wall_s": wall,
+                     "launches": {k: v - w0[k]
+                                  for k, v in wk.launches().items()}}
+    a, b = res["cluster"]["q"], res["one_process"]["q"]
+    check(a._on_cluster and not a._spread, "the nccl pager is not a cluster "
+          "pager of one process")
+    equal = (list(a._qmap) == list(b._qmap) and all(
+        torch.equal(x, y) for x, y in zip(a.page_planes, b.page_planes)))
+    check(equal, f"w{n} cluster pager on nccl differs from the one-process "
+                 "pager")
+    p3 = (a.Prob(3), b.Prob(3))
+    amp = (a.GetAmplitude(PERM), b.GetAmplitude(PERM))
+    check(p3[0] == p3[1] and amp[0] == amp[1],
+          f"w{n} cluster reads {p3} {amp} differ from the one-process ones")
+    worst, f = pager_closed_form(a, PERM)
+    bar = 1e-4 * 2.0 ** (-n / 2)
+    check(worst <= bar and f >= 1 - 1e-5,
+          f"w{n} nccl QFT: max diff {worst} (bar {bar}), fidelity {f}")
+    b._unmap()   # as the closed form left a: the draw reads physical pages
+    m = (a.MAll(), b.MAll())
+    check(m[0] == m[1], f"w{n} MAll {m}")
+    got = res["cluster"]["launches"]
+    check(got["in_tile"] + got["pair"] > 0
+          and got == res["one_process"]["launches"],
+          f"w{n} per-page launches {got} against the one-process "
+          f"{res['one_process']['launches']}")
+    return {"width": n, "pages": G, "bit_for_bit": equal, "prob3": p3[0],
+            "max_abs_diff": worst, "fidelity": f, "mall": m[0],
+            "launches": got,
+            "wall_s": {k: v["wall_s"] for k, v in res.items()}}
+
+
+def cluster_qft() -> dict:
+    """Phase 41 (b): the remap-on batched w30 QFT of |PERM> through
+    QCircuit.Run on 4 pages over two gloo ranks on one card."""
+    from qrack_tpu_torch import telemetry as tele
+    from qrack_tpu_torch.models.qft import qft_qcircuit
+    from qrack_tpu_torch.ops import sharded as shb
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.parallel import cluster
+    from qrack_tpu_torch.parallel import pager as pg
+
+    n, G = CLUSTER_WIDTH, CLUSTER_PAGES
+    homes = cluster.global_page_devices(G)
+    circ = qft_qcircuit(n)
+    q = _cluster_pager(n, homes)
+    check(q._spread and len(shb.local_pages(q.page_planes)) == G // 2,
+          f"rank {cluster.process_index()} holds the wrong pages")
+    q.SetPermutation(PERM)
+    q.Finish()
+    shb.reset_exchanges()
+    pg.reset_flushes()
+    tele.reset()
+    tele.enable()
+    w0 = dict(wk.launches())
+    t0 = time.perf_counter()
+    circ.Run(q)
+    q.Finish()
+    wall = time.perf_counter() - t0
+    moved = dict(shb.TRANSPORT_S)
+    c = tele.snapshot()["counters"]
+    tele.disable()
+    tele.reset()
+    launches = {k: v - w0[k] for k, v in wk.launches().items()}
+    ex = dict(shb.EXCHANGES)
+    predicted = pg.FLUSHES["predicted_launches"]
+    check(launches["in_tile"] + launches["pair"] == predicted > 0,
+          f"w{n} per-page launches {launches} against the plans' "
+          f"{predicted}")
+    check(c.get("remap.pager.batched", 0) >= 1 and ex["wire_bytes"] > 0,
+          f"w{n} QFT: no batched prologue over the wire ({c}, {ex})")
+    worst, f = _local_closed_form(q, PERM)
+    bar = 1e-4 * 2.0 ** (-n / 2)
+    check(worst <= bar and f >= 1 - 1e-5,
+          f"w{n} two-rank QFT: max diff {worst} (bar {bar}), fidelity {f}")
+    p3 = q.Prob(3)
+    m = q.MAll()
+    out = {"width": n, "pages": G, "wall_s": wall, "launches": launches,
+           "predicted_launches": predicted, "max_abs_diff": worst,
+           "fidelity": f, "prob3": p3, "mall": m,
+           "remap_batched": int(c.get("remap.pager.batched", 0)),
+           "remap_pairs": int(c.get("remap.pager.pairs", 0)),
+           "collective_bytes": float(
+               c.get("exchange.pager.collective_bytes", 0.0)),
+           "wire_bytes": ex["wire_bytes"], "staged_bytes": ex["staged_bytes"],
+           "staging_s": moved["staging"], "wire_s": moved["wire"],
+           # each rate over its own seconds: the host copies through the
+           # pinned buffers (both ways), and the gloo wire alone
+           "staging_gbps": ex["staged_bytes"] / max(moved["staging"], 1e-9)
+           / 1e9,
+           "wire_gbps": ex["wire_bytes"] / max(moved["wire"], 1e-9) / 1e9,
+           "exchanges": ex}
+    del q
+    release()
+    return out
+
+
+def cluster_program() -> dict:
+    """Phase 41 (c): make_sharded_qft_fn over the two ranks' pages."""
+    from qrack_tpu_torch.models.qft import basis_pages, make_sharded_qft_fn
+    from qrack_tpu_torch.ops import sharded as shb
+    from qrack_tpu_torch.parallel import cluster
+
+    n, G = SHARDED_QFT_WIDTH, CLUSTER_PAGES
+    homes = cluster.global_page_devices(G)
+    fn, _ = make_sharded_qft_fn(homes, n)
+    pages = basis_pages(n, PERM, homes)
+    shb.reset_exchanges()
+    t0 = time.perf_counter()
+    fn(pages)
+    sync()
+    wall = time.perf_counter() - t0
+    local = shb.local_pages(pages)
+    worst, f = pages_closed_form([pg for _p, pg in local], n, PERM,
+                                 pid0=local[0][0], n_pages=G)
+    bar = 1e-4 * 2.0 ** (-n / 2)
+    check(worst <= bar and f >= 1 - 1e-5,
+          f"w{n} page-list QFT over two ranks: max diff {worst} (bar "
+          f"{bar}), fidelity {f}")
+    check(shb.EXCHANGES["wire_bytes"] > 0, "the page-list QFT crossed no "
+          "rank")
+    out = {"width": n, "wall_s": wall, "max_abs_diff": worst,
+           "fidelity": f, "wire_bytes": shb.EXCHANGES["wire_bytes"]}
+    del pages
+    release()
+    return out
+
+
+def cluster_tq() -> dict:
+    """Phase 41 (d): the TurboQuant pager over the two ranks (16-bit
+    codes): marginals and MAll, and the codes against the one-process
+    TurboQuant pager's in the same process."""
+    from qrack_tpu_torch.parallel import cluster
+    from qrack_tpu_torch.parallel.turboquant_pager import QPagerTurboQuant
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    n, G = CLUSTER_TQ_WIDTH, CLUSTER_PAGES
+    homes = cluster.global_page_devices(G)
+    kw = dict(bits=16, n_pages=G, rand_global_phase=False)
+    tqs = [QPagerTurboQuant(n, devices=d, rng=QrackRandom(CLUSTER_SEED), **kw)
+           for d in (homes, [h.device for h in homes])]
+    t0 = time.perf_counter()
+    for t in tqs:
+        for i in range(n):
+            t.H(i)
+        t.CNOT(0, n - 1)     # a page-bit target: codes cross the ranks
+        t.T(n - 1)
+        t.CZ(n - 2, n - 1)
+        t.Finish()
+    wall = time.perf_counter() - t0
+    probs = [tqs[0].Prob(k) for k in (3, n - 2, n - 1)]
+    check(max(abs(p - 0.5) for p in probs) < 1e-3,
+          f"w{n} TurboQuant pager over two ranks: marginals {probs}")
+    same = [np.array_equal(x, y) for x, y in zip(tqs[0].host_codes(),
+                                                  tqs[1].host_codes())]
+    check(all(same), f"w{n} TurboQuant pager codes differ from the "
+                     "one-process pager's")
+    m = [t.MAll() for t in tqs]
+    check(m[0] == m[1], f"w{n} TurboQuant MAll {m}")
+    return {"width": n, "bits": 16, "marginals": probs, "mall": m[0],
+            "codes_equal_one_process": True, "wall_s": wall}
+
+
+def cluster_ckpt() -> dict:
+    """Phase 41 (e): a w24 cluster pager saved on each rank, loaded into
+    a fresh cluster pager (each local page torch.equal) and into a
+    one-process pager on the card."""
+    import tempfile
+
+    from qrack_tpu_torch.checkpoint import load_state, save_state
+    from qrack_tpu_torch.models.qft import qft_qcircuit
+    from qrack_tpu_torch.ops import sharded as shb
+    from qrack_tpu_torch.parallel import cluster
+
+    n, G = CLUSTER_CKPT_WIDTH, CLUSTER_PAGES
+    homes = cluster.global_page_devices(G)
+    q = _cluster_pager(n, homes)
+    q.SetPermutation(PERM & ((1 << n) - 1))
+    qft_qcircuit(n).Run(q)
+    q.H(n - 1)
+    q.Finish()
+    root = os.environ.get("QRACK_SMOKE_TMP") or tempfile.gettempdir()
+    path = os.path.join(root, f"cluster_w{n}.rank{cluster.process_index()}"
+                              ".qckpt")
+    try:
+        nbytes = save_state(q, path)
+        r = _cluster_pager(n, homes)
+        load_state(path, into=r)
+        pairs = zip(shb.local_pages(q.page_planes),
+                    shb.local_pages(r.page_planes))
+        into = (list(r._qmap) == list(q._qmap)
+                and all(torch.equal(a, b) for (_i, a), (_j, b) in pairs))
+        one = load_state(path)
+        check(not getattr(one, "_spread", True)
+              and one.device.type == "cuda", "the one-process load is "
+              "not a one-process pager on the card")
+        one_equal = (list(one._qmap) == list(q._qmap) and all(
+            torch.equal(pg, one.page_planes[p])
+            for p, pg in shb.local_pages(q.page_planes)))
+    finally:
+        if os.path.exists(path):
+            os.unlink(path)
+    check(into and one_equal, f"w{n} cluster checkpoint: into a cluster "
+          f"pager {into}, into one process {one_equal}")
+    return {"width": n, "file_bytes": nbytes, "into_cluster_equal": into,
+            "one_process_equal": one_equal}
+
+
+def _cluster_cohort(kind: str, ranks: int) -> list:
+    """Run `ranks` copies of ``chip_smoke.py --cluster-worker <kind>`` on
+    one rendezvous; their RESULT dicts in rank order.  A worker that
+    fails or outlives CLUSTER_TIMEOUT_S fails the phase; every worker is
+    stopped before this returns."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    procs = []
+    for rank in range(ranks):
+        env = dict(os.environ, QRACK_COORDINATOR=f"localhost:{port}",
+                   QRACK_NUM_PROCESSES=str(ranks),
+                   QRACK_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cluster-worker",
+             kind], env=env, text=True, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE))
+    outs, deadline = [], time.time() + CLUSTER_TIMEOUT_S
+    try:
+        for rank, p in enumerate(procs):
+            try:
+                out, err = p.communicate(
+                    timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(
+                    f"phase 41 {kind} rank {rank} passed "
+                    f"{CLUSTER_TIMEOUT_S} s")
+            check(p.returncode == 0, f"phase 41 {kind} rank {rank} failed "
+                                     f"({p.returncode}):\n{err[-4000:]}")
+            lines = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+            check(len(lines) == 1, f"phase 41 {kind} rank {rank} printed "
+                                   f"no result:\n{out[-2000:]}")
+            outs.append(json.loads(lines[0][len("RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def cluster_phase(card: str, dev) -> dict:
+    """Phase 41 (module docstring); returns its per-page K1/K2 launches
+    (every rank's)."""
+    t_phase = time.time()
+    release()
+    nccl = _cluster_cohort("nccl", 1)[0]
+    t_a = time.time() - t_phase
+    ranks = _cluster_cohort("gloo", CLUSTER_RANKS)
+    check([r["rank"] for r in ranks] == list(range(CLUSTER_RANKS))
+          and all(r["backend"] == "gloo" for r in ranks),
+          f"phase 41 ranks {[(r['rank'], r['backend']) for r in ranks]}")
+    b = [r["b"] for r in ranks]
+    for key in ("prob3", "mall"):
+        check(len({x[key] for x in b}) == 1,
+              f"w{CLUSTER_WIDTH} two-rank {key} differs: {[x[key] for x in b]}")
+    for x in b:
+        check(x["launches"]["in_tile"] + x["launches"]["pair"] > 0,
+              f"a rank launched no per-page kernel: {x['launches']}")
+    d = [r["d"] for r in ranks]
+    check(len({x["mall"] for x in d}) == 1,
+          f"w{CLUSTER_TQ_WIDTH} TurboQuant MAll differs: "
+          f"{[x['mall'] for x in d]}")
+    launches = {k: nccl["a"]["launches"][k]
+                + sum(x["launches"][k] for x in b) for k in ("in_tile", "pair")}
+    seconds = time.time() - t_phase
+    emit({"phase": "cluster", "card": card, "a_nccl": nccl["a"],
+          "ranks": [{k: r[k] for k in ("rank", "b", "c", "d", "e")}
+                    for r in ranks],
+          "b_wall_s": [x["wall_s"] for x in b],
+          "b_wire_bytes": [x["wire_bytes"] for x in b],
+          "b_staged_bytes": [x["staged_bytes"] for x in b],
+          "b_staging_s": [x["staging_s"] for x in b],
+          "b_wire_s": [x["wire_s"] for x in b],
+          "b_staging_gbps": [x["staging_gbps"] for x in b],
+          "b_wire_gbps": [x["wire_gbps"] for x in b],
+          "launches": launches, "a_seconds": t_a, "seconds": seconds,
+          "budget_s": CLUSTER_PHASE_S})
+    return launches
+
+
 def cuda_engines(q) -> list:
     """Every QEngineCUDA reachable from a stack (its units' engines)."""
     from qrack_tpu_torch.engines.cuda import QEngineCUDA
@@ -6295,6 +6710,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
               file=sys.stderr)
         return 2
+    if "--cluster-worker" in sys.argv[1:]:
+        kind = sys.argv[sys.argv.index("--cluster-worker") + 1]
+        print("RESULT " + json.dumps(cluster_worker(kind)), flush=True)
+        return 0
 
     from qrack_tpu_torch.ops import cuda_build
     from qrack_tpu_torch.ops import turboquant_kernel as tqk
@@ -6310,6 +6729,7 @@ def main() -> int:
     resilience_only = "--resilience-only" in sys.argv[1:]
     checkpoint_only = "--checkpoint-only" in sys.argv[1:]
     route_only = "--route-only" in sys.argv[1:]
+    cluster_only = "--cluster-only" in sys.argv[1:]
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -6339,7 +6759,7 @@ def main() -> int:
 
     only = (tq_only or algo_only or fppow_only or layers_only or pager_only
             or wide_only or telemetry_only or resilience_only
-            or checkpoint_only or route_only)
+            or checkpoint_only or route_only or cluster_only)
     tableau = stack_native(card) if layers_only or not only else None
     probe = SweepProbe(wk)
     paths = {}   # path -> launches by dtype name
@@ -6432,6 +6852,10 @@ def main() -> int:
         paths["route"] = got["dense"]
         for entry in tq_kernels:
             entry["launches"] += got["tq"][entry["name"][len("tq_"):]]
+    if cluster_only or not only:
+        got = cluster_phase(card, dev)
+        if page_probe is not None:
+            page_paths["cluster"] = got
     if page_probe is not None:
         page_total = {k: sum(p[k] for p in page_paths.values())
                       for k in ("in_tile", "pair")}

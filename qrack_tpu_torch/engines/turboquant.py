@@ -735,7 +735,7 @@ class QEngineCUDATurboQuant(QEngineCUDA):
     def _prob_mask(self, mask, perm) -> float:
         ca, cs = self._tq_chunk_pow, self._chunk_amps
         ml, vl, mh, vh = mask & (cs - 1), perm & (cs - 1), mask >> ca, perm >> ca
-        total = 0.0
+        part_sums = []
         for c3, s2, cid0 in self._parts():
             dev = c3.device
             lidx = self._lidx(dev)
@@ -746,8 +746,17 @@ class QEngineCUDATurboQuant(QEngineCUDA):
                       & ((self._cids(cid0 + c0, cid0 + c1, dev) & mh) == vh))
                 p = pl[0] ** 2 + pl[1] ** 2
                 sums.append(torch.where(ok, p, 0.0).sum(-1))
-            total += float(torch.cat(sums).sum())
+            part_sums.append((cid0, float(torch.cat(sums).sum())))
+        total = self._sum_parts(part_sums)
         return min(max(total, 0.0), 1.0)
+
+    def _sum_parts(self, part_sums) -> float:
+        """The sum of per-part values [(first chunk id, value)], in part
+        order."""
+        total = 0.0
+        for _cid0, v in part_sums:
+            total += v
+        return total
 
     def _k_collapse(self, mask, val, nrm_sq) -> None:
         self._tq_call(self._collapse, mask, val, nrm_sq)
@@ -784,16 +793,18 @@ class QEngineCUDATurboQuant(QEngineCUDA):
 
     def _chunk_masses(self) -> np.ndarray:
         """Per-chunk probability masses WITHOUT the rotation: it is
-        orthogonal, so a row's norm is sum((codes * scale / qmax)^2)."""
-        out = []
+        orthogonal, so a row's norm is sum((codes * scale / qmax)^2).
+        Each part's chunks land at their global ids."""
+        out = np.zeros(self._n_chunks(), dtype=np.float64)
         g = max(1, self._GROUP_AMPS // self._chunk_amps)
-        for c3, s2, _cid0 in self._parts():
+        for c3, s2, cid0 in self._parts():
             for c0 in range(0, c3.shape[0], g):
                 y = (c3[c0:c0 + g].to(torch.float32)
                      * (s2[c0:c0 + g] / self._qmax).unsqueeze(-1))
-                out.append(torch.sum(y * y, dim=(1, 2)).to("cpu",
-                                                           torch.float64))
-        return torch.cat(out).numpy()
+                c = cid0 + c0
+                out[c:c + y.shape[0]] = torch.sum(y * y, dim=(1, 2)).to(
+                    "cpu", torch.float64).numpy()
+        return out
 
     def MAll(self) -> int:
         """Two-stage sampling: a chunk by its mass (no decode), then an
@@ -810,11 +821,15 @@ class QEngineCUDATurboQuant(QEngineCUDA):
                 break
         self.peak_transient_amps = max(self.peak_transient_amps,
                                        self._chunk_amps)
-        pl = self._dec_group(*self._chunk_rows(chosen))
-        local = int(gk.sample(pl, float(self.Rand())))
+        local = self._draw_in_chunk(chosen, float(self.Rand()))
         result = chosen * self._chunk_amps + local
         self.SetPermutation(result)
         return result
+
+    def _draw_in_chunk(self, c: int, u: float) -> int:
+        """The index inside chunk c that the uniform u draws (one decoded
+        chunk)."""
+        return int(gk.sample(self._dec_group(*self._chunk_rows(c)), u))
 
     # ------------------------------------------------------------------
     # codes-native construction and block-local reads
@@ -881,6 +896,10 @@ class QEngineCUDATurboQuant(QEngineCUDA):
         safe = scale if scale > 0 else 1.0
         row = np.round(y / safe * self._qmax).astype(
             tq.code_dtype(self._tq_bits))
+        self._put_block(b, row, scale)
+
+    def _put_block(self, b: int, row: np.ndarray, scale: float) -> None:
+        """Write block b's host code row and scale where it lives."""
         codes, scales, i = self._block_home(b)
         codes[i] = torch.from_numpy(row).to(codes.device)
         scales[i] = scale

@@ -22,6 +22,12 @@ remaining weighted capacity, so two large subsystems land on different
 rows, and a subsystem no row can hold raises MemoryError up front
 instead of letting the card run out of memory mid-gate.
 
+Under a cluster (parallel/cluster.py) a unit's ket lives in one
+process: the device table lists this process's devices only (the
+``local_device_ids`` it was brought up with), and a device id of another
+process raises (the JAX package's table is ``jax.devices()``, global,
+but a unit cannot be placed on a device this process cannot address).
+
 Each redistribution counts ``qunitmulti.redistribute`` in telemetry, as
 in the JAX package.  Checkpoints take QUnit's structured capture (kind
 ``"unit_multi"``); a restore places every restored unit on the row this
@@ -106,11 +112,21 @@ class QUnitMulti(QUnit):
 
     @staticmethod
     def _build_device_table(device_ids: Optional[Sequence[int]]) -> List[DeviceInfo]:
+        from ..parallel import cluster
+
         env_ids = os.environ.get("QRACK_QUNITMULTI_DEVICES", "")
         if device_ids is None and env_ids:
             device_ids = [int(t) for t in env_ids.split(",") if t.strip()]
+        local = cluster.local_device_ids()
         if device_ids is None:
-            device_ids = _cuda_ids() or [0]
+            device_ids = local or _cuda_ids() or [0]
+        elif local is not None:
+            foreign = [i for i in device_ids if i not in local]
+            if foreign:
+                raise ValueError(
+                    f"QUnitMulti device ids {foreign} belong to no card of "
+                    f"this process (its cards: {local}); a unit's ket lives "
+                    "in one process")
         # capability weights: QRACK_QUNITMULTI_WEIGHTS=1.0,4.0 (the k-th
         # token to the k-th SELECTED row) or 0=1.0,3=4.0 (id=weight;
         # unlisted ids 1.0); mixed forms are an error

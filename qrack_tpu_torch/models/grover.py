@@ -97,7 +97,9 @@ def make_sharded_grover_fn(pages, n: int, target: int,
     the ket by a +-1 vector from split index reads: the same values).
     The JAX package's fori_loop is a Python loop.  Returns (fn, devices,
     iters); fn(page list) prepares the uniform superposition from |0>
-    and runs `iters` iterations in place."""
+    and runs `iters` iterations in place.  Over the cluster's page homes
+    every process runs fn on its page list (as make_sharded_qft_fn); a
+    flip lands where its amplitude's page lives."""
     devs = shb.page_devices(pages, device)
     L = n - (len(devs).bit_length() - 1)
     if L < 1:
@@ -121,9 +123,11 @@ def make_sharded_grover_fn(pages, n: int, target: int,
 
         h_all()
         for _ in range(iters):
-            pgs[t_hi][:, t_lo] *= -1     # phase oracle on |target>
+            if not shb.is_remote(pgs[t_hi]):
+                pgs[t_hi][:, t_lo] *= -1     # phase oracle on |target>
             h_all()
-            pgs[0][:, 0] *= -1           # diffusion: H . flip|0> . H
+            if not shb.is_remote(pgs[0]):
+                pgs[0][:, 0] *= -1           # diffusion: H . flip|0> . H
             h_all()
         return pgs
 

@@ -278,13 +278,16 @@ def make_sharded_qft_fn(pages, n: int, inverse: bool = False,
     in place and returns them.  `fast` takes the carried-fraction form
     (one elementwise pass a stage, whatever its width); None follows
     :func:`default_fast` on the pages' device.  The gate order is
-    QInterface.QFT's, as in :func:`qft_planes`."""
+    QInterface.QFT's, as in :func:`qft_planes`.  Over the cluster's page
+    homes (``cluster.global_page_devices``) every process runs fn on its
+    page list, whose other pages are placeholders (:func:`basis_pages`),
+    with the same calls."""
     devs = shb.page_devices(pages, device)
     L = n - (len(devs).bit_length() - 1)
     if L < 1:
         raise ValueError("at least one in-page qubit a page")
     if fast is None:
-        fast = default_fast(n, devs[0])
+        fast = default_fast(n, shb.local_device(devs))
 
     def fn(pgs):
         hm = _h_mp(pgs[0].dtype)
@@ -310,9 +313,12 @@ def make_sharded_qft_fn(pages, n: int, inverse: bool = False,
 
 def basis_pages(n: int, perm: int, devices, dtype=torch.float32):
     """|perm> as the (2, 2^L) pages of `devices` (a page count is taken
-    on ``cuda``, as :func:`make_sharded_qft_fn` takes it)."""
+    on ``cuda``, as :func:`make_sharded_qft_fn` takes it; the cluster's
+    page homes give this process's pages and placeholders for the
+    others')."""
     devs = shb.page_devices(devices)
     L = n - (len(devs).bit_length() - 1)
-    pages = [torch.zeros((2, 1 << L), dtype=dtype, device=d) for d in devs]
-    pages[perm >> L][0, perm & ((1 << L) - 1)] = 1.0
+    pages = shb.new_pages(devs, L, dtype)
+    if not shb.is_remote(pages[perm >> L]):
+        pages[perm >> L][0, perm & ((1 << L) - 1)] = 1.0
     return pages

@@ -153,7 +153,9 @@ def make_sharded_rcs_fn(pages, n: int, depth: int, seed: int,
         i, pairwise and block by block (the JAX package's partner
         exchange, flip and select);
       * pairs of page bits: a relabeling of the page list (page_swap) and
-        i on the pages whose two bits differ."""
+        i on the pages whose two bits differ.
+    Over the cluster's page homes every process runs fn on its page list
+    (as make_sharded_qft_fn)."""
     devs = shb.page_devices(pages, device)
     g = len(devs).bit_length() - 1
     L = n - g
@@ -173,7 +175,7 @@ def make_sharded_rcs_fn(pages, n: int, depth: int, seed: int,
                 shb.apply_global_2x2(pgs, mp, q - L, 0, 0, 0, 0)
             loc_pairs = [(a, b) for (a, b) in pairs if b < L]
             if loc_pairs:
-                for page in pgs:
+                for _p, page in shb.local_pages(pgs):
                     for a, b in loc_pairs:
                         shb.swap_bits_(page, L, a, b)
 
@@ -195,7 +197,7 @@ def make_sharded_rcs_fn(pages, n: int, depth: int, seed: int,
                 if a >= L:
                     ga, gb = a - L, b - L
                     pgs[:] = shb.page_swap(pgs, ga, gb)
-                    for p, page in enumerate(pgs):
+                    for p, page in shb.local_pages(pgs):
                         if ((p >> ga) ^ (p >> gb)) & 1:
                             shb.scale_page_(page, 0.0, 1.0)
         return pgs

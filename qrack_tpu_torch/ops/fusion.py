@@ -759,7 +759,9 @@ def sharded_kernel_window_body(L: int, npg: int, structure: Tuple,
     kernel (ops/window_kernel.py: K1/K2) on every page, with one op
     table and int vector for the run and only the float payloads per
     page; each paged-target 2x2 runs as sharded.apply_global_2x2.  The
-    optional remap prologue comes first."""
+    optional remap prologue comes first.  Pages of other processes
+    (sharded.RemotePage) launch there: each rank runs the kernel on its
+    own pages only."""
     from . import sharded as shb
     from . import window_kernel as wk
 
@@ -791,7 +793,7 @@ def sharded_kernel_window_body(L: int, npg: int, structure: Tuple,
                                      pages[0].dtype)
             iv_host = torch.tensor(packed[0][1], dtype=torch.int32)
             on = {}   # device -> (table, iv, fv rows)
-            for pid, page in enumerate(pages):
+            for pid, page in shb.local_pages(pages):
                 dev = page.device
                 if dev not in on:
                     on[dev] = (wk.op_table(rs, dev), iv_host.to(dev),

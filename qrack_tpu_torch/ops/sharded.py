@@ -23,11 +23,26 @@ src/qpager.cpp:1314-1350: a page-pointer permutation).
 ``compose_ring`` and ``gather_ring`` build new pages (the result of a
 Compose or a basis permutation cannot overwrite its input), one block of
 a page at a time.
+
+Pages in several processes (parallel/cluster.py): a list may hold
+:class:`RemotePage` placeholders for the pages other ranks own, at the
+same ids on every rank.  Every pass acts on this rank's pages only, and
+every move of a block between pages of two processes goes through one
+transport, :func:`transport` (``batch_isend_irecv``; with gloo and CUDA
+pages through pinned host buffers, counted in ``EXCHANGES``).  A pair
+mix across ranks swaps the blocks and each rank writes the half it
+owns with :func:`_mix_`'s formula, so the arithmetic is the one-process
+pager's.  Reductions sum this rank's pages block by block and all-reduce
+the partial sums in float64, then add them up in the one-process order,
+so every rank reads the one-process value.  Every rank must run the same
+passes in the same order: the moves and collectives match by position.
 """
 
 from __future__ import annotations
 
 import itertools
+import math
+import time
 from typing import List, NamedTuple, Sequence
 
 import numpy as np
@@ -42,14 +57,27 @@ CHUNK = 1 << 26
 
 #: exchanges run, by kind, and the bytes they must read and write on the
 #: card: each element a pass mixes or moves read once and written once
-#: (a relabeling of pages on one device moves none).  A host-side count.
+#: (a relabeling of pages on one device moves none); ``wire_bytes`` the
+#: bytes this rank sent to other processes, ``staged_bytes`` the bytes
+#: its transport copied through host buffers (both ways).  A host-side
+#: count.
 EXCHANGES = {"global_2x2": 0, "mixed_swap": 0, "batched_swap": 0,
-             "local_swap": 0, "page_relabel": 0, "bytes": 0}
+             "local_swap": 0, "page_relabel": 0, "bytes": 0,
+             "wire_bytes": 0, "staged_bytes": 0}
+
+
+#: host-clock seconds of the transport: ``staging`` the copies into and
+#: out of its wire buffers (the card synchronized first, so no earlier
+#: work is counted), ``wire`` from posting the sends and receives until
+#: every one has completed (under nccl until the card has finished them)
+TRANSPORT_S = {"staging": 0.0, "wire": 0.0}
 
 
 def reset_exchanges() -> None:
     for k in EXCHANGES:
         EXCHANGES[k] = 0
+    for k in TRANSPORT_S:
+        TRANSPORT_S[k] = 0.0
 
 
 def _exchanged(kind: str, nbytes: int) -> None:
@@ -68,7 +96,140 @@ def _exchanged(kind: str, nbytes: int) -> None:
 
 
 def _page_bytes(page) -> int:
-    return page.numel() * page.element_size()
+    return math.prod(page.shape) * page.dtype.itemsize
+
+
+# ---------------------------------------------------------------------------
+# pages of other processes and the transport between them
+# ---------------------------------------------------------------------------
+
+class RemotePage:
+    """A page that another process owns: its home rank, shape and dtype.
+    Any tensor use raises, so no pass can read or write it by mistake."""
+
+    __slots__ = ("rank", "shape", "dtype")
+
+    def __init__(self, rank: int, shape, dtype):
+        self.rank = int(rank)
+        self.shape = tuple(shape)
+        self.dtype = dtype
+
+    def _refuse(self, what):
+        raise RuntimeError(
+            f"{what} of a page that lives in process {self.rank}: its "
+            "blocks move only through sharded.transport")
+
+    def __getattr__(self, name):
+        self._refuse(f"attribute {name!r}")
+
+    def __getitem__(self, key):
+        self._refuse("a read")
+
+    def __setitem__(self, key, value):
+        self._refuse("a write")
+
+    def __repr__(self) -> str:
+        return f"RemotePage(rank={self.rank}, shape={self.shape}, dtype={self.dtype})"
+
+
+def is_remote(page) -> bool:
+    return isinstance(page, RemotePage)
+
+
+def spread(pages) -> bool:
+    """True when some page of the list lives in another process."""
+    return any(isinstance(p, RemotePage) for p in pages)
+
+
+def local_pages(pages):
+    """(page id, page) of the pages this process owns."""
+    return [(p, page) for p, page in enumerate(pages)
+            if not isinstance(page, RemotePage)]
+
+
+def _me() -> int:
+    from ..parallel import cluster
+
+    return cluster.process_index()
+
+
+def transport(sends=(), recvs=()) -> None:
+    """The one move of blocks between processes: each (block, rank) of
+    `sends` goes to that rank, and each (out block, rank) of `recvs` is
+    filled from it, in one ``batch_isend_irecv`` whose requests all
+    complete before it returns.  Two ranks list their moves to each
+    other in the same order.  A block may be sent and received at once
+    (an exchange): what is sent is taken before anything lands.  Under
+    gloo a CUDA block is staged through a pinned host buffer both ways,
+    under nccl it moves on the card; bytes counted in ``EXCHANGES``,
+    seconds in ``TRANSPORT_S``."""
+    from ..parallel import cluster
+
+    dist = cluster._dist()
+    wire = cluster.wire_device()
+    for dev in {b.device for b, _r in (*sends, *recvs)}:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    ops, landed = [], []
+    for blk, rank in sends:
+        buf = _wire_buffer(blk.shape, blk.dtype, wire, blk.device)
+        buf.copy_(blk)
+        if buf.is_pinned():
+            EXCHANGES["staged_bytes"] += _page_bytes(blk)
+        EXCHANGES["wire_bytes"] += _page_bytes(blk)
+        ops.append(dist.P2POp(dist.isend, _bytes(buf), rank))
+    for out, rank in recvs:
+        buf = _wire_buffer(out.shape, out.dtype, wire, out.device)
+        ops.append(dist.P2POp(dist.irecv, _bytes(buf), rank))
+        landed.append((out, buf))
+    if not ops:
+        return
+    t1 = time.perf_counter()
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    if wire.type == "cuda":
+        torch.cuda.synchronize(wire)
+    t2 = time.perf_counter()
+    for out, buf in landed:
+        if buf.is_pinned():
+            EXCHANGES["staged_bytes"] += _page_bytes(out)
+        out.copy_(buf)
+    TRANSPORT_S["staging"] += (t1 - t0) + (time.perf_counter() - t2)
+    TRANSPORT_S["wire"] += t2 - t1
+
+
+def _bytes(buf):
+    """A contiguous buffer as raw bytes: any dtype crosses either wire
+    (nccl has no int16)."""
+    return buf.reshape(-1).view(torch.uint8)
+
+
+def _wire_buffer(shape, dtype, wire, home):
+    """A contiguous buffer the wire carries: on the wire's device, pinned
+    when it stages a CUDA block on the host."""
+    pin = wire.type == "cpu" and home.type == "cuda"
+    return torch.empty(shape, dtype=dtype, device=wire, pin_memory=pin)
+
+
+def _exchange_(blk, rank: int) -> None:
+    """blk <- the peer's block of the same shape; the peer's <- blk."""
+    transport([(blk, rank)], [(blk, rank)])
+
+
+def _reduce_partials(pages, partials) -> float:
+    """The one-process sum of per-page block partial sums: `partials[p]`
+    is page p's list of block sums (zeros for another rank's page, which
+    it fills); across ranks an all-reduce in float64 first."""
+    sums = sum_ranks(pages, np.asarray(partials, dtype=np.float64))
+    total = 0.0
+    for x in sums.reshape(-1):
+        total += float(x)
+    return total
+
+
+def _n_blocks(size: int) -> int:
+    return sum(1 for _ in _blocks((size,)))
 
 
 def split_masks(mask: int, val: int, local_bits: int):
@@ -171,18 +332,80 @@ def _cmul_(v, fre, fim) -> None:
 def page_devices(pages, device=None) -> List[torch.device]:
     """The page list of a whole-circuit program over pages: a page count
     (each page on `device`, ``cuda`` unless it says otherwise) or a
-    device list, which may name a device more than once (the JAX
+    device list, which may name a device more than once, or the
+    cluster's page homes (``cluster.global_page_devices``; the JAX
     package's programs take a Mesh)."""
+    from ..parallel.cluster import PageHome
     from ..utils.device import resolve_device
 
     if isinstance(pages, int):
         devs = [resolve_device(device)] * pages
     else:
-        devs = [resolve_device(d) for d in pages]
+        devs = [d if isinstance(d, PageHome) else resolve_device(d)
+                for d in pages]
     n = len(devs)
     if n < 1 or n & (n - 1):
         raise ValueError("page count must be a power of two")
     return devs
+
+
+def local_device(devs) -> torch.device:
+    """This process's first device of a page_devices list."""
+    from ..parallel.cluster import PageHome
+
+    me = _me()
+    for d in devs:
+        if not isinstance(d, PageHome):
+            return d
+        if d.rank == me:
+            return d.device
+    raise ValueError("no page of the list lives in this process")
+
+
+def new_pages(devs, L: int, dtype, fill=None) -> List:
+    """Pages of 2^L amplitudes on a page_devices list: for each page of
+    this process ``fill(page id, device)`` (zeros by default), a
+    RemotePage for the others."""
+    from ..parallel.cluster import PageHome
+
+    me = _me()
+    out = []
+    for p, d in enumerate(devs):
+        if isinstance(d, PageHome) and d.rank != me:
+            out.append(RemotePage(d.rank, (2, 1 << L), dtype))
+            continue
+        dev = d.device if isinstance(d, PageHome) else d
+        out.append(torch.zeros((2, 1 << L), dtype=dtype, device=dev)
+                   if fill is None else fill(p, dev))
+    return out
+
+
+def replicated_window(pages, L: int, offset: int, length: int,
+                      shared: bool = False) -> np.ndarray:
+    """(2, length) float64 host planes of the ket window [offset, offset
+    + length) of a page list: each page's part is read where it lives,
+    and with ``shared`` (the list is one ket of the whole cluster, a
+    cluster of one too) broadcast by the rank that owns it, so every
+    rank returns the same window (the counterpart of
+    ``replicate_program``, the only read that is legal when no process
+    holds every page)."""
+    from ..parallel import cluster
+
+    out = np.empty((2, length), dtype=np.float64)
+    pos = offset
+    while pos < offset + length:
+        p, i = pos >> L, pos & ((1 << L) - 1)
+        take = min((1 << L) - i, offset + length - pos)
+        page = pages[p]
+        part = (None if is_remote(page)
+                else page[:, i:i + take].to("cpu", torch.float64).numpy())
+        if shared:
+            part = cluster.broadcast_bytes(
+                part, page.rank if is_remote(page) else _me(), (2, take),
+                np.float64)
+        out[:, pos - offset:pos - offset + take] = part
+        pos += take
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -217,7 +440,7 @@ def apply_local_2x2(pages: List, mp, L: int, target: int, lmask, lval,
     if not pages:
         return pages
     m = _matrix(mp, pages[0].dtype)
-    for p, page in enumerate(pages):
+    for p, page in local_pages(pages):
         if (p & gmask) == gval:
             _local_pair_(page, L, target, m, int(lmask), int(lval))
     return pages
@@ -228,7 +451,7 @@ def apply_local_kxk(pages: List, mp, L: int, start: int, k: int) -> List:
     every page, in place, block by block (gatekernels.apply_kxk's
     contraction on each block); `mp` is (2, 2^k, 2^k) matrix planes."""
     K, low, high = 1 << k, 1 << start, 1 << (L - start - k)
-    for page in pages:
+    for _p, page in local_pages(pages):
         mix = gk._mix(gk._dev_planes(mp, page))
         v = page.view(2, high, K, low)
         for blk in _blocks((high, low), max(1, CHUNK // K)):
@@ -251,7 +474,9 @@ def apply_global_2x2(pages: List, mp, gpos: int, lmask, lval, gmask,
     pair (p0, p1 = p0 | 2^gpos) mixes block by block, in place.  Page
     p0's amplitudes are the |0> halves of the pairs, p1's the |1>
     halves; a block of p1 travels to p0's device and back when the two
-    lie apart.  A 1-amplitude page is one block like any other."""
+    lie apart.  A 1-amplitude page is one block like any other.  Across
+    processes each rank sends its block where the other side writes and
+    writes its own page only (the JAX package's ppermute of halves)."""
     if not pages:
         return pages
     m = _matrix(mp, pages[0].dtype)
@@ -265,8 +490,11 @@ def apply_global_2x2(pages: List, mp, gpos: int, lmask, lval, gmask,
         ok0, ok1 = (p0 & gmask) == gval, (p1 & gmask) == gval
         if not (ok0 or ok1):
             continue
-        moved += (2 + ok0 + ok1) * _page_bytes(pages[p0])
         A, B = pages[p0], pages[p1]
+        if is_remote(A) or is_remote(B):
+            moved += _cross_2x2(A, B, m, lmask, lval, ok0, ok1)
+            continue
+        moved += (2 + ok0 + ok1) * _page_bytes(pages[p0])
         size = A.shape[-1]
         for blk in _blocks((size,)):
             a = A[:, blk[0]]
@@ -285,12 +513,42 @@ def apply_global_2x2(pages: List, mp, gpos: int, lmask, lval, gmask,
     return pages
 
 
+def _cross_2x2(A, B, m, lmask: int, lval: int, ok0: bool, ok1: bool) -> int:
+    """The pair mix of pages A (page bit clear) and B when one of them
+    lives in another process (neither, on a rank that owns neither):
+    block by block, the owner of A gets B's block where it writes A and
+    sends A's where the other side writes B; each rank writes its own
+    page with the one-process formula.  Returns the bytes this rank's
+    page was read and written."""
+    if is_remote(A) and is_remote(B):
+        return 0
+    mine_a = not is_remote(A)
+    page, peer = (A, B.rank) if mine_a else (B, A.rank)
+    write = ok0 if mine_a else ok1
+    give = ok1 if mine_a else ok0
+    size = page.shape[-1]
+    for blk in _blocks((size,)):
+        own = page[:, blk[0]]
+        other = torch.empty_like(own) if write else None
+        transport([(own, peer)] if give else (),
+                  [(other, peer)] if write else ())
+        if not write:
+            continue
+        sel = None
+        if lmask:
+            idx = _block_index((size,), (1,), blk, page.device)
+            sel = (idx & lmask) == lval
+        a, b = (own, other) if mine_a else (other, own)
+        _mix_(a, b, m, sel, sel, write_a=mine_a, write_b=not mine_a)
+    return (1 + write) * _page_bytes(page)
+
+
 def apply_diag(pages: List, d0re, d0im, d1re, d1im, tlo, thi, clo, cvlo,
                chi, cvhi) -> List:
     """Diagonal gate with split target and control masks, in place
     (``ops/sharded.py:91``): no page moves."""
     tlo, clo, cvlo = int(tlo), int(clo), int(cvlo)
-    for p, page in enumerate(pages):
+    for p, page in local_pages(pages):
         if (p & chi) != cvhi:
             continue
         hbit = (p & thi) != 0
@@ -326,7 +584,7 @@ def apply_factor(pages: List, L: int, fn, index_dtype=gk.IDX_DTYPE) -> List:
     """Multiply every amplitude by the complex factor ``fn(idx)`` of its
     global basis index, in place, block by block (the pager's phase
     functions, <= 31 qubits: the global index as ``index_dtype``)."""
-    for p, page in enumerate(pages):
+    for p, page in local_pages(pages):
         size = page.shape[-1]
         for blk in _blocks((size,)):
             s, e, _ = blk[0].indices(size)
@@ -355,7 +613,7 @@ def apply_split_factor(pages: List, L: int, body, targs) -> List:
     width (``_phase_fn_wide`` of the JAX pager; the page id is a Python
     int)."""
     cache = {}
-    for p, page in enumerate(pages):
+    for p, page in local_pages(pages):
         args = device_targs(targs, page.device, cache)
         xp = gk.plane_where(page)
         size = page.shape[-1]
@@ -376,10 +634,10 @@ def prob_parity(pages: List, L: int, mask: int) -> float:
     sums in the planes' dtype, the blocks and pages in float64 on the
     host."""
     lmask, gmask = mask & ((1 << L) - 1), mask >> L
-    total = 0.0
-    for p, page in enumerate(pages):
-        size = page.shape[-1]
-        for blk in _blocks((size,)):
+    size = pages[0].shape[-1]
+    partials = [[0.0] * _n_blocks(size) for _ in pages]
+    for p, page in local_pages(pages):
+        for b, blk in enumerate(_blocks((size,))):
             v = page[:, blk[0]]
             pr = v[0] ** 2 + v[1] ** 2
             if lmask:
@@ -391,44 +649,55 @@ def prob_parity(pages: List, L: int, mask: int) -> float:
                 pr = torch.where(odd == 1, pr, 0.0)
             elif not bin(p & gmask).count("1") & 1:
                 continue
-            total += float(pr.sum())
-    return total
+            partials[p][b] = float(pr.sum())
+    return _reduce_partials(pages, partials)
 
 
 def prob_bits_all(pages: List, L: int, bits) -> np.ndarray:
     """The distribution over the values of `bits` (bit j of a value is
     ket bit bits[j]), page by page and block by block on the pages'
     devices: a float64 histogram of 2^len(bits) entries, each block's
-    probabilities binned on its device."""
-    k = len(bits)
-    out = np.zeros(1 << k, dtype=np.float64)
-    for p, page in enumerate(pages):
-        base = 0
-        for j, b in enumerate(bits):
-            if b >= L:
-                base |= ((p >> (b - L)) & 1) << j
-        local = [(j, b) for j, b in enumerate(bits) if b < L]
-        size = page.shape[-1]
-        for blk in _blocks((size,)):
-            v = page[:, blk[0]]
-            pr = (v[0] ** 2 + v[1] ** 2).to(torch.float64)
-            if not local:
-                out[base] += float(pr.sum())
-                continue
-            idx = _block_index((size,), (1,), blk, page.device)
-            key = torch.full_like(idx, base)
-            for j, b in local:
-                key |= ((idx >> b) & 1) << j
-            out += torch.bincount(key, weights=pr, minlength=1 << k).to(
-                "cpu").numpy()
+    probabilities binned on its device into its page's histogram; the
+    page histograms add up in page order (across processes after a
+    float64 all-reduce)."""
+    hist = np.zeros((len(pages), 1 << len(bits)), dtype=np.float64)
+    for p, page in local_pages(pages):
+        _bin_page_(hist[p], p, page, L, bits)
+    out = np.zeros(hist.shape[1], dtype=np.float64)
+    for h in sum_ranks(pages, hist):
+        out += h
     return out
+
+
+def _bin_page_(out, p: int, page, L: int, bits) -> None:
+    """Add page p's probabilities into the histogram `out` of
+    prob_bits_all, block by block."""
+    k = len(bits)
+    base = 0
+    for j, b in enumerate(bits):
+        if b >= L:
+            base |= ((p >> (b - L)) & 1) << j
+    local = [(j, b) for j, b in enumerate(bits) if b < L]
+    size = page.shape[-1]
+    for blk in _blocks((size,)):
+        v = page[:, blk[0]]
+        pr = (v[0] ** 2 + v[1] ** 2).to(torch.float64)
+        if not local:
+            out[base] += float(pr.sum())
+            continue
+        idx = _block_index((size,), (1,), blk, page.device)
+        key = torch.full_like(idx, base)
+        for j, b in local:
+            key |= ((idx >> b) & 1) << j
+        out += torch.bincount(key, weights=pr, minlength=1 << k).to(
+            "cpu").numpy()
 
 
 def collapse(pages: List, lmask, lval, gmask, gval, scale: float) -> List:
     """Projective collapse: the selected amplitudes times ``scale``, the
     rest zero, in place."""
     lmask, lval = int(lmask), int(lval)
-    for p, page in enumerate(pages):
+    for p, page in local_pages(pages):
         if (p & gmask) != gval:
             page.zero_()
             continue
@@ -449,24 +718,39 @@ def prob_mask(pages: List, lmask, lval, gmask, gval) -> float:
     """Sum of |amp|^2 over the selected amplitudes; each block sums in
     the planes' dtype, the blocks and pages in float64 on the host."""
     lmask, lval = int(lmask), int(lval)
-    total = 0.0
-    for p, page in enumerate(pages):
+    size = pages[0].shape[-1]
+    partials = [[0.0] * _n_blocks(size) for _ in pages]
+    for p, page in local_pages(pages):
         if (p & gmask) != gval:
             continue
-        size = page.shape[-1]
-        for blk in _blocks((size,)):
+        for b, blk in enumerate(_blocks((size,))):
             v = page[:, blk[0]]
             pr = v[0] ** 2 + v[1] ** 2
             if lmask:
                 idx = _block_index((size,), (1,), blk, page.device)
                 pr = torch.where((idx & lmask) == lval, pr, 0.0)
-            total += float(pr.sum())
-    return total
+            partials[p][b] = float(pr.sum())
+    return _reduce_partials(pages, partials)
 
 
 def page_probs(pages: List) -> List[float]:
-    """Each page's total probability (the marginals of the page bits)."""
-    return [prob_mask([page], 0, 0, 0, 0) for page in pages]
+    """Each page's total probability (the marginals of the page bits),
+    the same list on every rank."""
+    got = np.zeros(len(pages), dtype=np.float64)
+    for p, page in local_pages(pages):
+        got[p] = prob_mask([page], 0, 0, 0, 0)
+    return [float(x) for x in sum_ranks(pages, got)]
+
+
+def sum_ranks(pages, arr: np.ndarray) -> np.ndarray:
+    """A float64 array that each rank filled for its own pages (zeros
+    elsewhere), summed over the ranks when some page lives in another
+    process."""
+    if not spread(pages):
+        return arr
+    from ..parallel import cluster
+
+    return cluster.all_reduce_f64(arr.reshape(-1)).reshape(arr.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -475,11 +759,30 @@ def page_probs(pages: List) -> List[float]:
 
 def _relabel(pages: List, src_of) -> List:
     """new[j] = pages[src_of(j)], moved to slot j's device when it lies
-    elsewhere (a pure pointer move on one device)."""
-    _exchanged("page_relabel", sum(
-        2 * _page_bytes(pages[j]) for j in range(len(pages))
-        if pages[src_of(j)].device != pages[j].device))
-    return [pages[src_of(j)].to(pages[j].device) for j in range(len(pages))]
+    elsewhere (a pure pointer move on one device).  Slot homes stay: a
+    page that moves to a slot of another process travels through the
+    transport, block by block, into a new page there."""
+    new, moved = list(pages), 0
+    for j, slot in enumerate(pages):
+        src = pages[src_of(j)]
+        if is_remote(slot) and is_remote(src):
+            continue
+        if is_remote(slot):             # this rank's page leaves
+            for blk in _blocks((src.shape[-1],)):
+                transport([(src[:, blk[0]], slot.rank)])
+            moved += _page_bytes(src)
+        elif is_remote(src):            # a page of another rank lands
+            page = torch.empty_like(slot)
+            for blk in _blocks((page.shape[-1],)):
+                transport((), [(page[:, blk[0]], src.rank)])
+            new[j] = page
+            moved += _page_bytes(page)
+        else:
+            if src.device != slot.device:
+                moved += 2 * _page_bytes(src)
+            new[j] = src.to(slot.device)
+    _exchanged("page_relabel", moved)
+    return new
 
 
 def page_swap(pages: List, g1: int, g2: int) -> List:
@@ -515,11 +818,27 @@ def mixed_swap(pages: List, L: int, lpos: int, gpos: int,
     multiplied by it (the straddling ISwap of the RCS program: i)."""
     lo, hi = 1 << lpos, 1 << (L - 1 - lpos)
     bit = 1 << gpos
+    moved = 0
     for p0 in range(len(pages)):
         if p0 & bit:
             continue
-        v0 = pages[p0].view(2, hi, 2, lo)
-        v1 = pages[p0 | bit].view(2, hi, 2, lo)
+        P0, P1 = pages[p0], pages[p0 | bit]
+        if is_remote(P0) and is_remote(P1):
+            continue
+        moved += (2 - is_remote(P0) - is_remote(P1)) * _page_bytes(P0)
+        if is_remote(P0) or is_remote(P1):
+            # this rank's half trades places with the peer's
+            page, half, peer = ((P0, 1, P1.rank) if is_remote(P1)
+                                else (P1, 0, P0.rank))
+            v = page.view(2, hi, 2, lo)
+            for blk in _blocks((hi, lo)):
+                x = v[(slice(None), blk[0], half, blk[1])]
+                _exchange_(x, peer)
+                if factor is not None:
+                    _cmul_(x, factor.real, factor.imag)
+            continue
+        v0 = P0.view(2, hi, 2, lo)
+        v1 = P1.view(2, hi, 2, lo)
         for blk in _blocks((hi, lo)):
             x = v0[(slice(None), blk[0], 1, blk[1])]
             y = v1[(slice(None), blk[0], 0, blk[1])]
@@ -527,9 +846,7 @@ def mixed_swap(pages: List, L: int, lpos: int, gpos: int,
             if factor is not None:
                 _cmul_(x, factor.real, factor.imag)
                 _cmul_(y, factor.real, factor.imag)
-    _exchanged("mixed_swap", sum(2 * _page_bytes(pages[p0])
-                                 for p0 in range(len(pages))
-                                 if not p0 & bit))
+    _exchanged("mixed_swap", moved)
     return pages
 
 
@@ -682,16 +999,28 @@ def batched_mixed_swap(pages: List, L: int, k: int, gpos,
         return v[tuple(idx)]
 
     moved = 0
+    sub_bytes = _page_bytes(pages[0]) // nsub
     for base in range(len(pages)):
         if base & mask:
             continue
-        moved += 2 * nsub * (nsub - 1) * _page_bytes(pages[base]) // nsub
-        views = [pages[member(base, b)].view(shape) for b in range(nsub)]
+        group = [pages[member(base, b)] for b in range(nsub)]
+        views = [None if is_remote(pg) else pg.view(shape) for pg in group]
         for b in range(nsub):
             for s in range(b + 1, nsub):
+                vb, vs = views[b], views[s]
+                if vb is None and vs is None:
+                    continue
+                if vb is not None and vs is not None:
+                    moved += 2 * 2 * sub_bytes
+                    for blk in _blocks(rest_dims):
+                        _swap_(sub_view(vb, s, blk), sub_view(vs, b, blk))
+                    continue
+                # one sub-block here, its partner in another process
+                mine, other, peer = ((vb, s, group[s].rank) if vs is None
+                                     else (vs, b, group[b].rank))
+                moved += 2 * sub_bytes
                 for blk in _blocks(rest_dims):
-                    _swap_(sub_view(views[b], s, blk),
-                           sub_view(views[s], b, blk))
+                    _exchange_(sub_view(mine, other, blk), peer)
     _exchanged("batched_swap", moved)
     return pages
 
@@ -738,7 +1067,7 @@ def apply_remap(pages: List, L: int, swaps, batched: bool = True) -> List:
             if p1 > p2:
                 p1, p2 = p2, p1
             if p2 < L:
-                for page in pages:
+                for _p, page in local_pages(pages):
                     swap_bits_(page, L, p1, p2)
             elif p1 >= L:
                 pages = page_swap(pages, p1 - L, p2 - L)
@@ -760,7 +1089,7 @@ def apply_remap(pages: List, L: int, swaps, batched: bool = True) -> List:
     if plan is None:
         return pages
     for p1, p2 in plan.pre:
-        for page in pages:
+        for _p, page in local_pages(pages):
             swap_bits_(page, L, p1, p2)
     if plan.k:
         pages = batched_mixed_swap(pages, L, plan.k, plan.gpos)
@@ -768,7 +1097,7 @@ def apply_remap(pages: List, L: int, swaps, batched: bool = True) -> List:
         src = {r: j for j, r in page_perm_of(plan.page_dest, g)}
         pages = _relabel(pages, lambda r: src[r])
     for p1, p2 in plan.post:
-        for page in pages:
+        for _p, page in local_pages(pages):
             swap_bits_(page, L, p1, p2)
     return pages
 
@@ -820,15 +1149,22 @@ def gather_ring(pages: List, L: int, split_body, targs,
     third result, a keep mask; elements outside it are zero).  Each new
     page is built block by block from the source pages it reads, so the
     old and the new ket live side by side until the last page is done.
-    Host tables among ``targs`` go to each page's device once."""
+    Host tables among ``targs`` go to each page's device once.  Across
+    processes every rank works out every new page's sources (the split
+    body is deterministic), the owner of a source sends what the owner
+    of the new page reads."""
     out = []
     cache = {}
+    ref = _local_ref(pages)
     for pid, page in enumerate(pages):
-        new = torch.zeros_like(page)
+        here = not is_remote(page)
+        dev = page.device if here else ref.device
+        new = (torch.zeros_like(page) if here
+               else RemotePage(page.rank, page.shape, page.dtype))
         size = page.shape[-1]
-        args = device_targs(targs, page.device, cache)
+        args = device_targs(targs, dev, cache)
         for blk in _blocks((size,)):
-            lidx = _block_index((size,), (1,), blk, page.device)
+            lidx = _block_index((size,), (1,), blk, dev)
             res = split_body(torch, pid, lidx, L, *args)
             # a result read from the page id alone is a scalar
             sp, sl = (torch.broadcast_to(torch.as_tensor(r, device=lidx.device),
@@ -836,18 +1172,44 @@ def gather_ring(pages: List, L: int, split_body, targs,
             keep = res[2] if len(res) > 2 else keep_default
             if keep is not None:
                 keep = torch.broadcast_to(keep, lidx.shape)
-            dst = new[:, blk[0]]
             for holder, src in enumerate(pages):
+                if not here and is_remote(src):
+                    continue
                 take = sp == holder
                 if keep is not None:
                     take = take & keep
                 if not bool(take.any()):
                     continue
                 pos = take.nonzero().squeeze(-1)
-                got = src[:, sl[pos].to(src.device, torch.int64)]
-                dst[:, pos] = got.to(page.device)
+                got = _fetch_rows(src, sl[pos], page, dev)
+                if got is not None:
+                    new[:, blk[0]][:, pos] = got
         out.append(new)
     return out
+
+
+def _local_ref(pages):
+    """This process's first page (its device computes index maps for the
+    new pages of other processes)."""
+    for page in pages:
+        if not is_remote(page):
+            return page
+    raise ValueError("no page of the list lives in this process")
+
+
+def _fetch_rows(src, idx, slot, dev):
+    """src[:, idx] on `dev` for the rank that owns `slot` (a new page's
+    slot): read in place where the source lives here too, received
+    through the transport where it does not.  The owner of `src` sends
+    it when `slot` lies in another process, and gets None."""
+    if is_remote(slot):
+        transport([(src[:, idx.to(src.device, torch.int64)], slot.rank)])
+        return None
+    if is_remote(src):
+        got = torch.empty((2, idx.numel()), dtype=src.dtype, device=dev)
+        transport((), [(got, src.rank)])
+        return got
+    return src[:, idx.to(src.device, torch.int64)].to(dev)
 
 
 def compose_ring(pages_a: List, b, L_in: int, start: int, n1: int,
@@ -858,15 +1220,23 @@ def compose_ring(pages_a: List, b, L_in: int, start: int, n1: int,
     planes; each output element out[(pid, i)] = A[a_src] * B[j] with
     (a_src, j) decoded from the output's (page, local) index, without a
     global index.  Where B lies below the page bits (start <= L_in)
-    every element reads its own page."""
+    every element reads its own page; elsewhere an element of another
+    process's page comes through the transport, as in gather_ring."""
     L_out = L_in + n2
     npg = len(pages_a)
     aligned = start <= L_in
+    ref = _local_ref(pages_a)
     out = []
     for pid, A in enumerate(pages_a):
-        dev = A.device
+        here = not is_remote(A)
+        if not here:
+            out.append(RemotePage(A.rank, (2, 1 << L_out), A.dtype))
+            if aligned:
+                continue
+        dev = A.device if here else ref.device
         bd = b.to(dev, A.dtype)
-        new = torch.empty((2, 1 << L_out), dtype=A.dtype, device=dev)
+        new = (torch.empty((2, 1 << L_out), dtype=A.dtype, device=dev)
+               if here else None)
         for blk in _blocks((1 << L_out,)):
             s, e, _ = blk[0].indices(1 << L_out)
             i = torch.arange(s, e, dtype=torch.int64, device=dev)
@@ -894,10 +1264,12 @@ def compose_ring(pages_a: List, b, L_in: int, start: int, n1: int,
             sp = a_src >> L_in
             sl = a_src & ((1 << L_in) - 1)
             br, bi = bd[0][j], bd[1][j]
-            dst = new[:, blk[0]]
+            dst = new[:, blk[0]] if here else None
             holders = [pid] if aligned else range(npg)
             for holder in holders:
                 src = pages_a[holder]
+                if not here and is_remote(src):
+                    continue
                 if aligned:
                     pos = None
                     idx = sl
@@ -907,8 +1279,10 @@ def compose_ring(pages_a: List, b, L_in: int, start: int, n1: int,
                         continue
                     pos = take.nonzero().squeeze(-1)
                     idx = sl[pos]
-                ar = src[0][idx.to(src.device)].to(dev)
-                ai = src[1][idx.to(src.device)].to(dev)
+                got = _fetch_rows(src, idx, A, dev)
+                if got is None:
+                    continue
+                ar, ai = got[0], got[1]
                 bbr = br if pos is None else br[pos]
                 bbi = bi if pos is None else bi[pos]
                 vr = ar * bbr - ai * bbi
@@ -919,5 +1293,6 @@ def compose_ring(pages_a: List, b, L_in: int, start: int, n1: int,
                 else:
                     dst[0, pos] = vr
                     dst[1, pos] = vi
-        out.append(new)
+        if here:
+            out.append(new)
     return out

@@ -1,5 +1,6 @@
 """QPager: one coherent ket split into pages over a list of devices, in
-one process (counterpart of the JAX package's parallel/pager.py).
+one process or in several (counterpart of the JAX package's
+parallel/pager.py).
 
 Re-design of the reference's QPager (include/qpager.hpp:31;
 src/qpager.cpp).  Mapping:
@@ -64,8 +65,24 @@ are spares).  Checkpoints (checkpoint/registry.py, kind ``"pager"``):
 the raw physical pages as complex128 ``page_i`` arrays, as the file
 format requires (twice the float32 planes' bytes), with the placement
 table in the meta; a file saved on one page count loads into another.
-Not here yet: the serving executor's call-boundary probe (item 16),
-and pages in several processes (``torch.distributed``, item 13.4).
+Not here yet: the serving executor's call-boundary probe (item 16).
+
+Pages in several processes (parallel/cluster.py): built over the
+cluster's page homes, ``QPager(n, devices=cluster.global_page_devices(
+G))``, each process keeps only its own pages; the others are
+``sharded.RemotePage`` placeholders at the same ids.  Every process
+runs the same calls with the same rng seed.  The page passes move blocks
+between processes through ``sharded.transport`` and reduce in float64
+across them; reads (``GetQuantumState``, ``GetAmplitude``, the
+checkpoint capture) go through ``sharded.replicated_window``, so every
+rank returns the same value; ``MAll`` draws the page from the
+all-reduced page marginals on every rank, and the page's owner draws the
+index and broadcasts it.  The remap planner prices a page bit that
+crosses processes at ``cluster.dcn_weight()`` (``_exchange_weights``;
+``dcn_bits=`` forces the top bits so on one process).  Re-paging,
+failover and the resilience plane, and the structural ops that split or
+join the ket (Compose, Decompose, Dispose, a width that changes the page
+count) refuse on such a pager, naming ROADMAP item 13.5.
 
 The pager runs on ``cuda`` unless the caller passes ``device="cpu"`` or
 CPU devices (the tests do); without a GPU it raises.
@@ -90,6 +107,7 @@ from ..ops.sharded import split_masks as _split_masks
 from ..resilience import dispatch as _rdispatch
 from ..utils.bits import is_pow2, log2
 from ..utils.device import resolve_device
+from . import cluster as _cluster
 
 #: the widest page: int32 masks and tile ids of the window kernel
 MAX_PAGE_QB = 30
@@ -105,6 +123,11 @@ FLUSHES = {"kernel_windows": 0, "chain_windows": 0, "single_ops": 0,
 def reset_flushes() -> None:
     for k in FLUSHES:
         FLUSHES[k] = 0
+
+
+#: the ROADMAP item that ports what a pager over several processes
+#: refuses
+SPREAD_ITEM = "ROADMAP item 13.5"
 
 
 def _norm_device(dev) -> torch.device:
@@ -139,9 +162,12 @@ def pager_devices_from_env():
             for t in toks]
 
 
-def _device_list(devices, device, n_pages) -> List[torch.device]:
+def _device_list(devices, device, n_pages) -> List:
+    """The construction device list: torch devices, or the cluster's
+    page homes (cluster.PageHome) as they are."""
     if devices is not None:
-        return [_norm_device(d) for d in devices]
+        return [d if isinstance(d, _cluster.PageHome) else _norm_device(d)
+                for d in devices]
     env = pager_devices_from_env()
     if env is not None:
         return env
@@ -151,7 +177,65 @@ def _device_list(devices, device, n_pages) -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
-class QPager(QEngine):
+class PageHomes:
+    """Where a pager's pages live (QPager, QPagerTurboQuant): a device a
+    slot of the construction list (``_slot_devices``), the slot of each
+    page in page order (``_slots``) and, over the cluster's page homes
+    (parallel/cluster.py), the process of each slot (``_slot_ranks``;
+    None when this process holds every page)."""
+
+    def _take_homes(self, devs) -> List:
+        """The slots' devices of a construction list, its ranks kept
+        when it lists cluster.PageHome entries."""
+        self._slot_ranks = None
+        self._rank = 0
+        if devs and isinstance(devs[0], _cluster.PageHome):
+            self._rank = _cluster.process_index()
+            self._slot_ranks = [h.rank for h in devs]
+            devs = [_norm_device(h.device) if h.rank == self._rank
+                    else h.device for h in devs]
+        return devs
+
+    @property
+    def devices(self) -> List[torch.device]:
+        """The device of each page (in its own process)."""
+        return [self._slot_devices[s] for s in self._slots]
+
+    @property
+    def homes(self):
+        """Each page's cluster.PageHome, or None on a one-process pager."""
+        if self._slot_ranks is None:
+            return None
+        return [_cluster.PageHome(self._slot_ranks[s], self._slot_devices[s])
+                for s in self._slots]
+
+    def _here(self, slot: int) -> bool:
+        """True when the page of `slot` lives in this process."""
+        return self._slot_ranks is None or self._slot_ranks[slot] == self._rank
+
+    def _local_devices(self) -> List[torch.device]:
+        """The devices of this process's pages, in page order."""
+        return [self._slot_devices[s] for s in self._slots if self._here(s)]
+
+    @property
+    def _spread(self) -> bool:
+        """True when some page lives in another process."""
+        return self._slot_ranks is not None and any(
+            self._slot_ranks[s] != self._rank for s in self._slots)
+
+    @property
+    def _on_cluster(self) -> bool:
+        """True for a pager over the cluster's page homes (a cluster of
+        one too): its reads are collectives."""
+        return self._slot_ranks is not None and _cluster.is_initialized()
+
+    def _refuse(self, what: str):
+        raise NotImplementedError(
+            f"{what} on a pager whose pages span processes is "
+            f"{SPREAD_ITEM}")
+
+
+class QPager(PageHomes, QEngine):
     """Paged dense engine over a list of devices."""
 
     _xp = torch
@@ -161,12 +245,13 @@ class QPager(QEngine):
     def __init__(self, qubit_count: int, init_state: Optional[int] = 0,
                  devices=None, n_pages: Optional[int] = None, dtype=None,
                  remap: Optional[str] = None,
-                 collective: Optional[str] = None, device=None, **kwargs):
+                 collective: Optional[str] = None,
+                 dcn_bits: Optional[int] = None, device=None, **kwargs):
         super().__init__(qubit_count, init_state=init_state or 0, **kwargs)
         if dtype is None:
             dtype = get_config().device_real_dtype()
         self.dtype = gk.plane_dtype(dtype)
-        devs = _device_list(devices, device, n_pages)
+        devs = self._take_homes(_device_list(devices, device, n_pages))
         # power-of-two device prefix (reference: page-count policy,
         # src/qpager.cpp:89-292)
         if n_pages is None:
@@ -184,6 +269,13 @@ class QPager(QEngine):
         # the rest are spares that a re-page off a quarantined slot adopts
         self._slot_devices = list(devs)
         self._slots = list(range(n_pages))
+        if self._spread and _res._ACTIVE:
+            self._refuse("the resilience plane")
+        # planner weights of the page bits (DCN > ICI), for the page
+        # layout they were read from
+        self._dcn_bits = dcn_bits
+        self._xw_key = None
+        self._xw = None
         # last integrity-quarantine epoch acted on (the call-boundary
         # probe's healthy-path cost: one module read + int compare)
         self._quarantine_epoch = 0
@@ -228,13 +320,17 @@ class QPager(QEngine):
             f.flush()
 
     @property
-    def devices(self) -> List[torch.device]:
-        """The device of each page."""
-        return [self._slot_devices[s] for s in self._slots]
-
-    @property
     def device(self) -> torch.device:
-        return self._slot_devices[self._slots[0]]
+        """The device of this process's first page."""
+        here = self._local_devices()
+        if not here:
+            raise ValueError("no page of this pager lives in this process")
+        return here[0]
+
+    def _new_pages(self, L: int, fill=None) -> List:
+        """Pages of 2^L amplitudes on the current slots (sharded.new_pages:
+        ``fill(page id, device)`` or zeros here, placeholders elsewhere)."""
+        return shb.new_pages(self.homes or self.devices, L, self.dtype, fill)
 
     @property
     def page_slots(self) -> List[int]:
@@ -260,6 +356,8 @@ class QPager(QEngine):
         pages back as its output, where an amp-corrupt strike lands."""
         if not _res._ACTIVE:
             return fn(*args)
+        if self._spread:
+            self._refuse("the resilience plane")
         pages = self._pages_raw
 
         def run():
@@ -274,6 +372,8 @@ class QPager(QEngine):
         completion), its value checked in place by the integrity plane."""
         if not _res._ACTIVE:
             return fn(*args)
+        if self._spread:
+            self._refuse("the resilience plane")
         out = _rdispatch.call_guarded("pager.device_get", fn, args)
         from ..resilience import integrity as _integ
 
@@ -392,6 +492,19 @@ class QPager(QEngine):
                 else fu.collective_mode())
         return mode != "off"
 
+    @property
+    def _exchange_weights(self):
+        """Per-page-bit planner weights (a bit that crosses processes
+        prices at cluster.dcn_weight()), or None when uniform — read
+        again whenever the page layout changes."""
+        key = (tuple(self._slots), self.n_pages)
+        if self._xw_key != key:
+            pages = self.homes or self.devices
+            self._xw = _cluster.page_bit_weights(pages,
+                                                 dcn_bits=self._dcn_bits)
+            self._xw_key = key
+        return self._xw
+
     def _tele_remap(self, swaps, batched: bool = True) -> None:
         """Count placement transpositions as the JAX pager does:
         ``remap.pager.pairs``, ``remap.pager.batched`` (a batched
@@ -409,7 +522,7 @@ class QPager(QEngine):
             return
         if sum(1 for p1, p2 in swaps if max(p1, p2) >= L) >= 2:
             _tele.inc("remap.pager.batched")
-        nb = sum(p.numel() * p.element_size() for p in self._pages_raw)
+        nb = sum(shb._page_bytes(p) for p in self._pages_raw)
         _tele.inc("exchange.pager.collective_bytes", frac * nb)
 
     def _apply_swaps(self, swaps) -> None:
@@ -524,6 +637,7 @@ class QPager(QEngine):
         batched = self._collective_batched()
         if self._remap_active():
             swaps, new_qmap = fu.plan_remaps(ops, L, self._qmap, lookahead,
+                                             weights=self._exchange_weights,
                                              batched=batched)
         tops = (fu.translate_ops(ops, new_qmap)
                 if (swaps or self._map_nonid()) else ops)
@@ -553,7 +667,10 @@ class QPager(QEngine):
             n_global = sum(1 for kind, t, _ in structure
                            if kind == "gen" and t >= L)
             FLUSHES["kernel_windows"] += 1
-            FLUSHES["predicted_launches"] += npg * (plan["sweeps"] - n_global)
+            # the kernel runs on this process's pages
+            n_here = len(shb.local_pages(self._pages_raw))
+            FLUSHES["predicted_launches"] += n_here * (plan["sweeps"]
+                                                       - n_global)
         else:
             body = fu.sharded_window_body(L, npg, structure, remap=swaps,
                                           batched=batched)
@@ -561,7 +678,7 @@ class QPager(QEngine):
         self._pages_raw = self._pass("cuda.fuse.flush", body,
                                      self._pages_raw, *operands)
         self._map_assign(new_qmap)
-        esize = self._pages_raw[0].element_size()
+        esize = self.dtype.itemsize
         if plan is not None:
             fu.record_kernel_flush(len(ops), plan["sweeps"],
                                    width=self.qubit_count, esize=esize)
@@ -581,7 +698,7 @@ class QPager(QEngine):
             p1, p2 = p2, p1
         if p2 < L:
             def lswap(pages):
-                for page in pages:
+                for _p, page in shb.local_pages(pages):
                     shb.swap_bits_(page, L, p1, p2)
 
             self._pass("pager.dispatch", lswap, self._pages_raw)
@@ -664,6 +781,8 @@ class QPager(QEngine):
 
     def _out_of_place(self, old, src_idx, dst_idx, passthrough_cmask):
         L = self.local_bits
+        if self._spread:
+            self._refuse("an out-of-place ALU scatter")
         lbits = (1 << L) - 1
         src = torch.as_tensor(src_idx).to("cpu", torch.int64).reshape(-1)
         dst = torch.as_tensor(dst_idx).to("cpu", torch.int64).reshape(-1)
@@ -701,7 +820,7 @@ class QPager(QEngine):
 
     def _k_probs(self) -> np.ndarray:
         self._settle()
-        if self._map_nonid():
+        if self._map_nonid() or self._on_cluster:
             planes = self._fetch(0, 1 << self.qubit_count)
             return planes[0] ** 2 + planes[1] ** 2
         return self._pass("pager.dispatch", lambda pages: np.concatenate([
@@ -746,12 +865,11 @@ class QPager(QEngine):
         self._pass("pager.dispatch", shb.collapse, self._pages_raw,
                    *self._split(mask, val), gk._rsqrt(nrm_sq, self.dtype))
 
-    def _draw_in_page(self, page) -> int:
-        """One categorical draw over a page's |amp|^2 (float64), as
-        ``rng.choice_from_probs(p, 1)`` draws, block by block on the
-        page's device (on the card, gatekernels.draw_index): no page
-        reaches the host."""
-        u = float(self.rng.uniform(1)[0])
+    def _draw_in_page(self, page, u: float) -> int:
+        """One categorical draw over a page's |amp|^2 (float64) at the
+        uniform `u`, as ``rng.choice_from_probs(p, 1)`` draws, block by
+        block on the page's device (on the card, gatekernels.draw_index):
+        no page reaches the host."""
         if page.device.type == "cuda":
             # a cumsum on the card does not repeat its rounding: the
             # level-by-level draw of gatekernels.draw_index does
@@ -787,14 +905,24 @@ class QPager(QEngine):
     def MAll(self) -> int:
         """Two-stage sample: the page marginals, then a draw in the
         chosen page.  The draw runs in PHYSICAL order (the marginals are
-        physical) and the result translates back through the table."""
+        physical) and the result translates back through the table.
+        Across processes every rank picks the page from the same
+        all-reduced marginals and consumes the same uniform; the page's
+        owner draws and broadcasts the index, so every rng stays in
+        step."""
         self._settle()
         page_probs = np.asarray(
             self._pass("pager.dispatch", shb.page_probs, self._pages_raw),
             dtype=np.float64)
         page = int(self.rng.choice_from_probs(page_probs, 1)[0])
         L = self.local_bits
-        sub = self._host_read(self._draw_in_page, self._pages_raw[page])
+        u = float(self.rng.uniform(1)[0])
+        held = self._pages_raw[page]
+        sub = (None if shb.is_remote(held)
+               else self._host_read(self._draw_in_page, held, u))
+        if self._on_cluster:
+            sub = _cluster.broadcast_int(
+                sub, held.rank if shb.is_remote(held) else self._rank)
         result = self._unmap_index((page << L) | sub)
         self.SetPermutation(result)
         return result
@@ -804,7 +932,7 @@ class QPager(QEngine):
         s = gk._rsqrt(nrm_sq, self.dtype)
 
         def scale(pages):
-            for page in pages:
+            for _p, page in shb.local_pages(pages):
                 page.mul_(s)
 
         self._pass("pager.dispatch", scale, self._pages_raw)
@@ -812,22 +940,31 @@ class QPager(QEngine):
     def _k_sum_sqr_diff(self, other) -> float:
         self._unmap()
         L = self.local_bits
-        if isinstance(other, QPager) and other.n_pages == self.n_pages:
+        if (isinstance(other, QPager) and other.n_pages == self.n_pages
+                and other.homes == self.homes):
             other._unmap()
             theirs = other._pages_raw
         else:
             st = np.asarray(other.GetQuantumState()).reshape(-1)
             theirs = [st[p << L:(p + 1) << L] for p in range(self.n_pages)]
-        re = im = 0.0
-        for a, b in zip(self._pages_raw, theirs):
-            for blk in shb._blocks((a.shape[-1],)):
+        nb = shb._n_blocks(1 << L)
+        parts = np.zeros((self.n_pages, nb, 2), dtype=np.float64)
+        for p, a in shb.local_pages(self._pages_raw):
+            b = theirs[p]
+            for k, blk in enumerate(shb._blocks((a.shape[-1],))):
                 x = a[:, blk[0]]
                 if isinstance(b, torch.Tensor):
                     y = b[:, blk[0]].to(x.device, x.dtype)
                 else:
                     y = gk.to_planes(b[blk[0]], x.dtype, x.device)
-                re += float(torch.sum(x[0] * y[0] + x[1] * y[1]))
-                im += float(torch.sum(x[0] * y[1] - x[1] * y[0]))
+                parts[p, k, 0] = float(torch.sum(x[0] * y[0] + x[1] * y[1]))
+                parts[p, k, 1] = float(torch.sum(x[0] * y[1] - x[1] * y[0]))
+        parts = shb.sum_ranks(self._pages_raw, parts)
+        re = im = 0.0
+        for p in range(self.n_pages):
+            for k in range(nb):
+                re += float(parts[p, k, 0])
+                im += float(parts[p, k, 1])
         return max(0.0, 1.0 - (re * re + im * im))
 
     # ------------------------------------------------------------------
@@ -847,6 +984,8 @@ class QPager(QEngine):
         count when it recovers)."""
         new_g = self._desired_g(qubit_count)
         if new_g != self.g_bits:
+            if self._spread:
+                self._refuse("a width that changes the page count")
             self.n_pages = 1 << new_g
             self.g_bits = new_g
             self._slots = self._device_pool()[:self.n_pages]
@@ -862,14 +1001,16 @@ class QPager(QEngine):
         st = np.asarray(state).reshape(-1)
         L = qubit_count - self.g_bits
         self._pages_raw = None
-        self._pages = [gk.to_planes(st[p << L:(p + 1) << L], self.dtype, dev)
-                       for p, dev in enumerate(self.devices)]
+        self._pages = self._new_pages(L, lambda p, dev: gk.to_planes(
+            st[p << L:(p + 1) << L], self.dtype, dev))
         self._map_reset(qubit_count)
 
     def _k_compose(self, other, start) -> None:
         from ..utils.states import compose_states
 
         self._settle()
+        if self._spread:
+            self._refuse("Compose")
         n1, n2 = self.qubit_count, other.qubit_count
         if self._mesh_would_change(n1 + n2):
             # a ket below the page count (tiny): host-stage the regrow
@@ -999,6 +1140,8 @@ class QPager(QEngine):
         return dest
 
     def _k_decompose(self, start, length) -> np.ndarray:
+        if self._spread:
+            self._refuse("Decompose")
         self._unmap()
         n = self.qubit_count
         if self._mesh_would_change(n - length):
@@ -1013,6 +1156,8 @@ class QPager(QEngine):
         return vec / nrm if nrm > 0 else vec
 
     def _k_dispose(self, start, length, perm) -> None:
+        if self._spread:
+            self._refuse("Dispose")
         self._unmap()
         n = self.qubit_count
         if self._mesh_would_change(n - length):
@@ -1027,6 +1172,8 @@ class QPager(QEngine):
         self._unmap()
         n = self.qubit_count
         if self._mesh_would_change(n + length):
+            if self._spread:
+                self._refuse("an Allocate that changes the page count")
             a = self._fetch(0, 1 << n)
             zeros = np.zeros(1 << length, dtype=np.complex128)
             zeros[0] = 1.0
@@ -1040,6 +1187,10 @@ class QPager(QEngine):
         hi, lo = 1 << (L - at), 1 << at
         grown = []
         for pg in self._pages_raw:
+            if shb.is_remote(pg):
+                grown.append(shb.RemotePage(pg.rank, (2, (1 << L) << length),
+                                            pg.dtype))
+                continue
             new = torch.zeros((2, hi, 1 << length, lo), dtype=pg.dtype,
                               device=pg.device)
             new[:, :, 0, :] = pg.view(2, hi, lo)
@@ -1096,6 +1247,8 @@ class QPager(QEngine):
         """Re-page from 2^g to 2^(g-1) pages on the card, in place.  A
         pending window stays pending when a flush is re-dispatching it,
         and runs (raw, under the fault suspension) otherwise."""
+        if self._spread:
+            self._refuse("re-paging")
         if not self.can_shrink():
             raise MemoryError(
                 f"QPager cannot shrink below {self.n_pages} page(s) at "
@@ -1120,6 +1273,8 @@ class QPager(QEngine):
         device moves without a copy.  The new pages are built in locals
         and committed last, so a failed re-page leaves the current
         topology untouched (at the cost of both layouts at once)."""
+        if self._spread:
+            self._refuse("re-paging")
         with _res.faults.suspended():
             # the unmap's exchanges must not advance fault-spec counters
             # nor be refused by an open breaker
@@ -1326,21 +1481,12 @@ class QPager(QEngine):
         if _tele._ENABLED:
             _tele.inc("exchange.pager.host_fetch")
             _tele.inc("exchange.pager.host_fetch_bytes",
-                      2 * length * self._pages_raw[0].element_size())
+                      2 * length * self.dtype.itemsize)
         return self._host_read(self._read_window, offset, length)
 
     def _read_window(self, offset: int, length: int) -> np.ndarray:
-        L = self.local_bits
-        out = np.empty((2, length), dtype=np.float64)
-        pos = offset
-        while pos < offset + length:
-            p, i = pos >> L, pos & ((1 << L) - 1)
-            take = min((1 << L) - i, offset + length - pos)
-            out[:, pos - offset:pos - offset + take] = (
-                self._pages_raw[p][:, i:i + take].to("cpu", torch.float64)
-                .numpy())
-            pos += take
-        return out
+        return shb.replicated_window(self._pages_raw, self.local_bits,
+                                     offset, length, shared=self._on_cluster)
 
     def GetQuantumState(self) -> np.ndarray:
         planes = self._fetch(0, 1 << self.qubit_count)
@@ -1362,6 +1508,8 @@ class QPager(QEngine):
         perm = self._map_index(perm) if self._map_nonid() else perm
         L = self.local_bits
         page = self._pages_raw[perm >> L]
+        if shb.is_remote(page):
+            return   # its owner writes it
         i = perm & ((1 << L) - 1)
         page[0, i] = amp.real
         page[1, i] = amp.imag
@@ -1374,33 +1522,35 @@ class QPager(QEngine):
         old = self._pages_raw
         if (old is not None and len(old) == self.n_pages
                 and all(pg.shape[-1] == 1 << L and pg.dtype == self.dtype
-                        and pg.device == dev
+                        and (shb.is_remote(pg) or pg.device == dev)
                         for pg, dev in zip(old, self.devices))):
-            for pg in old:       # reuse the planes: no second ket
-                pg.zero_()
+            for _p, pg in shb.local_pages(old):
+                pg.zero_()       # reuse the planes: no second ket
         else:
             self._pages_raw = None
-            self._pages_raw = [torch.zeros((2, 1 << L), dtype=self.dtype,
-                                           device=dev)
-                               for dev in self.devices]
+            self._pages_raw = self._new_pages(L)
         self._map_reset()
         page = self._pages_raw[perm >> L]
+        self.running_norm = 1.0
+        if shb.is_remote(page):
+            return   # its owner writes the amplitude
         page[0, perm & ((1 << L) - 1)] = ph.real
         page[1, perm & ((1 << L) - 1)] = ph.imag
-        self.running_norm = 1.0
 
     def _like(self, init_state=None) -> "QPager":
         return QPager(self.qubit_count, init_state=init_state,
-                      n_pages=self.n_pages, devices=self.devices,
+                      n_pages=self.n_pages, devices=self.homes or self.devices,
                       dtype=self.dtype, remap=self._remap,
-                      collective=self._collective, rng=self.rng.spawn(),
+                      collective=self._collective, dcn_bits=self._dcn_bits,
+                      rng=self.rng.spawn(),
                       do_normalize=self.do_normalize,
                       rand_global_phase=self.rand_global_phase)
 
     def Clone(self) -> "QPager":
         self._settle()
         c = self._like(init_state=None)
-        c._pages = [pg.clone() for pg in self._pages_raw]
+        c._pages = [pg if shb.is_remote(pg) else pg.clone()
+                    for pg in self._pages_raw]
         c._map_assign(self._qmap)  # the physical copy carries the table
         return c
 
@@ -1409,21 +1559,24 @@ class QPager(QEngine):
 
     def Finish(self) -> None:
         self._settle()   # the pending window runs first
-        for dev in set(self.devices):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+        for _p, pg in shb.local_pages(self._pages_raw):
+            if pg.device.type == "cuda":
+                torch.cuda.synchronize(pg.device)
 
     def GetDeviceList(self):
         return [d.index if d.type == "cuda" else -1 for d in self.devices]
 
     def ZeroAmplitudes(self) -> None:
         self._settle()
-        for pg in self._pages_raw:
+        for _p, pg in shb.local_pages(self._pages_raw):
             pg.zero_()
         self._map_reset()
 
     def IsZeroAmplitude(self) -> bool:
-        return not any(bool(torch.any(pg != 0)) for pg in self._pages)
+        pages = self._pages
+        here = any(bool(torch.any(pg != 0))
+                   for _p, pg in shb.local_pages(pages))
+        return not shb.sum_ranks(pages, np.asarray([float(here)]))[0]
 
     def GetAmplitudePage(self, offset: int, length: int) -> np.ndarray:
         planes = self._fetch(offset, length)
@@ -1438,8 +1591,10 @@ class QPager(QEngine):
             p, i = pos >> L, pos & ((1 << L) - 1)
             take = min((1 << L) - i, end - pos)
             dst = self._pages_raw[p]
-            dst[:, i:i + take] = gk.to_planes(
-                vals[pos - offset:pos - offset + take], self.dtype, dst.device)
+            if not shb.is_remote(dst):   # each rank writes its own pages
+                dst[:, i:i + take] = gk.to_planes(
+                    vals[pos - offset:pos - offset + take], self.dtype,
+                    dst.device)
             pos += take
 
     # ------------------------------------------------------------------
