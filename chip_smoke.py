@@ -564,8 +564,9 @@ Then pages in several processes (qrack_tpu_torch/parallel/cluster.py
 and the pagers over its page homes; no new kernel: every rank launches
 K1/K2 on its own pages).  The script re-invokes itself as
 ``chip_smoke.py --cluster-worker nccl|gloo`` once a rank, each rank's
-rendezvous in the QRACK_* environment; a worker that fails or passes
-CLUSTER_TIMEOUT_S fails the run, and every worker is stopped:
+rendezvous in the QRACK_* environment, the NCCL worker of (a) started
+beside the gloo cohort of (b)-(h); a worker that fails or
+passes CLUSTER_TIMEOUT_S fails the run, and every worker is stopped:
 
 41. cluster: (a) NCCL as a group of one on cuda:0: a w28 pager of 4
     pages over cluster.global_page_devices runs the remap-on QFT of
@@ -575,8 +576,9 @@ CLUSTER_TIMEOUT_S fails the run, and every worker is stopped:
     bars, the per-page K1/K2 launches equal.  (b) two ranks on gloo,
     both on cuda:0 (the cut: NCCL refuses two ranks on one device, so
     the one card holds both ranks' halves of the ket): the w30 QFT
-    (CLUSTER_WIDTH: 4 pages of 2^28, 2 a rank, the top page bit crosses
-    the ranks) through QCircuit.Run with remap on and batched prologues;
+    (CLUSTER_WIDTH: 4 pages, 2 a rank, the top page bit crosses
+    the ranks; w28 after the run budget's first cut: 4 pages of
+    2^26) through QCircuit.Run with remap on and batched prologues;
     each rank holds its own pages against the closed form at phase 30's
     bars (max diff <= 1e-4 * 2^(-n/2), fidelity >= 1 - 1e-5), its
     per-page K1/K2 launches equal its plans' and are > 0,
@@ -591,8 +593,33 @@ CLUSTER_TIMEOUT_S fails the run, and every worker is stopped:
     TurboQuant pager's, MAll equal on both ranks.  (e) a w24 cluster
     pager saved on each rank and loaded into a fresh cluster pager (each
     local page and the table torch.equal) and into a one-process pager
-    on the card.  The phase's seconds are printed beside its budget of
-    60 s (CLUSTER_PHASE_S), a budget, not a bar.
+    on the card.  (f) (b)'s QFT with the resilience plane armed over the
+    two ranks, twice: a transient pager.exchange raise armed on rank 1
+    alone, then an amp-corrupt of a window's output pinned to a page of
+    rank 1, armed there alone: the closed form at phase 30's bars, the
+    pages torch.equal to (b)'s, the per-page launches equal the plans'
+    (a replayed window's relaunch included), and both ranks count the
+    same retries (1; 0), replays (0; 1) and strikes (0; 1).  Printed:
+    each armed wall beside (b)'s, the device memory above the planes,
+    the agreements and their seconds.  (g) the staircase at w28
+    (CLUSTER_STAIR_WIDTH): after the QFT a persistent device loss at
+    pager.device_get takes the pager 4 -> 2 (onto rank 0's slots) -> 1
+    page, then a QEngineCUDA replica of the gathered ket on each rank:
+    the replica at the closed form, Prob(3) and two MAll draws equal on
+    both ranks; the faults cleared, the degraded pager grows back to 4
+    pages over both ranks, at the closed form again; 2 shrinks, 1
+    expansion and 3 failover moves on both ranks; the bytes each move
+    sent over the wire, summed over the ranks, half the ket, none, the
+    whole ket and half of it (sharded.repage, sharded.all_gather_pages).
+    Printed: each move's wire bytes and seconds.
+    (h) at w24 (CLUSTER_STRUCT_WIDTH), each bit for bit against the
+    one-process pager in the same worker: three strikes quarantine slot
+    2 and the re-page moves its page onto spare slot 4, on rank 1;
+    Compose, Decompose, Dispose and Allocate down to one qubit (4 -> 2
+    pages) and back (2 -> 4), composing a pager over the ranks; the
+    16-bit TurboQuant pager's dense float32 plane (an INC), its codes
+    equal.  The phase's seconds are printed beside its budget of 90 s
+    (CLUSTER_PHASE_S), a budget, not a bar.
 
 The kernels line counts K1/K2 launches by dtype form over every dense
 path (phases 3, 8-12, 14-17, 19-22, 24-28, 37, 38, 39 and 40); their times and errors
@@ -828,14 +855,20 @@ ROUTE_PHASE_S = 40.0      # phase 40's budget (printed, as the run's 880 s)
 # on cuda:0, each holding half of the ket's pages; NCCL runs as a group
 # of one
 CLUSTER_NCCL_WIDTH = 28   # (a) 4 pages of 2^26 on a group of one
-CLUSTER_WIDTH = 30        # (b) 4 pages of 2^28, 2 a rank: the top page bit
-CLUSTER_PAGES = 4         #     crosses the ranks
+CLUSTER_WIDTH = 28        # (b), (f) 4 pages of 2^26, 2 a rank: the top page
+CLUSTER_PAGES = 4         #     bit crosses the ranks (w30 until the run
+                          #     budget's cut)
 CLUSTER_RANKS = 2
 CLUSTER_SEED = 41
 CLUSTER_TQ_WIDTH = 24     # (d) the TurboQuant pager, 16-bit codes
 CLUSTER_CKPT_WIDTH = 24   # (e) the file round trip
+CLUSTER_STAIR_WIDTH = 28  # (g) the staircase to the dense replicas
+CLUSTER_STRUCT_WIDTH = 24  # (h) quarantine, structure, TurboQuant's plane
+# what only the rank where a fault fired records
+CLUSTER_LOCAL = ("resilience.fault.", "resilience.timeout.",
+                 "resilience.abandoned_threads")
 CLUSTER_TIMEOUT_S = 420   # a cohort's limit: past it every worker is killed
-CLUSTER_PHASE_S = 60.0    # phase 41's budget (printed, as the run's 880 s)
+CLUSTER_PHASE_S = 90.0    # phase 41's budget (printed, as the run's 880 s)
 TELE_DISABLED_BAR = 0.02  # disabled w30 QFT wall against phase 4's
 TELE_HOOK_WIDTH = 16      # the small stacks that reach every other hook
 TELE_REQUIRED = (         # counter families phase 37 must reach
@@ -6278,12 +6311,17 @@ def cluster_worker(kind: str) -> dict:
     if kind == "nccl":
         out["a"] = cluster_nccl()
     else:
-        out["b"] = cluster_qft()
+        out["b"], kept = cluster_qft()
         out["c"] = cluster_program()
         out["d"] = cluster_tq()
         out["e"] = cluster_ckpt()
+        out["f"] = cluster_armed(kept)
+        del kept
+        out["g"] = cluster_staircase()
+        out["h"] = cluster_struct()
     cluster._dist().destroy_process_group()
     return out
+
 
 
 def _cluster_pager(n: int, homes, **kw):
@@ -6310,6 +6348,7 @@ def cluster_nccl() -> dict:
     the remap-on QFT through the cluster path against the one-process
     pager's, page by page, in the same process."""
     from qrack_tpu_torch.models.qft import qft_qcircuit
+    from qrack_tpu_torch.ops import sharded as shb
     from qrack_tpu_torch.ops import window_kernel as wk
     from qrack_tpu_torch.parallel import cluster
 
@@ -6330,7 +6369,9 @@ def cluster_nccl() -> dict:
                      "launches": {k: v - w0[k]
                                   for k, v in wk.launches().items()}}
     a, b = res["cluster"]["q"], res["one_process"]["q"]
-    check(a._on_cluster and not a._spread, "the nccl pager is not a cluster "
+    check(a._on_cluster and not any(shb.is_remote(p)
+                                    for p in a.page_planes),
+          "the nccl pager is not a cluster "
           "pager of one process")
     equal = (list(a._qmap) == list(b._qmap) and all(
         torch.equal(x, y) for x, y in zip(a.page_planes, b.page_planes)))
@@ -6358,9 +6399,11 @@ def cluster_nccl() -> dict:
             "wall_s": {k: v["wall_s"] for k, v in res.items()}}
 
 
-def cluster_qft() -> dict:
-    """Phase 41 (b): the remap-on batched w30 QFT of |PERM> through
-    QCircuit.Run on 4 pages over two gloo ranks on one card."""
+def cluster_qft() -> tuple:
+    """Phase 41 (b): the remap-on batched QFT of |PERM> through
+    QCircuit.Run on 4 pages over two gloo ranks on one card.  Returns
+    its results and this rank's pages at the closed form ({page id:
+    copy}), which (f) is held to."""
     from qrack_tpu_torch import telemetry as tele
     from qrack_tpu_torch.models.qft import qft_qcircuit
     from qrack_tpu_torch.ops import sharded as shb
@@ -6372,7 +6415,8 @@ def cluster_qft() -> dict:
     homes = cluster.global_page_devices(G)
     circ = qft_qcircuit(n)
     q = _cluster_pager(n, homes)
-    check(q._spread and len(shb.local_pages(q.page_planes)) == G // 2,
+    check(any(shb.is_remote(p) for p in q.page_planes)
+          and len(shb.local_pages(q.page_planes)) == G // 2,
           f"rank {cluster.process_index()} holds the wrong pages")
     q.SetPermutation(PERM)
     q.Finish()
@@ -6401,6 +6445,7 @@ def cluster_qft() -> dict:
     bar = 1e-4 * 2.0 ** (-n / 2)
     check(worst <= bar and f >= 1 - 1e-5,
           f"w{n} two-rank QFT: max diff {worst} (bar {bar}), fidelity {f}")
+    kept = {i: page.clone() for i, page in shb.local_pages(q.page_planes)}
     p3 = q.Prob(3)
     m = q.MAll()
     out = {"width": n, "pages": G, "wall_s": wall, "launches": launches,
@@ -6420,7 +6465,7 @@ def cluster_qft() -> dict:
            "exchanges": ex}
     del q
     release()
-    return out
+    return out, kept
 
 
 def cluster_program() -> dict:
@@ -6519,7 +6564,7 @@ def cluster_ckpt() -> dict:
         into = (list(r._qmap) == list(q._qmap)
                 and all(torch.equal(a, b) for (_i, a), (_j, b) in pairs))
         one = load_state(path)
-        check(not getattr(one, "_spread", True)
+        check(not getattr(one, "_on_cluster", True)
               and one.device.type == "cuda", "the one-process load is "
               "not a one-process pager on the card")
         one_equal = (list(one._qmap) == list(q._qmap) and all(
@@ -6534,11 +6579,323 @@ def cluster_ckpt() -> dict:
             "one_process_equal": one_equal}
 
 
-def _cluster_cohort(kind: str, ranks: int) -> list:
-    """Run `ranks` copies of ``chip_smoke.py --cluster-worker <kind>`` on
-    one rendezvous; their RESULT dicts in rank order.  A worker that
-    fails or outlives CLUSTER_TIMEOUT_S fails the phase; every worker is
-    stopped before this returns."""
+def _plane() -> None:
+    """The resilience plane of phase 41 (f)-(h) from clean, armed with
+    telemetry on."""
+    from qrack_tpu_torch import resilience as res
+    from qrack_tpu_torch import telemetry as tele
+    from qrack_tpu_torch.resilience import faults
+    from qrack_tpu_torch.resilience import integrity as integ
+
+    faults.clear()
+    res.reset_breaker()
+    res.configure(max_retries=2, backoff_s=0.0, timeout_s=0.0)
+    integ.reset()
+    tele.reset()
+    tele.enable()
+    res.enable()
+
+
+def _unplane() -> dict:
+    """Disarm phase 41's plane; the resilience, integrity and elastic
+    counters it recorded (without the faulting rank's own records)."""
+    from qrack_tpu_torch import resilience as res
+    from qrack_tpu_torch import telemetry as tele
+    from qrack_tpu_torch.resilience import faults
+    from qrack_tpu_torch.resilience import integrity as integ
+
+    c = {k: v for k, v in tele.snapshot()["counters"].items()
+         if k.startswith(("resilience.", "integrity.", "elastic."))
+         and not k.startswith(CLUSTER_LOCAL)}
+    faults.clear()
+    res.disable()
+    res.reset_breaker()
+    res.configure()
+    integ.reset()
+    tele.disable()
+    tele.reset()
+    return c
+
+
+def cluster_armed(kept: dict) -> dict:
+    """Phase 41 (f): (b)'s QFT with the resilience plane armed over the
+    two ranks, twice: a transient pager.exchange raise armed on rank 1
+    alone (it fires in the closed form's unmap), then an amp-corrupt of
+    a window's output pinned to a page of rank 1, armed there alone.
+    Each leg's pages are held to (b)'s (`kept`)."""
+    from qrack_tpu_torch.models.qft import qft_qcircuit
+    from qrack_tpu_torch.ops import sharded as shb
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.parallel import cluster
+    from qrack_tpu_torch.parallel import pager as pg
+    from qrack_tpu_torch.resilience import faults
+
+    n, G = CLUSTER_WIDTH, CLUSTER_PAGES
+    homes = cluster.global_page_devices(G)
+    circ = qft_qcircuit(n)
+    last = cluster.process_index() == cluster.process_count() - 1
+    legs = {}
+    for leg in ("raise", "amp-corrupt"):
+        _plane()
+        q = _cluster_pager(n, homes)
+        q.SetPermutation(PERM)
+        q.Finish()
+        planes = sum(shb._page_bytes(p) for _i, p in
+                     shb.local_pages(q.page_planes))
+        if last and leg == "raise":
+            faults.inject("pager.exchange", "raise", after_n=0, times=1)
+        elif last:
+            faults.inject("cuda.fuse.flush", "amp-corrupt", after_n=2,
+                          times=1, page=G - 1, n_pages=G)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        pg.reset_flushes()
+        a0 = dict(cluster.AGREEMENTS)
+        w0 = dict(wk.launches())
+        t0 = time.perf_counter()
+        circ.Run(q)
+        q.Finish()
+        wall = time.perf_counter() - t0
+        above = torch.cuda.max_memory_allocated() - base
+        launches = {k: v - w0[k] for k, v in wk.launches().items()}
+        predicted = pg.FLUSHES["predicted_launches"]
+        worst, f = _local_closed_form(q, PERM)
+        bar = 1e-4 * 2.0 ** (-n / 2)
+        check(worst <= bar and f >= 1 - 1e-5,
+              f"w{n} armed two-rank QFT ({leg}): max diff {worst} (bar "
+              f"{bar}), fidelity {f}")
+        local = shb.local_pages(q.page_planes)
+        equal_b = all(torch.equal(p, kept[i]) for i, p in local)
+        check(equal_b, f"w{n} armed QFT ({leg}): pages differ from (b)'s")
+        check(launches["in_tile"] + launches["pair"] == predicted > 0,
+              f"w{n} armed per-page launches {launches} against the "
+              f"plans' {predicted}")
+        c = _unplane()
+        legs[leg] = {
+            "wall_s": wall, "launches": launches,
+            "predicted_launches": predicted,
+            "max_abs_diff": worst, "fidelity": f, "pages_equal_b": equal_b,
+            "planes_bytes": planes, "above_planes_bytes": above,
+            "agreements": cluster.AGREEMENTS["calls"] - a0["calls"],
+            "agreement_s": cluster.AGREEMENTS["seconds"] - a0["seconds"],
+            "retries": int(sum(v for k, v in c.items()
+                               if k.startswith("resilience.retry."))),
+            "failures": int(sum(v for k, v in c.items()
+                                if k.startswith("resilience.failure."))),
+            "repaired": int(c.get("integrity.replay.repaired", 0)),
+            "strikes": int(c.get("integrity.quarantine.strike", 0)),
+            "counters": c}
+        del q, local
+        release()
+    return {"width": n, "pages": G, "legs": legs,
+            "launches": {k: sum(l["launches"][k] for l in legs.values())
+                         for k in ("in_tile", "pair")}}
+
+
+def cluster_staircase() -> dict:
+    """Phase 41 (g): a w28 QFT over the two ranks' 4 pages, then a
+    persistent device loss at pager.device_get: the pager shrinks 4 -> 2
+    (onto rank 0's slots) -> 1 page, then each rank builds a QEngineCUDA
+    replica of the gathered ket; the faults cleared, the degraded pager
+    grows back to 4 pages over both ranks.  Each move's wire bytes and
+    seconds are logged."""
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.models.qft import qft_qcircuit
+    from qrack_tpu_torch.ops import sharded as shb
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.parallel import cluster
+    from qrack_tpu_torch.resilience import faults
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    n, G = CLUSTER_STAIR_WIDTH, CLUSTER_PAGES
+    homes = cluster.global_page_devices(G)
+    moves = []
+    real = {"repage": shb.repage, "gather": shb.all_gather_pages}
+
+    def logged(name):
+        def run(*a, **k):
+            sync()
+            w0, t0 = shb.EXCHANGES["wire_bytes"], time.perf_counter()
+            out = real[name](*a, **k)
+            sync()
+            moves.append({"move": name,
+                          "wire_bytes": shb.EXCHANGES["wire_bytes"] - w0,
+                          "s": time.perf_counter() - t0})
+            return out
+        return run
+
+    _plane()
+    w0 = dict(wk.launches())
+    shb.repage, shb.all_gather_pages = logged("repage"), logged("gather")
+    try:
+        q = qt.create_quantum_interface(
+            "pager", n, devices=homes, n_pages=G,
+            rng=QrackRandom(CLUSTER_SEED), rand_global_phase=False,
+            remap="on")
+        q.SetPermutation(PERM & ((1 << n) - 1))
+        qft_qcircuit(n).Run(q)
+        q.Finish()
+        pager = q.engine
+        faults.inject("pager.device_get", "device-loss", after_n=0,
+                      times=None)
+        t0 = time.perf_counter()
+        p3 = q.Prob(3)
+        stair_s = time.perf_counter() - t0
+        kind = type(q.engine).__name__
+        check(kind == "QEngineCUDA" and pager.n_pages == 1,
+              f"w{n} staircase ended on {kind} with a pager of "
+              f"{pager.n_pages} page(s)")
+        worst, f = pages_closed_form([q.engine._state_raw], n,
+                                     PERM & ((1 << n) - 1), n_pages=1)
+        bar = 1e-4 * 2.0 ** (-n / 2)
+        check(worst <= bar and f >= 1 - 1e-5,
+              f"w{n} replica: max diff {worst} (bar {bar}), fidelity {f}")
+        draws = [int(q.MAll()) for _ in range(2)]
+        del q
+        release()
+        faults.clear()
+        t0 = time.perf_counter()
+        grew = pager.maybe_reexpand()
+        expand_s = time.perf_counter() - t0
+        here = len(shb.local_pages(pager.page_planes))
+        check(grew and pager.n_pages == G and here == G // 2,
+              f"w{n} re-expansion: {grew}, {pager.n_pages} pages, {here} "
+              "here")
+        worst2, f2 = _local_closed_form(pager, PERM & ((1 << n) - 1))
+        check(worst2 <= bar and f2 >= 1 - 1e-5,
+              f"w{n} re-expanded pager: max diff {worst2}, fidelity {f2}")
+    finally:
+        shb.repage, shb.all_gather_pages = real["repage"], real["gather"]
+    c = _unplane()
+    launches = {k: v - w0[k] for k, v in wk.launches().items()}
+    del pager
+    release()
+    return {"width": n, "prob3": p3, "draws": draws, "staircase_s": stair_s,
+            "expand_s": expand_s, "moves": moves,
+            "max_abs_diff": max(worst, worst2), "fidelity": min(f, f2),
+            "shrinks": int(c.get("elastic.repage.shrink", 0)),
+            "expands": int(c.get("elastic.repage.expand", 0)),
+            "failovers": int(c.get("resilience.failovers", 0)),
+            "launches": launches}
+
+
+def cluster_struct() -> dict:
+    """Phase 41 (h) at w24, each held bit for bit against the
+    one-process pager in this worker: a quarantine re-page onto a spare
+    slot of rank 1; Compose, Decompose, Dispose and Allocate across a
+    page-count change; the TurboQuant pager's dense float32 plane."""
+    from qrack_tpu_torch.ops import sharded as shb
+    from qrack_tpu_torch.ops import window_kernel as wk
+    from qrack_tpu_torch.parallel import QPager, cluster
+    from qrack_tpu_torch.parallel.turboquant_pager import QPagerTurboQuant
+    from qrack_tpu_torch.resilience import faults
+    from qrack_tpu_torch.resilience import integrity as integ
+    from qrack_tpu_torch.utils.rng import QrackRandom
+
+    n, G = CLUSTER_STRUCT_WIDTH, CLUSTER_PAGES
+    homes8 = cluster.global_page_devices(2 * G)
+    card = shb.local_device(homes8)     # this rank's card
+    w0 = dict(wk.launches())
+    out = {"width": n}
+
+    def same(a, b) -> bool:
+        a._unmap()
+        b._unmap()
+        return (a.n_pages == b.n_pages and all(
+            torch.equal(p, b.page_planes[i])
+            for i, p in shb.local_pages(a.page_planes)))
+
+    # the quarantine re-page: 8 slots, 4 a rank; the pages on rank 0's
+    got = []
+    for devs in (homes8, [card] * (2 * G)):
+        _plane()
+        q = QPager(n, devices=devs, n_pages=G, remap="off",
+                   rng=QrackRandom(CLUSTER_SEED), rand_global_phase=False)
+        for i in range(n):
+            q.H(i)
+        q.Prob(0)   # the layer's window runs before the strikes
+        for k in range(3):
+            faults.inject("pager.exchange", "amp-corrupt", after_n=0,
+                          times=1, page=2, n_pages=G)
+            q.H(n - 1 if k % 2 else n - 2)
+            q.Prob(0)
+            faults.clear()
+        quarantined = sorted(integ.quarantined())
+        q.maybe_reexpand()
+        q.CNOT(0, n - 1)
+        q.Prob(0)
+        got.append((q, quarantined, list(q.page_slots)))
+        _unplane()
+    (a, qa, sa), (b, qb, sb) = got
+    ranks = [a._slot_ranks[s] for s in sa]
+    check(qa == qb == [2] and sa == sb == [0, 1, 3, 4] and ranks[-1] == 1
+          and same(a, b), f"w{n} quarantine re-page: {qa} {sa} ranks "
+          f"{ranks}, one process {qb} {sb}")
+    out["quarantine"] = {"slots": sa, "ranks": ranks, "equal": True}
+    del got, a, b
+    release()
+
+    # Compose, Decompose, Dispose and Allocate: down to one qubit (4 ->
+    # 2 pages) and back
+    homes = cluster.global_page_devices(G)
+    got = []
+    for devs in (homes, [card] * G):
+        q = QPager(n, devices=devs, n_pages=G, rng=QrackRandom(5),
+                   rand_global_phase=False)
+        for i in range(n):
+            q.RY(0.3 + 0.05 * i, i)
+        q.CNOT(0, 1)
+        q.CNOT(2, 3)
+        dest = QPager(2, devices=[card], n_pages=1)
+        q.Decompose(2, dest)
+        q.Dispose(3, 1, 0)
+        q.Dispose(1, n - 4, 1)
+        pages_low = q.n_pages
+        q.Allocate(1, n - 4)
+        q.H(3)
+        q.CNOT(3, 0)
+        side = QPager(2, devices=devs, n_pages=G, rng=QrackRandom(6),
+                      rand_global_phase=False)
+        side.H(0)
+        side.CNOT(0, 1)
+        q.Compose(side)
+        q.Allocate(2, 1)
+        q.CNOT(n - 1, 2)
+        got.append((q, pages_low, dest.GetQuantumState()))
+    (a, la, da), (b, lb, db) = got
+    check(la == lb == G // 2 and a.n_pages == G and same(a, b)
+          and np.array_equal(da, db) and a.MAll() == b.MAll(),
+          f"w{n} structural ops over the ranks differ from one process "
+          f"(pages {la}/{lb} at one qubit)")
+    out["structure"] = {"pages_at_one_qubit": la, "pages_after": a.n_pages,
+                        "equal": True}
+    del got, a, b
+    release()
+
+    # the TurboQuant pager's dense float32 plane, gathered onto each rank
+    got = []
+    for devs in (homes, [card] * G):
+        t = QPagerTurboQuant(n, devices=devs, bits=16, n_pages=G,
+                             rng=QrackRandom(CLUSTER_SEED),
+                             rand_global_phase=False)
+        for i in range(n):
+            t.H(i)
+        t.CNOT(0, n - 1)
+        t.INC(5, 0, n)
+        got.append(t.host_codes())
+    check(all(np.array_equal(x, y) for x, y in zip(*got)),
+          f"w{n} TurboQuant dense plane over the ranks: codes differ")
+    out["tq_dense"] = {"equal": True}
+    del got
+    release()
+    out["launches"] = {k: v - w0[k] for k, v in wk.launches().items()}
+    return out
+
+
+def _launch_cohort(kind: str, ranks: int) -> list:
+    """Start `ranks` copies of ``chip_smoke.py --cluster-worker <kind>``
+    on one rendezvous; their processes in rank order."""
     import socket
 
     with socket.socket() as sk:
@@ -6553,27 +6910,25 @@ def _cluster_cohort(kind: str, ranks: int) -> list:
             [sys.executable, os.path.abspath(__file__), "--cluster-worker",
              kind], env=env, text=True, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE))
-    outs, deadline = [], time.time() + CLUSTER_TIMEOUT_S
-    try:
-        for rank, p in enumerate(procs):
-            try:
-                out, err = p.communicate(
-                    timeout=max(1.0, deadline - time.time()))
-            except subprocess.TimeoutExpired:
-                raise AssertionError(
-                    f"phase 41 {kind} rank {rank} passed "
-                    f"{CLUSTER_TIMEOUT_S} s")
-            check(p.returncode == 0, f"phase 41 {kind} rank {rank} failed "
-                                     f"({p.returncode}):\n{err[-4000:]}")
-            lines = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
-            check(len(lines) == 1, f"phase 41 {kind} rank {rank} printed "
-                                   f"no result:\n{out[-2000:]}")
-            outs.append(json.loads(lines[0][len("RESULT "):]))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
+    return procs
+
+
+def _cohort_results(kind: str, procs: list, deadline: float) -> list:
+    """The RESULT dicts of a cohort's workers, in rank order.  A worker
+    that fails or outlives the deadline fails the phase."""
+    outs = []
+    for rank, p in enumerate(procs):
+        try:
+            out, err = p.communicate(timeout=max(1.0, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"phase 41 {kind} rank {rank} passed "
+                                 f"{CLUSTER_TIMEOUT_S} s")
+        check(p.returncode == 0, f"phase 41 {kind} rank {rank} failed "
+                                 f"({p.returncode}):\n{err[-4000:]}")
+        lines = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+        check(len(lines) == 1, f"phase 41 {kind} rank {rank} printed no "
+                               f"result:\n{out[-2000:]}")
+        outs.append(json.loads(lines[0][len("RESULT "):]))
     return outs
 
 
@@ -6582,9 +6937,21 @@ def cluster_phase(card: str, dev) -> dict:
     (every rank's)."""
     t_phase = time.time()
     release()
-    nccl = _cluster_cohort("nccl", 1)[0]
-    t_a = time.time() - t_phase
-    ranks = _cluster_cohort("gloo", CLUSTER_RANKS)
+    # the NCCL group of one starts beside the gloo cohort (the run
+    # budget's second cut: most of its seconds are a process reaching
+    # the card); every worker is stopped before the phase returns
+    procs = {"nccl": _launch_cohort("nccl", 1),
+             "gloo": _launch_cohort("gloo", CLUSTER_RANKS)}
+    deadline = time.time() + CLUSTER_TIMEOUT_S
+    try:
+        nccl = _cohort_results("nccl", procs["nccl"], deadline)[0]
+        t_a = time.time() - t_phase
+        ranks = _cohort_results("gloo", procs["gloo"], deadline)
+    finally:
+        for p in procs["nccl"] + procs["gloo"]:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
     check([r["rank"] for r in ranks] == list(range(CLUSTER_RANKS))
           and all(r["backend"] == "gloo" for r in ranks),
           f"phase 41 ranks {[(r['rank'], r['backend']) for r in ranks]}")
@@ -6599,12 +6966,53 @@ def cluster_phase(card: str, dev) -> dict:
     check(len({x["mall"] for x in d}) == 1,
           f"w{CLUSTER_TQ_WIDTH} TurboQuant MAll differs: "
           f"{[x['mall'] for x in d]}")
+    # (f)-(h): every rank took the same decisions
+    f_ = [r["f"] for r in ranks]
+    for leg in ("raise", "amp-corrupt"):
+        got = [x["legs"][leg] for x in f_]
+        check(all(x["counters"] == got[0]["counters"] for x in got),
+              f"(f) {leg}: the ranks' resilience counters differ: "
+              f"{[x['counters'] for x in got]}")
+        want = ({"retries": 1, "repaired": 0, "strikes": 0}
+                if leg == "raise" else
+                {"retries": 0, "repaired": 1, "strikes": 1})
+        check(all(all(x[k] == v for k, v in want.items()) for x in got),
+              f"(f) {leg}: retries/replays/strikes "
+              f"{[(x['retries'], x['repaired'], x['strikes']) for x in got]}"
+              f" against {want}")
+    g = [r["g"] for r in ranks]
+    check(len({tuple(x["draws"]) for x in g}) == 1
+          and len({x["prob3"] for x in g}) == 1
+          and all(x["shrinks"] == 2 and x["expands"] == 1
+                  and x["failovers"] == 3 for x in g),
+          f"(g) the staircase differs between the ranks: "
+          f"{[(x['draws'], x['shrinks'], x['expands']) for x in g]}")
+    # the bytes each move sent over the wire, summed over the ranks: the
+    # shrink 4 -> 2 moves rank 1's half of the float32 ket onto rank 0,
+    # 2 -> 1 stays on rank 0, the replica sends the whole ket to the
+    # other rank, the re-expansion half of it back
+    ket = 8 << CLUSTER_STAIR_WIDTH
+    moves = [(m["move"], sum(x["moves"][i]["wire_bytes"] for x in g))
+             for i, m in enumerate(g[0]["moves"])]
+    want = [("repage", ket // 2), ("repage", 0),
+            ("gather", ket * (CLUSTER_RANKS - 1)), ("repage", ket // 2)]
+    check(moves == want, f"(g) moves and their wire bytes {moves} "
+                         f"against {want}")
     launches = {k: nccl["a"]["launches"][k]
-                + sum(x["launches"][k] for x in b) for k in ("in_tile", "pair")}
+                + sum(r[leg]["launches"][k] for r in ranks
+                      for leg in ("b", "f", "g", "h"))
+                for k in ("in_tile", "pair")}
     seconds = time.time() - t_phase
     emit({"phase": "cluster", "card": card, "a_nccl": nccl["a"],
-          "ranks": [{k: r[k] for k in ("rank", "b", "c", "d", "e")}
+          "ranks": [{k: r[k] for k in ("rank", "b", "c", "d", "e", "f",
+                                       "g", "h")}
                     for r in ranks],
+          "f_wall_s": {leg: [x["legs"][leg]["wall_s"] for x in f_]
+                       for leg in ("raise", "amp-corrupt")},
+          "f_above_planes_bytes": {
+              leg: [x["legs"][leg]["above_planes_bytes"] for x in f_]
+              for leg in ("raise", "amp-corrupt")},
+          "g_moves": [x["moves"] for x in g],
           "b_wall_s": [x["wall_s"] for x in b],
           "b_wire_bytes": [x["wire_bytes"] for x in b],
           "b_staged_bytes": [x["staged_bytes"] for x in b],

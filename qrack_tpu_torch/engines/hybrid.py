@@ -25,7 +25,11 @@ on ``cuda`` or ``cpu`` pins that mode as the ceiling; at a later call
 boundary, once the health probe passes, :meth:`QHybrid._maybe_recover`
 lifts the pin and carries the ket back up.  A construction that fails
 on a guarded site degrades the mode (pager -> cuda; cuda -> cpu only
-with ``failover_cpu``) and raises otherwise.
+with ``failover_cpu``) and raises otherwise.  With ``devices=`` the
+cluster's page homes every rank runs the stack: the pager's moves agree
+across the ranks, its dense rung is a QEngineCUDA replica on each rank
+(resilience/failover.py ``BY_DESIGN``), and the un-pin probe is agreed
+too.
 
 Each switch and each grow across a mode is a telemetry event,
 ``hybrid.switch.<from>_to_<to>`` and ``hybrid.grow.<mode>``, with the
@@ -183,6 +187,16 @@ class QHybrid:
             # through the elastic probe; only terminal hops pin the mode
             self._failed_over = kind
 
+    @property
+    def _on_cluster(self) -> bool:
+        """True when the pager half lives on the cluster's page homes:
+        every rank runs this stack, and its un-pin probe is agreed across
+        the ranks (resilience/elastic.py ``cohort``)."""
+        from ..parallel import cluster as _cluster
+
+        return bool(self._devices) and isinstance(
+            self._devices[0], _cluster.PageHome) and _cluster.is_initialized()
+
     def _maybe_recover(self) -> None:
         """Breaker-gated un-pin probe — the inverse of :meth:`_fail_over`.
         At a call boundary: re-expand a degraded pager in place, and when
@@ -195,7 +209,7 @@ class QHybrid:
             _elastic.maybe_reexpand(eng)
         if self._failed_over is None:
             return
-        if not _elastic.health_probe():
+        if not _elastic.health_probe(cohort=self._on_cluster):
             return
         prev = self._failed_over
         self._failed_over = None

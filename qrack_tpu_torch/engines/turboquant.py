@@ -463,7 +463,8 @@ class QEngineCUDATurboQuant(QEngineCUDA):
         the guard watches their writes; a pass that returns nothing
         hands them back as its output (an amp-corrupt strike lands on
         the scales, as in the JAX package, whose programs return
-        (codes, scales))."""
+        (codes, scales)).  The TurboQuant pager over page homes agrees
+        on each call's outcome across the ranks (``cohort``)."""
         if not _res._ACTIVE:
             return fn(*args)
         codes, scales = self._codes_raw, self._scales_raw
@@ -475,7 +476,8 @@ class QEngineCUDATurboQuant(QEngineCUDA):
             return (codes, scales) if out is None else out
 
         return _rdispatch.call_guarded(
-            site, run, writes=lambda: _rdispatch.write_token(held))
+            site, run, writes=lambda: _rdispatch.write_token(held),
+            cohort=_rdispatch.cohort_of(self))
 
     def _k_apply_2x2(self, m2, target, controls, perm) -> None:
         self._note_sweeps()

@@ -36,6 +36,17 @@ pager's.  Reductions sum this rank's pages block by block and all-reduce
 the partial sums in float64, then add them up in the one-process order,
 so every rank reads the one-process value.  Every rank must run the same
 passes in the same order: the moves and collectives match by position.
+A pager over the cluster's page homes keeps its pages in a
+:class:`PageList`, so a rank that holds every page after a re-page onto
+a prefix of the slots, or none, still joins every collective.
+
+Re-paging and whole-ket reads across processes: :func:`repage` builds
+the pages of a new page count (or of new slots) from the old ones, a
+block at a time, through the transport where a new page's old pages
+live in another process; :func:`all_gather_pages` puts the whole ket on
+every rank (the dense replica of the failover chain, the out-of-place
+ALU scatter, the TurboQuant pager's dense plane).  Both are counted in
+``EXCHANGES`` (``repage``, ``gather``) and ``TRANSPORT_S``.
 """
 
 from __future__ import annotations
@@ -62,8 +73,8 @@ CHUNK = 1 << 26
 #: its transport copied through host buffers (both ways).  A host-side
 #: count.
 EXCHANGES = {"global_2x2": 0, "mixed_swap": 0, "batched_swap": 0,
-             "local_swap": 0, "page_relabel": 0, "bytes": 0,
-             "wire_bytes": 0, "staged_bytes": 0}
+             "local_swap": 0, "page_relabel": 0, "repage": 0, "gather": 0,
+             "bytes": 0, "wire_bytes": 0, "staged_bytes": 0}
 
 
 #: host-clock seconds of the transport: ``staging`` the copies into and
@@ -136,9 +147,18 @@ def is_remote(page) -> bool:
     return isinstance(page, RemotePage)
 
 
+class PageList(list):
+    """The page list of a pager over the cluster's page homes: one ket
+    of the whole cluster, whose reductions, reads and gathers are
+    collectives on every rank, also where this rank holds every page or
+    none (after a re-page onto a prefix of the slots)."""
+
+
 def spread(pages) -> bool:
-    """True when some page of the list lives in another process."""
-    return any(isinstance(p, RemotePage) for p in pages)
+    """True when the list is one ket over several processes: a
+    PageList, or a list with a page of another process."""
+    return isinstance(pages, PageList) or any(
+        isinstance(p, RemotePage) for p in pages)
 
 
 def local_pages(pages):
@@ -744,8 +764,8 @@ def page_probs(pages: List) -> List[float]:
 
 def sum_ranks(pages, arr: np.ndarray) -> np.ndarray:
     """A float64 array that each rank filled for its own pages (zeros
-    elsewhere), summed over the ranks when some page lives in another
-    process."""
+    elsewhere), summed over the ranks when the list is one ket over
+    several processes (:func:`spread`)."""
     if not spread(pages):
         return arr
     from ..parallel import cluster
@@ -1158,6 +1178,9 @@ def gather_ring(pages: List, L: int, split_body, targs,
     ref = _local_ref(pages)
     for pid, page in enumerate(pages):
         here = not is_remote(page)
+        if not here and ref is None:
+            out.append(RemotePage(page.rank, page.shape, page.dtype))
+            continue
         dev = page.device if here else ref.device
         new = (torch.zeros_like(page) if here
                else RemotePage(page.rank, page.shape, page.dtype))
@@ -1190,11 +1213,12 @@ def gather_ring(pages: List, L: int, split_body, targs,
 
 def _local_ref(pages):
     """This process's first page (its device computes index maps for the
-    new pages of other processes)."""
+    new pages of other processes), or None when it holds none: it then
+    neither sends nor receives."""
     for page in pages:
         if not is_remote(page):
             return page
-    raise ValueError("no page of the list lives in this process")
+    return None
 
 
 def _fetch_rows(src, idx, slot, dev):
@@ -1231,7 +1255,7 @@ def compose_ring(pages_a: List, b, L_in: int, start: int, n1: int,
         here = not is_remote(A)
         if not here:
             out.append(RemotePage(A.rank, (2, 1 << L_out), A.dtype))
-            if aligned:
+            if aligned or ref is None:
                 continue
         dev = A.device if here else ref.device
         bd = b.to(dev, A.dtype)
@@ -1295,4 +1319,111 @@ def compose_ring(pages_a: List, b, L_in: int, start: int, n1: int,
                     dst[1, pos] = vi
         if here:
             out.append(new)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# re-paging and whole-ket gathers across processes
+# ---------------------------------------------------------------------------
+
+def _move_piece(src, so: int, dst, do: int, length: int) -> int:
+    """Amplitudes [so, so + length) of page `src` into [do, do + length)
+    of page `dst`, a block at a time: a copy where both live here, the
+    transport where one lives in another process (the other rank runs
+    the same call).  Returns the bytes this rank read and wrote."""
+    if is_remote(src) and is_remote(dst):
+        return 0
+    nb = 0
+    for s in range(0, length, CHUNK):
+        e = min(length, s + CHUNK)
+        if is_remote(dst):
+            blk = src[:, so + s:so + e]
+            transport([(blk, dst.rank)])
+        elif is_remote(src):
+            blk = dst[:, do + s:do + e]
+            transport((), [(blk, src.rank)])
+        else:
+            blk = dst[:, do + s:do + e]
+            blk.copy_(src[:, so + s:so + e])
+            nb += _page_bytes(blk)
+        nb += _page_bytes(blk)
+    return nb
+
+
+def repage(pages: List, L_old: int, devs, L_new: int) -> List:
+    """The ket of `pages` (2^L_old amplitudes each) re-split into pages
+    of 2^L_new amplitudes on the page_devices list `devs` (devices, or
+    the cluster's page homes): new page j holds the amplitudes [j 2^L_new,
+    (j + 1) 2^L_new), its old pages side by side (fewer pages) or a slice
+    of one (more pages).  A new page that is an old page on its device
+    moves without a copy; one whose old pages live in another process is
+    received through the transport, block by block, while their owner
+    sends.  The new pages are built beside the old ones (both layouts at
+    once), so a failed re-page leaves the old list as it was."""
+    from ..parallel.cluster import PageHome
+
+    me = _me()
+    new, moved = [], 0
+    dtype = pages[0].dtype
+    for j, d in enumerate(devs):
+        rank, dev = ((d.rank, d.device) if isinstance(d, PageHome)
+                     else (None, d))
+        if L_new >= L_old:
+            r = 1 << (L_new - L_old)
+            pieces = [(j * r + i, 0, i << L_old, 1 << L_old)
+                      for i in range(r)]
+        else:
+            r, size = 1 << (L_old - L_new), 1 << L_new
+            pieces = [(j // r, (j % r) * size, 0, size)]
+        if rank is not None and rank != me:
+            dst = RemotePage(rank, (2, 1 << L_new), dtype)
+            for p, so, do, ln in pieces:
+                moved += _move_piece(pages[p], so, dst, do, ln)
+            new.append(dst)
+            continue
+        if (len(pieces) == 1 and L_new == L_old
+                and not is_remote(pages[pieces[0][0]])
+                and pages[pieces[0][0]].device == dev):
+            new.append(pages[pieces[0][0]])      # a pointer move
+            continue
+        dst = torch.empty((2, 1 << L_new), dtype=dtype, device=dev)
+        for p, so, do, ln in pieces:
+            moved += _move_piece(pages[p], so, dst, do, ln)
+        new.append(dst)
+    if spread(pages):
+        # a one-process re-page moves no page between processes: the
+        # exchange counters keep to the collectives, as the JAX pager's
+        _exchanged("repage", moved)
+    return new
+
+
+def all_gather_pages(pages: List, device) -> torch.Tensor:
+    """The whole ket of a page list as one (2, 2^n) tensor on `device`,
+    on every rank: each page's owner sends it, block by block, through
+    the transport to every other rank of the cluster (a rank that holds
+    no page receives every one).  One process concatenates its pages."""
+    from ..parallel import cluster
+
+    size = pages[0].shape[-1]
+    out = torch.empty((2, len(pages) * size), dtype=pages[0].dtype,
+                      device=device)
+    if not spread(pages):
+        for p, page in enumerate(pages):
+            out[:, p * size:(p + 1) * size].copy_(page)
+        return out
+    me = _me()
+    others = [r for r in range(cluster.process_count()) if r != me]
+    moved = 0
+    for p, page in enumerate(pages):
+        for s in range(0, size, CHUNK):
+            e = min(size, s + CHUNK)
+            dst = out[:, p * size + s:p * size + e]
+            if is_remote(page):
+                transport((), [(dst, page.rank)])
+            else:
+                blk = page[:, s:e]
+                transport([(blk, r) for r in others])
+                dst.copy_(blk)
+            moved += 2 * _page_bytes(dst)
+    _exchanged("gather", moved)
     return out

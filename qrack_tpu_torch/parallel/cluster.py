@@ -24,7 +24,11 @@ the same roles split into:
     ``replicated_window``, the counterpart of ``replicate_program``)
     and block moves between pages (ops/sharded.py's transport, which
     stages through pinned host buffers where gloo carries CUDA blocks)
-    are built on them.
+    are built on them;
+  * the agreement (:func:`agree`): a small integer all-reduce on a gloo
+    group of its own, with its own bounded timeout, through which the
+    resilience plane of a pager over page homes makes every rank take
+    the same decision (resilience/dispatch.py, elastic.py).
 
 Every process of a cluster must drive the same calls in the same order
 with the same rng seed: each collective and each block move is matched
@@ -46,6 +50,15 @@ from .. import telemetry as _tele
 #: wedged peer fails the call instead of hanging it)
 TIMEOUT_S = 300.0
 
+#: seconds an agreement may wait for the slowest rank: at least the
+#: dispatch watchdog's (a rank whose pass hangs at site entry joins the
+#: agreement once its watchdog fires) and no longer than TIMEOUT_S
+AGREE_TIMEOUT_S = 120.0
+
+#: agreements run (one small all-reduce each) and the host seconds they
+#: took, waiting for the slowest rank included
+AGREEMENTS = {"calls": 0, "seconds": 0.0}
+
 _INITIALIZED = False
 # effective (coordinator, num_processes, process_id, local_device_ids)
 # of the successful bring-up — repeat calls are checked against it
@@ -53,6 +66,8 @@ _INIT_ARGS: Optional[tuple] = None
 _BACKEND: Optional[str] = None
 # the CUDA ordinals of every rank's pages, gathered at bring-up
 _RANK_DEVICES: Optional[List[List[int]]] = None
+# the agreement's gloo group (AGREE_TIMEOUT_S), made at its first use
+_AGREE_GROUP = None
 
 
 class PageHome(NamedTuple):
@@ -333,3 +348,54 @@ def broadcast_int(value: Optional[int], owner: int) -> int:
     """`owner`'s integer on every rank."""
     arr = None if value is None else np.asarray([value], dtype=np.int64)
     return int(broadcast_bytes(arr, owner, (1,), np.int64)[0])
+
+
+def agree(values: Sequence[int], op: str = "max") -> List[int]:
+    """The elementwise MAX (``op="max"``) or MIN (``"min"``) of small
+    integers over every rank, on the agreement's own gloo group: the
+    collective through which the ranks of a pager over page homes settle
+    one decision (a dispatch's outcome, the breaker's allow, the health
+    probe).  It raises after :data:`AGREE_TIMEOUT_S` seconds when a rank
+    never joins (a lost process ends the cohort with an error, as every
+    other collective does).  Without a cluster the values come back as
+    they are."""
+    import time
+
+    global _AGREE_GROUP
+    vals = [int(v) for v in values]
+    if not is_initialized() or process_count() == 1:
+        return vals
+    dist = _dist()
+    t = torch.tensor(vals if op == "max" else [-v for v in vals],
+                     dtype=torch.int64)
+    t0 = time.perf_counter()
+    if _AGREE_GROUP is None:
+        # host integers on either wire: a gloo group with its own
+        # timeout, made by every rank at its first agreement (every rank
+        # runs the same calls)
+        _AGREE_GROUP = dist.new_group(
+            backend="gloo",
+            timeout=datetime.timedelta(seconds=AGREE_TIMEOUT_S))
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_AGREE_GROUP)
+    AGREEMENTS["calls"] += 1
+    AGREEMENTS["seconds"] += time.perf_counter() - t0
+    out = t.tolist()
+    return out if op == "max" else [-v for v in out]
+
+
+def agree_all(ok: bool) -> bool:
+    """True on every rank when `ok` holds on every rank."""
+    return bool(agree([int(bool(ok))], op="min")[0])
+
+
+def broadcast_tensor(t: Optional[torch.Tensor], owner: int, shape,
+                     dtype, device) -> torch.Tensor:
+    """`owner`'s tensor of `shape` and torch `dtype`, on every rank on
+    `device`, bit for bit (raw bytes: any dtype, bfloat16 too)."""
+    nbytes = int(np.prod(shape, dtype=np.int64)) * torch.empty(
+        (), dtype=dtype).element_size()
+    arr = (None if t is None else
+           t.detach().to("cpu").contiguous().reshape(-1).view(torch.uint8)
+           .numpy())
+    raw = broadcast_bytes(arr, owner, (nbytes,), np.uint8)
+    return torch.from_numpy(raw).view(dtype).reshape(shape).to(device)

@@ -79,10 +79,22 @@ rank returns the same value; ``MAll`` draws the page from the
 all-reduced page marginals on every rank, and the page's owner draws the
 index and broadcasts it.  The remap planner prices a page bit that
 crosses processes at ``cluster.dcn_weight()`` (``_exchange_weights``;
-``dcn_bits=`` forces the top bits so on one process).  Re-paging,
-failover and the resilience plane, and the structural ops that split or
-join the ket (Compose, Decompose, Dispose, a width that changes the page
-count) refuse on such a pager, naming ROADMAP item 13.5.
+``dcn_bits=`` forces the top bits so on one process).  Such a pager
+keeps its pages in a ``sharded.PageList``, so every rank joins every
+collective, also one that holds every page or none after a re-page.
+
+Re-paging, failover and the resilience plane over page homes: a guarded
+pass agrees on its outcome across the ranks (resilience/dispatch.py
+``cohort``), so every rank retries, replays, shrinks, fails over,
+strikes, quarantines or expands at the same call.  ``_repage`` takes the
+surviving slot prefix of ``_device_pool()`` as the JAX pager does (4
+pages over 2 ranks shrink to 2 pages on rank 0's slots) and moves
+blocks between processes through the transport (``sharded.repage``); a
+width that changes the page count fills each rank's own pages from the
+replicated host ket; Decompose and Dispose find the dominant remainder
+branch over every rank and broadcast it from its owner; Compose and the
+out-of-place ALU scatter read the other ket, or the old one, gathered
+onto every rank (``sharded.all_gather_pages``).
 
 The pager runs on ``cuda`` unless the caller passes ``device="cpu"`` or
 CPU devices (the tests do); without a GPU it raises.
@@ -123,11 +135,6 @@ FLUSHES = {"kernel_windows": 0, "chain_windows": 0, "single_ops": 0,
 def reset_flushes() -> None:
     for k in FLUSHES:
         FLUSHES[k] = 0
-
-
-#: the ROADMAP item that ports what a pager over several processes
-#: refuses
-SPREAD_ITEM = "ROADMAP item 13.5"
 
 
 def _norm_device(dev) -> torch.device:
@@ -217,22 +224,39 @@ class PageHomes:
         """The devices of this process's pages, in page order."""
         return [self._slot_devices[s] for s in self._slots if self._here(s)]
 
-    @property
-    def _spread(self) -> bool:
-        """True when some page lives in another process."""
-        return self._slot_ranks is not None and any(
-            self._slot_ranks[s] != self._rank for s in self._slots)
+    def _home_device(self) -> torch.device:
+        """This process's first page's device, else (a rank that holds no
+        page after a re-page onto another process's slots) the device of
+        its first slot in the construction list."""
+        here = self._local_devices() or [
+            d for s, d in enumerate(self._slot_devices) if self._here(s)]
+        if not here:
+            raise ValueError("no page slot of this pager lives in this "
+                             "process")
+        return here[0]
+
+    def _home_of(self, slot: int):
+        """The page_devices entry of `slot`: its cluster.PageHome over
+        page homes, else its device."""
+        if self._slot_ranks is None:
+            return self._slot_devices[slot]
+        return _cluster.PageHome(self._slot_ranks[slot],
+                                 self._slot_devices[slot])
 
     @property
     def _on_cluster(self) -> bool:
         """True for a pager over the cluster's page homes (a cluster of
-        one too): its reads are collectives."""
+        one too): its reads, reductions and guarded passes are
+        collectives, the same on every rank."""
         return self._slot_ranks is not None and _cluster.is_initialized()
 
-    def _refuse(self, what: str):
-        raise NotImplementedError(
-            f"{what} on a pager whose pages span processes is "
-            f"{SPREAD_ITEM}")
+    def _page_list(self, pages):
+        """A page list as the pager keeps it: a sharded.PageList over the
+        cluster's page homes (every rank joins its collectives)."""
+        if pages is None or not self._on_cluster \
+                or isinstance(pages, shb.PageList):
+            return pages
+        return shb.PageList(pages)
 
 
 class QPager(PageHomes, QEngine):
@@ -269,8 +293,6 @@ class QPager(PageHomes, QEngine):
         # the rest are spares that a re-page off a quarantined slot adopts
         self._slot_devices = list(devs)
         self._slots = list(range(n_pages))
-        if self._spread and _res._ACTIVE:
-            self._refuse("the resilience plane")
         # planner weights of the page bits (DCN > ICI), for the page
         # layout they were read from
         self._dcn_bits = dcn_bits
@@ -299,6 +321,16 @@ class QPager(PageHomes, QEngine):
     # ------------------------------------------------------------------
 
     @property
+    def _pages_raw(self):
+        """The resident pages as stored (no flush): a PageList over the
+        cluster's page homes."""
+        return self._page_store
+
+    @_pages_raw.setter
+    def _pages_raw(self, pages) -> None:
+        self._page_store = self._page_list(pages)
+
+    @property
     def _pages(self) -> List[torch.Tensor]:
         """The resident pages.  A pending gate window flushes before they
         escape, so no reader sees a ket behind the gate stream."""
@@ -321,11 +353,9 @@ class QPager(PageHomes, QEngine):
 
     @property
     def device(self) -> torch.device:
-        """The device of this process's first page."""
-        here = self._local_devices()
-        if not here:
-            raise ValueError("no page of this pager lives in this process")
-        return here[0]
+        """The device of this process's first page (of its first slot
+        when it holds none)."""
+        return self._home_device()
 
     def _new_pages(self, L: int, fill=None) -> List:
         """Pages of 2^L amplitudes on the current slots (sharded.new_pages:
@@ -346,7 +376,9 @@ class QPager(PageHomes, QEngine):
     # ``pager.exchange`` for those that move amplitudes between pages,
     # ``cuda.fuse.flush`` for a window — and the reads that return host
     # values run at ``pager.device_get`` with the integrity check of the
-    # value read.  While it is off, one attribute test.
+    # value read.  While it is off, one attribute test.  Over page homes
+    # each guarded call agrees on its outcome across the ranks
+    # (``cohort``), so every rank takes the same decision.
     # ------------------------------------------------------------------
 
     def _pass(self, site: str, fn, *args):
@@ -356,8 +388,6 @@ class QPager(PageHomes, QEngine):
         pages back as its output, where an amp-corrupt strike lands."""
         if not _res._ACTIVE:
             return fn(*args)
-        if self._spread:
-            self._refuse("the resilience plane")
         pages = self._pages_raw
 
         def run():
@@ -365,16 +395,16 @@ class QPager(PageHomes, QEngine):
             return pages if out is None else out
 
         return _rdispatch.call_guarded(
-            site, run, writes=lambda: _rdispatch.write_token(pages))
+            site, run, writes=lambda: _rdispatch.write_token(pages),
+            cohort=self._on_cluster)
 
     def _host_read(self, fn, *args):
         """A host read at ``pager.device_get`` (the sync that proves
         completion), its value checked in place by the integrity plane."""
         if not _res._ACTIVE:
             return fn(*args)
-        if self._spread:
-            self._refuse("the resilience plane")
-        out = _rdispatch.call_guarded("pager.device_get", fn, args)
+        out = _rdispatch.call_guarded("pager.device_get", fn, args,
+                                      cohort=self._on_cluster)
         from ..resilience import integrity as _integ
 
         if _integ.enabled():
@@ -780,23 +810,35 @@ class QPager(PageHomes, QEngine):
                                      passthrough_cmask)
 
     def _out_of_place(self, old, src_idx, dst_idx, passthrough_cmask):
+        """The scatter new[dst] = old[src] into new pages.  Over page homes
+        each rank builds its own new pages from the old ket gathered onto
+        every rank (sharded.all_gather_pages)."""
         L = self.local_bits
-        if self._spread:
-            self._refuse("an out-of-place ALU scatter")
         lbits = (1 << L) - 1
         src = torch.as_tensor(src_idx).to("cpu", torch.int64).reshape(-1)
         dst = torch.as_tensor(dst_idx).to("cpu", torch.int64).reshape(-1)
+        whole = (shb.all_gather_pages(old, self.device) if shb.spread(old)
+                 else None)
+
+        def src_page(sp):
+            if whole is None:
+                return old[sp]
+            return whole[:, sp << L:(sp + 1) << L]
+
         if passthrough_cmask is None:
-            new = [torch.zeros_like(pg) for pg in old]
+            new = [pg if shb.is_remote(pg) else torch.zeros_like(pg)
+                   for pg in old]
         else:
             # amplitudes outside the control subspace keep their values
             cm = int(passthrough_cmask)
-            new = [pg.clone() for pg in old]
+            new = [pg if shb.is_remote(pg) else pg.clone() for pg in old]
             shb.apply_factor(new, L, lambda pg, idx: (
                 ((idx & cm) != cm).to(gk.compute_dtype(pg.dtype)), 0.0),
                 self._index_dtype())
         dpage, spage = dst >> L, src >> L
         for dp in range(len(old)):
+            if shb.is_remote(new[dp]):
+                continue
             sel = dpage == dp
             if not bool(sel.any()):
                 continue
@@ -806,7 +848,8 @@ class QPager(PageHomes, QEngine):
                 take = s_pg == sp
                 if not bool(take.any()):
                     continue
-                vals = old[sp][:, s[take].to(old[sp].device)]
+                held = src_page(sp)
+                vals = held[:, s[take].to(held.device)]
                 new[dp][:, d_l[take].to(dev)] = vals.to(dev)
         return new
 
@@ -917,15 +960,20 @@ class QPager(PageHomes, QEngine):
         page = int(self.rng.choice_from_probs(page_probs, 1)[0])
         L = self.local_bits
         u = float(self.rng.uniform(1)[0])
-        held = self._pages_raw[page]
-        sub = (None if shb.is_remote(held)
-               else self._host_read(self._draw_in_page, held, u))
-        if self._on_cluster:
-            sub = _cluster.broadcast_int(
-                sub, held.rank if shb.is_remote(held) else self._rank)
+        sub = self._host_read(self._draw_page, page, u)
         result = self._unmap_index((page << L) | sub)
         self.SetPermutation(result)
         return result
+
+    def _draw_page(self, page: int, u: float) -> int:
+        """The in-page index of MAll's draw: the page's owner draws it and,
+        over page homes, broadcasts it to every rank."""
+        held = self._pages_raw[page]
+        sub = None if shb.is_remote(held) else self._draw_in_page(held, u)
+        if self._on_cluster:
+            sub = _cluster.broadcast_int(
+                sub, held.rank if shb.is_remote(held) else self._rank)
+        return sub
 
     def _k_normalize(self, nrm_sq) -> None:
         self._settle()
@@ -984,8 +1032,6 @@ class QPager(PageHomes, QEngine):
         count when it recovers)."""
         new_g = self._desired_g(qubit_count)
         if new_g != self.g_bits:
-            if self._spread:
-                self._refuse("a width that changes the page count")
             self.n_pages = 1 << new_g
             self.g_bits = new_g
             self._slots = self._device_pool()[:self.n_pages]
@@ -996,7 +1042,9 @@ class QPager(PageHomes, QEngine):
 
     def _place_host(self, state, qubit_count: int) -> None:
         """Pages from a host complex ket of `qubit_count` qubits (page
-        count re-chosen for the width); identity table."""
+        count re-chosen for the width); identity table.  Over page homes
+        the host ket is the same on every rank, which fills its own
+        pages."""
         self._pages_for(qubit_count)
         st = np.asarray(state).reshape(-1)
         L = qubit_count - self.g_bits
@@ -1009,8 +1057,6 @@ class QPager(PageHomes, QEngine):
         from ..utils.states import compose_states
 
         self._settle()
-        if self._spread:
-            self._refuse("Compose")
         n1, n2 = self.qubit_count, other.qubit_count
         if self._mesh_would_change(n1 + n2):
             # a ket below the page count (tiny): host-stage the regrow
@@ -1022,8 +1068,9 @@ class QPager(PageHomes, QEngine):
             return
         self._unmap()  # the ring decodes logical indices
         if isinstance(other, QPager):
+            # the other ket on every rank (gathered over its page homes)
             other._unmap()
-            b = torch.cat([pg.to(self.device) for pg in other._pages], dim=1)
+            b = shb.all_gather_pages(other._pages, self.device)
         else:
             b = gk.to_planes(np.asarray(other.GetQuantumState()), self.dtype,
                              "cpu")
@@ -1071,44 +1118,83 @@ class QPager(PageHomes, QEngine):
         state from the dominant remainder branch (the host oracle's
         convention, gatekernels.split_matrix), the remainder its exact
         projection; with `perm`, the remainder is the span's |perm>
-        slice, normalized."""
+        slice, normalized.  Over page homes each rank splits its own
+        pages; the norm and the dominant branch are read over every rank
+        (float64 page values in page order), and the branch's owner
+        broadcasts the span's state."""
         s = self._span_local(start, length)
         L = self.local_bits
         hi, mid, lo = 1 << (L - s - length), 1 << length, 1 << s
-        views = [pg.view(2, hi, mid, lo) for pg in self._pages_raw]
+        pages = self._pages_raw
+        views = [None if shb.is_remote(pg) else pg.view(2, hi, mid, lo)
+                 for pg in pages]
         rest = self._rest_map(start, length, s)
+
+        def left(pg):
+            return shb.RemotePage(pg.rank, (2, hi * lo), pg.dtype)
+
         if perm is not None:
-            rem = [v[:, :, perm, :].reshape(2, -1).contiguous()
-                   for v in views]
-            nrm2 = sum(float(torch.sum(r[0] ** 2 + r[1] ** 2)) for r in rem)
+            rem = [left(pg) if v is None
+                   else v[:, :, perm, :].reshape(2, -1).contiguous()
+                   for pg, v in zip(pages, views)]
+            part = np.zeros(len(rem), dtype=np.float64)
+            for p, r in shb.local_pages(rem):
+                part[p] = float(torch.sum(r[0] ** 2 + r[1] ** 2))
+            nrm2 = sum(float(x) for x in shb.sum_ranks(pages, part))
             scale = 1.0 / math.sqrt(max(nrm2, 1e-30))
-            for r in rem:
+            for _p, r in shb.local_pages(rem):
                 r.mul_(scale)
             return rem, None, rest
         # the dominant branch: the largest remainder probability, ties to
         # the lowest LOGICAL remainder index
-        pms = [torch.sum(v[0] ** 2 + v[1] ** 2, dim=1).reshape(-1)
+        pms = [None if v is None
+               else torch.sum(v[0] ** 2 + v[1] ** 2, dim=1).reshape(-1)
                for v in views]
-        best = max(float(pm.max()) for pm in pms)
-        identity = rest == list(range(len(rest)))
-        cands = []
+        tops = np.zeros(len(pages), dtype=np.float64)
         for p, pm in enumerate(pms):
-            hits = (pm == best).nonzero().squeeze(-1).tolist()
-            # in logical order the first hit of the lowest page wins
-            for r in (hits[:1] if identity else hits):
-                phys = (p << (L - length)) | r
-                logical = 0
-                for q, pos in enumerate(rest):
-                    if (phys >> pos) & 1:
-                        logical |= 1 << q
-                cands.append((logical, p, r))
-        _, p0, r0 = min(cands)
+            if pm is not None:
+                tops[p] = float(pm.max())
+        best = max(float(x) for x in shb.sum_ranks(pages, tops))
+        # each page's lowest logical index at the best (-1: none), read
+        # over every rank
+        first = np.zeros(len(pages), dtype=np.float64)
+        identity = rest == list(range(len(rest)))
+        shift = torch.tensor(rest, dtype=torch.int64)
+        weight = torch.tensor([1 << q for q in range(len(rest))],
+                              dtype=torch.int64)
+        for p, pm in enumerate(pms):
+            if pm is None:
+                continue
+            hits = (pm == best).nonzero().squeeze(-1).to("cpu", torch.int64)
+            if not len(hits):
+                first[p] = -1.0
+                continue
+            if identity:
+                hits = hits[:1]   # in logical order a page's first hit
+            phys = (p << (L - length)) | hits
+            logical = (((phys.view(-1, 1) >> shift) & 1) * weight).sum(1)
+            first[p] = float(logical.min())
+        logical = int(min(x for x in shb.sum_ranks(pages, first) if x >= 0))
+        phys = 0
+        for q, pos in enumerate(rest):
+            if (logical >> q) & 1:
+                phys |= 1 << pos
+        p0, r0 = phys >> (L - length), phys & ((1 << (L - length)) - 1)
         h0, l0 = divmod(r0, lo)
-        nrm = math.sqrt(max(float(pms[p0][r0]), 1e-30))
-        dest = views[p0][:, h0, :, l0] / nrm          # (2, mid)
-        dr, di = dest[0], dest[1]
+        dest = None
+        if pms[p0] is not None:
+            nrm = math.sqrt(max(float(pms[p0][r0]), 1e-30))
+            dest = views[p0][:, h0, :, l0] / nrm          # (2, mid)
+        if shb.spread(pages):
+            owner = (pages[p0].rank if shb.is_remote(pages[p0])
+                     else self._rank)
+            dest = _cluster.broadcast_tensor(dest, owner, (2, mid),
+                                             self.dtype, self.device)
         rem = []
-        for v in views:
+        for pg, v in zip(pages, views):
+            if v is None:
+                rem.append(left(pg))
+                continue
             dv = dest.to(v.device)
             a_r, a_i = v[0], v[1]
             rr = (torch.einsum("hml,m->hl", a_r, dv[0])
@@ -1116,7 +1202,7 @@ class QPager(PageHomes, QEngine):
             ri = (torch.einsum("hml,m->hl", a_i, dv[0])
                   - torch.einsum("hml,m->hl", a_r, dv[1]))
             rem.append(torch.stack([rr, ri]).reshape(2, -1).to(self.dtype))
-        return rem, torch.stack([dr, di]), rest
+        return rem, dest, rest
 
     def _host_split(self, start, length, perm):
         """Host-staged split (the page count shrinks: tiny kets)."""
@@ -1140,8 +1226,6 @@ class QPager(PageHomes, QEngine):
         return dest
 
     def _k_decompose(self, start, length) -> np.ndarray:
-        if self._spread:
-            self._refuse("Decompose")
         self._unmap()
         n = self.qubit_count
         if self._mesh_would_change(n - length):
@@ -1156,8 +1240,6 @@ class QPager(PageHomes, QEngine):
         return vec / nrm if nrm > 0 else vec
 
     def _k_dispose(self, start, length, perm) -> None:
-        if self._spread:
-            self._refuse("Dispose")
         self._unmap()
         n = self.qubit_count
         if self._mesh_would_change(n - length):
@@ -1172,8 +1254,6 @@ class QPager(PageHomes, QEngine):
         self._unmap()
         n = self.qubit_count
         if self._mesh_would_change(n + length):
-            if self._spread:
-                self._refuse("an Allocate that changes the page count")
             a = self._fetch(0, 1 << n)
             zeros = np.zeros(1 << length, dtype=np.complex128)
             zeros[0] = 1.0
@@ -1214,7 +1294,8 @@ class QPager(PageHomes, QEngine):
     # grow back.  Distinct from _pages_for's width-driven rebalance:
     # these moves are fault-driven and move the page-count CEILING
     # (_max_g).  Every re-page runs on the card (the JAX pager gathers
-    # the ket to the host and puts it back).
+    # the ket to the host and puts it back); over page homes the blocks
+    # that change process move through the transport.
     # ------------------------------------------------------------------
 
     @property
@@ -1247,8 +1328,6 @@ class QPager(PageHomes, QEngine):
         """Re-page from 2^g to 2^(g-1) pages on the card, in place.  A
         pending window stays pending when a flush is re-dispatching it,
         and runs (raw, under the fault suspension) otherwise."""
-        if self._spread:
-            self._refuse("re-paging")
         if not self.can_shrink():
             raise MemoryError(
                 f"QPager cannot shrink below {self.n_pages} page(s) at "
@@ -1267,35 +1346,23 @@ class QPager(PageHomes, QEngine):
 
     def _repage(self, new_g: int) -> None:
         """Re-split the ket over 2^new_g pages on the slots of
-        _device_pool, on the card: identity placement first, then each
-        new page is its old pages side by side (fewer pages) or a copy of
-        a slice of one (more pages); a page that keeps its size and
-        device moves without a copy.  The new pages are built in locals
-        and committed last, so a failed re-page leaves the current
-        topology untouched (at the cost of both layouts at once)."""
-        if self._spread:
-            self._refuse("re-paging")
+        _device_pool (its prefix, as the JAX pager takes), on the card:
+        identity placement first, then each new page is its old pages
+        side by side (fewer pages) or a copy of a slice of one (more
+        pages); a page that keeps its size and device moves without a
+        copy, and one whose old pages live in another process comes
+        through the transport (sharded.repage).  The new pages are built
+        in locals and committed last, so a failed re-page leaves the
+        current topology untouched (at the cost of both layouts at
+        once)."""
         with _res.faults.suspended():
             # the unmap's exchanges must not advance fault-spec counters
             # nor be refused by an open breaker
             self._unmap()
-        pages = self._pages_raw
-        L_old = self.local_bits
-        L_new = self.qubit_count - new_g
         slots = self._device_pool()[:1 << new_g]
-        devs = [self._slot_devices[sl] for sl in slots]
-        new = []
-        if L_new >= L_old:
-            r = 1 << (L_new - L_old)
-            for j, dev in enumerate(devs):
-                parts = [pages[j * r + i].to(dev) for i in range(r)]
-                new.append(parts[0] if r == 1 else torch.cat(parts, dim=1))
-        else:
-            r, size = 1 << (L_old - L_new), 1 << L_new
-            for j, dev in enumerate(devs):
-                off = (j % r) * size
-                new.append(pages[j // r][:, off:off + size].to(
-                    dev, copy=True).contiguous())
+        new = shb.repage(self._pages_raw, self.local_bits,
+                         [self._home_of(sl) for sl in slots],
+                         self.qubit_count - new_g)
         self.n_pages = 1 << new_g
         self.g_bits = new_g
         self._slots = slots
@@ -1376,7 +1443,7 @@ class QPager(PageHomes, QEngine):
             return False
         from ..resilience import elastic as _elastic
 
-        if not _elastic.health_probe():
+        if not _elastic.health_probe(cohort=self._on_cluster):
             return False
         return self.expand_pages()
 

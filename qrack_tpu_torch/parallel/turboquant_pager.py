@@ -31,8 +31,15 @@ through ``sharded.transport`` and each rank keeps its own requantized
 half; ``Prob``, the chunk masses (``MAll``, the norm) all-reduce in
 float64, the chosen chunk's owner draws and broadcasts the index, and
 block reads (``GetAmplitude``, the checkpoint's codes) come from the
-page's owner to every rank.  What needs the whole ket as planes (the
-dense fallback) refuses, naming ROADMAP item 13.5.
+page's owner to every rank.  The codes and scales lists are
+``sharded.PageList`` s there, so every rank joins every collective.  The
+dense float32 fallback decodes each rank's pages and gathers the planes
+onto every rank (``sharded.all_gather_pages``), so Compose, Decompose,
+Dispose, the ALU permutations and the failover to ``QEngineCUDA``
+replicas run on every rank; narrowing below one chunk a page keeps a
+prefix of the pages (on rank 0's slots first); the resilience plane's
+guarded chunk passes agree on their outcome across the ranks
+(resilience/dispatch.py ``cohort``).
 
 Everything else (ALU permutations, compose/decompose, amplitude pages)
 decodes the whole ket through the inherited ``_state`` property, sound
@@ -52,7 +59,6 @@ import math
 import numpy as np
 import torch
 
-from .. import resilience as _res
 from ..engines import turboquant as tqe
 from ..ops import sharded as shb
 from ..storage import turboquant as tq
@@ -87,8 +93,6 @@ class QPagerTurboQuant(PageHomes, tqe.QEngineCUDATurboQuant):
         self.n_pages = int(n_pages)
         self.g_bits = log2(n_pages)
         self._slot_devices = list(devs[:n_pages])
-        if self._spread and _res._ACTIVE:
-            self._refuse("the resilience plane")
         super().__init__(qubit_count, init_state=init_state,
                          device=self._local_devices()[0], **kwargs)
 
@@ -101,10 +105,21 @@ class QPagerTurboQuant(PageHomes, tqe.QEngineCUDATurboQuant):
         """A page's slot is its id (no spares)."""
         return range(self.n_pages)
 
-    def _tq_call(self, fn, *args, site: str = "turboquant.dispatch"):
-        if _res._ACTIVE and self._spread:
-            self._refuse("the resilience plane")
-        return super()._tq_call(fn, *args, site=site)
+    @property
+    def _codes_raw(self):
+        return self._code_pages
+
+    @_codes_raw.setter
+    def _codes_raw(self, pages) -> None:
+        self._code_pages = self._page_list(pages)
+
+    @property
+    def _scales_raw(self):
+        return self._scale_pages
+
+    @_scales_raw.setter
+    def _scales_raw(self, pages) -> None:
+        self._scale_pages = self._page_list(pages)
 
     def _max_chunk_pow(self, qubit_count: int) -> int:
         # every page owns at least one chunk
@@ -131,8 +146,6 @@ class QPagerTurboQuant(PageHomes, tqe.QEngineCUDATurboQuant):
         want = min(self.n_pages, 1 << max(0, width - 1))
         if want == self.n_pages:
             return
-        if self._spread:
-            self._refuse("a width below one chunk a page")
         self.n_pages = want
         self.g_bits = log2(want)
 
@@ -201,13 +214,16 @@ class QPagerTurboQuant(PageHomes, tqe.QEngineCUDATurboQuant):
         return shb.RemotePage(self._slot_ranks[p], (rows,), torch.float32)
 
     def _decompress_planes(self):
-        if self._spread:
-            self._refuse("the dense float32 fallback")
+        """The whole ket as float32 planes on this rank's device: each page
+        decoded where it lives, the pages gathered onto every rank over
+        page homes."""
         D = self._block
-        return torch.cat([
-            tqe._rows_to_planes(tqe._dec_rows(c, s, self._rot_on(c.device)[1],
-                                              self._qmax), D).to(self._device)
-            for c, s in zip(self._codes, self._scales)], dim=1)
+        planes = [shb.RemotePage(c.rank, (2, c.shape[0] * D), torch.float32)
+                  if shb.is_remote(c) else
+                  tqe._rows_to_planes(tqe._dec_rows(
+                      c, s, self._rot_on(c.device)[1], self._qmax), D)
+                  for c, s in zip(self._codes, self._scales)]
+        return shb.all_gather_pages(self._page_list(planes), self._device)
 
     # ------------------------------------------------------------------
     # a gate whose target lies in the page bits
@@ -337,7 +353,7 @@ class QPagerTurboQuant(PageHomes, tqe.QEngineCUDATurboQuant):
         by the page's owner to every rank of a spread pager."""
         mine = (None if shb.is_remote(arr)
                 else arr[i:i + take].to("cpu").numpy())
-        if not self._spread:
+        if not self._on_cluster:
             return mine
         dtype = {torch.int8: np.int8, torch.int16: np.int16,
                  torch.float32: np.float32}[arr.dtype]
@@ -384,7 +400,7 @@ class QPagerTurboQuant(PageHomes, tqe.QEngineCUDATurboQuant):
         index."""
         p = c // (self._n_chunks() // self.n_pages)
         got = super()._draw_in_chunk(c, u) if self._here(p) else None
-        if not self._spread:
+        if not self._on_cluster:
             return got
         return _cluster.broadcast_int(got, self._slot_ranks[p])
 

@@ -21,7 +21,12 @@ State machine::
 
 One process-wide breaker guards the device (it is a per-process
 resource); :func:`get_breaker` returns it, :func:`reset_breaker`
-installs a fresh one (tests).  Transitions are telemetry events
+installs a fresh one (tests).  The ranks of a pager whose pages live in
+several processes record the outcome they agreed on
+(resilience/dispatch.py ``call_guarded(cohort=True)``), so their
+breakers move together; only the cooldown runs on each host's clock, and
+an open breaker's allow is agreed before it half-opens (:meth:`reject`
+refuses on every rank while any rank still cools down).  Transitions are telemetry events
 (`resilience.breaker.trip/half_open/close`), rejections a counter
 (`resilience.breaker.rejected`).
 """
@@ -71,6 +76,15 @@ class CircuitBreaker:
                 if _tele._ENABLED:
                     _tele.event("resilience.breaker.half_open", site=site)
             # half_open: the probe dispatch proceeds
+
+    def reject(self, site: str = "") -> None:
+        """Refuse one dispatch attempt as an open breaker does, without
+        a transition: the ranks of a pager over page homes refuse
+        together while any rank's cooldown still runs
+        (resilience/dispatch.py)."""
+        if _tele._ENABLED:
+            _tele.inc("resilience.breaker.rejected")
+        raise BreakerOpen(site, self.open_remaining_s())
 
     def record_success(self) -> None:
         with self._lock:

@@ -160,10 +160,10 @@ def _classify(site: str, exc: BaseException) -> DispatchFailure:
 
 def write_token(tensors):
     """A value that moves with every write to `tensors` (a tensor or a
-    sequence of them): their version counters, which every in-place
-    torch op bumps, and the window and TurboQuant kernels' launch
-    counts, since a kernel writes through a raw pointer that the
-    counters do not see."""
+    sequence of them; another process's page placeholders are skipped):
+    their version counters, which every in-place torch op bumps, and
+    the window and TurboQuant kernels' launch counts, since a kernel
+    writes through a raw pointer that the counters do not see."""
     import torch
 
     from ..ops import turboquant_kernel as tqk
@@ -172,7 +172,8 @@ def write_token(tensors):
     if isinstance(tensors, torch.Tensor):
         tensors = (tensors,)
     try:
-        versions = tuple(t._version for t in tensors if t is not None)
+        versions = tuple(t._version for t in tensors
+                         if isinstance(t, torch.Tensor))
     except RuntimeError:      # tensors that track no version counter
         versions = (object(),)
     launches = (sum(sum(c.values()) for c in wk.DTYPE_LAUNCHES.values())
@@ -220,14 +221,78 @@ def _run_with_watchdog(site: str, fn, args, kwargs, timeout_s: float):
     return box["out"]
 
 
-def call_guarded(site: str, fn, args=(), kwargs=None, writes=None):
+# outcomes of one guarded attempt, ordered by severity: the ranks of a
+# cohort agree on the MAX, and a rank that saw a milder outcome than the
+# agreed one takes the agreed one's class (so retry or give-up is one
+# decision)
+_OK, _FAILED, _TIMEOUT, _NAN, _LOST, _FOREIGN = range(6)
+_AGREED_CLASS = {_FAILED: DispatchFailure, _NAN: NaNPoisoned,
+                 _LOST: DeviceLost}
+
+
+def _code(err) -> int:
+    if err is None:
+        return _OK
+    if isinstance(err, DeviceLost):
+        return _LOST
+    if isinstance(err, NaNPoisoned):
+        return _NAN
+    if isinstance(err, DispatchTimeout):
+        return _TIMEOUT
+    if isinstance(err, DispatchFailure):
+        return _FAILED
+    return _FOREIGN
+
+
+def _agreed(site: str, err, got: int):
+    """This rank's failure after the cohort agreed on `got` (the MAX of
+    every rank's outcome code): None when every rank succeeded, its own
+    failure when it is of the agreed kind, else one of the agreed kind
+    raised on another rank."""
+    if got == _OK:
+        return None
+    if _code(err) == got:
+        return err
+    if got == _FOREIGN:
+        raise RuntimeError(
+            f"another rank failed at site {site!r} outside the resilience "
+            "plane")
+    if got == _TIMEOUT:
+        return DispatchTimeout(site, detail="timed out on another rank")
+    return _AGREED_CLASS[got](site, "failed on another rank")
+
+
+def cohort_of(eng) -> bool:
+    """True for an engine whose pages live in several processes (a pager
+    over the cluster's page homes, or a QHybrid whose pager half is
+    one): its guarded calls, fingerprints and health probes are agreed
+    across the ranks."""
+    return bool(getattr(eng, "_on_cluster", False))
+
+
+def call_guarded(site: str, fn, args=(), kwargs=None, writes=None,
+                 cohort: bool = False):
     """Run `fn(*args, **kwargs)` as one guarded dispatch at `site`:
     breaker gate, fault injection, watchdog timeout, finite validation,
     then retry with exponential backoff where a retry runs the dispatch
     exactly once (module docstring; ``writes`` for callables that write
     in place).  Raises BreakerOpen (breaker refused) or DispatchGiveUp
     (retries exhausted, or a torn in-place dispatch) — the
-    FAILOVER_ERRORS the engine wrappers recover from."""
+    FAILOVER_ERRORS the engine wrappers recover from.
+
+    ``cohort``: `fn` is one pass of a pager whose pages live in several
+    processes, which every rank runs together.  Each rank learns its own
+    outcome and the ranks agree (parallel/cluster.py ``agree``) twice an
+    attempt: on site entry (the breaker's gate and the fault directive,
+    a hang once its watchdog fired), so no rank enters the pass's
+    transport unless every rank does, and on exit (the outcome and
+    whether this rank wrote, whatever its own outcome).  The one-process
+    rule then acts on the union: a retry in place only when no rank
+    wrote, ``torn`` on every rank when any did.  The breaker refuses on
+    every rank while any rank's breaker is open and still cooling down
+    (a dispatch outside the cohort, a replica's, may have moved one
+    rank's breaker alone); a rank whose breaker is blocked draws no
+    fault directive, as the one-process gate refuses before it."""
     kwargs = kwargs or {}
     if _faults.is_suspended():
         # recovery path (failover move, verification read): raw call —
@@ -235,48 +300,85 @@ def call_guarded(site: str, fn, args=(), kwargs=None, writes=None):
         # the failing engine
         return fn(*args, **kwargs)
     p = params()
+    agree = None
+    if cohort:
+        from ..parallel import cluster
+
+        if p.timeout_s > cluster.AGREE_TIMEOUT_S:
+            raise ValueError(
+                f"the dispatch watchdog ({p.timeout_s} s) outlasts the "
+                f"cluster's agreement timeout ({cluster.AGREE_TIMEOUT_S} s)")
+        agree = cluster.agree
     br = _breaker.get_breaker()
     last: Optional[DispatchFailure] = None
     attempts = max(1, p.max_retries + 1)
     for attempt in range(attempts):
-        br.allow(site)  # raises BreakerOpen: stop hammering the device
+        # a cohort reads the gate without a transition first: an open
+        # breaker still cooling down (a read-only test) is agreed on
+        blocked = agree is not None and br.open_remaining_s() > 0
+        if not blocked:
+            br.allow(site)  # raises BreakerOpen: stop hammering the device
         ran = False     # the real callable was entered
         w0 = writes() if writes is not None else None
+        err = foreign = None
         try:
-            directive = _faults.check(site)  # may raise a DispatchFailure
-            if directive == "hang":
-                out = _run_with_watchdog(site, _hang_stub(p.timeout_s), (), {},
-                                         p.timeout_s if p.timeout_s > 0 else 35.0)
-            else:
-                ran = True
+            if not blocked:
+                directive = _faults.check(site)  # may raise DispatchFailure
+                if directive == "hang":
+                    _run_with_watchdog(site, _hang_stub(p.timeout_s), (),
+                                       {}, p.timeout_s if p.timeout_s > 0
+                                       else 35.0)
+        except DispatchFailure as e:
+            err = e
+        if agree is not None:
+            code, shut = agree([_code(err), int(blocked)])
+            if shut:
+                br.reject(site)
+            err = _agreed(site, err, code)
+        if err is None:
+            ran = True
+            try:
                 if p.timeout_s > 0:
                     out = _run_with_watchdog(site, fn, args, kwargs,
                                              p.timeout_s)
                 else:
                     out = fn(*args, **kwargs)
-            if _faults._HAS_CORRUPT:
-                # amp-corrupt fires at site EXIT: the dispatch SUCCEEDS
-                # and hands back a silently-wrong result (faults.py)
-                out = _faults.corrupt_output(site, out)
-            if p.validate:
-                _faults.validate_finite(site, out)
+                if _faults._HAS_CORRUPT:
+                    # amp-corrupt fires at site EXIT: the dispatch
+                    # SUCCEEDS and hands back a silently-wrong result
+                    # (faults.py)
+                    out = _faults.corrupt_output(site, out)
+                if p.validate:
+                    _faults.validate_finite(site, out)
+            except DispatchFailure as e:
+                err = e
+            except Exception as e:  # noqa: BLE001 — only device errors handled
+                if not is_device_error(e):
+                    if agree is None:
+                        raise
+                    err = foreign = e
+                else:
+                    err = _classify(site, e)
+        # the operands may hold part of this dispatch (or a timed-out
+        # callable may still be writing them): if the dispatch failed on
+        # any rank, no retry in place can run it exactly once
+        wrote = bool(ran and writes is not None and (
+            writes() != w0 or isinstance(err, (DispatchTimeout,
+                                               NaNPoisoned))))
+        if agree is not None and ran:
+            code, wrote = agree([_code(err), int(wrote)])
+            if foreign is not None:
+                raise foreign
+            err = _agreed(site, err, code)
+        torn = err is not None and bool(wrote)
+        if err is None:
             br.record_success()
             return out
-        except DispatchFailure as e:
-            last = e
-        except Exception as e:  # noqa: BLE001 — only device errors handled
-            if not is_device_error(e):
-                raise
-            last = _classify(site, e)
+        last = err
         br.record_failure(site)
         if _tele._ENABLED:
             _tele.inc(f"resilience.failure.{site}")
-        if ran and writes is not None and (
-                writes() != w0 or isinstance(last, (DispatchTimeout,
-                                                    NaNPoisoned))):
-            # the operands may hold part of this dispatch (or a
-            # timed-out callable may still be writing them): no retry
-            # in place can run it exactly once
+        if torn:
             raise DispatchGiveUp(site, last, torn=True)
         if not last.retryable:
             break

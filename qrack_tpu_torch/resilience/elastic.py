@@ -21,6 +21,10 @@ a reason NOT to grow:
   subprocess probe via :func:`~.probe.run_probe` — off by default
   because it costs a fresh CUDA init per check.
 
+On a pager whose pages live in several processes the ranks agree on the
+probe (``cohort=True``): a fault armed on one rank, or one breaker still
+cooling down, keeps every rank degraded.
+
 :func:`maybe_reexpand` is the one entry point callers use: it walks
 wrapper layers (ResilientEngine, QHybrid) down to the engine that
 actually owns pages, asks the probe, and calls ``expand_pages()``.  A
@@ -41,13 +45,26 @@ from . import faults as _faults
 #: reads live breaker/fault state (a flap can heal between two calls).
 
 
-def health_probe(site: Optional[str] = None) -> bool:
+def health_probe(site: Optional[str] = None, cohort: bool = False) -> bool:
     """True when re-expansion onto the lost device looks safe NOW.
 
     Read-only: consumes no breaker half-open trial and advances no
     fault-spec call counters.  ``site`` narrows the injected-fault
     check to one dispatch site (None = any armed loss counts).
+    ``cohort``: the engine's pages live in several processes; every
+    rank probes and the ranks agree (parallel/cluster.py ``agree_all``),
+    so no rank expands unless every rank is healthy.
     """
+    ok = _probe(site)
+    if cohort:
+        from ..parallel import cluster
+
+        ok = cluster.agree_all(ok)
+    return ok
+
+
+def _probe(site: Optional[str]) -> bool:
+    """This process's health probe (:func:`health_probe`)."""
     if _faults.is_suspended():
         return False  # mid-snapshot / oracle read: stand still
     br = _breaker.get_breaker()

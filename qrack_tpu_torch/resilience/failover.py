@@ -39,6 +39,13 @@ counters): one ``failover-<time>-<pid>-<seq>.qckpt`` a move, which
 plane is rejected, and a failed write is counted; neither blocks the
 move.
 
+A pager whose pages live in several processes (parallel/cluster.py)
+takes the same chain on every rank at the same call, because its
+dispatches agree on their outcome (dispatch.py): its shrink re-pages
+onto the surviving slot prefix, across processes, and the dense rung
+gathers the whole ket onto every rank, each of which builds its own
+replica (:data:`BY_DESIGN`).
+
 Two consumers: :class:`ResilientEngine`, the forwarding proxy the
 factory wraps around the ``cuda``/``pager``/``turboquant``/
 ``turboquant_pager`` terminals (factory.py ``_maybe_resilient``), and
@@ -57,6 +64,22 @@ from . import faults as _faults
 from .errors import FAILOVER_ERRORS
 
 _persist_seq = 0
+
+#: where the chain of a pager over several processes differs from the
+#: JAX package's, with the reason
+BY_DESIGN = {
+    "dense replica on each rank": "the dense rung gathers the whole ket "
+        "through the transport onto every rank, and each rank builds a "
+        "QEngineCUDA replica on its own card with the rng every rank "
+        "holds in step, so its draws equal the other ranks': the port's "
+        "counterpart of every JAX process running the same program on "
+        "the same global array (the CPU rung, with failover_cpu=True, "
+        "builds a QEngineCPU on each rank from the replicated read)",
+    "persist file from rank 0": "QRACK_TPU_FAILOVER_PERSIST receives one "
+        "file a move: every rank takes the replicated capture (a "
+        "collective read), rank 0 alone writes it and records "
+        "resilience.failover.persisted",
+}
 
 
 def _snapshot_is_finite(snap) -> bool:
@@ -97,6 +120,11 @@ def _persist_snapshot(engine, cause) -> Optional[str]:
         from ..checkpoint.registry import capture, save_snapshot
 
         snap = capture(engine)
+        if getattr(engine, "_on_cluster", False):
+            from ..parallel import cluster
+
+            if cluster.process_index() != 0:
+                return None   # rank 0 writes the one file (BY_DESIGN)
         if not _snapshot_is_finite(snap):
             if _tele._ENABLED:
                 _tele.event("resilience.failover.persist_rejected",
@@ -134,16 +162,16 @@ def _engine_kind(engine) -> str:
 def _to_cuda(engine, rng):
     """A QEngineCUDA holding `engine`'s ket, moved on the card: a pager's
     pages in logical order side by side, or a TurboQuant engine's codes
-    decoded to float32 planes.  Runs under ``faults.suspended()``."""
-    import torch
-
+    decoded to float32 planes.  Over page homes the whole ket is gathered
+    onto every rank, which builds its own replica (BY_DESIGN).  Runs
+    under ``faults.suspended()``."""
     from ..engines.cuda import QEngineCUDA
+    from ..ops import sharded as shb
 
     if _engine_kind(engine) == "pager":
         engine._unmap()
-        pages = engine._pages_raw
-        dev = pages[0].device
-        planes = torch.cat([p.to(dev) for p in pages], dim=1)
+        dev = engine.device
+        planes = shb.all_gather_pages(engine._pages_raw, dev)
         dtype = engine.dtype
     else:
         planes = engine._decompress_planes()

@@ -43,7 +43,10 @@ EXIT instead: it perturbs one amplitude of the dispatch OUTPUT on its
 device (finite, order-unity, seeded — the silent-data-corruption
 model, at the element the JAX package picks from the same seed), so
 nothing raises at the site and only the integrity guard plane
-(resilience/integrity.py) can catch it downstream.
+(resilience/integrity.py) can catch it downstream.  On a pager whose
+pages live in several processes every rank draws the same element and
+only the page's owner writes it; a fault on one rank only is armed by
+giving that rank's process its own ``QRACK_TPU_FAULTS``.
 
 Injection is recorded as `resilience.fault.<site>.<kind>` telemetry
 events.  Tests drive the programmatic API (:func:`inject`,
@@ -334,8 +337,12 @@ def _is_float(v) -> bool:
     import numpy as np
     import torch
 
+    from ..ops.sharded import is_remote
+
     if isinstance(v, list):
-        return bool(v) and all(_is_float(p) for p in v)
+        # a pager's pages; another process's placeholders hold no values
+        here = [p for p in v if not is_remote(p)]
+        return bool(here) and all(_is_float(p) for p in here)
     if isinstance(v, torch.Tensor):
         return v.is_floating_point()
     dt = getattr(v, "dtype", None)
@@ -350,10 +357,14 @@ def validate_finite(site: str, out) -> None:
     import numpy as np
     import torch
 
+    from ..ops.sharded import is_remote
+
     for v in _values(out):
         if not _is_float(v):
             continue
         for t in (v if isinstance(v, list) else [v]):
+            if is_remote(t):
+                continue
             ok = (bool(torch.isfinite(t).all().item())
                   if isinstance(t, torch.Tensor) else
                   bool(np.all(np.isfinite(t))))
@@ -371,6 +382,8 @@ def _corrupt_value(v, rng, page=None, n_pages=None):
     the last axis), pushed away from zero."""
     import numpy as np
     import torch
+
+    from ..ops.sharded import is_remote
 
     if isinstance(v, np.ndarray):
         flat = v.reshape(-1).copy()
@@ -402,6 +415,10 @@ def _corrupt_value(v, rng, page=None, n_pages=None):
         if col < p.shape[-1]:
             break
         col -= int(p.shape[-1])
+    if is_remote(p):
+        # the element lies on a page of another process, whose spec
+        # (the same draws: every rank runs the same dispatches) strikes it
+        return v
     elem = p.reshape(-1, p.shape[-1])[row, col]   # a view: p is contiguous
     sign = torch.where(elem >= 0, 1.0, -1.0).to(elem.dtype)
     elem.add_(sign * delta)

@@ -39,6 +39,14 @@ switch (one module attribute read + truth test per site when inactive):
   float32 pager: 64 GiB of pages).  Either way the restore is a
   ``copy_`` back, bit for bit.
 
+* **Pages in several processes** — on a pager over the cluster's page
+  homes each rank fingerprints its own pages and the page values are
+  all-reduced in float64 in page order, so every rank verifies the same
+  fingerprint, attributes the same slot and replays the same kept window
+  (the dispatch's own outcome is agreed in dispatch.py); the snapshot
+  and its restore cover this process's pages, beside the placement
+  table every rank keeps.
+
 * **Quarantine** — attributed strikes accumulate per PAGE SLOT (the
   page's index in the pager's construction device list, spares after
   it): the JAX package keys them by device id, and its tests run one
@@ -72,6 +80,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from .. import telemetry as _tele
+from . import dispatch as _dispatch
 from .errors import FAILOVER_ERRORS, CorruptionDetected, DispatchGiveUp
 
 _ENABLED: bool = os.environ.get("QRACK_TPU_INTEGRITY", "") != "0"
@@ -204,42 +213,67 @@ def _prob64(planes):
     return torch.sum(rn.to(torch.float64) ** 2)
 
 
-def _tq_masses(eng, codes: list, scales: list) -> np.ndarray:
-    """Per-chunk probability masses of TurboQuant (codes, scales), pages
-    in order, without a decode (the block rotation is orthogonal, so a
-    row's norm survives compression)."""
+def _tq_masses(eng, codes: list, scales: list) -> list:
+    """Per-chunk probability masses of TurboQuant (codes, scales), a
+    float64 array a page (zeros for another process's page), without a
+    decode (the block rotation is orthogonal, so a row's norm survives
+    compression)."""
     import torch
+
+    from ..ops.sharded import is_remote
 
     cb, twoD = eng._chunk_blocks, 2 * eng._block
     out = []
     for c, s in zip(codes, scales):
+        if is_remote(c):
+            out.append(np.zeros(c.shape[0] // cb, dtype=np.float64))
+            continue
         c3 = c.reshape(-1, cb, twoD)
         s2 = s.reshape(-1, cb)
         step = max(1, eng._GROUP_AMPS // eng._chunk_amps)
+        got = []
         for c0 in range(0, c3.shape[0], step):
             y = (c3[c0:c0 + step].to(torch.float32)
                  * (s2[c0:c0 + step] / float(eng._qmax)).unsqueeze(-1))
-            out.append(torch.sum(y * y, dim=(1, 2)).to(torch.float64))
-    return torch.cat(out).to("cpu").numpy()
+            got.append(torch.sum(y * y, dim=(1, 2)).to(torch.float64))
+        out.append(torch.cat(got).to("cpu").numpy())
+    return out
 
 
 def _fingerprint_of(eng, tensors: list) -> np.ndarray:
+    """The fingerprint of `tensors` (the layout of :func:`_resident`):
+    each page's part on the page's owner, the parts of a pager over
+    page homes all-reduced in float64 in page order."""
     import torch
+
+    from ..ops.sharded import is_remote
 
     if _is_tq(eng):
         half = len(tensors) // 2
-        return _tq_masses(eng, tensors[:half], tensors[half:])
-    sums = [_prob64(t) for t in tensors]
-    dev = sums[0].device
-    return np.asarray(torch.stack([s.to(dev) for s in sums]).to("cpu")
-                      .numpy(), dtype=np.float64)
+        parts = _tq_masses(eng, tensors[:half], tensors[half:])
+        fp = np.concatenate(parts) if parts else np.zeros(0)
+    else:
+        fp = np.zeros(len(tensors), dtype=np.float64)
+        here = [i for i, t in enumerate(tensors) if not is_remote(t)]
+        if here:
+            sums = [_prob64(tensors[i]) for i in here]
+            dev = sums[0].device
+            fp[here] = torch.stack([x.to(dev) for x in sums]).to(
+                "cpu").numpy()
+    if _dispatch.cohort_of(eng):
+        from ..parallel import cluster
+
+        fp = cluster.all_reduce_f64(fp)
+    return np.asarray(fp, dtype=np.float64)
 
 
 def fingerprint(eng) -> np.ndarray:
     """Per-page probability sums (pager), the one-element norm vector
     (dense engine) or the per-chunk masses (TurboQuant) of the RESIDENT
     state, reduced on its device — the cheap proxy every invariant is
-    checked against."""
+    checked against.  A pager over page homes sums each page on its
+    owner and all-reduces the pages' values, so every rank checks the
+    same fingerprint and takes the same decision."""
     from . import faults as _faults
 
     with _faults.suspended():
@@ -339,10 +373,15 @@ def _free_bytes(dev) -> int:
 def _on_card(tensors: list) -> bool:
     """True when a copy of `tensors` fits beside them on their devices,
     with room for one more tensor of the largest size (the transient of
-    one functional gate, or of a page pass)."""
+    one functional gate, or of a page pass).  Another process's pages
+    are its own."""
+    from ..ops.sharded import is_remote
+
     need: Dict = {}
     largest = 0
     for t in tensors:
+        if is_remote(t):
+            continue
         nb = t.numel() * t.element_size()
         largest = max(largest, nb)
         if t.device.type == "cuda":
@@ -361,11 +400,14 @@ def _snapshot(eng) -> list:
     """Copy of the resident state taken BEFORE a flush dispatch: on the
     card when it fits there (:func:`_on_card`), else on the host.  The
     kernels write the planes in place, so replay is only possible from
-    a copy."""
+    a copy.  A pager over page homes copies this process's pages only
+    (another process's placeholders stay as they are)."""
+    from ..ops.sharded import is_remote
+
     ts = _resident(eng)
     if _on_card(ts):
-        return [t.clone() for t in ts]
-    return [t.to("cpu", copy=True) for t in ts]
+        return [t if is_remote(t) else t.clone() for t in ts]
+    return [t if is_remote(t) else t.to("cpu", copy=True) for t in ts]
 
 
 def _restore(eng, keep: list) -> None:
@@ -374,17 +416,21 @@ def _restore(eng, keep: list) -> None:
     on the resident devices.  Assigns raw attributes — the property
     setters' drop-on-overwrite must not fire for a repair that is about
     to re-dispatch the kept window."""
+    from ..ops.sharded import is_remote
+
     cur = _resident(eng)
     if len(cur) == len(keep) and all(
             c is not None and c.shape == k.shape and c.dtype == k.dtype
-            for c, k in zip(cur, keep)):
+            and is_remote(c) == is_remote(k) for c, k in zip(cur, keep)):
         for c, k in zip(cur, keep):
-            c.copy_(k)
+            if not is_remote(c):
+                c.copy_(k)
         return
-    devs = [c.device if c is not None else k.device
-            for c, k in zip(cur, keep)] if len(cur) == len(keep) else \
-        [k.device for k in keep]
-    _assign(eng, [k.to(d, copy=True) for k, d in zip(keep, devs)])
+    devs = ([k.device if c is None or is_remote(c) else c.device
+             for c, k in zip(cur, keep)] if len(cur) == len(keep) else
+            [None if is_remote(k) else k.device for k in keep])
+    _assign(eng, [k if is_remote(k) else k.to(d, copy=True)
+                  for k, d in zip(keep, devs)])
 
 
 def _slot(eng, page: int) -> Optional[int]:

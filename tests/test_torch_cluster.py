@@ -209,7 +209,8 @@ def test_global_page_devices_without_a_cluster(fresh_clusters):
     assert [h.rank for h in homes] == [0] * 8
     assert tcl.page_bit_kinds(homes) == ("ici",) * 3
     q = QPager(6, devices=homes, rand_global_phase=False)
-    assert q.n_pages == 8 and not q._spread and not q._on_cluster
+    assert q.n_pages == 8 and not shb.spread(q._pages_raw)
+    assert not q._on_cluster
     q.H(5)
     assert abs(q.Prob(5) - 0.5) < 1e-6
 
@@ -429,11 +430,14 @@ def test_cluster_equals_one_process(circuit_cohorts, n_procs):
 
 
 def test_cluster_refusals_and_qunitmulti(circuit_cohorts):
+    """The five paths that refused on a pager over several processes
+    until ROADMAP item 13.5 now run, each equal to the one-process
+    pager's; QUnitMulti's table under a cluster as before."""
     for r in circuit_cohorts[2]:
-        ref = r["refusals"]
+        ref = r["five_paths"]
         for what in ("compose", "decompose", "dispose", "shrink",
                      "resilience"):
-            assert "ROADMAP item 13.5" in ref[what], (what, ref[what])
+            assert ref[what] is True, (what, ref[what])
         rank = r["proc"]
         assert ref["unit_multi_devices"] == [2 * rank, 2 * rank + 1]
         assert "a unit's ket lives in one process" in \
