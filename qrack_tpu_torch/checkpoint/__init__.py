@@ -11,9 +11,10 @@ of the JAX package's checkpoint/).
   session state files, the journal of circuits, the acks log, the
   prefix files, the lease and the byte budget.
 
-The JAX package's warm start (``enable_warm_start``,
-``ProgramManifest``) pre-traces served circuit shapes through the
-serving batcher; it comes with the serving plane, ROADMAP item 16.
+* **warmstart** — ``enable_warm_start`` (the kernel libraries build
+  into the store's ``kernel_cache``) and ``ProgramManifest`` (the
+  serving batcher's recorded shapes, rebuilt by ``prewarm``); loaded on
+  first touch, by the serving plane (serve/service.py).
 
 This package is NOT imported by ``import qrack_tpu_torch``; the store
 loads on first touch.
@@ -34,17 +35,18 @@ __all__ = [
     "capture", "restore_into", "build",
     "save_state", "load_state", "load_snapshot",
     "CheckpointStore", "StoreLeaseHeld", "StoreLockTimeout",
+    "enable_warm_start", "ProgramManifest",
 ]
 
 
 def __getattr__(name):
-    # the store stays un-imported until first touched
+    # the store and the warm start stay un-imported until first touched
     if name in ("CheckpointStore", "StoreLeaseHeld", "StoreLockTimeout"):
         from . import store
 
         return getattr(store, name)
     if name in ("enable_warm_start", "ProgramManifest"):
-        raise AttributeError(
-            f"{name} is not ported yet: the warm start runs the serving "
-            "batcher, which comes with ROADMAP item 16 (serve/)")
+        from . import warmstart
+
+        return getattr(warmstart, name)
     raise AttributeError(name)

@@ -45,9 +45,9 @@ numpy and the port's registry), so a store directory written by either
 package is read by the other: the manifest, the session state files,
 the journal's circuit containers (``circuit_payload`` over the port's
 QCircuit), the acks log and the prefix files keep their layout.  Its
-caller in the JAX package is the serving plane (serve/), which comes
-with ROADMAP item 16.  ``load(sid)`` without a live target builds on
-``cuda`` unless the caller passes ``device="cpu"``.
+caller is the serving plane (serve/, ROADMAP item 16b).  ``load(sid)``
+without a live target builds on ``cuda`` unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations

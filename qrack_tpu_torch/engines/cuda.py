@@ -154,6 +154,12 @@ class QEngineCUDA(QEngine):
         """The resident (2, 2^n) split-plane ket (not a copy)."""
         return self._state
 
+    @device_planes.setter
+    def device_planes(self, planes) -> None:
+        # through the _state setter: pending gates drop, as on any blind
+        # write (the serving batcher binds each lane's fresh copy here)
+        self._state = planes
+
     def _check_capacity(self, qubit_count: int) -> None:
         if qubit_count > MAX_DENSE_QB:
             raise MemoryError(
@@ -488,7 +494,13 @@ class QEngineCUDA(QEngine):
         self._state = self._state.to(dev)
 
     def GetDevice(self) -> int:
-        return self._device.index if self._device.type == "cuda" else -1
+        """The card's ordinal (``cuda`` without one reads as the current
+        card); -1 on the CPU."""
+        if self._device.type != "cuda":
+            return -1
+        if self._device.index is not None:
+            return self._device.index
+        return torch.cuda.current_device()
 
     def ZeroAmplitudes(self) -> None:
         self._state = torch.zeros_like(self._state_raw)

@@ -40,9 +40,10 @@ failover moves are ``resilience.failover.*`` (construction:
 ``elastic.hybrid.unpinned``.  Checkpoints (checkpoint/registry.py,
 kind ``"hybrid"``) carry the JAX package's meta: the thresholds as
 ``tpu_threshold``/``pager_threshold``, and the failover ceiling with
-``"cuda"`` written as the JAX package's ``"tpu"`` and read back.  Still
-to come: the serving plane, which reads the breaker and wraps its stacks
-(ROADMAP item 16).
+``"cuda"`` written as the JAX package's ``"tpu"`` and read back.  The
+serving plane (serve/, ROADMAP item 16b) reads the same
+breaker at admission and sheds card-bound jobs while it is open
+(serve/scheduler.py).
 
 ``HOST_STAGINGS`` counts the kets that pass through the host, and their
 amplitudes: a whole ket when the width crosses the threshold

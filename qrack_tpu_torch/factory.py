@@ -98,6 +98,21 @@ _HOST_TERMINALS = {"cpu", "sparse"}
 #: armed (the JAX package's accelerator terminals, "tpu" renamed)
 _ACCEL_TERMINALS = {"cuda", "pager", "turboquant", "turboquant_pager"}
 
+
+def touches_accelerator(layers: Union[str, Sequence[str]]) -> bool:
+    """True when a layer spec's terminal dispatches on the card (directly,
+    or through QHybrid's width switch).  The serving plane classifies
+    sessions with it for breaker-aware load shedding before an engine
+    exists; a live session is classified by its actual engine
+    (serve/session.py ``engine_touches_tunnel``)."""
+    if isinstance(layers, str):
+        if layers in ("optimal", "optimal_multi"):
+            return True  # OPTIMAL terminates in "hybrid"
+        layers = (layers,)
+    term = layers[-1] if layers else ""
+    return term in _ACCEL_TERMINALS or term == "hybrid"
+
+
 #: layers of the JAX package's factory that the port lacks, with the
 #: ROADMAP item that brings each
 _NOT_PORTED = {

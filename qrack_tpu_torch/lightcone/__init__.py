@@ -17,7 +17,7 @@ Wired as a first-class ladder rung: ``route/cost.py`` prices it by the
 circuit's maximum single-qubit cone width (``features.py``
 ``max_cone_width``), the factory exposes terminal ``"lightcone"``,
 :func:`sliced_shape_key` is the serving plane's shape key for lightcone
-jobs (the serving plane is ROADMAP item 16b), and checkpoint kind
+jobs (serve/service.py, ROADMAP item 16b), and checkpoint kind
 ``"lightcone"`` round-trips the buffered circuit plus any materialized
 cone kets bit-identically, across both packages.
 """

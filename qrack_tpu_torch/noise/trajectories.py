@@ -28,8 +28,9 @@ counterpart (torch has no trace to cache).  With the resilience plane
 armed (resilience/), each batched window is one guarded dispatch at the
 gate fuser's site ``cuda.fuse.flush`` (its in-place writes to the
 batch watched), and the host-side branch sampling checks the fault site
-``noise.sample``.  Still to come: the serving entry
-(``submit_trajectories``) and its write-ahead replay (ROADMAP item 16).
+``noise.sample``.  The serving entry is serve/service.py
+``submit_trajectories``, with its write-ahead replay at ``recover``
+(ROADMAP item 16b).
 
 Memory: a chunk of C trajectories of width w holds C · 2^w amplitudes
 of planes, and the body allocates its results and temporaries beside

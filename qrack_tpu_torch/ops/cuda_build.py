@@ -11,6 +11,13 @@ library; :func:`build_log` reads it back and :func:`ptxas_report` parses
 registers and spills per kernel from it.  With telemetry on, each
 library a build asks for counts ``compile.kernel.<library>.hit`` when it
 is found built in ``_build/`` and ``.miss`` when nvcc compiles it.
+
+:func:`set_build_dir` moves the build directory (the serving plane's warm
+start points it into its checkpoint store, checkpoint/warmstart.py);
+``QRACK_TPU_KERNEL_CACHE`` does the same for a process and the processes
+it starts, where nothing set one.  :func:`build_dir` is read at every
+build and load, so a move applies to every library this process has not
+loaded yet.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 from .. import telemetry as _tele
 
@@ -35,6 +42,22 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded: Dict[Path, ctypes.CDLL] = {}
+_BUILD_OVERRIDE: Optional[Path] = None
+
+
+def set_build_dir(path) -> None:
+    """Build and load the kernel libraries under `path` from now on
+    (``None``: back to ``BUILD_DIR``)."""
+    global _BUILD_OVERRIDE
+    _BUILD_OVERRIDE = None if path is None else Path(path)
+
+
+def build_dir() -> Path:
+    """Where the kernel libraries are built and looked for."""
+    if _BUILD_OVERRIDE is not None:
+        return _BUILD_OVERRIDE
+    env = os.environ.get("QRACK_TPU_KERNEL_CACHE", "")
+    return Path(env) if env else BUILD_DIR
 
 
 def nvcc() -> str:
@@ -51,7 +74,7 @@ def nvcc() -> str:
 def library_path(source: Path) -> Path:
     key = hashlib.sha256(Path(source).read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{Path(source).stem}_{key}.so"
+    return build_dir() / f"{Path(source).stem}_{key}.so"
 
 
 def log_path(source: Path) -> Path:
@@ -72,7 +95,7 @@ def build(sources: Sequence[Path]) -> None:
             todo.append(s)
     if not todo:
         return
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     procs = []
     for src in todo:
         out = library_path(src)

@@ -65,7 +65,8 @@ are spares).  Checkpoints (checkpoint/registry.py, kind ``"pager"``):
 the raw physical pages as complex128 ``page_i`` arrays, as the file
 format requires (twice the float32 planes' bytes), with the placement
 table in the meta; a file saved on one page count loads into another.
-Not here yet: the serving executor's call-boundary probe (item 16).
+The serving executor probes a degraded pager at every job boundary
+(serve/executor.py ``_prepare``, ROADMAP item 16b).
 
 Pages in several processes (parallel/cluster.py): built over the
 cluster's page homes, ``QPager(n, devices=cluster.global_page_devices(

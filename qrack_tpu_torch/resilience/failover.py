@@ -219,6 +219,16 @@ def _fallback_candidates(engine, failover_cpu: bool = False):
         yield "cpu", lambda rng: _to_cpu(engine, rng)
 
 
+def has_fallback(engine, cause: Optional[BaseException] = None,
+                 failover_cpu: bool = False) -> bool:
+    """Whether :func:`fail_over_engine` has a rung to try below `engine`
+    (a torn cause has none).  Builds nothing: the candidates are lazy."""
+    if getattr(cause, "torn", False):
+        return False
+    return next(iter(_fallback_candidates(engine, failover_cpu)),
+                None) is not None
+
+
 def fail_over_engine(engine, cause: Optional[BaseException] = None,
                      failover_cpu: bool = False):
     """Return the next engine down the chain, holding `engine`'s ket.

@@ -31,10 +31,9 @@ refuses to re-expand onto it.
 Specs are validated at parse time against :data:`SITES` and
 :data:`KINDS`: an unknown site or kind raises ValueError listing the
 valid values.  A site of the JAX package whose module the port lacks
-(the serving, prefix-cache, light-cone and fleet sites, and the JAX
-dense engine's ``tpu.*`` names) raises ValueError naming the ROADMAP
-item that brings it (:data:`NOT_PORTED`): a spec that can never fire
-must not pass silently.
+(the fleet sites, and the JAX dense engine's ``tpu.*`` names) raises
+ValueError naming the ROADMAP item that brings it (:data:`NOT_PORTED`):
+a spec that can never fire must not pass silently.
 
 Every kind except ``amp-corrupt`` fires at SITE ENTRY, before the
 guarded callable runs, so nothing has been written when it raises and
@@ -84,6 +83,10 @@ SITES = (
     # each light-cone read before it slices the buffer
     # (lightcone/engine.py _slice) — checked directly
     "lightcone.slice",
+    # the serving plane: each batched dispatch, its honest sync, and the
+    # prefix materialization (checked directly; amp-corrupt strikes the
+    # copy that would be cached) — serve/batcher.py, serve/executor.py
+    "serve.dispatch", "serve.device_get", "prefix.materialize",
 )
 # bare last-segment categories that match the site family on any engine
 CATEGORIES = ("discover", "compile", "dispatch", "device_get", "exchange",
@@ -98,13 +101,9 @@ NOT_PORTED = {
                       "(cuda.device_get)",
     "tpu.fuse.flush": "the port's dense engine sites are 'cuda.*' "
                       "(cuda.fuse.flush)",
-    "serve.dispatch": "ROADMAP item 16 (serve/)",
-    "serve.device_get": "ROADMAP item 16 (serve/)",
-    "prefix.materialize": "ROADMAP item 16 (serve/executor.py's prefix "
-                          "cache)",
-    "fleet.worker": "ROADMAP item 16 (fleet/)",
-    "fleet.heartbeat": "ROADMAP item 16 (fleet/)",
-    "fleet.spawn": "ROADMAP item 16 (fleet/)",
+    "fleet.worker": "ROADMAP item 16c (fleet/)",
+    "fleet.heartbeat": "ROADMAP item 16c (fleet/)",
+    "fleet.spawn": "ROADMAP item 16c (fleet/)",
 }
 
 

@@ -67,8 +67,9 @@ plane even when resilience is active), ``QRACK_TPU_INTEGRITY_TOL``
 Telemetry: ``integrity.violation`` events (site/reason/attempt),
 ``integrity.replay.repaired`` / ``integrity.replay.giveup``,
 ``integrity.quarantine.strike`` / ``integrity.quarantine.device`` and
-the ``integrity.quarantined`` gauge.  The serving canary that feeds the
-same strike table comes with ROADMAP item 16.
+the ``integrity.quarantined`` gauge.  The serving canary
+(serve/canary.py, ROADMAP item 16b) feeds the same strike
+table.
 """
 
 from __future__ import annotations

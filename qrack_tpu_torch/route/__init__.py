@@ -23,10 +23,18 @@ from .router import (MisrouteError, QRouted, RouteDecision, decide,
                      update_residency)
 
 
+def admit(engine, circuit) -> RouteDecision:
+    """The submit-side admission step: record the routing decision the
+    circuit implies on a routed engine (pure host work, safe on the
+    caller's thread; the serving executor realizes it through
+    ``apply_plan``).  Raises :class:`MisrouteError` when the circuit
+    needs dense and the width cannot escalate."""
+    return engine.plan(circuit)
+
 __all__ = [
     "CircuitFeatures", "extract_features",
     "RouteKnobs", "route_mode", "score_stacks", "choose_stack",
     "layers_for", "default_stack", "STACKS", "INFEASIBLE",
     "QRouted", "RouteDecision", "MisrouteError", "decide",
-    "update_residency",
+    "update_residency", "admit",
 ]

@@ -43,8 +43,9 @@ once (``cuda`` unless the caller passes ``device="cpu"``, raising where
 there is no GPU), though it still builds no stack; a checkpoint's
 ``meta["layers"]`` names the dense terminal ``"tpu"``, as the JAX
 package writes it, and reads it back as ``"cuda"``.  The serving plane
-that splits plan and apply across threads is not ported yet (ROADMAP
-item 16b); the library path (``route_for``) does both.
+splits plan and apply across threads (serve/service.py ``submit``
+plans through ``route.admit``, serve/executor.py applies); the library
+path (``route_for``) does both.
 """
 
 from __future__ import annotations
@@ -187,6 +188,22 @@ class QRouted:
     def current_stack(self) -> Optional[str]:
         d = self._decision
         return d.stack if d is not None else None
+
+    def plans_dense(self) -> bool:
+        with self._lock:
+            d = self._pending or self._decision
+        return d is not None and d.stack == "dense"
+
+    def plans_lightcone(self) -> bool:
+        with self._lock:
+            d = self._pending or self._decision
+        return d is not None and d.stack == "lightcone"
+
+    def note_job(self) -> None:
+        """Count a served circuit job under the stack that runs it
+        (``route.jobs.<stack>``; serve/executor.py)."""
+        if _tele._ENABLED:
+            _tele.inc(f"route.jobs.{self.current_stack() or 'pending'}")
 
     def _knobs(self) -> "_cost.RouteKnobs":
         """The env knobs, priced against this wrapper's device."""

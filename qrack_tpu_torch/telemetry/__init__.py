@@ -61,11 +61,16 @@ mode in ``hybrid.switch.*``/``hybrid.grow.*``.  The hooks of the port:
 * ``qunit.*``, ``qunitmulti.redistribute``, ``stabilizer.to_dense``,
   ``qbdt.to_dense``, ``hybrid.switch.*``, ``hybrid.grow.*``,
   ``noise.traj.*``, ``factory.create.*``, ``checkpoint.save``/``restore``;
+* ``serve.*`` (jobs, queue, batches, overlap, prefix cache, sessions,
+  latency histograms by tenant and stack), ``integrity.canary.*`` and
+  ``checkpoint.warmstart.*`` — the serving plane (serve/);
 * ``compile.kernel.<library>.{hit,miss}`` — a kernel library found built
-  in ``_build/`` or compiled by nvcc (ops/cuda_build.py).  Torch traces
-  nothing, so the JAX package's jit and program-cache counters
-  (``compile.<program>.*``) have no counterpart, and neither has its
-  ``ProgramCache``: no port module keeps built callables by structure;
+  in the build directory or compiled by nvcc (ops/cuda_build.py);
+* ``compile.<name>.{hit,miss,eviction}`` — :class:`ProgramCache`, whose
+  one user is the serving batcher (``compile.serve_batch.*``: a cached
+  fold program is the lowered ops, the packed operands and the window
+  fn, serve/batcher.py).  Torch traces nothing, so the JAX package's
+  per-jit counters (``instrument_jit``) have no counterpart;
 * ``roofline.<site>.*`` — roofline.py.
 """
 
@@ -74,7 +79,7 @@ from __future__ import annotations
 import os
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Deque, Dict, List, Optional
 
 from .histogram import Histogram
@@ -85,7 +90,7 @@ __all__ = [
     "snapshot", "merge_snapshots", "reset", "write_jsonl", "chrome_trace",
     "write_chrome_trace", "merged_chrome_trace",
     "write_merged_chrome_trace", "local_trace_source", "profiler_bracket",
-    "Histogram", "FlightRecorder", "read_blackbox",
+    "Histogram", "FlightRecorder", "read_blackbox", "ProgramCache",
 ]
 
 # single hot-path gate: instrumentation sites read this module attribute
@@ -347,6 +352,67 @@ def record_span(name: str, start_s: float, dur_s: float,
     if trace is not None:
         entry["trace"] = trace
     _append_trace(entry, dur_s)
+
+
+# ---------------------------------------------------------------------------
+# program cache
+# ---------------------------------------------------------------------------
+
+class ProgramCache:
+    """Bounded LRU of built programs with hit/miss/eviction stats (the
+    JAX package's, less its mesh tokens: the port keys no program by a
+    mesh).  Stats are kept unconditionally (they are O(1) ints); the
+    telemetry counters mirror them only while telemetry is enabled."""
+
+    def __init__(self, name: str, cap: Optional[int] = None,
+                 cap_env: str = "QRACK_TPU_PROGRAM_CACHE_CAP",
+                 default_cap: int = 256):
+        if cap is None:
+            cap = int(os.environ.get(cap_env, str(default_cap)))
+        self.name = name
+        self.cap = max(1, cap)
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self._od: "OrderedDict" = OrderedDict()
+        self._lock = threading.Lock()
+
+    def get_or_build(self, key, builder):
+        with self._lock:
+            fn = self._od.get(key)
+            if fn is not None:
+                self._od.move_to_end(key)
+                self.hits += 1
+                if _ENABLED:
+                    inc(f"compile.{self.name}.hit")
+                return fn
+        fn = builder()  # build outside the lock
+        with self._lock:
+            self._od[key] = fn
+            self._od.move_to_end(key)
+            self.misses += 1
+            if _ENABLED:
+                inc(f"compile.{self.name}.miss")
+            while len(self._od) > self.cap:
+                self._od.popitem(last=False)
+                self.evictions += 1
+                if _ENABLED:
+                    inc(f"compile.{self.name}.eviction")
+        return fn
+
+    def stats(self) -> dict:
+        return {"size": len(self._od), "cap": self.cap, "hits": self.hits,
+                "misses": self.misses, "evictions": self.evictions}
+
+    def __len__(self) -> int:
+        return len(self._od)
+
+    def __contains__(self, key) -> bool:
+        return key in self._od
+
+    def clear(self) -> None:
+        with self._lock:
+            self._od.clear()
 
 
 # ---------------------------------------------------------------------------

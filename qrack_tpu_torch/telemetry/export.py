@@ -28,10 +28,15 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import time
 from typing import Optional
 
 _US = 1e6
 _ATEXIT_ARMED = False
+# host seconds left between the profiler's capture window and the first
+# and last device work of a bracket: the profiler drops a kernel whose
+# converted device timestamps fall outside its window
+_PROFILE_EDGE_S = 0.01
 
 
 def write_jsonl(path: Optional[str] = None) -> str:
@@ -219,7 +224,9 @@ def profiler_bracket(logdir: Optional[str] = None, name: str = "telemetry"):
     write its Chrome trace to ``<logdir>/<name>.<pid>.trace.json``;
     otherwise a pass-through that yields None and touches nothing.
     Yields the trace's path.  CUDA activity (each kernel, by name) is
-    traced where a CUDA device exists."""
+    traced where a CUDA device exists; there the region is synchronized
+    on exit, and _PROFILE_EDGE_S of host time pads the window at both
+    ends, so the kernels at its edges stay inside it."""
     from . import _ENABLED, event
 
     if logdir is None:
@@ -234,7 +241,13 @@ def profiler_bracket(logdir: Optional[str] = None, name: str = "telemetry"):
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
     path = os.path.join(logdir, f"{name}.{os.getpid()}.trace.json")
+    cuda = torch.cuda.is_available()
     with torch.profiler.profile(activities=acts) as prof:
+        if cuda:
+            time.sleep(_PROFILE_EDGE_S)
         yield path
+        if cuda:
+            torch.cuda.synchronize()
+            time.sleep(_PROFILE_EDGE_S)
     prof.export_chrome_trace(path)
     event("telemetry.profiler.dump", path=path, region=name)

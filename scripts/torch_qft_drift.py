@@ -1,9 +1,11 @@
 """Does a tree's code move the dense w30 QFT wall between chip_smoke.py's
-phase 4 and phases 37-38?  Phases 37 and 38 hold the disabled-telemetry
-and plane-off w30 engine QFT to at most 2% above phase 4's warm walls,
-taken ten minutes earlier in a full run.  This script runs, for each
-tree given (a checkout of the repo, the port's package and its
-chip_smoke.py), on one CUDA card:
+phase 4 and phases 37-38, or does the card?  Phases 37 and 38 hold the
+disabled-telemetry and plane-off w30 engine QFT to at most 2% above a
+reference taken in the same seconds (chip_smoke.against_reference),
+and print the difference to phase 4's warm walls, taken ten minutes
+earlier in a full run.  This script runs, for each tree given (a
+checkout of the repo, the port's package and its chip_smoke.py), on one
+CUDA card:
 
 1. a phase-4 reference: three engine QFTs on a fresh w30 engine, the
    last two kept (phase 4's ``engine_qft_ms[1:]``), which becomes the
@@ -17,8 +19,10 @@ Each tree runs in a process of its own, in the order given, so
 ``python3 scripts/torch_qft_drift.py PARENT . . PARENT`` alternates a
 parent checkout and this one.  One JSON line a run, ``DRIFT {...}``:
 the references before and after, phase 37's disabled and phase 38's
-plane-off walls with their ratio to the first reference, and the bars'
-outcome.  It imports nothing of JAX.
+plane-off walls with their ratio to the first reference and to the
+phase's own reference where the tree's phases take one, the bars'
+outcome, and the card's SM clock, temperature and power draw before
+and after as nvidia-smi reads them.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -43,6 +47,15 @@ def _reference(cs) -> list:
     del q
     cs.release()
     return walls[1:]
+
+
+def _clocks() -> str:
+    """The card's SM and memory clocks, temperature and power draw."""
+    got = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,temperature.gpu,"
+         "power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True)
+    return (got.stdout or got.stderr).strip()
 
 
 def run_one(tree: str) -> dict:
@@ -72,6 +85,7 @@ def run_one(tree: str) -> dict:
     wk.load_library()
     tqk.load_library()
     t0 = time.time()
+    clocks_before = _clocks()
     before = _reference(cs)
     cs.PHASE4_WARM[:] = before
     probe = cs.PageProbe(wk, cs.PAGER_SEED, cs.PAGER_HELD)
@@ -92,19 +106,27 @@ def run_one(tree: str) -> dict:
         except AssertionError as e:
             bars[name] = str(e)
     after = _reference(cs)
+    clocks_after = _clocks()
     ref = float(np.median(before))
     out = {"tree": tree, "card": card, "ref_before_ms": before,
            "ref_after_ms": after,
            "after_rel": float(np.median(after)) / ref - 1.0, "bars": bars,
-           "seconds": time.time() - t0}
+           "seconds": time.time() - t0, "clocks_before": clocks_before,
+           "clocks_after": clocks_after}
     for o in seen:
         if o.get("phase") == "telemetry":
             out["phase37_disabled_ms"] = o["disabled_ms"]
             out["phase37_rel"] = o["disabled_median_ms"] / ref - 1.0
+            if "disabled_rel" in o:
+                out["phase37_reference_ms"] = o["reference_ms"]
+                out["phase37_rel_same_seconds"] = o["disabled_rel"]
         if o.get("phase") == "resilience":
             out["phase38_off_ms"] = o["off"]["off_ms"]
             off = float(np.median(o["off"]["off_ms"]))
             out["phase38_rel"] = off / ref - 1.0
+            if "off_rel" in o["off"]:
+                out["phase38_reference_ms"] = o["off"]["reference_ms"]
+                out["phase38_rel_same_seconds"] = o["off"]["off_rel"]
     return out
 
 

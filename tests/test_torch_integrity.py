@@ -9,15 +9,10 @@ both packages, the final kets at fidelity > 1 - 1e-6 to each other and
 to the CPU oracle, the resilience-family counters and events name for
 name after the ``tpu`` -> ``cuda`` rename, but for BY_DESIGN.
 
-Left out, with where they are held or the ROADMAP item that brings
-them:
-
-* ``test_persist_rejects_poisoned_snapshot`` — held with the rest of the
-  failover snapshot file in tests/test_torch_checkpoint.py;
-* ``test_pre_dispatch_shed_of_budget_expired_jobs`` and the canary tests
-  (``test_canary_off_by_default``,
-  ``test_canary_samples_and_verifies_clean_jobs``,
-  ``test_canary_mismatch_strikes_devices``) — the serving plane (item 16).
+The serving plane's pre-dispatch shed and canary tests run one service
+of each package (the port's dense sessions on the CPU).
+``test_persist_rejects_poisoned_snapshot`` is held with the rest of the
+failover snapshot file in tests/test_torch_checkpoint.py.
 
 Engines are built AFTER the plane is armed: the forced window-1 fuser
 (the repair envelope for eager dispatch) only builds when the layer is
@@ -447,3 +442,123 @@ def test_integrity_soak_parity(trial):
     got = _both(case, env={"QRACK_TPU_FUSE_WINDOW": str(window)},
                 skip=("host_fetch",))
     assert got["jax"]["fired"] == got["torch"]["fired"]
+
+
+# ---------------------------------------------------------------------------
+# serve: pre-dispatch shed + canary verification (ROADMAP item 16b)
+# ---------------------------------------------------------------------------
+
+def _services():
+    from qrack_tpu.models.qft import qft_qcircuit as j_qft
+    from qrack_tpu.serve import QrackService as JService
+    from qrack_tpu_torch.models.qft import qft_qcircuit as t_qft
+    from qrack_tpu_torch.serve import QrackService as TService
+
+    return (("jax", JService, j_qft, {"layers": "tpu"}),
+            ("port", lambda **kw: TService(device="cpu", **kw), t_qft,
+             {"layers": "cuda"}))
+
+
+def test_pre_dispatch_shed_of_budget_expired_jobs():
+    """A batchable job popped young and held by the batch window past
+    its budget is shed at dispatch, not executed stale, on both."""
+    from qrack_tpu import telemetry as jtele
+    from qrack_tpu.serve.errors import QueueBudgetExceeded as JExpired
+    from qrack_tpu_torch import telemetry as ttele
+    from qrack_tpu_torch.serve.errors import QueueBudgetExceeded as TExpired
+
+    for (name, Service, qft, dense), t, expired in zip(
+            _services(), (jtele, ttele), (JExpired, TExpired)):
+        t.enable()
+        t.reset()
+        svc = Service(max_batch=2, batch_window_ms=150.0,
+                      queue_budget_ms=30.0, tick_s=30.0)
+        try:
+            sid = svc.create_session(4, seed=1, **dense)
+            h = svc.submit(sid, qft(4))
+            with pytest.raises(expired):
+                h.result(timeout=30)
+            assert t.snapshot()["counters"].get(
+                "serve.shed.pre_dispatch", 0) >= 1, name
+        finally:
+            svc.close()
+            t.disable()
+            t.reset()
+
+
+def test_canary_off_by_default():
+    assert os.environ.get("QRACK_SERVE_CANARY_RATE") in (None, "", "0")
+    for _name, Service, _qft, _dense in _services():
+        svc = Service(tick_s=30.0)
+        try:
+            assert svc.canary is None
+        finally:
+            svc.close()
+
+
+def test_canary_samples_and_verifies_clean_jobs(monkeypatch):
+    """At rate 1, host and dense sessions both verify clean against the
+    oracle replay (the port's dense session on the CPU)."""
+    monkeypatch.setenv("QRACK_SERVE_CANARY_RATE", "1.0")
+    for _name, Service, qft, dense in _services():
+        svc = Service(batch_window_ms=5.0, tick_s=30.0)
+        try:
+            for layers in ("cpu", dense["layers"]):
+                sid = svc.create_session(4, layers=layers, seed=1)
+                for _ in range(3):
+                    svc.submit(sid, qft(4)).result(timeout=60)
+            svc.canary.drain()
+            assert svc.canary.checked >= 2
+            assert svc.canary.mismatches == 0
+        finally:
+            svc.close()
+
+
+def test_canary_mismatch_strikes_devices():
+    """A served result that disagrees with the oracle replay feeds one
+    quarantine strike per listed device, on both packages; a clean
+    post-state verifies without a strike."""
+    from qrack_tpu import QEngineCPU as JCPU
+    from qrack_tpu.models.qft import qft_qcircuit as j_qft
+    from qrack_tpu.serve.canary import CanaryVerifier as JCanary
+    from qrack_tpu_torch.models.qft import qft_qcircuit as t_qft
+    from qrack_tpu_torch.serve.canary import CanaryVerifier as TCanary
+
+    width = 3
+    gen = np.random.Generator(np.random.PCG64(5))
+    pre = gen.normal(size=1 << width) + 1j * gen.normal(size=1 << width)
+    pre /= np.linalg.norm(pre)
+    oracle = JCPU(width)
+    oracle.SetQuantumState(pre)
+    j_qft(width).Run(oracle)
+    doctored = gen.normal(size=1 << width) \
+        + 1j * gen.normal(size=1 << width)
+    post = doctored / np.linalg.norm(doctored)
+    for Canary, qft, mod in ((JCanary, j_qft, jinteg),
+                             (TCanary, t_qft, integ)):
+        cv = Canary(rate=1.0)
+        cv._verify(0, width, qft(width), pre, post, devs=[5, 6])
+        assert cv.checked == 1 and cv.mismatches == 1
+        assert mod.strikes().get(5) == 1 and mod.strikes().get(6) == 1
+        cv._verify(0, width, qft(width), pre,
+                   np.asarray(oracle.GetQuantumState()), devs=[5])
+        assert cv.checked == 2 and cv.mismatches == 1
+        assert mod.strikes().get(5) == 1
+
+
+def test_canary_strikes_a_dense_engines_card():
+    """The port strikes a dense engine's card (GetDevice) where its
+    device list is empty (tests/test_torch_serve.py BY_DESIGN
+    ``canary_card_strike``); the CPU is never struck."""
+    import types
+
+    from qrack_tpu_torch.serve.canary import CanaryVerifier
+
+    eng = qt.create_quantum_interface("cuda", 3, device="cpu")
+    assert CanaryVerifier._device_ids(eng) == []
+    card = types.SimpleNamespace(GetDeviceList=lambda: [],
+                                 GetDevice=lambda: 0)
+    assert CanaryVerifier._device_ids(card) == [0]
+    paged = types.SimpleNamespace(GetDeviceList=lambda: [0, 0, 1],
+                                  GetDevice=lambda: 0)
+    assert CanaryVerifier._device_ids(paged) == [0, 0, 1]

@@ -135,6 +135,14 @@ lc = qt.create_quantum_interface("lightcone", 12, device="cpu")
 lc.H(0)
 lc.CNOT(0, 11)
 assert abs(lc.Prob(11) - 0.5) < 1e-6
+from qrack_tpu_torch.serve import QrackService
+with QrackService(engine_layers="cuda", device="cpu", batch_window_ms=50.0,
+                  tick_s=0.02, checkpoint_dir=sys.argv[1] + ".serve") as svc:
+    sids = [svc.create_session(5, seed=k) for k in range(2)]
+    for h in [svc.submit(s, qft_qcircuit(5)) for s in sids]:
+        h.result(60)
+    assert 0.0 <= svc.prob(sids[0], 0) <= 1.0
+    assert svc.prewarm() >= 1
 print(sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "qrack_tpu")
              or m.startswith(("jax.", "jaxlib.", "qrack_tpu."))))
@@ -173,6 +181,21 @@ def test_default_device_needs_a_gpu(monkeypatch):
         qt.QEngineCUDA(3)
     q = qt.create_quantum_interface("cuda", 3, device="cpu")
     assert q.device.type == "cpu"
+
+
+def test_service_default_device_needs_a_gpu(monkeypatch):
+    """A service whose sessions would land on the card refuses to start
+    without one unless given device="cpu"; host layers need no device."""
+    from qrack_tpu_torch.serve import QrackService
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        QrackService(engine_layers="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        QrackService(engine_layers="route")
+    for kw in ({"engine_layers": "cuda", "device": "cpu"},
+               {"engine_layers": "cpu"}):
+        QrackService(tick_s=0.02, **kw).close()
 
 
 def test_pager_default_device_needs_a_gpu(monkeypatch):

@@ -1,6 +1,6 @@
 """The port's light-cone engine (qrack_tpu_torch/lightcone) against the
-JAX package's, on the CPU: the counterparts of the 15 tests of
-tests/test_lightcone.py that need no serving plane.
+JAX package's, on the CPU: the counterparts of 17 tests of
+tests/test_lightcone.py.
 
 * ``compact_over`` and ``sliced_shape_key`` give the same cone orders,
   gate lists and digests as the JAX functions on the same circuits.
@@ -17,9 +17,10 @@ tests/test_lightcone.py that need no serving plane.
 * Lightcone checkpoint files cross the two packages both ways, their
   warm cones cache hits on the other side.
 
-Left for the serving plane (ROADMAP item 16b):
+With the serving plane (ROADMAP item 16b):
 ``test_lightcone_session_checkpoint_roundtrip_serve_recover`` and
-``test_service_w50_shallow_next_to_dense`` (they need serve/);
+``test_service_w50_shallow_next_to_dense`` run a routed service of each
+package, the port's on the CPU.
 ``test_telemetry_report_lightcone_section`` reads the JAX tool
 scripts/telemetry_report.py.
 """
@@ -467,3 +468,86 @@ def test_lightcone_slice_fault_surfaces_typed():
     finally:
         tfaults.clear()
     assert abs(lc.Prob(0) - 0.5) < 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the serving plane (ROADMAP item 16b)
+# ---------------------------------------------------------------------------
+
+def _service(pkg, **kw):
+    if pkg == "port":
+        from qrack_tpu_torch.serve import QrackService
+
+        return QrackService(engine_layers="route", device="cpu", **kw)
+    from qrack_tpu.serve import QrackService
+
+    return QrackService(engine_layers="route", **kw)
+
+
+def test_lightcone_session_checkpoint_roundtrip_serve_recover(
+        monkeypatch, tmp_path):
+    monkeypatch.setenv("QRACK_ROUTE", "lightcone")
+    n = 10
+    states = {}
+    for pkg, alg in (("jax", jalg), ("port", talg)):
+        ck = str(tmp_path / pkg / "ck")
+        a = _service(pkg, checkpoint_dir=ck, batch_window_ms=5.0,
+                     tick_s=0.02)
+        try:
+            sid = a.create_session(n, seed=5, rand_global_phase=False)
+            a.apply(sid, alg.brickwork_qcircuit(n), timeout=120)
+            assert a.drain() == {"drained": [sid], "busy": []}
+            with _service(pkg, checkpoint_dir=ck, recover=True,
+                          batch_window_ms=5.0, tick_s=0.02) as b:
+                assert sid in b.sessions.ids()
+                states[pkg] = b.get_state(sid, timeout=120)
+                assert b.sessions.get(sid).engine.current_stack() == \
+                    "lightcone"
+        finally:
+            a.close()
+    oracle = QEngineCPU(n, rng=JaxRandom(5), rand_global_phase=False)
+    jalg.brickwork_qcircuit(n).Run(oracle)
+    assert _fidelity(oracle.GetQuantumState(), states["port"]) > 1 - 1e-5
+    assert _fidelity(states["jax"], states["port"]) > 1 - 1e-5
+
+
+def test_service_w50_shallow_next_to_dense(telemetry, monkeypatch):
+    from qrack_tpu.route.router import MisrouteError as JMisrouteError
+
+    from qrack_tpu.models.qft import qft_qcircuit as j_qft
+    from qrack_tpu_torch.models.qft import qft_qcircuit as t_qft
+
+    probs = {}
+    for pkg, alg, qft, misroute in (("jax", jalg, j_qft, JMisrouteError),
+                                    ("port", talg, t_qft, MisrouteError)):
+        monkeypatch.delenv("QRACK_ROUTE", raising=False)
+        svc = _service(pkg, batch_window_ms=1.0, queue_budget_ms=120_000.0)
+        try:
+            wide = svc.create_session(50, seed=1)
+            dense = svc.create_session(16, seed=2)
+            h1 = svc.submit(wide, alg.brickwork_qcircuit(50))
+            h2 = svc.submit(dense, qft(16))
+            h1.result(timeout=300)
+            h2.result(timeout=300)
+            stacks = [svc.call(s, lambda eng: eng.current_stack(),
+                               mutates=False).result(timeout=60)
+                      for s in (wide, dense)]
+            assert stacks == ["lightcone", "dense"]
+            probs[pkg] = [svc.call(wide, lambda eng, q=q: eng.Prob(q),
+                                   mutates=False).result(timeout=120)
+                          for q in (0, 25, 49)]
+            monkeypatch.setenv("QRACK_ROUTE", "dense")
+            pinned = svc.create_session(50, seed=3)
+            with pytest.raises(misroute, match="exceeds the dense ladder"):
+                svc.submit(pinned, alg.brickwork_qcircuit(50))
+            assert abs(svc.prob(dense, 0, timeout=120) - 0.5) < 1e-3
+        finally:
+            svc.close()
+    for q, pj, pp in zip((0, 25, 49), probs["jax"], probs["port"]):
+        want = math.sin(talg.brickwork_theta(q) / 2.0) ** 2
+        assert abs(pp - want) < 1e-6 and abs(pp - pj) < PROB_BAR
+    for snap in (ttele.snapshot(), jtele.snapshot()):
+        assert snap["counters"]["route.jobs.lightcone"] >= 1
+        assert snap["counters"]["route.jobs.dense"] >= 1
+    port, ref = _lc_counters()
+    assert port == ref

@@ -1,6 +1,7 @@
 """The port's roofline ledger and perf sentinel (qrack_tpu_torch/telemetry
-roofline.py and sentinel.py): the counterparts of tests/test_roofline.py
-that need no serve plane, with the NVIDIA peak table.
+roofline.py and sentinel.py): the counterparts of tests/test_roofline.py,
+with the NVIDIA peak table; its two serving tests run the port's service
+alone (this file imports nothing of JAX).
 
 The JAX package's sentinel is stdlib-only, so it is loaded here by file
 path (no JAX import) and the shared formulas and verdicts are held to it
@@ -333,3 +334,44 @@ def test_roofline_gauges_export_as_counter_tracks():
     cs = [e for e in merged["traceEvents"]
           if e["ph"] == "C" and e["name"] == "roofline.unit.trace.peak_frac"]
     assert len(cs) == 1 and cs[0]["pid"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the serving plane (ROADMAP item 16b): its dispatch in the ledger, its
+# store's fingerprint
+# ---------------------------------------------------------------------------
+
+def test_serve_dispatch_records_roofline():
+    """A batched job's honest sync records the serve.dispatch sample:
+    planned bytes by the JAX package's per-gate model (one plane pass a
+    gate a job), beside the wall."""
+    from qrack_tpu_torch.models.qft import qft_qcircuit
+    from qrack_tpu_torch.serve import QrackService
+
+    tele.enable()
+    with QrackService(engine_layers="cuda", device="cpu",
+                      batch_window_ms=2.0, tick_s=0.02) as svc:
+        sid = svc.create_session(6, seed=7)
+        svc.apply(sid, qft_qcircuit(6), timeout=60)
+    snap = tele.snapshot(include_events=False)
+    c = snap["counters"]
+    assert c["roofline.serve.dispatch.dispatches"] >= 1
+    gates = len(qft_qcircuit(6).gates)
+    assert c["roofline.serve.dispatch.planned_bytes"] == \
+        gates * sentinel.plane_pass_bytes(6) * \
+        c["roofline.serve.dispatch.dispatches"]
+    assert "roofline.serve.dispatch.implied_hbm_gbps" in snap["hists"]
+
+
+def test_service_persists_fingerprint(tmp_path, monkeypatch):
+    monkeypatch.setenv("QRACK_TPU_DEVICE_KIND", H100)
+    roofline._reset_fingerprint_cache()
+    from qrack_tpu_torch.serve import QrackService
+
+    with QrackService(engine_layers="cpu",
+                      checkpoint_dir=str(tmp_path)) as svc:
+        sid = svc.create_session(4, seed=1)
+        svc.destroy_session(sid)
+    fp = roofline.load_fingerprint(str(tmp_path))
+    assert fp is not None and fp["kind"] == H100
+    assert os.path.isdir(tmp_path / "kernel_cache")

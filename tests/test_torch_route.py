@@ -1,6 +1,6 @@
 """The port's router (qrack_tpu_torch/route: features, cost model,
 QRouted) against the JAX package's, on the CPU: the counterparts of the
-19 tests of tests/test_route.py that need no serving plane.
+21 tests of tests/test_route.py.
 
 * Features and scores equal the JAX package's exactly (``as_dict`` and
   every score, INFEASIBLE included); decisions are exact, the dense
@@ -16,9 +16,10 @@ QRouted) against the JAX package's, on the CPU: the counterparts of the
 * Both packages fall back to a 16 GiB budget on the CPU; every test pins
   QRACK_ROUTE_HBM_BYTES to it so no probe can move a decision.
 
-Left for the serving plane (ROADMAP item 16b):
+With the serving plane (ROADMAP item 16b):
 ``test_service_w100_clifford_next_to_dense_w22`` and
-``test_service_route_opt_out_pins_dense`` (they need serve/);
+``test_service_route_opt_out_pins_dense`` run one routed service of
+each package, the port's on the CPU.
 ``test_telemetry_report_routing_section`` reads the JAX tool
 scripts/telemetry_report.py.  The JAX soak (slow-marked, 40 trials) is
 ported as three unmarked trials.
@@ -575,3 +576,78 @@ def test_routed_vs_dense_fuzz_soak(trial):
     assert _fidelity(d.GetQuantumState(), a) > 1 - FID_BAR
     assert _fidelity(jd.GetQuantumState(), a) > 1 - FID_BAR, \
         (trial, r.current_stack())
+
+
+# ---------------------------------------------------------------------------
+# one service, two representations (the serving plane, ROADMAP item 16b)
+# ---------------------------------------------------------------------------
+
+def _services():
+    """(port, JAX) routed services; the port's stacks on the CPU."""
+    from qrack_tpu.serve import QrackService as JService
+    from qrack_tpu_torch.serve import QrackService as TService
+
+    kw = dict(engine_layers="route", batch_window_ms=1.0,
+              queue_budget_ms=120_000.0)
+    return (lambda: TService(device="cpu", **kw),
+            lambda: JService(**kw))
+
+
+def test_service_w100_clifford_next_to_dense_w22(telemetry):
+    """One service of each package serves a w100 GHZ tenant on the
+    tableau next to a w22 QFT tenant on the dense stack: the same
+    decisions, residency gauges and route.* counters, both tenants
+    correct."""
+    got = []
+    for make, alg, qft in zip(_services(), (talg, jalg), (t_qft, j_qft)):
+        svc = make()
+        try:
+            wide = svc.create_session(100, seed=1)
+            dense = svc.create_session(22, seed=2)
+            h1 = svc.submit(wide, alg.ghz_qcircuit(100))
+            h2 = svc.submit(dense, qft(22))
+            h1.result(timeout=300)
+            h2.result(timeout=300)
+            stacks = [svc.call(s, lambda eng: eng.current_stack()).result(
+                timeout=60) for s in (wide, dense)]
+            amp = svc.call(wide, lambda eng: complex(
+                eng.GetAmplitude(0))).result(timeout=60)
+            p0 = svc.prob(dense, 0, timeout=120)
+        finally:
+            svc.close()
+        assert stacks == ["stabilizer", "dense"]
+        assert abs(abs(amp) - 1 / np.sqrt(2)) < 1e-9
+        assert abs(p0 - 0.5) < 1e-3
+        got.append(p0)
+    assert abs(got[0] - got[1]) < PROB_BAR
+    port, ref = _route_counters()
+    assert port == ref
+    for snap in (ttele.snapshot(), jtele.snapshot()):
+        c, g = snap["counters"], snap["gauges"]
+        assert c["route.decision.stabilizer"] == 1
+        assert c["route.decision.dense"] == 1
+        assert c["route.jobs.stabilizer"] >= 1
+        assert c["route.jobs.dense"] >= 1
+        assert c.get("route.misroutes", 0) == 0
+        assert g["route.residency.stabilizer"] == 1
+        assert g["route.residency.dense"] == 1
+
+
+def test_service_route_opt_out_pins_dense(telemetry, monkeypatch):
+    monkeypatch.setenv("QRACK_ROUTE", "dense")
+    amps = []
+    for make, alg in zip(_services(), (talg, jalg)):
+        svc = make()
+        try:
+            sid = svc.create_session(8, seed=0)
+            svc.submit(sid, alg.ghz_qcircuit(8)).result(timeout=60)
+            stack = svc.call(
+                sid, lambda eng: eng.current_stack()).result(timeout=60)
+            amps.append(svc.call(sid, lambda eng: complex(
+                eng.GetAmplitude(0))).result(timeout=60))
+        finally:
+            svc.close()
+        assert stack == "dense"
+        assert abs(abs(amps[-1]) - 1 / np.sqrt(2)) < 1e-5
+    port, ref = _route_counters()
+    assert port == ref

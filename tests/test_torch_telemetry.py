@@ -1,7 +1,8 @@
 """The port's telemetry plane (qrack_tpu_torch/telemetry) against the JAX
 package's: the counterparts of tests/test_telemetry.py and
-tests/test_observability.py that need no serve, fleet or resilience
-plane, and counter parity on the same seeded circuits.
+tests/test_observability.py that need no fleet or resilience plane (the
+serving plane's latency histograms included), and counter parity on the
+same seeded circuits.
 
 Parity: each case runs the same gates through a JAX stack on the CPU and
 the port's matching stack with ``device="cpu"``, both packages' telemetry
@@ -57,6 +58,16 @@ def _clean_telemetry():
     for mod in (tele, jt):
         if mod is not None:
             _quiet(mod)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cold_jax_caches():
+    """Leave JAX's compiled programs cold: a JAX test later in the same
+    worker (tests/test_telemetry.py) counts its own compile misses."""
+    yield
+    jax = sys.modules.get("jax")
+    if jax is not None:
+        jax.clear_caches()
 
 
 @pytest.fixture
@@ -960,3 +971,38 @@ def test_cuda_fuse_counters_match_kernel_launches(cuda_device):
     assert d("gate.cuda.2x2.w20") + d("gate.cuda.diag.w20") == \
         n * (n + 1) // 2
     assert tele.snapshot()["spans"]["qft.w20"]["count"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the serving plane's latency histograms (ROADMAP item 16b)
+# ---------------------------------------------------------------------------
+
+def test_serve_latency_histogram_with_tenant_and_stack_facets(jx):
+    """Each settled job observes serve.latency, its tenant's and its
+    stack's facet and serve.queue_wait, on both packages."""
+    from qrack_tpu.models.qft import qft_qcircuit as j_qft
+    from qrack_tpu.serve import QrackService as JService
+    from qrack_tpu_torch.serve import QrackService as TService
+
+    got = []
+    for t, Service, qft in ((jx["tele"], JService, j_qft),
+                            (tele, TService, qft_qcircuit)):
+        t.enable()
+        with Service(engine_layers="cpu", batch_window_ms=5.0,
+                     tick_s=0.02) as svc:
+            sid = svc.create_session(3, seed=1, rand_global_phase=False)
+            for _ in range(3):
+                svc.apply(sid, qft(3), timeout=60)
+        snap = t.snapshot(include_events=False)
+        hists = snap["hists"]
+        assert hists["serve.latency"]["count"] == 3
+        assert hists[f"serve.latency.tenant.{sid}"]["count"] == 3
+        stacks = sorted(k for k in hists
+                        if k.startswith("serve.latency.stack."))
+        assert stacks and sum(hists[k]["count"] for k in stacks) == 3
+        assert snap["gauges"]["serve.latency.p50"] > 0
+        assert hists["serve.queue_wait"]["count"] == 3
+        got.append((stacks, {k: v for k, v in snap["counters"].items()
+                             if k.startswith("serve.")}))
+        _quiet(t)
+    assert got[0] == got[1]
