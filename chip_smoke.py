@@ -41,9 +41,9 @@ them; then each phase prints JSON lines:
    and read just after: both entry points must have launched;
 4. times, by CUDA events: the w30 QFT end to end on the engine path and
    through RunFused (and through the plain gate-function chain, kernel
-   off), then the main path again, every sixth launch (DENSE_PROBE_EVERY:
+   off), then the main path again, every eighth launch (DENSE_PROBE_EVERY:
    every launch took 81 s of an 850 s run; every second, then every
-   fourth, until the run budget took the cuts) with the kernel and its plain
+   fourth, then every sixth, until the run budget took the cuts) with the kernel and its plain
    version timed and compared on the same input, beside the bound; each
    path's largest held launch (most ops) with its time and bound.
 
@@ -81,9 +81,9 @@ csrc/turboquant_kernel.cu):
    run was cut for the run budget), the two float32 products of one sweep through torch.matmul (context only,
    beside the mean time of K3's fully dirty sweep), and every launch of
    the main path again, timed, beside the bound; K3's and K4's launches
-   and K5's first launch and a seeded twenty-fourth of the rest
+   and K5's first launch and a seeded forty-eighth of the rest
    (TQ_WINDOW_HELD: replaying all 79 took 179 s, a sixth about 30 s; a
-   twelfth, then a sixteenth, until the run budget took the cuts) also run as the plain version on the
+   twelfth, then a twenty-fourth, until the run budget took the cuts) also run as the plain version on the
    same input, timed and compared.  The bound: the bytes of the tiles
    it requantizes, or their products as the TF32 tensor-core passes the
    kernel runs (2 + 3 at int8, 40 * D flops per amplitude; 3 + 3 at
@@ -155,8 +155,8 @@ the uniformly controlled gate past 10 controls:
     each dtype's K1/K2 launches counted.  Then the engine QFT of each
     dtype again, every eighth launch (FPPOW_PROBE_EVERY) beside its
     plain version;
-15. drift, w24: Grover (grover_amplify, 402 of the search's 3216
-    iterations, DRIFT_ITERS; 804 until the run budget's cut) on float32
+15. drift, w24: Grover (grover_amplify, 201 of the search's 3216
+    iterations, DRIFT_ITERS; 804, then 402, until the run budget's cuts) on float32
     planes with QRACK_TPU_AUTO_F64_DRIFT = 1e-5 checked every 64 gates.
     The engine must escalate (float64 planes afterwards, one warning),
     and its raw ProbAll(target), without NormalizeState, must be within
@@ -182,7 +182,8 @@ factory; phase 18 runs right after the build, 19-22 at the end:
     a w64 GHZ on QStabilizer must make native calls (Prob 0.5 on every
     qubit, MAll all zeros or all ones).  No native library, no run;
 19. qv_optimal: quantum_volume's gates (algorithms.quantum_volume_ops)
-    at n = 30, depth 20 (QV_DEPTH), before its MAll, through
+    at n = 30, depth 10 (QV_DEPTH; 30, then 20, until the run budget's
+    cuts), before its MAll, through
     create_quantum_interface("optimal", 30) and through ("cuda", 30),
     each with the K1/K2 counts set to 0 just before and read just
     after (both must have launched).  Bars: Prob(q) within 1e-4 for
@@ -462,15 +463,15 @@ the class, and the planes themselves:
 Then the checkpoint plane (qrack_tpu_torch/checkpoint; no new kernel).
 Its files go to one temporary directory, under QRACK_SMOKE_TMP when it
 is set, else the system's; the phase first checks that the directory has
-1.2 times the bytes it writes at once free (2 GiB: the w28 dense file,
-the larger beside the w26 pager's), raises naming it otherwise, and deletes each file
+1.2 times the bytes it writes at once free (1 GiB: the w27 dense file
+and the w26 pager's), raises naming it otherwise, and deletes each file
 after its check:
 
-39. checkpoint: (a) the w28 float32 "cuda" engine from 0x2A5C3F1
-    (CKPT_DENSE_WIDTH; w30 until the run budget's cut), its
+39. checkpoint: (a) the w27 float32 "cuda" engine from 0x2A5C3F1
+    (CKPT_DENSE_WIDTH; w30, then w28, until the run budget's cuts), its
     engine-path QFT through K1/K2, then capture + save_snapshot (what
     save_state runs), the planes' digest (plane_digest) the same after
-    the capture; a fresh create_quantum_interface("cuda", 28,
+    the capture; a fresh create_quantum_interface("cuda", 27,
     rng=QrackRandom(991)) loads the file (load_snapshot + restore_into,
     what load_state(path, into=) runs, the planes written in place);
     both continue with the IQFT and a seeded tail of 90 H/T/CNOT
@@ -670,8 +671,51 @@ passes CLUSTER_TIMEOUT_S fails the run, and every worker is stopped:
     card once.  The phase's seconds are printed beside its budget of 30 s
     (SERVE_PHASE_S), a budget, not a bar.
 
+43. The fleet (qrack_tpu_torch/fleet, ROADMAP item 16c) on the card: a
+    FleetSupervisor of FLEET_WORKERS (2) ``python -m
+    qrack_tpu_torch.fleet.worker`` processes, each a QrackService on the
+    card (its own CUDA context; hold_lease=False,
+    checkpoint_every_job=True) over one store in a temporary directory
+    (the free disk checked as phase 39 checks it), started before phase
+    42 so that the workers boot while it runs.  The store's
+    kernel_cache holds a copy of the libraries the run built, so no
+    worker runs nvcc: every worker incarnation that launched a kernel
+    (the killed and the retired ones too) counts
+    compile.kernel.window_kernel.hit in the telemetry of its beats, and
+    no incarnation a miss.  Through
+    a FleetFrontDoor: two w26 dense sessions (FLEET_WIDTH: 512 MiB of
+    planes and a 1 GiB complex128 snapshot at every job, each past the
+    placement budget so each owns a worker), one w20 (FLEET_SMALL_WIDTH),
+    one w64 GHZ on "stabilizer"; seeded QFT and wave jobs.  (a) The owner
+    of a w26 session is killed with SIGKILL while that session's job is
+    journaled and not settled: the front door's apply returns without a
+    resubmit, the adopter's WAL replay lands the job once (replayed +
+    deduplicated = 1), the next job lands on the peer, the dead worker
+    restarts to healthy with one crash; the adopted ket (read back in
+    this process from the store's every-job snapshot) is torch.equal to
+    an uninterrupted in-process QrackService run of the same jobs, and
+    the w20 session's get_state equal to its own.  (b) A rolling restart
+    with all four sessions live: no SIGKILL needed, every session
+    migrated, the next jobs exact as in (a), the GHZ's Prob 0.5.  (c)
+    boot_worker adds a worker, booted beside (b)'s restart once its
+    first drain has begun; a third w26 session is created and its
+    owner retired by scale_down: it lands on a peer, its next job
+    exact, the retired incarnation's metrics still in the fleet merge
+    and the fleet JSONL.  Every dense ket within the dense bar of a
+    direct QEngineCUDA run of its jobs; the only death the injected
+    kill.  Printed: kill to detected, adopted, the in-flight apply's
+    return and the next result, in ms; the adoption's recover wall and
+    its container read (GB/s), and this process's read and upload of
+    the same snapshots; each worker's boot to ready; each rolling
+    restart's drain, SIGTERM and reap, adoption and respawn to ready; the
+    card's used memory (cudaMemGetInfo, every process) at each event;
+    each worker incarnation's K1/K2 launches (from its beats) beside
+    the served jobs' planned sweeps (the launches add each boot's
+    prewarm and the WAL replay); the phase's seconds beside its budget
+    of 60 s (FLEET_PHASE_S), a budget, not a bar.
+
 The kernels line counts K1/K2 launches by dtype form over every dense
-path (phases 3, 8-12, 14-17, 19-22, 24-28, 37, 38, 39, 40 and 42); their times and errors
+path (phases 3, 8-12, 14-17, 19-22, 24-28, 37, 38, 39, 40, 42 and 43); their times and errors
 are those of the launches held to plain (float32: phase 4 and the Shor
 IQFT of phase 10; the other forms: phase 14).  The per-page form of K1
 and K2 has entries of its own: launches over phases 29-32, times and
@@ -686,7 +730,8 @@ TurboQuant engine with K3-K5, its w20 pager (g) with none of them (its
 launches are not read), the rest with the dense form; phase 41's
 per-page K1/K2 of every rank with the per-page form; phase 42's K1/K2
 of every served job (its folds, its replays and (d)'s child) with the
-dense form.
+dense form; phase 43's K1/K2 of every worker incarnation with the dense
+form.
 
 ``--tq-only`` runs the build and phases 5-7 alone; ``--algo-only`` the
 build and phases 8-12; ``--fppow-only`` the build and phases 13-17;
@@ -697,7 +742,8 @@ held to two warm reps of its own in place of phase 4's);
 ``--resilience-only`` the build and phase 38 (likewise);
 ``--checkpoint-only`` the build and phase 39; ``--route-only`` the build
 and phase 40; ``--cluster-only`` the build and phase 41;
-``--serve-only`` the build and phase 42.
+``--serve-only`` the build and phase 42; ``--fleet-only`` the build and
+phase 43.
 
 The line before the last is the "kernels" summary, the last line
 {"ok": true, "device": {...}}.  Any failed check raises, so the script
@@ -749,7 +795,7 @@ TQ_CODE_FRAC = {8: 1e-3, 16: 1e-2}
 TQ_SCALE_REL = 1e-5
 # flops per amplitude an op acts on (complex product, or a 2x2 row)
 TQ_OP_FLOPS = {0: 6, 1: 6, 3: 14}
-TQ_WINDOW_HELD = 1 / 24  # share of tq_window's launches held to plain
+TQ_WINDOW_HELD = 1 / 48  # share of tq_window's launches held to plain
 TQ_WINDOW_SEED = 79
 
 ALU_WIDTH = 22        # the CUDA engine against the complex128 oracle
@@ -768,15 +814,17 @@ HALF_QFT_BAR = {torch.bfloat16: 1e-3, torch.float16: 2e-5}
 # second 264.6 s for phases 13-17 against 322; every fourth until the
 # pager's second slice needed the room)
 FPPOW_PROBE_EVERY = 8
-# phase 4 holds every sixth launch of the w30 main path to plain
-# (every second, then every fourth, until the run budget's cuts)
-DENSE_PROBE_EVERY = 6
+# phase 4 holds every eighth launch of the w30 main path to plain
+# (every second, then every fourth, then every sixth, until the run
+# budget's cuts)
+DENSE_PROBE_EVERY = 8
 DRIFT_THRESH = "1e-5"  # QRACK_TPU_AUTO_F64_DRIFT of the drift phase
 DRIFT_EVERY = "64"     # QRACK_TPU_DRIFT_CHECK_GATES
 # the drift phase's Grover runs an eighth of the search's 3216 iterations
 # (the whole search took 131 s of an 822.3 s run, a quarter 33 s in PR
-# 14's; the escalation fires within the first dozen)
-DRIFT_ITERS = 402
+# 14's; the escalation fires within the first dozen); a sixteenth since
+# the run budget's cut that paid for the widths of phases 16 and 28
+DRIFT_ITERS = 201
 BATCH_WIDTH = 28      # compile_batched_fn: 4 kets of 28 qubits
 BATCH = 4
 BATCH_GATES = 48
@@ -795,7 +843,7 @@ GROVER_WIDTH = 24     # 3216 iterations (the drift phase)
 GROVER_ENGINE_WIDTH = 22  # phase 12: 804 iterations (w24 until PR 15's cut)
 # the layers above the terminals (phases 18-22)
 QV_WIDTH = WIDTH      # quantum_volume's gates through OPTIMAL and "cuda"
-QV_DEPTH = 20          # 30 until the run budget took the cut (PERF.md)
+QV_DEPTH = 10          # 30, then 20, until the run budget's cuts (PERF.md)
 QV_SEED = 30
 QV_AMPS = 4096        # seeded GetAmplitude reads compared
 QFT_WIDE = 40         # the permutation-init QFT that QUnit keeps factored
@@ -877,7 +925,7 @@ RES_HANG_SLACK_S = 1.0
 RES_PHASE_S = 35.0        # phase 38's budget (printed, as the run's 880 s)
 # the checkpoint plane (phase 39)
 CKPT_SEED = 39
-CKPT_DENSE_WIDTH = 28     # (a) the dense file (w30, 8 GiB, until the run budget's cut)
+CKPT_DENSE_WIDTH = 27     # (a) the dense file (w30, then w28, until the run budget's cuts)
 CKPT_PAGER_WIDTH = 26     # 4 pages of 2^24: a 1 GiB file (complex128; w28,
 CKPT_PAGER_PAGES = 4      # then w27, until the run budget's cuts)
 CKPT_PAGER_PERM = 0x1A5C3F1  # 26 bits (0x5A5C3F1 at w27)
@@ -938,6 +986,14 @@ SERVE_CANARY_WIDTH = 20   # (e) the canary's session
 SERVE_MEM_SLACK = 1 << 30  # (a) above twice the sessions' planes
 SERVE_CHILD_TIMEOUT_S = 300
 SERVE_PHASE_S = 30.0      # phase 42's budget (printed, as the run's 880 s)
+FLEET_WORKERS = 2         # worker processes on the one card
+FLEET_WIDTH = 26          # the dense sessions (w30: a save a job, ~21 s)
+FLEET_SMALL_WIDTH = 20    # the session whose ket crosses the wire
+FLEET_STAB_WIDTH = 64     # the GHZ on the tableau (STABILIZER_COST)
+FLEET_SEED = 43
+FLEET_DISK_BYTES = 6 << 30  # the snapshots and their temporaries at once
+FLEET_READY_TIMEOUT_S = 300.0
+FLEET_PHASE_S = 60.0      # phase 43's budget (printed, as the run's 880 s)
 TELE_DISABLED_BAR = 0.02  # disabled w30 QFT wall against phase 4's QFT
                           # in the same seconds (against_reference)
 TELE_HOOK_WIDTH = 16      # the small stacks that reach every other hook
@@ -5587,7 +5643,7 @@ def checkpoint_phase(card: str, dev) -> dict:
                        16 * (1 << CKPT_PAGER_WIDTH)) + (1 << 20))
     out["dir"] = tmp
     try:
-        # ---- a. w28 float32 dense: save, load into a fresh engine -------
+        # ---- a. the float32 dense engine: save, load into a fresh one ----
         n = CKPT_DENSE_WIDTH
         a = qt.create_quantum_interface("cuda", n, init_state=PERM,
                                         rng=QrackRandom(CKPT_SEED),
@@ -7708,6 +7764,481 @@ def serve_phase(card: str, dev, store: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 43: the fleet
+# ---------------------------------------------------------------------------
+
+def fleet_ghz(n: int):
+    """H on qubit 0 and a CNOT chain: the w64 GHZ of the tableau session."""
+    from qrack_tpu_torch import matrices as mat
+    from qrack_tpu_torch.layers.qcircuit import QCircuit
+
+    c = QCircuit(n)
+    c.append_1q(0, mat.H2)
+    for q in range(n - 1):
+        c.append_ctrl((q,), q + 1, mat.X2, 1)
+    return c
+
+
+class FleetRun:
+    """Phase 43's supervisor, started before phase 42 so that its workers
+    boot while that phase runs.  The workers' store holds a copy of the
+    kernel libraries the run built (its kernel_cache), so no worker runs
+    nvcc."""
+
+    def __init__(self):
+        import shutil
+        import tempfile
+
+        from qrack_tpu_torch.fleet import FleetSupervisor
+        from qrack_tpu_torch.ops import cuda_build
+        from qrack_tpu_torch.ops import turboquant_kernel as tqk
+        from qrack_tpu_torch.ops import window_kernel as wk
+
+        tmp = os.environ.get("QRACK_SMOKE_TMP") or tempfile.gettempdir()
+        free = shutil.disk_usage(tmp).free
+        check(free >= CKPT_ROOM * FLEET_DISK_BYTES,
+              f"{tmp} has {free} bytes free; phase 43's snapshots need "
+              f"{CKPT_ROOM}x {FLEET_DISK_BYTES} (set QRACK_SMOKE_TMP to a "
+              "directory on a larger local disk)")
+        self.root = tempfile.mkdtemp(prefix="qrack-fleet-", dir=tmp)
+        cache = os.path.join(self.root, "store", "kernel_cache")
+        os.makedirs(cache)
+        for src in (wk.SOURCE, tqk.SOURCE):
+            for path in (cuda_build.library_path(src),
+                         cuda_build.log_path(src)):
+                shutil.copy2(path, os.path.join(cache, path.name))
+        self.sup = FleetSupervisor(
+            FLEET_WORKERS, self.root, ready_timeout_s=FLEET_READY_TIMEOUT_S,
+            extra_env={"QRACK_TPU_TELEMETRY": "1",
+                       "QRACK_SERVE_PREFIX": "0",
+                       "QRACK_SERVE_CANARY_RATE": "0",
+                       "QRACK_SERVE_QUEUE_BUDGET_MS": "600000"})
+        self.error = None
+        self.thread = threading.Thread(target=self._start, daemon=True,
+                                       name="fleet-start")
+        self.t0 = time.monotonic()
+        self.thread.start()
+
+    def _start(self) -> None:
+        try:
+            self.sup.start()
+        except BaseException as e:  # noqa: BLE001 — re-raised by join
+            self.error = e
+
+    def join(self) -> float:
+        """Wait for every worker to be ready; the seconds since the
+        spawn."""
+        self.thread.join(FLEET_READY_TIMEOUT_S + 60.0)
+        check(not self.thread.is_alive(), "phase 43's fleet never started")
+        if self.error is not None:
+            raise self.error
+        return time.monotonic() - self.t0
+
+    def close(self) -> None:
+        import shutil
+
+        self.thread.join(FLEET_READY_TIMEOUT_S + 60.0)
+        self.sup.stop()
+        shutil.rmtree(self.root, ignore_errors=True)
+
+
+def fleet_phase(card: str, dev, run: FleetRun) -> dict:
+    """Phase 43 (module docstring); returns the workers' K1/K2 launches by
+    plane dtype, summed over every worker incarnation."""
+    import signal
+
+    import qrack_tpu_torch as qt
+    from qrack_tpu_torch.checkpoint import container
+    from qrack_tpu_torch.checkpoint.store import CheckpointStore
+    from qrack_tpu_torch.fleet import FleetFrontDoor
+    from qrack_tpu_torch.models.qft import qft_qcircuit
+    from qrack_tpu_torch.serve import QrackService
+    from qrack_tpu_torch.serve.batcher import FoldProgram
+
+    release()
+    t_phase = time.time()
+    out = {"phase": "fleet", "card": card, "sections_s": {}}
+    t_lap = [t_phase]
+
+    def lap(name: str) -> None:
+        now = time.time()
+        out["sections_s"][name] = now - t_lap[0]
+        t_lap[0] = now
+
+    out["start_to_ready_s"] = run.join()
+    sup = run.sup
+    out["boot_to_ready_s"] = {k: w["boot_to_ready_s"] for k, w
+                              in sup.stats()["workers"].items()}
+    lap("ready")
+    mem = {}
+
+    def mem_at(tag: str) -> None:
+        """The card's used bytes (every process) and this process's
+        reserved ones (its reference runs and loads): the workers hold
+        the difference, less this process's context."""
+        free, total = torch.cuda.mem_get_info()
+        mem[tag] = {"used": total - free,
+                    "here_reserved": torch.cuda.memory_reserved()}
+
+    widths = {"A": FLEET_WIDTH, "B": FLEET_WIDTH, "S": FLEET_SMALL_WIDTH,
+              "D": FLEET_WIDTH}
+    seeds = {k: FLEET_SEED + i for i, k in enumerate(widths)}
+    front = FleetFrontDoor(sup)
+    store = CheckpointStore(sup.store_dir)
+    with _env(QRACK_SERVE_PREFIX="0"):   # as the workers run
+        ref = QrackService(engine_layers="cuda", device=str(dev),
+                           tick_s=0.05, queue_budget_ms=600_000.0)
+    sid, rsid, jobs, done, planned = {}, {}, {k: [] for k in widths}, {}, [0]
+
+    def job(k: str):
+        c = (qft_qcircuit(widths[k]) if not jobs[k] else
+             serve_wave(widths[k], FLEET_SEED + 100 * len(jobs[k])
+                        + seeds[k]))
+        jobs[k].append(c)
+        prog = FoldProgram(c, widths[k], torch.float32, dev)
+        planned[0] += prog.planned_sweeps(1)
+        return c
+
+    def settle_wal(keys) -> None:
+        """Wait for the sessions' last jobs to settle: a job's result
+        frame comes before its every-job snapshot and the removal of its
+        WAL entry."""
+        deadline = time.monotonic() + 120
+        while store.wal_pending_tags(sids=[sid[k] for k in keys]):
+            check(time.monotonic() < deadline, f"{keys}' jobs never settled")
+            time.sleep(0.01)
+
+    def apply_all(keys) -> None:
+        """One next job on each session, the sessions in parallel, each
+        settled."""
+        circs = {k: job(k) for k in keys}
+        errs = []
+
+        def one(k):
+            try:
+                front.apply(sid[k], circs[k])
+            except BaseException as e:  # noqa: BLE001
+                errs.append((k, e))
+
+        ts = [threading.Thread(target=one, args=(k,)) for k in keys]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(600)
+        check(not errs and not any(t.is_alive() for t in ts),
+              f"phase 43 apply failed: {errs}")
+        settle_wal(keys)
+
+    def reference(k: str):
+        """The uninterrupted in-process run of session k's jobs."""
+        if k not in rsid:
+            rsid[k] = ref.create_session(widths[k], seed=seeds[k],
+                                         rand_global_phase=False)
+            done[k] = 0
+        for c in jobs[k][done[k]:]:
+            ref.apply(rsid[k], c, timeout=600)
+        done[k] = len(jobs[k])
+        return ref.call(rsid[k], lambda e: e.device_planes,
+                        mutates=False).result(600)
+
+    def settled(k: str):
+        """Session k's planes from its every-job snapshot (the WAL entry
+        goes after the snapshot is written), loaded in this process."""
+        settle_wal([k])
+        store.reload()
+        t0 = time.perf_counter()
+        eng = store.load(sid[k], device=dev)
+        planes = eng.device_planes
+        sync()
+        wall = time.perf_counter() - t0
+        load = dict(container.LAST_LOAD)
+        return planes, {"read_s": load["read_s"], "bytes": load["bytes"],
+                        "upload_and_build_s": wall - load["read_s"]}
+
+    def exact(keys, what: str) -> dict:
+        got = {}
+        for k in keys:
+            if widths[k] == FLEET_SMALL_WIDTH:
+                a = np.asarray(front.get_state(sid[k]))
+                want = reference(k)
+                b = np.asarray(ref.get_state(rsid[k], timeout=600))
+                if not np.array_equal(a, b):
+                    snap = settled(k)[0]
+                    check(False,
+                          f"{what}: session {k}'s get_state differs from the "
+                          f"uninterrupted run by {np.abs(a - b).max()} "
+                          f"(fidelity {abs(np.vdot(a, b)) ** 2}); its "
+                          f"snapshot {'equals' if torch.equal(snap, want) else 'differs from'}"
+                          f" the run's planes by {chunked_max(snap, want)}; "
+                          f"norms {np.vdot(a, a).real}, {np.vdot(b, b).real}")
+                got[k] = True
+                continue
+            planes, load = settled(k)
+            want = reference(k)
+            check(torch.equal(planes, want),
+                  f"{what}: session {k}'s snapshot differs from the "
+                  f"uninterrupted run by {chunked_max(planes, want)}")
+            got[k] = load
+            del planes, want
+        return got
+
+    try:
+        # ---- the sessions: two w26, one w20, one w64 GHZ on the tableau
+        for k in ("A", "B", "S"):
+            sid[k] = front.create_session(widths[k], seed=seeds[k],
+                                          rand_global_phase=False)
+        g = front.create_session(FLEET_STAB_WIDTH, layers="stabilizer",
+                                 seed=FLEET_SEED)
+        front.apply(g, fleet_ghz(FLEET_STAB_WIDTH))
+        owners0 = {k: sup.owner_of(v) for k, v in sid.items()}
+        check(owners0["A"] != owners0["B"],
+              f"the two w{FLEET_WIDTH} sessions share a worker: {owners0}")
+        apply_all(["A", "B", "S"])
+        mem_at("sessions")
+        lap("sessions")
+
+        # ---- (a) kill -9 the owner of A with A's job in flight ---------
+        victim = sup.owner_of(sid["A"])
+        vpid = sup.stats()["workers"][victim]["pid"]
+        # the victim's launches so far: its beats may miss the last ones
+        pre_kill_info = sup.client(victim).info()
+        pre_kill = pre_kill_info["kernels"]
+        c_inflight = job("A")
+        box = {}
+
+        def inflight():
+            box["out"] = front.apply(sid["A"], c_inflight)
+
+        t_in = threading.Thread(target=inflight)
+        t_in.start()
+        deadline = time.monotonic() + 120
+        while not store.wal_pending_tags(sids=[sid["A"]]):
+            check(time.monotonic() < deadline, "(a) A's job never journaled")
+            time.sleep(0.001)
+        mem_at("before_kill")
+        t_kill = time.monotonic()
+        os.kill(vpid, signal.SIGKILL)
+        while not sup.stats()["deaths"]:
+            check(time.monotonic() < deadline + 60, "(a) no death detected")
+            time.sleep(0.005)
+        mem_at("after_detect")
+        t_in.join(600)
+        t_return = time.monotonic()
+        check(not t_in.is_alive() and box.get("out") == {
+            "resubmits": 0, "adopted": True},
+            f"(a) the in-flight apply returned {box.get('out')}")
+        while sup.stats()["deaths"][0]["adopted_at"] is None:
+            check(time.monotonic() < deadline + 120, "(a) no adoption")
+            time.sleep(0.005)
+        mem_at("after_adopt")
+        apply_all(["A"])
+        t_first = time.monotonic()
+        death = sup.stats()["deaths"][0]
+        adopter = sup.owner_of(sid["A"])
+        check(adopter != victim, f"(a) A still on {victim}")
+        adopt = sup.client(adopter).info()["last_adopt"]
+        check(not adopt["recovered_stale"],
+              f"(a) the adoption found stale sessions: {adopt}")
+        check(adopt["wal_replayed"] + adopt["wal_deduped"] == 1,
+              f"(a) the adoption landed the in-flight job "
+              f"{adopt['wal_replayed']} + {adopt['wal_deduped']} times")
+        a_exact = exact(["A", "S"], "(a)")
+        # the victim's restart ran beside the checks
+        deadline = time.monotonic() + FLEET_READY_TIMEOUT_S
+        while {w["state"] for w in sup.stats()["workers"].values()} \
+                != {"healthy"}:
+            check(time.monotonic() < deadline,
+                  f"(a) {victim} never came back: {sup.stats()['workers']}")
+            time.sleep(0.05)
+        st = sup.stats()["workers"][victim]
+        check(st["crashes"] == 1 and st["restarts"] >= 1,
+              f"(a) {victim} crashes {st['crashes']}, restarts "
+              f"{st['restarts']}")
+        mem_at("after_a")
+        ld = adopt["load"] or {}
+        out["a"] = {
+            "victim": victim, "pid": vpid, "adopter": adopter,
+            "sessions_moved": len(death["sessions"]),
+            "detected_ms": (death["detected_at"] - t_kill) * 1e3,
+            "adopted_ms": (death["adopted_at"] - t_kill) * 1e3,
+            "inflight_return_ms": (t_return - t_kill) * 1e3,
+            "first_result_ms": (t_first - t_kill) * 1e3,
+            "adoption_recover_s": adopt["recover_s"],
+            "adoption_loads": ld.get("loads"),
+            "adoption_read_s": ld.get("read_s"),
+            "adoption_hash_wait_s": ld.get("hash_wait_s"),
+            "adoption_read_bytes": ld.get("bytes"),
+            "adoption_read_gbps": (ld["bytes"] / ld["read_s"] / 1e9
+                                   if ld.get("read_s") else None),
+            "wal_replayed": adopt["wal_replayed"],
+            "wal_deduped": adopt["wal_deduped"],
+            "restarted_boot_to_ready_s": st["boot_to_ready_s"],
+            "snapshot_load_here": a_exact["A"]}
+        lap("a")
+
+        # ---- (b) a rolling restart with all four sessions live -------
+        # (c)'s third worker boots beside it: the restart lists its
+        # workers when it starts, so the boot waits for the first drain
+        before = {k: sup.owner_of(v) for k, v in sid.items()}
+        before["G"] = sup.owner_of(g)
+        names = set(sup.worker_names())
+        boot = {}
+
+        def booting():
+            deadline = time.monotonic() + 60
+            while all(w["state"] == "healthy"
+                      for w in sup.stats()["workers"].values()):
+                if time.monotonic() > deadline:
+                    boot["ok"] = "the rolling restart never drained"
+                    return
+                time.sleep(0.005)
+            t0 = time.monotonic()
+            boot["ok"] = sup.boot_worker()
+            boot["s"] = time.monotonic() - t0
+
+        t_boot = threading.Thread(target=booting)
+        t_boot.start()
+        rr = sup.rolling_restart()
+        moved = set()
+        for name, r in rr.items():
+            check(not r["needed_kill"], f"(b) {name} needed SIGKILL")
+            moved |= set(r["migrated"])
+        check(moved >= set(sid.values()) | {g},
+              f"(b) sessions not migrated: {set(sid.values()) - moved}")
+        apply_all(["A", "B", "S"])
+        check(abs(front.prob(g, FLEET_STAB_WIDTH - 1) - 0.5) < 1e-9,
+              "(b) the GHZ lost its correlation")
+        b_exact = exact(["A", "B", "S"], "(b)")
+        mem_at("after_b")
+        out["b"] = {"parts_s": {n: r["parts_s"] for n, r in rr.items()},
+                    "migrated": {n: len(r["migrated"]) for n, r in rr.items()},
+                    "owners_before": before,
+                    "boot_to_ready_s": {
+                        n: w["boot_to_ready_s"]
+                        for n, w in sup.stats()["workers"].items()},
+                    "snapshot_load_here": b_exact["A"]}
+        lap("b")
+
+        # ---- (c) the third worker, booted beside (b); D is created on
+        # a live worker and served, and D's owner retired onto a peer
+        t_boot.join(FLEET_READY_TIMEOUT_S + 60)
+        check(boot.get("ok") is True, f"(c) boot_worker failed: {boot}")
+        booted = sorted(set(sup.worker_names()) - names)
+        sid["D"] = front.create_session(FLEET_WIDTH, seed=seeds["D"],
+                                        rand_global_phase=False)
+        apply_all(["D"])
+        boot_s = boot["s"]
+        retired = sup.owner_of(sid["D"])
+        rpid = sup.stats()["workers"][retired]["pid"]
+        t0 = time.monotonic()
+        sd = sup.scale_down(retired)
+        sd_s = time.monotonic() - t0
+        check(sd is not None and sid["D"] in sd["migrated"]
+              and retired not in sup.worker_names(),
+              f"(c) scale_down({retired}) returned {sd}")
+        apply_all(["D"])
+        c_exact = exact(["D"], "(c)")
+        m = sup.metrics(write=True)
+        check(f"{retired}:{rpid}" in m["workers"],
+              f"(c) the retired {retired}'s metrics left the merge")
+        with open(sup.telemetry_path) as f:
+            recs = [json.loads(x) for x in f]
+        check(any(f"{retired}:{rpid}" in r.get("workers", {}) for r in recs
+                  if r.get("kind") == "fleet"),
+              "(c) the retired worker's metrics are not in the fleet JSONL")
+        mem_at("after_c")
+        out["c"] = {"booted": booted, "boot_worker_s": boot_s,
+                    "retired": retired, "scale_down_s": sd_s,
+                    "migrated": sd["migrated"],
+                    "snapshot_load_here": c_exact["D"]}
+        lap("c")
+
+        # ---- every ket against a direct QEngineCUDA run --------------
+        direct = {}
+        for k in ("A", "B", "D", "S"):
+            if widths[k] == FLEET_WIDTH:
+                planes = settled(k)[0]
+            else:
+                ket = np.asarray(front.get_state(sid[k]))
+                planes = torch.from_numpy(np.stack(
+                    [ket.real, ket.imag]).astype(np.float32)).to(dev)
+            eng = qt.create_quantum_interface("cuda", widths[k], device=dev,
+                                              rand_global_phase=False)
+            for c in jobs[k]:
+                c.Run(eng)
+            err, _ = held_to_plain(planes, eng.device_planes,
+                                   f"session {k} against a direct "
+                                   "QEngineCUDA run")
+            direct[k] = err
+            del planes, eng
+            release()
+        mall = front.measure_all(g)
+        check(mall in (0, (1 << FLEET_STAB_WIDTH) - 1),
+              f"the w{FLEET_STAB_WIDTH} GHZ measured {mall}")
+        lap("direct")
+
+        # ---- the workers: deaths, kernel cache hits, launches -------
+        deaths = sup.stats()["deaths"]
+        check([(d["worker"], d["pid"], d["reason"]) for d in deaths]
+              == [(victim, vpid, "exit")],
+              f"deaths other than the injected kill: {deaths}")
+        infos = {n: sup.client(n).info() for n in sup.worker_names()}
+        # every incarnation's kernel cache counters, from its beats (the
+        # killed and the retired ones included)
+        hits = sup.incarnation_counters("compile.kernel.")
+        key = f"{victim}:{vpid}"
+        if not hits.get(key):
+            hits[key] = {k: v for k, v in
+                         pre_kill_info["telemetry"]["counters"].items()
+                         if k.startswith("compile.kernel.")}
+        merged = sup.metrics()["counters"]
+        misses = {k: v for k, v in merged.items()
+                  if k.startswith("compile.kernel.") and k.endswith(".miss")}
+        check(not misses, f"a worker built a kernel library: {misses}")
+        launches = sup.kernel_launches()
+        if sum(launches.get(key, {}).get("window", {}).get(
+                "float32", {}).values()) < sum(pre_kill.get("window", {}).get(
+                "float32", {}).values()):
+            launches[key] = pre_kill
+        total = {"in_tile": 0, "pair": 0}
+        per_worker = {}
+        for key, k in launches.items():
+            f32 = k.get("window", {}).get("float32", {})
+            per_worker[key] = dict(f32)
+            for e in total:
+                total[e] += f32.get(e, 0)
+        for key, f32 in per_worker.items():
+            if f32.get("in_tile", 0) + f32.get("pair", 0) == 0:
+                continue
+            check(hits.get(key, {}).get("compile.kernel.window_kernel.hit",
+                                        0) >= 1,
+                  f"{key} launched with no kernel cache hit: "
+                  f"{hits.get(key)}")
+        check(total["in_tile"] > 0 and total["pair"] > 0,
+              f"phase 43 launched K1 or K2 no time: {total}")
+        out["workers"] = {
+            "kernel_cache": hits, "launches": per_worker,
+            # beside the served jobs' planned sweeps: the launches add
+            # each boot's prewarm (every recorded program once) and the
+            # adopter's WAL replay
+            "launches_total": total, "planned_sweeps": planned[0],
+            "device_bytes": {n: i["device_bytes"] for n, i in infos.items()},
+            "ttfr_s": {n: i["ttfr_s"] for n, i in infos.items()}}
+        out["direct_max_abs_err"] = direct
+        out["deaths"] = [{"worker": d["worker"], "reason": d["reason"]}
+                         for d in deaths]
+        out["device_used_bytes"] = mem
+    finally:
+        ref.close()
+        run.close()
+        release()
+    out["seconds"] = time.time() - t_phase
+    out["budget_s"] = FLEET_PHASE_S
+    emit(out)
+    return {"float32": total}
+
+
 def cuda_engines(q) -> list:
     """Every QEngineCUDA reachable from a stack (its units' engines)."""
     from qrack_tpu_torch.engines.cuda import QEngineCUDA
@@ -7814,7 +8345,7 @@ def main() -> int:
     flags = ("--tq-only", "--algo-only", "--fppow-only", "--layers-only",
              "--pager-only", "--wide-only", "--telemetry-only",
              "--resilience-only", "--checkpoint-only", "--route-only",
-             "--cluster-only", "--serve-only")
+             "--cluster-only", "--serve-only", "--fleet-only")
     store = None
     if ("--serve-only" in sys.argv[1:]
             or not any(f in sys.argv[1:] for f in flags)):
@@ -7851,6 +8382,7 @@ def run(store) -> int:
     route_only = "--route-only" in sys.argv[1:]
     cluster_only = "--cluster-only" in sys.argv[1:]
     serve_only = "--serve-only" in sys.argv[1:]
+    fleet_only = "--fleet-only" in sys.argv[1:]
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -7880,7 +8412,8 @@ def run(store) -> int:
 
     only = (tq_only or algo_only or fppow_only or layers_only or pager_only
             or wide_only or telemetry_only or resilience_only
-            or checkpoint_only or route_only or cluster_only or serve_only)
+            or checkpoint_only or route_only or cluster_only or serve_only
+            or fleet_only)
     tableau = stack_native(card) if layers_only or not only else None
     probe = SweepProbe(wk)
     paths = {}   # path -> launches by dtype name
@@ -7977,8 +8510,16 @@ def run(store) -> int:
         got = cluster_phase(card, dev)
         if page_probe is not None:
             page_paths["cluster"] = got
-    if serve_only or not only:
-        paths["serve"] = serve_phase(card, dev, store)
+    # phase 43's workers boot while phase 42 runs
+    fleet = FleetRun() if fleet_only or not only else None
+    try:
+        if serve_only or not only:
+            paths["serve"] = serve_phase(card, dev, store)
+        if fleet is not None:
+            paths["fleet"] = fleet_phase(card, dev, fleet)
+    finally:
+        if fleet is not None:
+            fleet.close()   # no worker outlives the script
     if page_probe is not None:
         page_total = {k: sum(p[k] for p in page_paths.values())
                       for k in ("in_tile", "pair")}

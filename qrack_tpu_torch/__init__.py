@@ -22,19 +22,43 @@ _torch.set_float32_matmul_precision("highest")
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
-from .interface import QInterface  # noqa: E402,F401
-from .engines import (QEngine, QEngineCPU, QEngineCUDA,  # noqa: E402,F401
-                      QEngineCUDATurboQuant, QEngineSparse, QHybrid)
-from .parallel import QPager  # noqa: E402,F401
-from .pauli import Pauli  # noqa: E402,F401
-from .config import get_config, set_config  # noqa: E402,F401
-from .hamiltonian import HamiltonianOp, uniform_hamiltonian_op  # noqa: E402,F401
-from .layers import (QBdt, QBdtHybrid, QInterfaceNoisy,  # noqa: E402,F401
-                     QStabilizer, QStabilizerHybrid, QTensorNetwork, QUnit,
-                     QUnitClifford)
-from . import noise  # noqa: E402,F401
-from .factory import (build_factory, create_arranged_layers_full,  # noqa: E402,F401
-                      create_quantum_interface)
-from .qneuron import QNeuron, ActivationFn  # noqa: E402,F401
+# The public names load on first use, so a process that only routes
+# (the fleet's supervisor and front door) imports no engine.
+_LAZY = {
+    "QInterface": ".interface",
+    "QEngine": ".engines", "QEngineCPU": ".engines",
+    "QEngineCUDA": ".engines", "QEngineCUDATurboQuant": ".engines",
+    "QEngineSparse": ".engines", "QHybrid": ".engines",
+    "QPager": ".parallel",
+    "Pauli": ".pauli",
+    "get_config": ".config", "set_config": ".config",
+    "HamiltonianOp": ".hamiltonian", "uniform_hamiltonian_op": ".hamiltonian",
+    "QBdt": ".layers", "QBdtHybrid": ".layers", "QInterfaceNoisy": ".layers",
+    "QStabilizer": ".layers", "QStabilizerHybrid": ".layers",
+    "QTensorNetwork": ".layers", "QUnit": ".layers", "QUnitClifford": ".layers",
+    "build_factory": ".factory", "create_arranged_layers_full": ".factory",
+    "create_quantum_interface": ".factory",
+    "QNeuron": ".qneuron", "ActivationFn": ".qneuron",
+}
+_SUBMODULES = ("noise",)
+
+__all__ = sorted(_LAZY) + list(_SUBMODULES)
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    import importlib
+
+    if name in _LAZY:
+        value = getattr(importlib.import_module(_LAZY[name], __name__), name)
+    elif name in _SUBMODULES:
+        value = importlib.import_module("." + name, __name__)
+    else:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

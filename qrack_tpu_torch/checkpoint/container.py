@@ -439,5 +439,7 @@ def load_container(path: str, expect_kind: Optional[str] = None,
     if _tele._ENABLED:
         _tele.inc("checkpoint.restore")
         _tele.inc("checkpoint.restore.bytes", nbytes)
+        _tele.inc("checkpoint.restore.read_s", read_s)
+        _tele.inc("checkpoint.restore.hash_wait_s", hash_wait)
         _tele.observe("checkpoint.restore", time.perf_counter() - t0)
     return kind, manifest.get("meta", {}), arrays

@@ -155,9 +155,16 @@ def _json_safe(kwargs: dict) -> dict:
 
 
 class CheckpointStore:
-    def __init__(self, root: str, max_bytes: int = 512 * 1024 * 1024):
+    def __init__(self, root: str, max_bytes: int = 512 * 1024 * 1024,
+                 keep_states: bool = False):
         self.root = str(root)
         self.max_bytes = int(max_bytes)
+        # every session state file is a recovery copy (a service that
+        # snapshots every job, as a fleet's workers do): the byte budget
+        # evicts spilled prefixes only.  Otherwise a worker's budget
+        # deleted a peer's or its own resident session's last snapshot,
+        # and adoption rebuilt that session from |0…0>.
+        self.keep_states = bool(keep_states)
         # liveness callback: sids whose state files the budget evictor
         # must never touch (live spilled sessions — SessionManager wires
         # this); None means nothing is protected beyond the fresh write
@@ -486,10 +493,11 @@ class CheckpointStore:
         while self.total_bytes() > self.max_bytes:
             # spilled prefixes (rank 0) go before session state (rank 1):
             # a prefix is always re-materializable from its circuit
+            states = [] if self.keep_states else self._state_files()
             victims = sorted(
                 [(0, os.path.getmtime(p), p) for p in self._prefix_files()
                  if p != protect]
-                + [(1, os.path.getmtime(p), p) for p in self._state_files()
+                + [(1, os.path.getmtime(p), p) for p in states
                    if p != protect
                    and os.path.basename(p)[:-len(".qckpt")] not in live])
             if not victims:
@@ -627,6 +635,8 @@ class CheckpointStore:
                 continue
             try:
                 _, meta = load_circuit(path)
+            except FileNotFoundError:
+                continue  # settled since the listing: no longer pending
             except (CheckpointCorrupt, CheckpointError):
                 continue
             tag = meta.get("tag")
@@ -717,6 +727,8 @@ class CheckpointStore:
                 continue
             try:
                 circ, meta = load_circuit(path)
+            except FileNotFoundError:
+                continue  # settled by its worker since the listing
             except (CheckpointCorrupt, CheckpointError):
                 self._unlink(path)
                 continue

@@ -30,10 +30,10 @@ refuses to re-expand onto it.
 
 Specs are validated at parse time against :data:`SITES` and
 :data:`KINDS`: an unknown site or kind raises ValueError listing the
-valid values.  A site of the JAX package whose module the port lacks
-(the fleet sites, and the JAX dense engine's ``tpu.*`` names) raises
-ValueError naming the ROADMAP item that brings it (:data:`NOT_PORTED`):
-a spec that can never fire must not pass silently.
+valid values.  A site of the JAX package that can never fire in the
+port (the JAX dense engine's ``tpu.*`` names) raises ValueError naming
+the port's site (:data:`NOT_PORTED`): a spec that can never fire must
+not pass silently.
 
 Every kind except ``amp-corrupt`` fires at SITE ENTRY, before the
 guarded callable runs, so nothing has been written when it raises and
@@ -87,13 +87,21 @@ SITES = (
     # prefix materialization (checked directly; amp-corrupt strikes the
     # copy that would be cached) — serve/batcher.py, serve/executor.py
     "serve.dispatch", "serve.device_get", "prefix.materialize",
+    # process-plane sites (fleet/): checked by the supervisor's monitor
+    # tick, the worker's heartbeat writer and the supervisor's spawn —
+    # ``fleet.worker:kill:after_n`` makes the supervisor SIGKILL its own
+    # worker, ``fleet.heartbeat:hang:after_n`` makes a worker stop
+    # beating while it keeps serving (the missed-beat path), and
+    # ``fleet.spawn:hang`` wedges a boot (the spawned process never
+    # becomes ready) while ``fleet.spawn:raise`` kills it at exec
+    "fleet.worker", "fleet.heartbeat", "fleet.spawn",
 )
 # bare last-segment categories that match the site family on any engine
 CATEGORIES = ("discover", "compile", "dispatch", "device_get", "exchange",
               "flush")
 
 #: sites of the JAX package that cannot fire in the port, with the
-#: ROADMAP item that brings each
+#: port's site that takes each one's place
 NOT_PORTED = {
     "tpu.compile": "the port's dense engine sites are 'cuda.*' "
                    "(cuda.compile)",
@@ -101,15 +109,12 @@ NOT_PORTED = {
                       "(cuda.device_get)",
     "tpu.fuse.flush": "the port's dense engine sites are 'cuda.*' "
                       "(cuda.fuse.flush)",
-    "fleet.worker": "ROADMAP item 16c (fleet/)",
-    "fleet.heartbeat": "ROADMAP item 16c (fleet/)",
-    "fleet.spawn": "ROADMAP item 16c (fleet/)",
 }
 
 
 def validate_site(site: str) -> None:
     """Raise ValueError for a site token that can never match a guarded
-    site of the port: an unported one names its ROADMAP item, an unknown
+    site of the port: a JAX-only one names the port's site, an unknown
     one lists the valid values."""
     if site == "*" or site in SITES or site in CATEGORIES:
         return
@@ -294,7 +299,8 @@ def check(site: str) -> Optional[str]:
     returns a directive string for the kinds the SITE must act out
     itself — ``"hang"`` (the dispatch wrapper swaps in a sleeping stub),
     ``"torn-write"`` (checkpoint.save truncates the payload mid-write)
-    and ``"kill"`` — or returns None (no fault).
+    and ``"kill"`` (the fleet supervisor SIGKILLs its own worker) — or
+    returns None (no fault).
     """
     with _LOCK:
         if not _SPECS or _SUSPENDED:

@@ -218,7 +218,17 @@ def _tq_masses(eng, codes: list, scales: list) -> list:
     """Per-chunk probability masses of TurboQuant (codes, scales), a
     float64 array a page (zeros for another process's page), without a
     decode (the block rotation is orthogonal, so a row's norm survives
-    compression)."""
+    compression).
+
+    A block's scale is its largest rotated magnitude, so a nonzero scale
+    always stands over at least one nonzero code.  A chunk holding a
+    nonzero scale over all-zero codes reads NaN: a strike on the scale of
+    an all-zero block moves no mass, and the port's windows cancel such
+    blocks exactly (the JAX engine leaves a residue of about 1e-9 there,
+    whose full-range codes make the same strike visible as mass).  The
+    reverse, a zero scale over nonzero codes, is legitimate: a
+    chunk-aligned collapse zeroes the losing chunks' scales and keeps
+    their codes."""
     import torch
 
     from ..ops.sharded import is_remote
@@ -234,9 +244,11 @@ def _tq_masses(eng, codes: list, scales: list) -> list:
         step = max(1, eng._GROUP_AMPS // eng._chunk_amps)
         got = []
         for c0 in range(0, c3.shape[0], step):
-            y = (c3[c0:c0 + step].to(torch.float32)
-                 * (s2[c0:c0 + step] / float(eng._qmax)).unsqueeze(-1))
-            got.append(torch.sum(y * y, dim=(1, 2)).to(torch.float64))
+            cc, ss = c3[c0:c0 + step], s2[c0:c0 + step]
+            y = cc.to(torch.float32) * (ss / float(eng._qmax)).unsqueeze(-1)
+            mass = torch.sum(y * y, dim=(1, 2)).to(torch.float64)
+            odd = ((ss != 0) & ~(cc != 0).any(-1)).any(-1)
+            got.append(torch.where(odd, float("nan"), mass))
         out.append(torch.cat(got).to("cpu").numpy())
     return out
 
@@ -299,7 +311,11 @@ def verify(eng, site: str) -> np.ndarray:
     fp = fingerprint(eng)
     gate_count = int(getattr(eng, "_gate_count", 0))
     if not np.all(np.isfinite(fp)):
-        raise CorruptionDetected(site, "non-finite fingerprint", fp=fp)
+        detail = "non-finite fingerprint"
+        if _is_tq(eng):
+            detail += " (a non-finite value, or a nonzero block scale " \
+                      "over all-zero codes)"
+        raise CorruptionDetected(site, detail, fp=fp)
     expected = float(getattr(eng, "running_norm", 1.0) or 1.0)
     gates_since = gate_count - int(getattr(eng, "_integ_mark", 0))
     budget = drift_budget(gates_since)

@@ -92,6 +92,25 @@ class RouteDecision:
     features: Optional[Dict[str, float]] = None
 
 
+# fleet brownout rung (set via set_brownout, from the worker's
+# brownout RPC op): while active, auto-routed circuits that would take
+# the full-f32 dense rung are pushed onto the compressed turboquant
+# tier instead when it is feasible — ~4x less device memory per session
+# buys the overloaded fleet headroom at a bounded (guarded) fidelity
+# cost.  Pinned modes are never overridden: an explicit stack choice is
+# the tenant's, not the ladder's.
+_BROWNOUT = False
+
+
+def set_brownout(active: bool) -> None:
+    global _BROWNOUT
+    _BROWNOUT = bool(active)
+
+
+def brownout_active() -> bool:
+    return _BROWNOUT
+
+
 def decide(circuit, width: int, mode: Optional[str] = None,
            device=None) -> RouteDecision:
     """Score `circuit` at `width` and return the winning decision —
@@ -103,6 +122,13 @@ def decide(circuit, width: int, mode: Optional[str] = None,
     f = extract_features(circuit, width)
     stack, scores = _cost.choose_stack(f, knobs, mode=mode)
     reason = "pinned" if mode != "auto" else "cost"
+    if (_BROWNOUT and mode == "auto" and stack == "dense"
+            and scores.get("turboquant", _cost.INFEASIBLE)
+            != _cost.INFEASIBLE):
+        stack = "turboquant"
+        reason = "brownout"
+        if _tele._ENABLED:
+            _tele.inc("serve.brownout.quantized")
     if _tele._ENABLED:
         _tele.gauge("route.hbm.budget_bytes",
                     float(_cost.hbm_budget_bytes(knobs)))
@@ -574,4 +600,4 @@ class QRouted:
 
 
 __all__ = ["QRouted", "RouteDecision", "MisrouteError", "decide",
-           "update_residency"]
+           "update_residency", "set_brownout", "brownout_active"]

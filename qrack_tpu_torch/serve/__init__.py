@@ -25,8 +25,20 @@ never serves pays no import or dispatch cost.
 from .errors import (AdmissionRejected, LoadShed, Overloaded,
                      QueueBudgetExceeded, QueueFull, ServeError,
                      ServiceStopped, SessionNotFound)
-from .scheduler import JobHandle
-from .service import QrackService
+
+
+def __getattr__(name):
+    # the service and its scheduler load on first use: the fleet's front
+    # door takes the typed errors and no engine
+    if name == "QrackService":
+        from .service import QrackService as value
+    elif name == "JobHandle":
+        from .scheduler import JobHandle as value
+    else:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    globals()[name] = value
+    return value
+
 
 __all__ = [
     "QrackService", "JobHandle",

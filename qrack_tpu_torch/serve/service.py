@@ -216,8 +216,11 @@ class QrackService:
 
             if spill_max_mb is None:
                 spill_max_mb = _env_float("QRACK_SERVE_SPILL_MAX_MB", 512.0)
+            # with a snapshot at every job, each session's state file is
+            # its recovery copy: the spill budget may not evict it
             self.store = CheckpointStore(
-                checkpoint_dir, max_bytes=int(spill_max_mb * 1024 * 1024))
+                checkpoint_dir, max_bytes=int(spill_max_mb * 1024 * 1024),
+                keep_states=bool(checkpoint_every_job))
             enable_warm_start(os.path.join(checkpoint_dir, "kernel_cache"))
             # device-class fingerprint lands next to kernel_cache — the
             # substrate the roofline ledger reads when no live device is

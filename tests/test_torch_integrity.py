@@ -368,6 +368,46 @@ def test_turboquant_window_corruption_repaired():
     assert torch.equal(kept[0][1], kept[1][1])
 
 
+@pytest.mark.parametrize("side", SIDES, ids=lambda s: s.name)
+def test_turboquant_collapse_then_clean_window_passes(side, monkeypatch):
+    """A chunk-aligned collapse zeroes the losing chunks' scales and keeps
+    their codes; a later window that leaves those chunks clean verifies
+    on a healthy state (no violation, no replay) on both packages.  The
+    kernel tile is pinned to one chunk so the window's clean tiles keep
+    their codes."""
+    from qrack_tpu.engines.turboquant import QEngineTurboQuant
+    from qrack_tpu_torch.engines.turboquant import QEngineCUDATurboQuant
+
+    for cls in (QEngineTurboQuant, QEngineCUDATurboQuant):
+        monkeypatch.setattr(cls, "_PALLAS_TILE_POW", 3)
+    side.arm()
+    _integ_of(side).set_enabled(True)
+    q = side.make("turboquant", 4, rng=side.R(3), rand_global_phase=False,
+                  bits=16, chunk_qb=3, block_pow=2)
+    for t in range(4):
+        q.H(t)
+    q.RZ(0.4, 0)
+    _ = q.Prob(0)
+    assert q.ForceM(3, True) is True
+    q.CZ(3, 0)
+    q.CNOT(3, 1)
+    _ = q.Prob(0)
+    got = side.state(q)
+    events = side.tele.snapshot()["events"]
+    assert not [e for e in events if e.get("name") == "integrity.violation"]
+    c = side.tele.snapshot()["counters"]
+    assert c.get("integrity.replay.repaired", 0) == 0
+    assert c.get("integrity.replay.giveup", 0) == 0
+    o = qt.QEngineCPU(4, rng=QrackRandom(3), rand_global_phase=False)
+    for t in range(4):
+        o.H(t)
+    o.RZ(0.4, 0)
+    o.ForceM(3, True)
+    o.CZ(3, 0)
+    o.CNOT(3, 1)
+    assert _fidelity(o.GetQuantumState(), got) > 1 - 1e-6
+
+
 # ---------------------------------------------------------------------------
 # randomized soak (a short slice of scripts/integrity_soak.py's lanes)
 # ---------------------------------------------------------------------------

@@ -389,3 +389,47 @@ def test_chip_smoke_refuses_without_gpu():
                        timeout=300)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+_FLEET_PROBE = r"""
+import runpy
+import sys
+sys.argv = ["worker", "--help"]
+try:
+    runpy.run_module("qrack_tpu_torch.fleet.worker", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+import qrack_tpu_torch.fleet
+print(sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "qrack_tpu")
+             or m.startswith(("jax.", "jaxlib.", "qrack_tpu."))))
+"""
+
+
+def test_fleet_worker_help_and_import_load_no_jax():
+    r = subprocess.run([sys.executable, "-c", _FLEET_PROBE], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "--engine-kwargs" in r.stdout
+    assert r.stdout.strip().splitlines()[-1] == "[]"
+    r = subprocess.run([sys.executable, "-m", "qrack_tpu_torch.fleet.worker",
+                        "--help"], cwd=ROOT, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0 and "--store" in r.stdout, r.stderr
+
+
+def test_fleet_control_plane_loads_no_engine():
+    """The supervisor and the front door route; they load no engine
+    module and no kernel wrapper, and initialize no CUDA."""
+    code = (
+        "import sys, torch\n"
+        "import qrack_tpu_torch.fleet.supervisor\n"
+        "import qrack_tpu_torch.fleet.frontdoor\n"
+        "print(sorted(m for m in sys.modules if m.startswith("
+        "('qrack_tpu_torch.engines', 'qrack_tpu_torch.ops.window_kernel',"
+        " 'qrack_tpu_torch.ops.turboquant_kernel'))))\n"
+        "print(torch.cuda.is_initialized())\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["[]", "False"]

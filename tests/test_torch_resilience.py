@@ -62,8 +62,8 @@ BY_DESIGN = {
                     "page's index in the construction device list), the "
                     "JAX package's by device id; equal wherever the JAX "
                     "mesh is jax.devices()[:P], as in its tests",
-    "unported_sites": "fleet.* and tpu.* are refused at parse time "
-                      "(faults.NOT_PORTED names the ROADMAP item)",
+    "unported_sites": "tpu.* are refused at parse time "
+                      "(faults.NOT_PORTED names the port's cuda.* site)",
     "tq_chunk": "TurboQuant's plain chunk is 2^26 amplitudes "
                 "(DEFAULT_CHUNK_QB), the JAX engine's 2^20; its kernel "
                 "tile 2^12, the JAX engine's 2^18",
@@ -280,9 +280,14 @@ def test_unported_site_refused_naming_its_item(site):
 
 def test_unported_site_in_env_refused_at_load():
     faults.load_env("pager.exchange:raise:0")
-    with pytest.raises(ValueError, match="ROADMAP item 16c"):
-        faults.load_env("cuda.compile:raise:0,fleet.worker:kill:2+")
+    with pytest.raises(ValueError, match="cuda.fuse.flush"):
+        faults.load_env("cuda.compile:raise:0,tpu.fuse.flush:raise:2+")
     assert [s.site for s in faults.specs()] == ["pager.exchange"]
+    # the fleet's sites are ported (ROADMAP item 16c)
+    faults.load_env("fleet.worker:kill:2+,fleet.heartbeat:hang:0,"
+                    "fleet.spawn:raise:0")
+    assert [s.site for s in faults.specs()] == [
+        "fleet.worker", "fleet.heartbeat", "fleet.spawn"]
     # the serving plane's sites are ported (ROADMAP item 16b)
     faults.load_env("serve.dispatch:hang:2+,serve.device_get:raise:0,"
                     "prefix.materialize:amp-corrupt:0")
